@@ -1,0 +1,150 @@
+// Batched fused Cholesky factorisation + inverse for the 2D-GP.
+//
+// Replaces mallorn_tpu/ops/chol_pallas.py:_chol_inv_kernel (the Pallas
+// kernel behind cholesky_inverse_lanes). Contract, per matrix b of a
+// [B, T, T] float32 row-major batch of SPD matrices (identity on masked
+// rows):
+//   L = chol(K) from K's lower triangle, Linv = L^-1 (upper triangle 0),
+//   logdet[b] = sum_j log(pivot_j), accumulated in column order.
+// A non-positive pivot gives NaN (rsqrt of a negative) that propagates
+// through the rest of the matrix: no early exit, no error.
+//
+// Design: one CTA per matrix (B = 2048 per launch fills 132 SMs many
+// times over). The matrix lives in dynamic shared memory as two packed
+// triangles, so T * (T + 1) floats suffice for K and Linv together
+// (T = 192: 148,224 B; the 232,448 B a block may use caps T at 240):
+//   A - the trailing Schur complement, lower triangle, packed column-major
+//       (column c holds rows c..T-1 contiguously), overwritten by L;
+//   X - Linv in progress, lower triangle, packed row-major.
+// Step j of the right-looking loop (the Pallas kernel's fori_loop):
+//   1. d = rsqrt(A[j,j]); scale column j of A by d (-> L[:, j]); scale
+//      row j of X by d -- that row of Linv is final and goes to global
+//      memory, zeros above the diagonal included;
+//   2. trailing update A[i,c] -= L[i,j] L[c,j] (j < c <= i) and forward
+//      substitution X[i,k] -= L[i,j] X[j,k] (i > j, k <= j).
+// Both phases read along contiguous packed runs, so a warp's 32 lanes
+// touch 32 consecutive words (no bank conflicts); two __syncthreads per
+// column. L[j,j] itself is never needed again, so it is not written back
+// (which also keeps the pivot read race-free within phase 1).
+//
+// Bound on an H100: device memory traffic is one read of K's lower
+// triangle and one write of Linv (B * (T(T+1)/2 + T^2) * 4 bytes: 315 MB,
+// ~0.094 ms at T = 160, B = 2048); the textbook 2T^3/3 flops per matrix
+// (Cholesky plus triangular inverse) take about as long at the float32
+// rate outside the tensor cores (5.6 GFLOP, ~0.083 ms), and bound it above
+// T of about 180. This first version does those flops in shared memory behind
+// 2T block-wide barriers and is limited by shared-memory bandwidth and the
+// barrier chain, not by HBM.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreadsX = 32;
+constexpr int kMaxSmemBytes = 232448;
+
+// start of column c in the packed column-major lower triangle; element
+// (i, c), i >= c, lives at col_base(c, T) + (i - c)
+__device__ __forceinline__ int col_base(int c, int T) {
+  return c * T - (c * (c - 1)) / 2;
+}
+
+// start of row i in the packed row-major lower triangle
+__device__ __forceinline__ int row_base(int i) { return (i * (i + 1)) / 2; }
+
+// kThreadsY rows of 32 threads; small matrices take fewer threads per
+// block so more blocks share an SM and hide each other's barriers
+template <int kThreadsY>
+__global__ void __launch_bounds__(kThreadsX * kThreadsY)
+chol_inv_kernel(const float* __restrict__ K, float* __restrict__ Linv,
+                float* __restrict__ logdet, int T) {
+  constexpr int kThreads = kThreadsX * kThreadsY;
+  extern __shared__ float smem[];
+  const int tri = (T * (T + 1)) / 2;
+  float* A = smem;
+  float* X = smem + tri;
+
+  const int b = blockIdx.x;
+  const float* Kb = K + static_cast<size_t>(b) * T * T;
+  float* Lb = Linv + static_cast<size_t>(b) * T * T;
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * kThreadsX + tx;
+
+  // K's lower triangle into A (coalesced along each row of K); X = I
+  for (int i = ty; i < T; i += kThreadsY) {
+    for (int c = tx; c <= i; c += kThreadsX) {
+      A[col_base(c, T) + i - c] = Kb[static_cast<size_t>(i) * T + c];
+      X[row_base(i) + c] = (i == c) ? 1.0f : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  float ld = 0.0f;
+  for (int j = 0; j < T; ++j) {
+    const int cj = col_base(j, T);
+    const int rj = row_base(j);
+    const float piv = A[cj];
+    const float d = rsqrtf(piv);
+
+    // phase 1: column j of L (rows below the pivot), final row j of Linv
+    for (int i = j + 1 + tid; i < T; i += kThreads) A[cj + i - j] *= d;
+    for (int k = tid; k < T; k += kThreads) {
+      float v = 0.0f;
+      if (k <= j) {
+        v = X[rj + k] * d;
+        X[rj + k] = v;
+      }
+      Lb[static_cast<size_t>(j) * T + k] = v;
+    }
+    if (tid == 0) ld += logf(piv);
+    __syncthreads();
+
+    // phase 2: trailing Schur update, one column of A per row of threads
+    const float* colj = A + cj - j;  // colj[i] = L[i, j]
+    for (int c = j + 1 + ty; c < T; c += kThreadsY) {
+      const float lc = colj[c];
+      float* colc = A + col_base(c, T) - c;  // colc[i] = A[i, c]
+      for (int i = c + tx; i < T; i += kThreadsX) colc[i] -= colj[i] * lc;
+    }
+    // forward substitution into the rows of Linv below j
+    const float* xj = X + rj;
+    for (int i = j + 1 + ty; i < T; i += kThreadsY) {
+      const float lij = colj[i];
+      float* xi = X + row_base(i);
+      for (int k = tx; k <= j; k += kThreadsX) xi[k] -= lij * xj[k];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) logdet[b] = ld;
+}
+
+template <int kThreadsY>
+int launch(const float* K, float* Linv, float* logdet, int B, int T,
+           size_t smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      chol_inv_kernel<kThreadsY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 block(kThreadsX, kThreadsY);
+  chol_inv_kernel<kThreadsY><<<B, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      K, Linv, logdet, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int mallorn_chol_inv(const float* K, float* Linv, float* logdet,
+                                int B, int T, void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  const size_t smem = static_cast<size_t>(T) * (T + 1) * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxSmemBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 64) return launch<4>(K, Linv, logdet, B, T, smem, stream);
+  if (T <= 96) return launch<8>(K, Linv, logdet, B, T, smem, stream);
+  return launch<16>(K, Linv, logdet, B, T, smem, stream);
+}
+
+extern "C" const char* mallorn_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

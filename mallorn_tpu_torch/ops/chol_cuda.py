@@ -1,0 +1,97 @@
+"""Batched fused Cholesky-inverse for the 2D-GP: the Hopper kernel and its
+plain PyTorch version.
+
+Counterpart of ``mallorn_tpu/ops/chol_pallas.py:cholesky_inverse_lanes``
+(Pallas body ``_chol_inv_kernel``). For a [B, T, T] float32 batch of SPD
+matrices (identity on masked rows) it returns ``Linv = chol(K)^-1``
+[B, T, T] (upper triangle zero) and ``logdet(K)`` [B], where logdet sums
+``log(pivot)`` over the columns. A non-positive pivot gives NaN that
+propagates; nothing raises, the GP's ``isfinite`` guards take it from
+there.
+
+- ``chol_inv`` launches the CUDA kernel (``csrc/chol_inv.cu``) for a CUDA
+  tensor and runs ``chol_inv_plain`` for a CPU tensor. A CUDA tensor never
+  falls back: the kernel launches or the call raises.
+- ``chol_inv_plain`` is the same right-looking column loop in PyTorch,
+  batched over B. The CPU tests use it, and ``chip_smoke.py`` holds the
+  kernel against it on the card.
+- ``launches`` counts kernel launches (plain calls do not count).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from mallorn_tpu_torch.utils import cuda_build
+
+# the kernel keeps K and Linv as two packed triangles in one block's
+# shared memory: T * (T + 1) * 4 bytes <= 232,448
+MAX_T = 240
+
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def chol_inv_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched column loop with the kernel's pivot / NaN / logdet rules.
+
+    Works in K's dtype (float64 on request, for an oracle)."""
+    if K.dim() != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"expected [B, T, T], got {tuple(K.shape)}")
+    B, T, _ = K.shape
+    A = K.clone()
+    X = torch.eye(T, dtype=K.dtype, device=K.device).expand(B, T, T).clone()
+    ld = torch.zeros(B, dtype=K.dtype, device=K.device)
+    for j in range(T):
+        piv = A[:, j, j]
+        d = torch.rsqrt(piv)
+        col = A[:, j + 1:, j] * d[:, None]  # L[j+1:, j]
+        A[:, j + 1:, j + 1:] -= col[:, :, None] * col[:, None, :]
+        xj = X[:, j, : j + 1] * d[:, None]
+        X[:, j, : j + 1] = xj
+        X[:, j + 1:, : j + 1] -= col[:, :, None] * xj[:, None, :]
+        ld = ld + torch.log(piv)
+    return X, ld
+
+
+def chol_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Linv [B, T, T], logdet [B]) for a batch of SPD matrices."""
+    global launches
+    if K.device.type == "cpu":
+        return chol_inv_plain(K)
+    if K.device.type != "cuda":
+        raise ValueError(f"chol_inv: unsupported device {K.device}")
+    if K.dtype != torch.float32:
+        raise TypeError(f"chol_inv: expected float32, got {K.dtype}")
+    if K.dim() != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"chol_inv: expected [B, T, T], got {tuple(K.shape)}")
+    if not K.is_contiguous():
+        raise ValueError("chol_inv: K must be contiguous")
+    B, T, _ = K.shape
+    if T > MAX_T:
+        raise ValueError(f"chol_inv: T={T} exceeds the kernel's shared-memory "
+                         f"limit of T <= {MAX_T}")
+    Linv = torch.empty_like(K)
+    logdet = torch.empty(B, dtype=torch.float32, device=K.device)
+    if B == 0:
+        return Linv, logdet
+    lib = cuda_build.load()
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        rc = lib.mallorn_chol_inv(K.data_ptr(), Linv.data_ptr(),
+                                  logdet.data_ptr(), B, T, stream)
+    cuda_build.check(rc, "mallorn_chol_inv")
+    launches += 1
+    return Linv, logdet
+
+
+def cho_solve(Linv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """K^-1 r = Linv^T (Linv r) for [B, T, T] Linv and [B, T] r."""
+    z = torch.matmul(Linv, r.unsqueeze(-1))
+    return torch.matmul(Linv.transpose(1, 2), z).squeeze(-1)
