@@ -19,7 +19,22 @@ Phases, each printing its wall time on its own line:
 5. reference: 128 of those objects through the server's feature
    families on the CPU (the kernels' plain versions) and through bin +
    forest on both devices; each column must agree within its family's
-   stated gate.
+   stated gate;
+6. histogram kernel checks: the depthwise level-histogram kernel (K1)
+   against its plain version (float32 and float64, and bit for bit against
+   its fixed-point arithmetic in plain PyTorch) at the three fit shapes of
+   training and every node count they use, a ragged row count with
+   inactive rows, two launches of each bit for bit equal, and times
+   (kernel, plain, a one-call ``scatter_add_`` yardstick, the bound);
+7. kernel against plain in training: a 600 x 30 fixture (NaNs, subsample
+   and colsample 0.8, 20 rounds of depth 5) fitted with K1 twice and once
+   with the kernel's fixed-point arithmetic in plain PyTorch: the three
+   forests bit for bit equal;
+8. training: the 10,178-object v92d workload of ``.bench_data_v2.npz``
+   (``train_v92d``: features of both splits, the top-120 selection CV,
+   assembly, adversarial weights, the 5-fold v92d CV, the threshold sweep)
+   with the seconds of each stage; OOF F1 must reach 0.633 and the K1
+   launch count must equal the rounds each fit ran times its depth.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -39,16 +54,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mallorn_tpu_torch.data.packing import pack_lightcurves
+from mallorn_tpu_torch.data.packing import Metadata, pack_lightcurves, unify_time_padding
 from mallorn_tpu_torch.features import multiband_gp
 from mallorn_tpu_torch.io.model_store import GBDTModel, forest_from_numpy
-from mallorn_tpu_torch.ops import chol_cuda
+from mallorn_tpu_torch.ops import chol_cuda, hist_cuda
 from mallorn_tpu_torch.features.base import merge
 from mallorn_tpu_torch.serving import (SHIFT_FEATURES, V92dServer,
                                        assemble_v34a_matrix, drop_shift_features,
                                        extract_bundle)
+from mallorn_tpu_torch.train.adversarial import ADV_PARAMS
+from mallorn_tpu_torch.train.pipelines import train_v92d
 from mallorn_tpu_torch.trees.binning import fit_bins
-from mallorn_tpu_torch.trees.gbdt import V34A_PARAMS
+from mallorn_tpu_torch.trees.gbdt import V34A_PARAMS, GBDTParams, train_gbdt
 from mallorn_tpu_torch.utils import cuda_build
 from mallorn_tpu_torch.utils.constants import LSST_BANDS
 
@@ -69,6 +86,19 @@ SEED = 92
 # (tests/test_chol_pallas.py), |a - b| <= atol + rtol |b| elementwise
 TOL = {"linv": (5e-5, 5e-5), "logdet": (1e-5, 1e-4), "kinv": (1e-4, 1e-5),
        "alpha": (1e-4, 1e-4)}
+
+# the level histogram (K1): the JAX package's bar for its histogram
+# kernels (tests/test_hist_pallas.py:56), rtol / atol
+HIST_TOL = (1e-5, 1e-4)
+N_BINS_TOT = V34A_PARAMS.n_bins + 1
+# training's fit shapes, all 5 folds in one launch: (fit, K, F, N padded
+# fold rows, node counts of the levels built with subtraction)
+HIST_SHAPES = (("selection", 5, 307, 2444, (1, 1, 2, 4, 8)),
+               ("adversarial", 5, 222, 8143, (1, 1, 2)),
+               ("v92d", 5, 222, 2444, (1, 1, 2, 4, 8)))
+# OOF F1 gate: the JAX package's lowest recorded OOF F1 on this data
+# (0.6702) less the reference's fold-F1 std (0.0375)
+F1_GATE = 0.633
 
 
 def log(msg: str) -> None:
@@ -329,6 +359,185 @@ def reference_check(server, models, names, selected, packed, zz, ebv, m=128):
         raise AssertionError("bin + forest on the card disagrees with the CPU reference")
 
 
+def hist_inputs(K: int, F: int, N: int, k_nodes: int, seed: int, inactive: float = 0.0):
+    """Seeded K1 inputs: int16 bins [K, F, N] over all 257 bins, int32 node
+    ids [K, N] in [0, k_nodes] (k_nodes = inactive, plus a share
+    ``inactive`` of rows forced inactive), float32 (g, h) [K, N, 2] shaped
+    like logistic gradients."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    binned = torch.randint(0, N_BINS_TOT, (K, F, N), generator=g, device="cuda").to(torch.int16)
+    node_q = torch.randint(0, k_nodes + 1, (K, N), generator=g, device="cuda")
+    node_q[torch.rand(K, N, generator=g, device="cuda") < inactive] = k_nodes
+    p = torch.rand(K, N, generator=g, device="cuda")
+    y = (torch.rand(K, N, generator=g, device="cuda") < 0.1).float()
+    w = 0.5 + 1.5 * torch.rand(K, N, generator=g, device="cuda")
+    gh = torch.stack([w * (p - y), w * p * (1 - p)], dim=-1).contiguous()
+    return binned.contiguous(), node_q.to(torch.int32).contiguous(), gh
+
+
+def check_hist(fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
+               inactive: float = 0.0) -> dict:
+    binned, node_q, gh = hist_inputs(K, F, N, k_nodes, seed, inactive)
+    a = hist_cuda.build_histograms(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    b = hist_cuda.build_histograms(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    torch.cuda.synchronize()
+    repeat_equal = bool(torch.equal(a, b))
+    fixed_equal = bool(torch.equal(a, hist_cuda.build_histograms_fixed(
+        binned, node_q, gh, k_nodes, N_BINS_TOT)))
+    plain = hist_cuda.build_histograms_plain(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    f64 = hist_cuda.build_histograms_plain(binned, node_q, gh.double(), k_nodes, N_BINS_TOT)
+    rows = {"vs_plain": close(a, plain, *HIST_TOL), "vs_f64": close(a, f64, *HIST_TOL)}
+    tag = f"{fit} K={K} F={F} N={N} nodes={k_nodes}"
+    for name, (abs_e, rel_e, ok) in rows.items():
+        log(f"  {tag} {name}: max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
+            f"(rtol={HIST_TOL[0]:g}, atol={HIST_TOL[1]:g}) {'ok' if ok else 'FAIL'}")
+    log(f"  {tag} two launches bit for bit equal: {repeat_equal}; equal to its "
+        f"fixed-point arithmetic in plain PyTorch: {fixed_equal}")
+    if not (repeat_equal and fixed_equal) or not all(ok for _, _, ok in rows.values()):
+        raise AssertionError(f"K1 {tag} failed its checks")
+
+    # the yardstick: one scatter_add_ over every (fold, feature, node, bin)
+    # segment (the segment ids and the expanded values are set-up, untimed)
+    nq = node_q.long()
+    active = nq < k_nodes
+    n_seg = K * F * k_nodes * N_BINS_TOT
+    kf = (torch.arange(K, device="cuda")[:, None] * F + torch.arange(F, device="cuda")[None, :])
+    seg = (kf[:, :, None] * k_nodes + nq[:, None, :]) * N_BINS_TOT + binned.long()
+    seg = torch.where(active[:, None, :], seg, n_seg).reshape(-1, 1).expand(-1, 2)
+    vals = gh[:, None, :, :].expand(K, F, N, 2).reshape(-1, 2)
+    sink = torch.zeros(n_seg + 1, 2, device="cuda")
+
+    ms = cuda_ms(lambda: hist_cuda.build_histograms(binned, node_q, gh, k_nodes, N_BINS_TOT),
+                 reps=50)
+    plain_ms = cuda_ms(lambda: hist_cuda.build_histograms_plain(binned, node_q, gh, k_nodes,
+                                                                N_BINS_TOT), reps=3, warmup=1)
+    library_ms = cuda_ms(lambda: sink.scatter_add_(0, seg, vals), reps=20)
+    # bins, node ids and (g, h) in, the histograms out; two adds per active
+    # (row, feature)
+    n_bytes = K * F * N * 2 + K * N * 4 + K * N * 8 + K * F * k_nodes * N_BINS_TOT * 2 * 4
+    n_ops = 2.0 * F * float(active.sum())
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOP_PER_S * 1e3
+    res = {"fit": fit, "K": K, "F": F, "N": N, "nodes": k_nodes,
+           "max_abs_err": rows["vs_plain"][0], "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(f"  {tag} times: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"library_ms={library_ms:.4f} (one scatter_add_, a yardstick the port never "
+        f"calls) bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: "
+        f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M adds)")
+    return res
+
+
+def check_training_kernel_vs_plain(device) -> None:
+    """A small fit with K1 twice and once with the kernel's arithmetic in
+    plain PyTorch (``build_histograms_fixed``): the three forests must be
+    identical, bit for bit. The float32 plain version on the card adds with
+    atomics in a varying order, so its last bits, and the exact ties they
+    decide, change from run to run: its fit is reported, not held to
+    identity."""
+    rng = np.random.default_rng(SEED)
+    X = rng.normal(size=(600, 30)).astype(np.float32)
+    y = (0.8 * X[:, 3] - 0.5 * X[:, 11] + 0.5 * rng.normal(size=600) > 0.6).astype(np.float32)
+    X[rng.random(X.shape) < 0.1] = np.nan
+    p = GBDTParams(n_rounds=20, max_depth=5, learning_rate=0.1, subsample=0.8,
+                   colsample_bytree=0.8)
+    spw = float((y == 0).sum() / (y == 1).sum())
+
+    def fit(hist_fn):
+        return train_gbdt(X, y, p, scale_pos_weight=spw, device=device,
+                          hist_fn=hist_fn).forest
+
+    k1 = [fit(hist_cuda.build_histograms) for _ in range(2)]
+    plain = fit(hist_cuda.build_histograms_fixed)
+    plain32 = fit(hist_cuda.build_histograms_plain)
+    same_k1 = all(torch.equal(a, b) for a, b in zip(*k1))
+    same_plain = all(torch.equal(a, b) for a, b in zip(k1[0], plain))
+    n_split = int((~k1[0].is_leaf & (k1[0].split_bin >= 0)).sum())
+    diff32 = int(((k1[0].feature != plain32.feature) | (k1[0].split_bin != plain32.split_bin)
+                  | (k1[0].default_left != plain32.default_left)).sum())
+    log(f"  600 x 30, 20 rounds, depth 5: {n_split} splits; K1 twice bit for bit equal: "
+        f"{same_k1}; K1 vs its arithmetic in plain PyTorch: forests bit for bit equal "
+        f"{same_plain}; float32 plain (atomic order): {diff32} of "
+        f"{k1[0].feature.numel()} split slots differ")
+    if not (same_k1 and same_plain):
+        raise AssertionError("training with K1 and with the plain histogram disagree")
+
+
+def load_split(tag: str, device):
+    with np.load(DATA, allow_pickle=False) as z:
+        cols = {k: z[f"{tag}_{k}"] for k in ("object_index", "time", "flux", "flux_err", "band")}
+        meta = Metadata(object_ids=z[f"{tag}_object_ids"], z=z[f"{tag}_z"],
+                        ebv=z[f"{tag}_ebv"], target=z[f"{tag}_target"])
+    packed = pack_lightcurves(cols["object_index"], cols["time"], cols["flux"],
+                              cols["flux_err"], cols["band"], len(meta.z), device=device)
+    return packed, meta
+
+
+def expected_training_chol(tr_packed, te_packed, gp_steps: int) -> int:
+    """K2 launches of training's GP features: per count-sorted chunk of each
+    split, gp_steps Adam steps + the final NLL (+ phase 2's steps and final
+    NLL) + the predict, as ``multiband_gp.extract`` schedules them."""
+    total = 0
+    for packed in unify_time_padding(tr_packed, te_packed):
+        counts = multiband_gp._use_mask(packed).sum(dim=1).cpu().numpy()
+        two_phase, widths = multiband_gp.gp_schedule(counts, packed.all_time.shape[1],
+                                                     gp_steps)
+        per_chunk = gp_steps + 1 + 1 + ((max(gp_steps // 6, 8) + 1) if two_phase else 0)
+        total += per_chunk * len(widths)
+    return total
+
+
+def run_training(device) -> dict:
+    tr_packed, tr_meta = load_split("tr", device)
+    te_packed, te_meta = load_split("te", device)
+    log(f"train split {tr_packed.n_objects} objects ({int(tr_meta.target.sum())} TDEs), "
+        f"test split {te_packed.n_objects} ({int(te_meta.target.sum())} TDEs)")
+    hist_cuda.reset_launches()
+    chol_cuda.reset_launches()
+    out = train_v92d(tr_packed, tr_meta, te_packed, te_meta, gp_steps=GP_STEPS,
+                     selection_cache=None, device=device)
+    torch.cuda.synchronize()
+    launches, chol_launches = hist_cuda.launches, chol_cuda.launches
+    log("training stages (s): " + ", ".join(f"{k}={v:.3f}" for k, v in out.timings.items()))
+    depth = {"selection": V34A_PARAMS.max_depth, "adversarial": ADV_PARAMS.max_depth,
+             "v92d": V34A_PARAMS.max_depth}
+    want = sum(out.rounds_run[k] * depth[k] for k in depth)
+    log("rounds run: " + ", ".join(f"{k}={v}" for k, v in out.rounds_run.items())
+        + f"; K1 launches {launches} (rounds x depth predicts {want})")
+    want_chol = expected_training_chol(tr_packed, te_packed, GP_STEPS)
+    log(f"chol_inv launches in training {chol_launches} (GP schedule predicts {want_chol})")
+    if launches != want or launches == 0 or chol_launches != want_chol:
+        raise AssertionError("training's kernel launch counts disagree with the prediction")
+
+    adv, win = out.adversarial, out.winner
+    w = adv.sample_weights
+    log(f"selection: {len(out.selection.selected)} of 307 features_v4 columns; "
+        f"v92d matrix {len(out.feature_names)} columns")
+    log(f"adversarial AUC {adv.auc:.4f} (shift {adv.distribution_shift}), weights "
+        f"[{w.min():.3f}, {w.max():.3f}] std {w.std():.3f}")
+    log(f"v92d OOF F1 {win.best_f1:.4f} @ {win.best_threshold:.3f}; fold F1 "
+        + ", ".join(f"{f:.4f}" for f in win.fold_f1s)
+        + f"; best iterations {[m.best_iteration for m in win.models]}")
+    log(f"TEST F1 under shift {out.test_f1:.4f} ({int(te_meta.target.sum())} TDEs in test)")
+    oof, test = win.oof_preds, win.test_preds
+    if (oof.shape != (tr_packed.n_objects,) or test.shape != (te_packed.n_objects,)
+            or not (np.isfinite(oof).all() and np.isfinite(test).all())
+            or min(oof.min(), test.min()) < 0 or max(oof.max(), test.max()) > 1):
+        raise AssertionError("training produced malformed probabilities")
+    ref = json.loads((ROOT / "REFBASE.json").read_text())["hgb_oracle"]
+    d_f1 = win.best_f1 - ref["oof_f1"]
+    log(f"[oracle] sklearn HGB (REFBASE.json): OOF F1={ref['oof_f1']:.4f} @ "
+        f"{ref['threshold']:.3f} | ours {win.best_f1:.4f} (dF1={d_f1:+.4f}; "
+        f"gate ours >= oracle-0.02: {'PASS' if d_f1 >= -0.02 else 'FAIL'})")
+    log(f"OOF F1 gate: {win.best_f1:.4f} >= {F1_GATE} "
+        f"{'ok' if win.best_f1 >= F1_GATE else 'FAIL'}")
+    if win.best_f1 < F1_GATE:
+        raise AssertionError(f"v92d OOF F1 {win.best_f1:.4f} below the gate {F1_GATE}")
+    return {"launches": launches, "chol_launches": chol_launches, "oof_f1": win.best_f1,
+            "total_s": out.timings["total"]}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -390,6 +599,7 @@ def main() -> int:
 
     with Phase("serving"):
         chol_cuda.reset_launches()
+        hist_cuda.reset_launches()
         timings: dict = {}
         t0 = time.perf_counter()
         probs = []
@@ -415,6 +625,19 @@ def main() -> int:
 
     with Phase("reference on the CPU"):
         reference_check(server, models, names, selected, packed, zz, ebv)
+        del server, models, packed
+
+    with Phase("histogram kernel checks"):
+        hist_results = [check_hist(fit, K, F, N, k, seed=2000 + 17 * i + k)
+                        for i, (fit, K, F, N, nodes) in enumerate(HIST_SHAPES)
+                        for k in sorted(set(nodes))]
+        check_hist("ragged", 5, 222, 2443, 4, seed=2999, inactive=0.3)
+
+    with Phase("kernel against plain in training"):
+        check_training_kernel_vs_plain(dev)
+
+    with Phase("training"):
+        trained = run_training(dev)
 
     # the kernel's row: the shape of the GP's full-width launches
     main_shape = next(r for r in results if (r["B"], r["T"]) == (REQUEST, gp_tc))
@@ -427,6 +650,18 @@ def main() -> int:
         "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
         "shape": [REQUEST, gp_tc, gp_tc],
+    })
+    # the histogram kernel's row: the v92d CV's deepest level
+    main_hist = next(r for r in hist_results if (r["fit"], r["nodes"]) == ("v92d", 8))
+    kernels.append({
+        "name": "hist", "route": "cuda",
+        "source": "mallorn_tpu_torch/csrc/hist.cu",
+        "replaces": "mallorn_tpu/ops/hist_pallas.py:508",
+        "launches": trained["launches"],
+        "max_abs_err": main_hist["max_abs_err"], "ms": main_hist["ms"],
+        "plain_ms": main_hist["plain_ms"], "bound_ms": main_hist["bound_ms"],
+        "bound_by": main_hist["bound_by"], "library_ms": main_hist["library_ms"],
+        "shape": [main_hist["K"], main_hist["F"], main_hist["N"], main_hist["nodes"]],
     })
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

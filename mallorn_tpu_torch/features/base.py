@@ -53,6 +53,32 @@ def sorted_features(feats: FeatureSet) -> FeatureSet:
     return {k: feats[k] for k in sorted(feats)}
 
 
+def chunked_extract(extract_fn, packed, *args, chunk_size: int = 2048,
+                    **kwargs) -> FeatureSet:
+    """``extract_fn(packed, *args, **kwargs)`` over object chunks of at most
+    ``chunk_size``, concatenated: several families build [chunk, T, T]
+    buffers, so chunking bounds peak device memory. Per-object arguments
+    (``Metadata`` and arrays of length N) are sliced alongside."""
+    from mallorn_tpu_torch.data.packing import Metadata
+
+    n = packed.n_objects
+    if n <= chunk_size:
+        return extract_fn(packed, *args, **kwargs)
+
+    def slice_arg(a, s, e):
+        if isinstance(a, Metadata):
+            return Metadata(*[None if x is None else x[s:e] for x in
+                              (a.object_ids, a.z, a.ebv, a.target, a.spec_type)])
+        if a is not None and hasattr(a, "__len__") and len(a) == n:
+            return a[s:e]
+        return a
+
+    outs = [extract_fn(packed.map(lambda x: x[s:s + chunk_size]),
+                       *[slice_arg(a, s, s + chunk_size) for a in args], **kwargs)
+            for s in range(0, n, chunk_size)]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
 def per_object(x, packed, dtype=torch.float32) -> torch.Tensor:
     """A per-object host array (redshift, extinction) as an [N] tensor on
     the packed data's device."""

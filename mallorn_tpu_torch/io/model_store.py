@@ -11,28 +11,14 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import List, NamedTuple, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from mallorn_tpu_torch.trees.binning import BinSpec
-from mallorn_tpu_torch.trees.gbdt import Forest, GBDTParams
+from mallorn_tpu_torch.trees.gbdt import Forest, GBDTModel, GBDTParams
 from mallorn_tpu_torch.utils.device import DeviceLike, resolve_device
-
-
-class GBDTModel(NamedTuple):
-    forest: Forest
-    bin_spec: BinSpec
-    params: GBDTParams
-    best_iteration: int  # -1 when the fit did not early-stop
-
-    @property
-    def n_trees(self) -> int:
-        """Trees that count at prediction (best_iteration + 1, or all)."""
-        if self.best_iteration >= 0:
-            return self.best_iteration + 1
-        return self.forest.feature.shape[0]
 
 
 def forest_from_numpy(feature, split_bin, default_left, is_leaf, leaf_value,
@@ -48,6 +34,15 @@ def forest_from_numpy(feature, split_bin, default_left, is_leaf, leaf_value,
 
 
 def params_from_dict(d: dict) -> GBDTParams:
+    """The port's params from a JAX manifest; the TPU-only knobs
+    (``use_pallas_hist``, ``hist_dtype``, ...) are dropped. A model the
+    port cannot run (leaf-wise or symmetric trees, DART, multiclass)
+    raises."""
+    if (d.get("grow_policy", "depthwise") != "depthwise" or d.get("dart_rate", 0.0) > 0
+            or d.get("num_class", 0) >= 2):
+        raise ValueError("the port trains and serves depthwise binary forests only; "
+                         f"this model has grow_policy={d.get('grow_policy')!r}, "
+                         f"dart_rate={d.get('dart_rate')}, num_class={d.get('num_class')}")
     return GBDTParams(**{k: d[k] for k in GBDTParams._fields if k in d})
 
 

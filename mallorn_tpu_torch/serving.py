@@ -19,53 +19,23 @@ flagship fixes them at build.
 
 from __future__ import annotations
 
-import contextlib
-import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from mallorn_tpu_torch.data.packing import Metadata, PackedLightcurves
-from mallorn_tpu_torch.features import (bazin, colors, multiband_gp, physics,
-                                        shape, statistical, tde)
+from mallorn_tpu_torch.features import bazin, multiband_gp, tde
 from mallorn_tpu_torch.features.base import FeatureSet, feature_matrix, merge
-from mallorn_tpu_torch.io.model_store import GBDTModel, load_cv_models
+from mallorn_tpu_torch.io.model_store import load_cv_models
+# re-exported: the v34a assembly and the shift features live with training
+from mallorn_tpu_torch.train.pipelines import (SHIFT_FEATURES, assemble_v34a_matrix,
+                                               extract_features_v4, finite_or_nan)
+from mallorn_tpu_torch.train.pipelines import stage as _phase
 from mallorn_tpu_torch.trees.binning import BinSpec, apply_bins
-from mallorn_tpu_torch.trees.gbdt import Forest, predict_margin_folds, stack_forests
+from mallorn_tpu_torch.trees.gbdt import (Forest, GBDTModel, predict_margin_folds,
+                                          stack_forests)
 from mallorn_tpu_torch.utils.device import DeviceLike, resolve_device
-
-# v92d drops these as train/test-shift-prone
-# (reference: train_v92_focal_adversarial.py:95-96).
-SHIFT_FEATURES = ("all_rise_time", "all_asymmetry")
-
-
-@contextlib.contextmanager
-def _phase(timings: Optional[Dict[str, float]], name: str, device: torch.device):
-    """Adds the phase's wall time to ``timings[name]`` (device synchronised
-    on both ends); does nothing when ``timings`` is None."""
-    if timings is None:
-        yield
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
-
-
-def finite_or_nan(X: torch.Tensor) -> torch.Tensor:
-    """+-inf -> +-1e10, NaN preserved."""
-    return torch.nan_to_num(X, nan=float("nan"), posinf=1e10, neginf=-1e10)
-
-
-def extract_features_v4(packed: PackedLightcurves, meta: Metadata) -> FeatureSet:
-    """statistical + colors + shape + physics (the features_v4 cache)."""
-    return merge(statistical.extract(packed, meta), colors.extract(packed, meta),
-                 shape.extract(packed), physics.extract(packed, meta),
-                 pandas_suffix=True)
 
 
 def extract_bundle(packed: PackedLightcurves, z, ebv, gp_steps: int,
@@ -93,17 +63,6 @@ def extract_bundle(packed: PackedLightcurves, z, ebv, gp_steps: int,
     with _phase(timings, "bazin", dev):
         bundle["bazin"] = bazin.extract(packed)
     return bundle
-
-
-def assemble_v34a_matrix(bundle: Dict[str, FeatureSet], selected: Sequence[str]
-                         ) -> Tuple[torch.Tensor, List[str]]:
-    """selected-120 of features_v4 + tde + gp2d + bazin with pandas-style
-    collision suffixes -> (finite-or-NaN matrix, column names)."""
-    base = {k: bundle["features_v4"][k] for k in selected}
-    full = merge(base, bundle["tde_physics"], bundle["multiband_gp"],
-                 bundle["bazin"], pandas_suffix=True)
-    X, names = feature_matrix(full)
-    return finite_or_nan(X), names
 
 
 class V92dServer(nn.Module):

@@ -27,6 +27,7 @@ import chip_smoke  # its imports, without running it
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pandas", "sklearn", "mallorn_tpu"))
 print("MODULES", len(mods))
+print("NAMES", ",".join(mods))
 print("BANNED", ",".join(banned))
 """
 
@@ -38,8 +39,13 @@ def test_import_closure_has_no_jax_pandas_sklearn_or_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
-                 if line.startswith(("MODULES ", "BANNED ")))
-    assert int(lines["MODULES"]) >= 20
+                 if line.startswith(("MODULES ", "BANNED ", "NAMES ")))
+    assert int(lines["MODULES"]) >= 30
+    walked = set(lines["NAMES"].split(","))
+    for m in ("utils.prng", "trees.objectives", "trees.xla_cpu", "ops.hist_cuda",
+              "train.cv", "train.adversarial", "train.feature_selection",
+              "train.pipelines", "io.submission"):
+        assert f"mallorn_tpu_torch.{m}" in walked, m
     assert lines["BANNED"].strip() == "", f"the port pulled in: {lines['BANNED']}"
 
 
@@ -68,9 +74,16 @@ def test_entry_points_default_to_the_card():
     X = np.random.default_rng(0).normal(size=(16, 3))
     trees = (np.zeros((2, 3)), np.zeros((2, 3)), np.zeros((2, 3), bool),
              np.zeros((2, 3), bool), np.zeros((2, 7)))
+    from mallorn_tpu_torch.train.cv import train_cv
+    from mallorn_tpu_torch.trees.gbdt import GBDTParams, train_gbdt
+
+    y = np.arange(16) % 2
+    small = GBDTParams(n_rounds=2, max_depth=2)
     calls = [lambda **kw: pack_lightcurves(*cols, **kw),
              lambda **kw: fit_bins(X, n_bins=8, **kw),
-             lambda **kw: forest_from_numpy(*trees, **kw)]
+             lambda **kw: forest_from_numpy(*trees, **kw),
+             lambda **kw: train_gbdt(X, y, small, **kw),
+             lambda **kw: train_cv(X, y, None, small, n_folds=2, **kw)]
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
@@ -81,3 +94,4 @@ def test_entry_points_default_to_the_card():
     assert pack_lightcurves(*cols, device="cpu").band_time.device.type == "cpu"
     assert fit_bins(X, n_bins=8, device="cpu").edges.device.type == "cpu"
     assert forest_from_numpy(*trees, device="cpu").feature.device.type == "cpu"
+    assert train_gbdt(X, y, small, device="cpu").forest.feature.device.type == "cpu"
