@@ -9,8 +9,9 @@ Phases, each printing its wall time on its own line:
 2. build: every CUDA source of the port, with plain ``nvcc``;
 3. kernel checks: the Cholesky-inverse kernel against its plain PyTorch
    version (float32 and float64) at B=2048, T=64/128/160/192 and a ragged
-   B=2047, T=72, a non-SPD matrix giving NaN, and times (kernel, plain,
-   a two-call library yardstick, the roofline bound);
+   B=2047, T=72, its wide variant (T > 240) at B=64, T=256/320 and at the
+   wide server's B=2048, T=256, a non-SPD matrix giving NaN in each, and
+   times (kernel, plain, a two-call library yardstick, the roofline bound);
 4. serving: the 7,124-object test split of ``.bench_data_v2.npz`` through
    ``V92dServer`` at full v92d width (5 folds x 500 trees of depth 5 over
    222 columns, random weights from a fixed seed, bin edges fitted on the
@@ -21,20 +22,42 @@ Phases, each printing its wall time on its own line:
    forest on both devices; each column must agree within its family's
    stated gate;
 6. histogram kernel checks: the depthwise level-histogram kernel (K1)
-   against its plain version (float32 and float64, and bit for bit against
-   its fixed-point arithmetic in plain PyTorch) at the three fit shapes of
-   training and every node count they use, a ragged row count with
-   inactive rows, two launches of each bit for bit equal, and times
-   (kernel, plain, a one-call ``scatter_add_`` yardstick, the bound);
+   at the fit shapes of training and of the ensemble's 25-lane members and
+   every node count they use, and the leaf-wise segment-histogram kernel
+   (K3) at the v114d member's shapes (25 lanes, 228 columns; the root, a
+   pair of children, a pair with 70% of rows inactive), each against its
+   plain version (float32 and float64, and bit for bit against its
+   fixed-point arithmetic in plain PyTorch), two launches of each bit for
+   bit equal, and times (kernel, plain, a one-call ``scatter_add_``
+   yardstick, the bound);
 7. kernel against plain in training: a 600 x 30 fixture (NaNs, subsample
    and colsample 0.8, 20 rounds of depth 5) fitted with K1 twice and once
-   with the kernel's fixed-point arithmetic in plain PyTorch: the three
-   forests bit for bit equal;
+   with the kernel's fixed-point arithmetic in plain PyTorch, and the same
+   fixture fitted leaf-wise (8 leaves) with K3 twice and once with its
+   fixed-point arithmetic: each set of forests bit for bit equal;
 8. training: the 10,178-object v92d workload of ``.bench_data_v2.npz``
    (``train_v92d``: features of both splits, the top-120 selection CV,
    assembly, adversarial weights, the 5-fold v92d CV, the threshold sweep)
    with the seconds of each stage; OOF F1 must reach 0.633 and the K1
-   launch count must equal the rounds each fit ran times its depth.
+   launch count must equal the rounds each fit ran times its depth;
+9. serving the trained model: the v92d winner saved with
+   ``save_cv_models``, loaded back and served over the test split through
+   ``V92dServer`` at that split's ``serving_config``; the served
+   probabilities held against the training run's own test predictions
+   of the same fold models (the GP chunk-invariance gate and a bound on
+   the largest difference), the rows that flip at the OOF threshold
+   counted; served again in the training run's own count-sorted GP chunks
+   (one server per chunk width), where every row must agree; then a
+   server built for objects of
+   up to 256 points (the wide Cholesky-inverse kernel) serves the first
+   request, held to the same gate;
+10. the shipped Kaggle ensemble (``train_kaggle_ensemble``: the training
+   phase's features and selection, the research family of both splits,
+   adversarial weights, v92d, v34a and the leaf-wise v114d at 5 seeds x 5
+   fixed folds, the blend and its threshold sweep) with the seconds of
+   each stage; ensemble OOF F1 must reach 0.637 and v114d's 0.641, K3
+   launches must equal 8 x v114d's rounds and K1 launches 5 x the depthwise
+   members' rounds + 3 x the adversarial rounds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -54,18 +77,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mallorn_tpu_torch.data.packing import Metadata, pack_lightcurves, unify_time_padding
+from mallorn_tpu_torch.data.packing import (Metadata, pack_lightcurves, pad_time_axes,
+                                            unify_time_padding)
 from mallorn_tpu_torch.features import multiband_gp
-from mallorn_tpu_torch.io.model_store import GBDTModel, forest_from_numpy
+from mallorn_tpu_torch.io.model_store import (GBDTModel, forest_from_numpy, load_cv_models,
+                                              save_cv_models)
 from mallorn_tpu_torch.ops import chol_cuda, hist_cuda
 from mallorn_tpu_torch.features.base import merge
 from mallorn_tpu_torch.serving import (SHIFT_FEATURES, V92dServer,
                                        assemble_v34a_matrix, drop_shift_features,
                                        extract_bundle)
 from mallorn_tpu_torch.train.adversarial import ADV_PARAMS
-from mallorn_tpu_torch.train.pipelines import train_v92d
+from mallorn_tpu_torch.train.pipelines import (KAGGLE_ENSEMBLE_WEIGHTS, V114D_PARAMS,
+                                               finite_or_nan, train_kaggle_ensemble,
+                                               train_v92d)
 from mallorn_tpu_torch.trees.binning import fit_bins
-from mallorn_tpu_torch.trees.gbdt import V34A_PARAMS, GBDTParams, train_gbdt
+from mallorn_tpu_torch.trees.gbdt import (V34A_PARAMS, GBDTParams, predict_margin_models,
+                                          train_gbdt)
 from mallorn_tpu_torch.utils import cuda_build
 from mallorn_tpu_torch.utils.constants import LSST_BANDS
 
@@ -95,10 +123,26 @@ N_BINS_TOT = V34A_PARAMS.n_bins + 1
 # fold rows, node counts of the levels built with subtraction)
 HIST_SHAPES = (("selection", 5, 307, 2444, (1, 1, 2, 4, 8)),
                ("adversarial", 5, 222, 8143, (1, 1, 2)),
-               ("v92d", 5, 222, 2444, (1, 1, 2, 4, 8)))
+               ("v92d", 5, 222, 2444, (1, 1, 2, 4, 8)),
+               ("kaggle", 25, 224, 2444, (1, 1, 2, 4, 8)))
+# the leaf-wise v114d member's K3 calls: 25 lanes, 222 + 6 columns, the
+# padded fold rows; (name, rows, nodes, share of rows inactive)
+SEG_LANES, SEG_F, SEG_SHAPES = 25, 228, (("root", 2444, 1, 0.0), ("pair", 2444, 2, 0.0),
+                                         ("ragged", 2443, 2, 0.7))
 # OOF F1 gate: the JAX package's lowest recorded OOF F1 on this data
 # (0.6702) less the reference's fold-F1 std (0.0375)
 F1_GATE = 0.633
+# the ensemble's gates: the JAX package's full-scale run
+# (tools/probe_kaggle_scale.json: ensemble 0.6743, v114d 0.6781) less the
+# same fold-F1 std
+ENSEMBLE_F1_GATE, V114D_F1_GATE = 0.637, 0.641
+# a served probability agrees with the training run's when within rtol
+# 1e-4 (atol 1e-4 of the largest); at least this share must (the GP
+# chunk-invariance gate of tests/test_torch_gp.py), and no row may differ
+# by more than SERVE_MAX_DP (the largest difference read on an H100 was
+# 0.093). Served in the training run's own GP chunks, every row must agree.
+SERVE_RTOL, SERVE_SHARE, SERVE_MAX_DP = 1e-4, 0.97, 0.15
+WIDE_T = 256  # the wide server's GP width (> chol_cuda.MAX_T)
 
 
 def log(msg: str) -> None:
@@ -211,14 +255,14 @@ def check_kernel(B: int, T: int, seed: int) -> dict:
     return res
 
 
-def check_non_spd() -> None:
-    K = spd_batch(4, 64, 7).float()
+def check_non_spd(T: int = 64) -> None:
+    K = spd_batch(4, T, 7).float()
     K[1, 10, 10] = -1.0
     Linv, ld = chol_cuda.chol_inv(K.contiguous())
     torch.cuda.synchronize()
     Lp, ldp = chol_cuda.chol_inv_plain(K)
     nan_k = torch.isnan(ld).tolist()
-    log(f"  non-SPD matrix 1 of 4: logdet={ld.tolist()} Linv has NaN: "
+    log(f"  T={T} non-SPD matrix 1 of 4: logdet={ld.tolist()} Linv has NaN: "
         f"{bool(torch.isnan(Linv[1]).any())}")
     if nan_k != [False, True, False, False] or not bool(torch.isnan(Linv[1]).any()):
         raise AssertionError("a non-positive pivot must give NaN in that matrix only")
@@ -429,6 +473,63 @@ def check_hist(fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
     return res
 
 
+def check_seg_hist(name: str, K: int, F: int, N: int, n_nodes: int, seed: int,
+                   inactive: float) -> dict:
+    """K3 at one of the leaf-wise fit's shapes, held as K1 is."""
+    binned, node_q, gh = hist_inputs(K, F, N, n_nodes, seed, inactive)
+    if name == "root":  # a tree's root histogram takes every row
+        node_q = torch.zeros_like(node_q)
+    seg_base = (node_q * N_BINS_TOT).contiguous()  # inactive rows: n_nodes * 257 = n_seg
+    n_seg = n_nodes * N_BINS_TOT
+    a = hist_cuda.build_seg_histograms(binned, seg_base, gh, n_seg)
+    b = hist_cuda.build_seg_histograms(binned, seg_base, gh, n_seg)
+    torch.cuda.synchronize()
+    repeat_equal = bool(torch.equal(a, b))
+    fixed_equal = bool(torch.equal(a, hist_cuda.build_seg_histograms_fixed(
+        binned, seg_base, gh, n_seg)))
+    plain = hist_cuda.build_seg_histograms_plain(binned, seg_base, gh, n_seg)
+    f64 = hist_cuda.build_seg_histograms_plain(binned, seg_base, gh.double(), n_seg)
+    rows = {"vs_plain": close(a, plain, *HIST_TOL), "vs_f64": close(a, f64, *HIST_TOL)}
+    tag = f"seg {name} K={K} F={F} N={N} n_seg={n_seg} inactive={inactive:g}"
+    for rname, (abs_e, rel_e, ok) in rows.items():
+        log(f"  {tag} {rname}: max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
+            f"(rtol={HIST_TOL[0]:g}, atol={HIST_TOL[1]:g}) {'ok' if ok else 'FAIL'}")
+    log(f"  {tag} two launches bit for bit equal: {repeat_equal}; equal to its "
+        f"fixed-point arithmetic in plain PyTorch: {fixed_equal}")
+    if not (repeat_equal and fixed_equal) or not all(ok for _, _, ok in rows.values()):
+        raise AssertionError(f"K3 {tag} failed its checks")
+
+    # the yardstick: one scatter_add_ over every (lane, feature, segment)
+    sb = seg_base.long()
+    active = sb < n_seg
+    n_all = K * F * n_seg
+    kf = (torch.arange(K, device="cuda")[:, None] * F + torch.arange(F, device="cuda")[None, :])
+    seg = kf[:, :, None] * n_seg + sb[:, None, :] + binned.long()
+    seg = torch.where(active[:, None, :], seg, n_all).reshape(-1, 1).expand(-1, 2)
+    vals = gh[:, None, :, :].expand(K, F, N, 2).reshape(-1, 2)
+    sink = torch.zeros(n_all + 1, 2, device="cuda")
+
+    ms = cuda_ms(lambda: hist_cuda.build_seg_histograms(binned, seg_base, gh, n_seg), reps=50)
+    plain_ms = cuda_ms(lambda: hist_cuda.build_seg_histograms_plain(binned, seg_base, gh, n_seg),
+                       reps=3, warmup=1)
+    library_ms = cuda_ms(lambda: sink.scatter_add_(0, seg, vals), reps=20)
+    # bins, segment bases and (g, h) in, the histograms out; two adds per
+    # active (row, feature)
+    n_bytes = K * F * N * 2 + K * N * 4 + K * N * 8 + K * F * n_seg * 2 * 4
+    n_ops = 2.0 * F * float(active.sum())
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOP_PER_S * 1e3
+    res = {"name": name, "K": K, "F": F, "N": N, "n_seg": n_seg,
+           "max_abs_err": rows["vs_plain"][0], "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(f"  {tag} times: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"library_ms={library_ms:.4f} (one scatter_add_, a yardstick the port never "
+        f"calls) bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: "
+        f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M adds)")
+    return res
+
+
 def check_training_kernel_vs_plain(device) -> None:
     """A small fit with K1 twice and once with the kernel's arithmetic in
     plain PyTorch (``build_histograms_fixed``): the three forests must be
@@ -462,6 +563,24 @@ def check_training_kernel_vs_plain(device) -> None:
         f"{k1[0].feature.numel()} split slots differ")
     if not (same_k1 and same_plain):
         raise AssertionError("training with K1 and with the plain histogram disagree")
+
+    # the same fixture leaf-wise: K3 twice and its arithmetic in plain PyTorch
+    pl = p._replace(grow_policy="lossguide", max_leaves=8)
+
+    def fit_lg(seg_fn):
+        return train_gbdt(X, y, pl, scale_pos_weight=spw, device=device,
+                          seg_hist_fn=seg_fn).forest
+
+    k3 = [fit_lg(hist_cuda.build_seg_histograms) for _ in range(2)]
+    plain = fit_lg(hist_cuda.build_seg_histograms_fixed)
+    same_k3 = all(torch.equal(a, b) for a, b in zip(*k3))
+    same_plain = all(torch.equal(a, b) for a, b in zip(k3[0], plain))
+    n_split = int((~k3[0].is_leaf & (k3[0].split_bin >= 0)).sum())
+    log(f"  leaf-wise, 8 leaves, depth cap 5: {n_split} splits; K3 twice bit for bit "
+        f"equal: {same_k3}; K3 vs its arithmetic in plain PyTorch: forests bit for bit "
+        f"equal {same_plain}")
+    if not (same_k3 and same_plain):
+        raise AssertionError("leaf-wise training with K3 and with its plain version disagree")
 
 
 def load_split(tag: str, device):
@@ -535,7 +654,168 @@ def run_training(device) -> dict:
     if win.best_f1 < F1_GATE:
         raise AssertionError(f"v92d OOF F1 {win.best_f1:.4f} below the gate {F1_GATE}")
     return {"launches": launches, "chol_launches": chol_launches, "oof_f1": win.best_f1,
-            "total_s": out.timings["total"]}
+            "total_s": out.timings["total"], "out": out, "te": (te_packed, te_meta),
+            "tr": (tr_packed, tr_meta)}
+
+
+def agreement(got: np.ndarray, want: np.ndarray) -> float:
+    """Share of rows within SERVE_RTOL (atol SERVE_RTOL x max |want|)."""
+    return float(np.isclose(got, want, rtol=SERVE_RTOL,
+                            atol=SERVE_RTOL * np.abs(want).max()).mean())
+
+
+def serve_trained(trained: dict, dev) -> dict:
+    """The trained v92d winner through the model files and ``V92dServer``.
+
+    The server averages the fold margins, then takes the sigmoid (the JAX
+    flagship's forward); ``winner.test_preds`` averages the folds'
+    probabilities. The served probabilities are held against the same fold
+    models' margins on the training run's own test matrix, aggregated as
+    the server does; the flips count against ``winner.test_preds`` at the
+    OOF threshold."""
+    out = trained["out"]
+    te_packed, te_meta = trained["te"]
+    win = out.winner
+    model_dir = ROOT / "build" / "chip_smoke_v92d"
+    save_cv_models(model_dir, win.models, win.best_threshold, out.feature_names)
+    models, man = load_cv_models(model_dir, device=dev)
+    same = all(torch.equal(a, b) for m, w in zip(models, win.models)
+               for a, b in zip(m.forest, w.forest))
+    log(f"model files: {man['n_folds']} folds, {len(man['feature_names'])} columns, "
+        f"threshold {man['threshold']:.3f}; forests read back bit for bit equal: {same}")
+    if not same or man["feature_names"] != out.feature_names:
+        raise AssertionError("the saved v92d model does not read back as trained")
+
+    # the training run's test matrix through the same fold models
+    X224, names224 = assemble_v34a_matrix(out.bundles[1], out.selection.selected)
+    X222, _ = drop_shift_features(names224, X224)
+    ref = torch.sigmoid(predict_margin_models(models, finite_or_nan(X222)).mean(dim=0))
+    ref = ref.cpu().numpy()
+
+    n = te_packed.n_objects
+    gp_tc, gp_two_phase = multiband_gp.serving_config(te_packed, GP_STEPS)
+    server = V92dServer(models, man["feature_names"], out.selection.selected,
+                        gp_steps=GP_STEPS, gp_t_compact=gp_tc, gp_two_phase=gp_two_phase,
+                        device=dev)
+    zz, ebv = te_meta.z, te_meta.ebv
+    chol_cuda.reset_launches()
+    hist_cuda.reset_launches()
+    timings: dict = {}
+    t0 = time.perf_counter()
+    probs = torch.cat([server(te_packed.map(lambda x: x[s:e]), zz[s:e], ebv[s:e],
+                              timings=timings) for s, e in requests(n)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p = probs.cpu().numpy()
+    share = agreement(p, ref)
+    thr = win.best_threshold
+    flips = int(((p > thr) != (win.test_preds > thr)).sum())
+    max_dp = float(np.abs(p - ref).max())
+    log(f"served the trained model: {n} objects (GP width {gp_tc}, two-phase "
+        f"{gp_two_phase}) in {wall:.3f} s, {n / wall:.1f} objects/s; phases (s): "
+        + ", ".join(f"{k}={v:.3f}" for k, v in timings.items()))
+    log(f"  vs the training run's predictions of the same models: {share:.4f} of rows "
+        f"within rtol {SERVE_RTOL:g} (needs {SERVE_SHARE}), max |dp| {max_dp:.3e} (needs "
+        f"<= {SERVE_MAX_DP}); vs winner.test_preds (fold-mean probabilities): max |dp| "
+        f"{np.abs(p - win.test_preds).max():.3e}, {flips} of {n} rows flip at the OOF "
+        f"threshold {thr:.3f}")
+    if (p.shape != (n,) or not np.isfinite(p).all() or share < SERVE_SHARE
+            or max_dp > SERVE_MAX_DP):
+        raise AssertionError("the served trained model disagrees with its training run")
+    if chol_cuda.launches != expected_launches(n, server):
+        raise AssertionError("serving's chol_inv launches disagree with the GP schedule")
+
+    # the cause of the rows that differ: training fitted the test split's GP
+    # in count-sorted chunks, each at its own width; served in those same
+    # chunks (one server per chunk width), every row must agree
+    te_u = unify_time_padding(trained["tr"][0], te_packed)[1]
+    counts = multiband_gp._use_mask(te_u).sum(dim=1).cpu().numpy()
+    two_phase, widths = multiband_gp.gp_schedule(counts, te_u.all_time.shape[1], GP_STEPS,
+                                                 REQUEST)
+    order = np.argsort(counts, kind="stable")
+    p_ch = np.empty(n, np.float32)
+    for (s, e), tc in zip(requests(n), widths):
+        idx = order[s:e]
+        tidx = torch.from_numpy(idx).to(dev)
+        srv = V92dServer(models, man["feature_names"], out.selection.selected,
+                         gp_steps=GP_STEPS, gp_t_compact=tc, gp_two_phase=two_phase,
+                         device=dev)
+        p_ch[idx] = srv(te_u.map(lambda x: x[tidx]), zz[idx], ebv[idx]).cpu().numpy()
+    share_ch, max_ch = agreement(p_ch, ref), float(np.abs(p_ch - ref).max())
+    log(f"  served in the training run's GP chunks (widths {widths}): {share_ch:.4f} of "
+        f"rows within rtol {SERVE_RTOL:g} (needs 1.0), max |dp| {max_ch:.3e}")
+    if share_ch < 1.0:
+        raise AssertionError("served in training's chunks, the model still disagrees")
+
+    # a server built for objects of up to WIDE_T points (the wide kernel),
+    # its request packed to that width
+    wide = V92dServer(models, man["feature_names"], out.selection.selected,
+                      gp_steps=GP_STEPS, gp_t_compact=WIDE_T, gp_two_phase=gp_two_phase,
+                      device=dev)
+    s, e = requests(n)[0]
+    sub = te_packed.map(lambda x: x[s:e])
+    sub = pad_time_axes(sub, sub.band_time.shape[-1], WIDE_T)
+    chol_cuda.reset_launches()
+    t0 = time.perf_counter()
+    pw = wide(sub, zz[s:e], ebv[s:e]).cpu().numpy()
+    wall_w = time.perf_counter() - t0
+    large, small = chol_cuda.large_launches, chol_cuda.launches
+    n_phase2 = (max(GP_STEPS // 6, 8) + 1) if gp_two_phase else GP_STEPS + 1
+    # (phase 2's) steps + final NLL, then the predict; one launch per chunk
+    want_large = (n_phase2 + 1) * -(-(e - s) // chol_cuda.wide_chunk(dev))
+    share_w = agreement(pw, p[s:e])
+    log(f"wide server (GP width {WIDE_T}): {e - s} objects in {wall_w:.3f} s; chol_inv "
+        f"launches: wide kernel {large} (predicted {want_large}), T <= {chol_cuda.MAX_T} "
+        f"kernel {small} (the coarse phase); {share_w:.4f} of rows within rtol "
+        f"{SERVE_RTOL:g} of the width-{gp_tc} server's (needs {SERVE_SHARE})")
+    if large != want_large or share_w < SERVE_SHARE or not np.isfinite(pw).all():
+        raise AssertionError("the wide server failed its checks")
+    return {"large_launches": large, "objects_per_s": n / wall}
+
+
+def run_ensemble(trained: dict, dev) -> dict:
+    """``train_kaggle_ensemble`` on the training phase's features and
+    selection; gates and launch counts."""
+    out = trained["out"]
+    tr_packed, tr_meta = trained["tr"]
+    te_packed, te_meta = trained["te"]
+    hist_cuda.reset_launches()
+    chol_cuda.reset_launches()
+    ens = train_kaggle_ensemble(tr_packed, tr_meta, te_packed, te_meta, gp_steps=GP_STEPS,
+                                bundles=out.bundles, selected=out.selection.selected,
+                                device=dev)
+    torch.cuda.synchronize()
+    k1, k3 = hist_cuda.launches, hist_cuda.seg_launches
+    r, rr = ens.result, ens.rounds_run
+    log("ensemble stages (s): " + ", ".join(f"{k}={v:.3f}" for k, v in ens.timings.items()))
+    log("rounds run: " + ", ".join(f"{k}={v}" for k, v in rr.items()))
+    for m, pm in r.per_model.items():
+        log(f"  {m}: seed-averaged OOF F1 {pm['oof_f1']:.4f} @ {pm['threshold']:.3f}; per "
+            f"seed " + ", ".join(f"{sd}:{f:.4f}" for sd, f in pm["seed_f1s"].items()))
+    log(f"ensemble OOF F1 {r.oof_f1:.4f} @ {r.threshold:.3f} (weights "
+        f"{KAGGLE_ENSEMBLE_WEIGHTS}); TEST F1 {ens.test_f1:.4f}; adversarial AUC "
+        f"{r.adversarial.auc:.4f}")
+    want_k1 = V34A_PARAMS.max_depth * (rr["v92d"] + rr["v34a"]) + ADV_PARAMS.max_depth * rr[
+        "adversarial"]
+    want_k3 = V114D_PARAMS.max_leaves * rr["v114d"]
+    log(f"K3 launches {k3} (8 x v114d rounds predicts {want_k3}); K1 launches {k1} "
+        f"(5 x depthwise rounds + 3 x adversarial rounds predicts {want_k1}); chol_inv "
+        f"launches {chol_cuda.launches + chol_cuda.large_launches} (features reused)")
+    if k3 != want_k3 or k3 == 0 or k1 != want_k1:
+        raise AssertionError("the ensemble's kernel launch counts disagree with the prediction")
+    for pm in r.per_model.values():
+        if not (np.isfinite(pm["oof"]).all() and np.isfinite(pm["test"]).all()):
+            raise AssertionError("the ensemble produced non-finite probabilities")
+    v114d = r.per_model["v114d"]["oof_f1"]
+    ref = json.loads((ROOT / "tools" / "probe_kaggle_scale.json").read_text())
+    log(f"[reference] the JAX package's full-scale run: ensemble {ref['ensemble_oof_f1']} "
+        f"@ {ref['threshold']}, members {ref['model_f1s']}")
+    log(f"OOF F1 gates: ensemble {r.oof_f1:.4f} >= {ENSEMBLE_F1_GATE} "
+        f"{'ok' if r.oof_f1 >= ENSEMBLE_F1_GATE else 'FAIL'}; v114d {v114d:.4f} >= "
+        f"{V114D_F1_GATE} {'ok' if v114d >= V114D_F1_GATE else 'FAIL'}")
+    if r.oof_f1 < ENSEMBLE_F1_GATE or v114d < V114D_F1_GATE:
+        raise AssertionError("the ensemble's OOF F1 is below its gate")
+    return {"k1": k1, "k3": k3, "total_s": ens.timings["total"]}
 
 
 def main() -> int:
@@ -567,6 +847,12 @@ def main() -> int:
         results = [check_kernel(B, T, seed=1000 + T)
                    for B, T in ((2048, 64), (2048, 128), (2048, 160), (2048, 192), (2047, 72))]
         check_non_spd()
+        chol_cuda.reset_launches()
+        wide_results = [check_kernel(B, T, seed=3000 + T)
+                        for B, T in ((64, 256), (64, 320), (REQUEST, WIDE_T))]
+        check_non_spd(320)
+        if chol_cuda.launches or not chol_cuda.large_launches:
+            raise AssertionError("T > 240 did not take the wide kernel")
 
     with Phase("serving data + model"):
         packed, zz, ebv = load_test_split(dev)
@@ -632,12 +918,21 @@ def main() -> int:
                         for i, (fit, K, F, N, nodes) in enumerate(HIST_SHAPES)
                         for k in sorted(set(nodes))]
         check_hist("ragged", 5, 222, 2443, 4, seed=2999, inactive=0.3)
+        seg_results = [check_seg_hist(name, SEG_LANES, SEG_F, N, nodes, seed=4000 + i,
+                                      inactive=inactive)
+                       for i, (name, N, nodes, inactive) in enumerate(SEG_SHAPES)]
 
     with Phase("kernel against plain in training"):
         check_training_kernel_vs_plain(dev)
 
     with Phase("training"):
         trained = run_training(dev)
+
+    with Phase("serving the trained model"):
+        served = serve_trained(trained, dev)
+
+    with Phase("kaggle ensemble"):
+        ensemble = run_ensemble(trained, dev)
 
     # the kernel's row: the shape of the GP's full-width launches
     main_shape = next(r for r in results if (r["B"], r["T"]) == (REQUEST, gp_tc))
@@ -651,6 +946,18 @@ def main() -> int:
         "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
         "shape": [REQUEST, gp_tc, gp_tc],
     })
+    # the wide variant's row: the wide server's launches
+    main_wide = next(r for r in wide_results if (r["B"], r["T"]) == (REQUEST, WIDE_T))
+    kernels.append({
+        "name": "chol_inv_large", "route": "cuda",
+        "source": "mallorn_tpu_torch/csrc/chol_inv.cu",
+        "replaces": "mallorn_tpu/ops/chol_pallas.py:60",
+        "launches": served["large_launches"],
+        "max_abs_err": main_wide["max_abs_err"], "ms": main_wide["ms"],
+        "plain_ms": main_wide["plain_ms"], "bound_ms": main_wide["bound_ms"],
+        "bound_by": main_wide["bound_by"], "library_ms": main_wide["library_ms"],
+        "shape": [REQUEST, WIDE_T, WIDE_T],
+    })
     # the histogram kernel's row: the v92d CV's deepest level
     main_hist = next(r for r in hist_results if (r["fit"], r["nodes"]) == ("v92d", 8))
     kernels.append({
@@ -663,7 +970,20 @@ def main() -> int:
         "bound_by": main_hist["bound_by"], "library_ms": main_hist["library_ms"],
         "shape": [main_hist["K"], main_hist["F"], main_hist["N"], main_hist["nodes"]],
     })
+    # the segment histogram's row: a v114d split step's pair of children
+    main_seg = next(r for r in seg_results if r["name"] == "pair")
+    kernels.append({
+        "name": "seg_hist", "route": "cuda",
+        "source": "mallorn_tpu_torch/csrc/hist.cu",
+        "replaces": "mallorn_tpu/ops/hist_pallas.py:42",
+        "launches": ensemble["k3"],
+        "max_abs_err": main_seg["max_abs_err"], "ms": main_seg["ms"],
+        "plain_ms": main_seg["plain_ms"], "bound_ms": main_seg["bound_ms"],
+        "bound_by": main_seg["bound_by"], "library_ms": main_seg["library_ms"],
+        "shape": [main_seg["K"], main_seg["F"], main_seg["N"], main_seg["n_seg"]],
+    })
     log(f"total: {time.perf_counter() - t_start:.3f} s")
+    log(f"card: {smi}")  # every time above was taken on this card, at this limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,16 @@
 // T of about 180. This first version does those flops in shared memory behind
 // 2T block-wide barriers and is limited by shared-memory bandwidth and the
 // barrier chain, not by HBM.
+//
+// T > 240 (chol_inv_large_kernel): the same loop, with Linv built in place
+// in the output (row-major, its upper triangle never touched after the
+// identity is written) and A as a packed triangle in a global-memory
+// scratch of T(T+1)/2 floats per matrix that the caller allocates. Both
+// the Schur update and the forward substitution then read and write
+// through L1/L2 (T^3/6 read-modify-writes each per matrix), so this
+// variant is bound by cache bandwidth; the caller launches it on about one
+// matrix per SM at a time, so that the working sets stay in L2. It exists
+// so that any object width runs, as the reference's does.
 
 #include <cuda_runtime.h>
 
@@ -132,7 +142,70 @@ int launch(const float* K, float* Linv, float* logdet, int B, int T,
   return static_cast<int>(cudaGetLastError());
 }
 
+// T > 240: A in scratch[b], X in Linv[b] itself
+template <int kThreadsY>
+__global__ void __launch_bounds__(kThreadsX * kThreadsY)
+chol_inv_large_kernel(const float* __restrict__ K, float* __restrict__ Linv,
+                      float* __restrict__ logdet, float* __restrict__ scratch, int T) {
+  constexpr int kThreads = kThreadsX * kThreadsY;
+  const int tri = (T * (T + 1)) / 2;
+  const int b = blockIdx.x;
+  float* A = scratch + static_cast<size_t>(b) * tri;
+  const float* Kb = K + static_cast<size_t>(b) * T * T;
+  float* X = Linv + static_cast<size_t>(b) * T * T;
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * kThreadsX + tx;
+
+  // K's lower triangle into A; X = I over the whole matrix
+  for (int i = ty; i < T; i += kThreadsY) {
+    for (int c = tx; c < T; c += kThreadsX) {
+      if (c <= i) A[col_base(c, T) + i - c] = Kb[static_cast<size_t>(i) * T + c];
+      X[static_cast<size_t>(i) * T + c] = (i == c) ? 1.0f : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  float ld = 0.0f;
+  for (int j = 0; j < T; ++j) {
+    const int cj = col_base(j, T);
+    float* xj = X + static_cast<size_t>(j) * T;
+    const float piv = A[cj];
+    const float d = rsqrtf(piv);
+
+    for (int i = j + 1 + tid; i < T; i += kThreads) A[cj + i - j] *= d;
+    for (int k = tid; k <= j; k += kThreads) xj[k] *= d;
+    if (tid == 0) ld += logf(piv);
+    __syncthreads();
+
+    const float* colj = A + cj - j;  // colj[i] = L[i, j]
+    for (int c = j + 1 + ty; c < T; c += kThreadsY) {
+      const float lc = colj[c];
+      float* colc = A + col_base(c, T) - c;
+      for (int i = c + tx; i < T; i += kThreadsX) colc[i] -= colj[i] * lc;
+    }
+    for (int i = j + 1 + ty; i < T; i += kThreadsY) {
+      const float lij = colj[i];
+      float* xi = X + static_cast<size_t>(i) * T;
+      for (int k = tx; k <= j; k += kThreadsX) xi[k] -= lij * xj[k];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) logdet[b] = ld;
+}
+
 }  // namespace
+
+// scratch: B * T(T+1)/2 floats
+extern "C" int mallorn_chol_inv_large(const float* K, float* Linv, float* logdet,
+                                      float* scratch, int B, int T, void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(kThreadsX, 16);
+  chol_inv_large_kernel<16><<<B, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      K, Linv, logdet, scratch, T);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int mallorn_chol_inv(const float* K, float* Linv, float* logdet,
                                 int B, int T, void* stream) {

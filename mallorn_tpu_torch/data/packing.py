@@ -192,22 +192,25 @@ def pad_objects(packed: PackedLightcurves, n_total: int) -> PackedLightcurves:
     return PackedLightcurves(*out, time_offset=packed.time_offset)
 
 
+def pad_time_axes(p: PackedLightcurves, t_band: int, t_all: int) -> PackedLightcurves:
+    """``p`` with its per-band time axis padded to at least ``t_band`` and
+    its all-band axis to at least ``t_all`` (padding as packed)."""
+    widths = (t_band,) * 4 + (t_all,) * 5
+    ts = []
+    for x, fill, t in zip(p.tensors(), _PAD_FILL, widths):
+        extra = t - x.shape[-1]
+        if extra > 0:
+            pad = torch.full(tuple(x.shape[:-1]) + (extra,), fill, dtype=x.dtype,
+                             device=x.device)
+            x = torch.cat([x, pad], dim=-1)
+        ts.append(x)
+    return PackedLightcurves(*ts, time_offset=p.time_offset)
+
+
 def unify_time_padding(*packs: PackedLightcurves):
     """Re-pad the time axes of several packed sets to shared lengths (each
     view to the longest of the sets), so their feature matrices come from
     equal-width views."""
     t_band = max(p.band_time.shape[-1] for p in packs)
     t_all = max(p.all_time.shape[-1] for p in packs)
-    widths = (t_band,) * 4 + (t_all,) * 5
-    out = []
-    for p in packs:
-        ts = []
-        for x, fill, t in zip(p.tensors(), _PAD_FILL, widths):
-            extra = t - x.shape[-1]
-            if extra > 0:
-                pad = torch.full(tuple(x.shape[:-1]) + (extra,), fill, dtype=x.dtype,
-                                 device=x.device)
-                x = torch.cat([x, pad], dim=-1)
-            ts.append(x)
-        out.append(PackedLightcurves(*ts, time_offset=p.time_offset))
-    return tuple(out)
+    return tuple(pad_time_axes(p, t_band, t_all) for p in packs)

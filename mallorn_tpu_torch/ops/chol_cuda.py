@@ -9,13 +9,19 @@ matrices (identity on masked rows) it returns ``Linv = chol(K)^-1``
 propagates; nothing raises, the GP's ``isfinite`` guards take it from
 there.
 
-- ``chol_inv`` launches the CUDA kernel (``csrc/chol_inv.cu``) for a CUDA
+- ``chol_inv`` launches a CUDA kernel (``csrc/chol_inv.cu``) for a CUDA
   tensor and runs ``chol_inv_plain`` for a CPU tensor. A CUDA tensor never
-  falls back: the kernel launches or the call raises.
+  falls back: a kernel launches or the call raises. The width picks the
+  kernel: T <= ``MAX_T`` keeps both triangles in shared memory
+  (``chol_inv_kernel``); a wider batch goes to ``chol_inv_large_kernel``,
+  which builds Linv in the output and keeps the Schur complement in a
+  global scratch allocated here, one launch per chunk of ``wide_chunk``
+  matrices (one per SM).
 - ``chol_inv_plain`` is the same right-looking column loop in PyTorch,
-  batched over B. The CPU tests use it, and ``chip_smoke.py`` holds the
-  kernel against it on the card.
-- ``launches`` counts kernel launches (plain calls do not count).
+  batched over B. The CPU tests use it, and ``chip_smoke.py`` holds both
+  kernels against it on the card.
+- ``launches`` and ``large_launches`` count the two kernels' launches
+  (plain calls do not count).
 """
 
 from __future__ import annotations
@@ -31,11 +37,13 @@ from mallorn_tpu_torch.utils import cuda_build
 MAX_T = 240
 
 launches = 0
+large_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, large_launches
     launches = 0
+    large_launches = 0
 
 
 def chol_inv_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -74,12 +82,12 @@ def chol_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if not K.is_contiguous():
         raise ValueError("chol_inv: K must be contiguous")
     B, T, _ = K.shape
-    if T > MAX_T:
-        raise ValueError(f"chol_inv: T={T} exceeds the kernel's shared-memory "
-                         f"limit of T <= {MAX_T}")
     Linv = torch.empty_like(K)
     logdet = torch.empty(B, dtype=torch.float32, device=K.device)
     if B == 0:
+        return Linv, logdet
+    if T > MAX_T:
+        _chol_inv_large(K, Linv, logdet)
         return Linv, logdet
     lib = cuda_build.load()
     with torch.cuda.device(K.device):
@@ -89,6 +97,34 @@ def chol_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     cuda_build.check(rc, "mallorn_chol_inv")
     launches += 1
     return Linv, logdet
+
+
+def wide_chunk(device: torch.device) -> int:
+    """Matrices per launch of the T > MAX_T kernel: one per SM. Each CTA
+    works on its matrix's triangle and Linv through L1/L2; with more CTAs
+    than SMs resident those working sets no longer fit in L2 and the
+    kernel waits on HBM (PERF.md, the wide kernel's row)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _chol_inv_large(K: torch.Tensor, Linv: torch.Tensor, logdet: torch.Tensor) -> None:
+    """The T > MAX_T kernel into ``Linv`` / ``logdet``, one launch per
+    chunk of ``wide_chunk`` matrices."""
+    global large_launches
+    B, T, _ = K.shape
+    tri = T * (T + 1) // 2
+    chunk = min(B, wide_chunk(K.device))
+    scratch = torch.empty(chunk * tri, dtype=torch.float32, device=K.device)
+    lib = cuda_build.load()
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        for s in range(0, B, chunk):
+            n = min(chunk, B - s)
+            rc = lib.mallorn_chol_inv_large(
+                K[s].data_ptr(), Linv[s].data_ptr(), logdet[s:].data_ptr(),
+                scratch.data_ptr(), n, T, stream)
+            cuda_build.check(rc, "mallorn_chol_inv_large")
+            large_launches += 1
 
 
 def cho_solve(Linv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,9 @@
-"""Per-level GBDT histograms, batched over folds: the Hopper kernel and its
-plain PyTorch version.
+"""GBDT histograms, batched over folds or lanes: the Hopper kernels and
+their plain PyTorch versions.
+
+Two kernels of ``csrc/hist.cu``: the depthwise level histogram (K1,
+``build_histograms``) and the leaf-wise segment histogram (K3,
+``build_seg_histograms``, at the end of this module).
 
 Counterpart of ``mallorn_tpu/ops/hist_pallas.py:build_histograms_fullhot``
 (Pallas body ``_fullhot_kernel``), with a leading fold axis so one launch
@@ -24,7 +28,8 @@ the level is built by subtraction.
 - ``build_histograms_fixed`` is the kernel's own arithmetic in plain
   PyTorch (the same scale, rounding and int64 sums): it equals the kernel
   bit for bit, so a fit through it must build the kernel's forest.
-- ``launches`` counts kernel launches (plain calls do not count).
+- ``launches`` counts K1's launches, ``seg_launches`` K3's (plain calls do
+  not count).
 """
 
 from __future__ import annotations
@@ -37,11 +42,13 @@ from mallorn_tpu_torch.utils import cuda_build
 SMEM_BYTES = 232448
 
 launches = 0
+seg_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, seg_launches
     launches = 0
+    seg_launches = 0
 
 
 def _check_shapes(binned, node_q, gh):
@@ -78,6 +85,29 @@ def _log2_ceil(n: int) -> int:
     return max(int(n) - 1, 0).bit_length()
 
 
+def _fixed_point(gh: torch.Tensor):
+    """(q [K, N, 2] int64, scale [K, 2] float64, finite [K]): per fold and
+    channel, S = 2^(62 - ceil(log2 N) - e) with max|gh| < 2^e, each value
+    rounded to the nearest integer of value * S."""
+    K, N, _ = gh.shape
+    maxabs = gh.abs().amax(dim=1) if N else torch.zeros(K, 2, device=gh.device)
+    _, e = torch.frexp(maxabs)
+    scale = torch.where(maxabs > 0,
+                        torch.ldexp(torch.ones_like(maxabs, dtype=torch.float64),
+                                    62 - _log2_ceil(N) - e), 1.0).to(torch.float64)
+    q = torch.round(gh.double() * scale[:, None, :])
+    q = torch.where(torch.isfinite(q), q, 0.0).to(torch.int64)
+    return q, scale, torch.isfinite(maxabs).all(dim=1)
+
+
+def _from_fixed(acc: torch.Tensor, scale: torch.Tensor, finite: torch.Tensor) -> torch.Tensor:
+    """Integer sums [K, ..., 2] -> float32 sums / S; NaN in every cell of a
+    fold whose gh is not finite."""
+    tail = (1,) * (acc.dim() - 2)
+    out = (acc.double() * (1.0 / scale).reshape(len(scale), *tail, 2)).float()
+    return torch.where(finite.reshape(-1, *tail, 1), out, torch.nan)
+
+
 def build_histograms_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                            k_nodes: int, n_bins_tot: int) -> torch.Tensor:
     """The kernel's int64 fixed-point histogram in plain PyTorch: per fold
@@ -86,19 +116,9 @@ def build_histograms_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch
     (exact, any order), one conversion (sum / S -> float32); NaN in every
     cell of a fold whose gh is not finite."""
     _check_shapes(binned, node_q, gh)
-    K, F, N = binned.shape
-    dev = gh.device
-    maxabs = gh.abs().amax(dim=1) if N else torch.zeros(K, 2, device=dev)  # [K, 2]
-    _, e = torch.frexp(maxabs)
-    scale = torch.where(maxabs > 0,
-                        torch.ldexp(torch.ones_like(maxabs, dtype=torch.float64),
-                                    62 - _log2_ceil(N) - e), 1.0).to(torch.float64)
-    q = torch.round(gh.double() * scale[:, None, :])
-    q = torch.where(torch.isfinite(q), q, 0.0).to(torch.int64)
-    acc = build_histograms_plain(binned, node_q, q, k_nodes, n_bins_tot)
-    out = (acc.double() * (1.0 / scale)[:, None, None, None, :]).float()
-    finite = torch.isfinite(maxabs).all(dim=1)
-    return torch.where(finite[:, None, None, None, None], out, torch.nan)
+    q, scale, finite = _fixed_point(gh)
+    return _from_fixed(build_histograms_plain(binned, node_q, q, k_nodes, n_bins_tot),
+                       scale, finite)
 
 
 def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
@@ -136,4 +156,94 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
                               n_bins_tot, stream)
     cuda_build.check(rc, "mallorn_hist")
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: segment histograms of the leaf-wise fit
+# ---------------------------------------------------------------------------
+# Counterpart of ``mallorn_tpu/ops/hist_pallas.py:build_histograms_pallas``
+# (Pallas body ``_hist_kernel``) with a leading lane axis. For lane k,
+# feature f and segment s < ``n_seg``::
+#
+#     out[k, f, s, :] = sum_r [seg_base[k, r] + binned[k, f, r] == s] gh[k, r, :]
+#
+# ``seg_base`` is a row's node times ``n_bins_tot`` (the ids the JAX
+# package's ``_build_level_hist`` composes); a row whose ``seg_base`` is
+# outside ``[0, n_seg)``, or whose bin is negative, is inactive. The three versions mirror K1's: the
+# wrapper, ``index_add_`` in gh's dtype, and the kernel's fixed point.
+
+
+def _check_seg_shapes(binned, seg_base, gh):
+    if binned.dim() != 3 or seg_base.dim() != 2 or gh.dim() != 3 or gh.shape[2] != 2:
+        raise ValueError(f"expected binned [K, F, N], seg_base [K, N], gh [K, N, 2]; got "
+                         f"{tuple(binned.shape)}, {tuple(seg_base.shape)}, {tuple(gh.shape)}")
+    K, _, N = binned.shape
+    if tuple(seg_base.shape) != (K, N) or tuple(gh.shape[:2]) != (K, N):
+        raise ValueError("binned, seg_base and gh disagree on lanes or rows")
+
+
+def build_seg_histograms_plain(binned: torch.Tensor, seg_base: torch.Tensor,
+                               gh: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """[K, F, n_seg, 2] segment sums in ``gh``'s dtype, added row by row in
+    row order per (lane, feature) (the order of the JAX package's
+    ``segment_sum`` on the CPU)."""
+    _check_seg_shapes(binned, seg_base, gh)
+    K, F, N = binned.shape
+    dev = gh.device
+    sb = seg_base.long()
+    base_ok = (sb >= 0) & (sb < n_seg)
+    lane = torch.arange(K, device=dev)[:, None] * n_seg
+    vals = gh.reshape(K * N, 2)
+    out = torch.zeros(F, K * n_seg + 1, 2, dtype=gh.dtype, device=dev)
+    for f in range(F):
+        b = binned[:, f, :].long()
+        seg = sb + b
+        ok = base_ok & (b >= 0) & (seg < n_seg)
+        out[f].index_add_(0, torch.where(ok, lane + seg, K * n_seg).reshape(-1), vals)
+    return out[:, :-1].reshape(F, K, n_seg, 2).transpose(0, 1).contiguous()
+
+
+def build_seg_histograms_fixed(binned: torch.Tensor, seg_base: torch.Tensor,
+                               gh: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """K3's int64 fixed-point arithmetic in plain PyTorch (as
+    ``build_histograms_fixed``): equal to the kernel bit for bit."""
+    _check_seg_shapes(binned, seg_base, gh)
+    q, scale, finite = _fixed_point(gh)
+    return _from_fixed(build_seg_histograms_plain(binned, seg_base, q, n_seg), scale, finite)
+
+
+def build_seg_histograms(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch.Tensor,
+                         n_seg: int) -> torch.Tensor:
+    """[K, F, n_seg, 2] float32 (grad, hess) segment sums from int16 bins
+    [K, F, N], int32 segment bases [K, N] and float32 (g, h) [K, N, 2]."""
+    global seg_launches
+    if binned.device.type == "cpu":
+        return build_seg_histograms_plain(binned, seg_base, gh, n_seg)
+    if binned.device.type != "cuda":
+        raise ValueError(f"build_seg_histograms: unsupported device {binned.device}")
+    _check_seg_shapes(binned, seg_base, gh)
+    if (binned.dtype, seg_base.dtype, gh.dtype) != (torch.int16, torch.int32, torch.float32):
+        raise TypeError(f"build_seg_histograms: expected int16 bins, int32 segment bases "
+                        f"and float32 (g, h); got {binned.dtype}, {seg_base.dtype}, {gh.dtype}")
+    if not (binned.is_contiguous() and seg_base.is_contiguous() and gh.is_contiguous()):
+        raise ValueError("build_seg_histograms: inputs must be contiguous")
+    if not (seg_base.device == gh.device == binned.device):
+        raise ValueError("build_seg_histograms: inputs on different devices")
+    if n_seg * 2 * 8 > SMEM_BYTES:
+        raise ValueError(f"build_seg_histograms: {n_seg} segments exceed the kernel's "
+                         f"shared memory ({SMEM_BYTES} bytes per CTA)")
+    K, F, N = binned.shape
+    out = torch.empty(K, F, n_seg, 2, dtype=torch.float32, device=binned.device)
+    if K == 0 or F == 0:
+        return out
+    maxabs = gh.abs().amax(dim=1).contiguous() if N else torch.zeros(
+        K, 2, dtype=torch.float32, device=gh.device)
+    lib = cuda_build.load()
+    with torch.cuda.device(binned.device):
+        stream = torch.cuda.current_stream(binned.device).cuda_stream
+        rc = lib.mallorn_seg_hist(binned.data_ptr(), seg_base.data_ptr(), gh.data_ptr(),
+                                  maxabs.data_ptr(), out.data_ptr(), K, F, N, n_seg, stream)
+    cuda_build.check(rc, "mallorn_seg_hist")
+    seg_launches += 1
     return out

@@ -1,11 +1,13 @@
-"""Depthwise histogram GBDT (port of ``mallorn_tpu.trees.gbdt``): training
-and prediction, every fold of a CV as one batched fit.
+"""Histogram GBDT (port of ``mallorn_tpu.trees.gbdt``): depthwise and
+leaf-wise training and prediction, every fold of a CV as one batched fit.
 
 A ``Forest`` stacks fixed-shape heap trees: R rounds, I = 2^D - 1
 internal slots, H = 2^(D+1) - 1 heap nodes. Routing follows
 ``_predict_tree``: the missing bin goes to ``default_left``, otherwise a
 row goes left when ``bin <= split_bin``; an early leaf (``is_leaf``) stops
-the row there.
+the row there. An ``LGForest`` (``grow_policy="lossguide"``) stacks
+leaf-wise trees of M = 2 max_leaves - 1 node slots with explicit child
+pointers (``left``, ``right``), routed by pointer chasing.
 
 Training (``train_gbdt``, ``train_gbdt_folds``) is XGBoost's depthwise
 ``hist`` algorithm as the JAX package computes it: per round, logistic
@@ -25,6 +27,14 @@ metric, its state is frozen from then on, and the loop runs until every
 fold has stopped (one host sync per round learns that). Rounds a fold
 never ran keep all-zero trees and a +inf metric.
 
+Leaf-wise trees (``_train_tree_lossguide``, LightGBM's policy) split,
+max_leaves - 1 times, the leaf whose cached best split gains most, each
+lane choosing its own leaf; every step builds the chosen leaf's two
+children's histograms through the Hopper kernel K3
+(``hist_cuda.build_seg_histograms``), and the root one more. The steps
+run as a Python loop over [K, M] state tensors, with no host sync inside
+a tree.
+
 The random bits (round keys, column permutations) are the JAX package's
 own, computed on the host (``utils.prng``) once per fit.
 """
@@ -32,7 +42,7 @@ own, computed on the host (``utils.prng``) once per fit.
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -48,12 +58,14 @@ from mallorn_tpu_torch.utils.device import DeviceLike, resolve_device
 Objective = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                      tuple]
 HistFn = Callable[..., torch.Tensor]
+SegHistFn = Callable[..., torch.Tensor]
+GROW_POLICIES = ("depthwise", "lossguide")
 
 
 class GBDTParams(NamedTuple):
-    """The JAX package's ``GBDTParams`` for depthwise binary training,
-    without its TPU-only knobs (``use_pallas_hist``, ``use_binlane_hist``,
-    ``hist_dtype``, ``route``, ``stub_hist``)."""
+    """The JAX package's ``GBDTParams`` for depthwise and leaf-wise binary
+    training, without its TPU-only knobs (``use_pallas_hist``,
+    ``use_binlane_hist``, ``hist_dtype``, ``route``, ``stub_hist``)."""
 
     n_rounds: int = 500
     max_depth: int = 5
@@ -71,6 +83,10 @@ class GBDTParams(NamedTuple):
     eval_metric: str = "logloss"
     # build left children only from level 1 on; right = parent - left
     hist_subtract: bool = True
+    # "depthwise" (XGBoost) or "lossguide" (LightGBM leaf-wise: up to
+    # max_leaves leaves, max_depth the joint depth cap, <= 0 = no cap)
+    grow_policy: str = "depthwise"
+    max_leaves: int = 31
 
 
 # The v21/v34a/v92 shape (reference: scripts/train_v34a_bazin.py:134-148).
@@ -87,8 +103,21 @@ class Forest(NamedTuple):
     leaf_value: torch.Tensor  # [..., R, H] float32 (eta applied)
 
 
+class LGForest(NamedTuple):
+    """Stacked leaf-wise trees: M = 2 max_leaves - 1 node slots, explicit
+    child pointers (a leaf-wise tree is not a heap)."""
+
+    feature: torch.Tensor  # [..., R, M] int32
+    split_bin: torch.Tensor  # [..., R, M] int32
+    default_left: torch.Tensor  # [..., R, M] bool
+    is_leaf: torch.Tensor  # [..., R, M] bool
+    left: torch.Tensor  # [..., R, M] int32
+    right: torch.Tensor  # [..., R, M] int32
+    leaf_value: torch.Tensor  # [..., R, M] float32 (eta applied)
+
+
 class GBDTModel(NamedTuple):
-    forest: Forest
+    forest: Union[Forest, LGForest]
     bin_spec: BinSpec
     params: GBDTParams
     best_iteration: int  # -1 when the fit did not early-stop
@@ -106,8 +135,16 @@ class GBDTModel(NamedTuple):
 
 
 def stack_forests(forests: Sequence[Forest]) -> Forest:
-    """K same-shape forests -> one Forest with a leading fold axis."""
-    return Forest(*[torch.stack(a) for a in zip(*forests)])
+    """K same-shape forests (of one kind) -> one with a leading fold axis."""
+    return type(forests[0])(*[torch.stack(a) for a in zip(*forests)])
+
+
+def lossguide_steps(params: GBDTParams) -> int:
+    """Pointer-chasing steps that route a leaf-wise tree:
+    min(max_depth, max_leaves), max_depth <= 0 meaning no cap (the JAX
+    package's ``lg_steps`` and ``route_depth``)."""
+    cap = params.max_depth if params.max_depth > 0 else params.max_leaves
+    return min(cap, params.max_leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -154,10 +191,10 @@ def _row_subsample_mask(key: torch.Tensor, row_ids: torch.Tensor,
 def _best_splits(hist: torch.Tensor, col_mask: torch.Tensor, p: GBDTParams):
     """Best split per (fold, node) from [K, F, C, B+1, 2] histograms.
 
-    Returns (gain, feature, bin, default_left, the node's leaf weight),
-    each [K, C]. The node totals are the sums over features and bins
-    times 1/F: the JAX package's fit compiles its division by F to that
-    product, and fuses the product into the node's denominator h_tot +
+    Returns (gain, feature, bin, default_left, the node's leaf weight,
+    g_tot, h_tot), each [K, C]. The node totals are the sums over features
+    and bins times 1/F: the JAX package's fit compiles its division by F to
+    that product, and fuses the product into the node's denominator h_tot +
     lambda (``xla_cpu.mul_add``)."""
     K, n_f, n_nodes = hist.shape[:3]
     missing_id = p.n_bins
@@ -175,7 +212,8 @@ def _best_splits(hist: torch.Tensor, col_mask: torch.Tensor, p: GBDTParams):
     cg = xla_cpu.bin_cumsum(hg[..., :missing_id].contiguous())  # [K, F, C, B]
     ch = xla_cpu.bin_cumsum(hh[..., :missing_id].contiguous())
     parent = (s * s / parent_den)[:, None, :, None]
-    gt, ht = g_tot[:, None, :, None], (h_sum * inv_f)[:, None, :, None]
+    h_tot = h_sum * inv_f
+    gt, ht = g_tot[:, None, :, None], h_tot[:, None, :, None]
     cols = col_mask[:, :, None, None]
 
     def split_gain(gl, hl):
@@ -195,7 +233,7 @@ def _best_splits(hist: torch.Tensor, col_mask: torch.Tensor, p: GBDTParams):
     best_dl = torch.gather(dleft, 2, best_idx[..., None])[..., 0]
     best_f = torch.div(best_idx, missing_id, rounding_mode="floor")
     best_b = best_idx % missing_id
-    return best_gain, best_f, best_b, best_dl, leaf
+    return best_gain, best_f, best_b, best_dl, leaf, g_tot, h_tot
 
 
 def _train_tree(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: torch.Tensor,
@@ -243,7 +281,7 @@ def _train_tree(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: torch.Tensor
         if subtract:
             right = torch.where(prev_split[:, None, :, None, None], prev_hist - hist, 0.0)
             hist = torch.stack([hist, right], dim=3).reshape(K, n_f, n_nodes, n_bins_tot, 2)
-        best_gain, best_f, best_b, best_dl, node_leaf = _best_splits(hist, col_mask, p)
+        best_gain, best_f, best_b, best_dl, node_leaf, _, _ = _best_splits(hist, col_mask, p)
 
         make_leaf = best_gain <= p.min_split_gain  # covers -inf / empty nodes
         if p.hist_subtract and d + 1 < depth:
@@ -299,6 +337,126 @@ def _predict_tree(tree, binned_T: torch.Tensor, missing_id: int, depth: int) -> 
     return torch.gather(leaf_value, 1, node)
 
 
+def _train_tree_lossguide(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: torch.Tensor,
+                          p: GBDTParams, seg_hist_fn: SegHistFn):
+    """Grow one leaf-wise tree per lane (the JAX package's
+    ``_train_tree_lossguide``): max_leaves - 1 split steps, each splitting
+    the leaf with the highest cached gain (first on ties; -inf marks leaves
+    that cannot split and unallocated slots) when that gain exceeds
+    min_split_gain, routing its rows and building its two children's
+    histograms (one K3 launch); the root's histogram is one more launch.
+    Every lane takes its own leaf and its own ``do`` decision as tensors.
+
+    binned_T [K, F, N] int16, gh [K, N, 2] float32, col_mask [K, F] bool.
+    Returns ((feature, split_bin, default_left, is_leaf, left, right,
+    leaf_value), each [K, M]; per-feature split gains [K, F]; final node
+    [K, N])."""
+    K, n_f, n = binned_T.shape
+    dev = binned_T.device
+    L = p.max_leaves
+    M = 2 * L - 1
+    nbt = p.n_bins + 1
+    missing_id = p.n_bins
+    depth_cap = p.max_depth if p.max_depth > 0 else L
+
+    def best(seg_base, n_nodes):
+        hist = seg_hist_fn(binned_T, seg_base, gh, n_nodes * nbt)
+        return _best_splits(hist.view(K, n_f, n_nodes, nbt, 2), col_mask, p)
+
+    g0, f0, b0, dl0, _, gt0, ht0 = best(torch.zeros(K, n, dtype=torch.int32, device=dev), 1)
+
+    def slot0(val, fill, dtype):
+        a = torch.full((K, M), fill, dtype=dtype, device=dev)
+        a[:, 0] = val
+        return a
+
+    feature = torch.zeros(K, M, dtype=torch.long, device=dev)
+    split_bin = torch.full((K, M), -1, dtype=torch.long, device=dev)
+    default_left = torch.zeros(K, M, dtype=torch.bool, device=dev)
+    is_leaf = torch.ones(K, M, dtype=torch.bool, device=dev)
+    left = torch.zeros(K, M, dtype=torch.long, device=dev)
+    right = torch.zeros(K, M, dtype=torch.long, device=dev)
+    depth = torch.zeros(K, M, dtype=torch.long, device=dev)
+    node_g = slot0(gt0[:, 0], 0.0, torch.float32)
+    node_h = slot0(ht0[:, 0], 0.0, torch.float32)
+    # best-split cache per leaf
+    bg = slot0(g0[:, 0] if depth_cap > 0 else -torch.inf, -torch.inf, torch.float32)
+    bf = slot0(f0[:, 0], 0, torch.long)
+    bb = slot0(b0[:, 0], 0, torch.long)
+    bdl = slot0(dl0[:, 0], False, torch.bool)
+    node = torch.zeros(K, n, dtype=torch.long, device=dev)
+    n_nodes = torch.ones(K, dtype=torch.long, device=dev)
+    gain_pf = torch.zeros(K, n_f, dtype=torch.float32, device=dev)
+
+    def at(a, idx):
+        return torch.gather(a, 1, idx[:, None])[:, 0]
+
+    for _ in range(L - 1):
+        l = torch.argmax(bg, dim=1)  # first maximum
+        bg_l = at(bg, l)
+        do = bg_l > p.min_split_gain
+        li, ri = n_nodes, n_nodes + 1
+        fl, bl, dll = at(bf, l), at(bb, l), at(bdl, l)
+
+        def upd(a, idx, val):
+            return a.scatter(1, idx[:, None], torch.where(do, val, at(a, idx))[:, None])
+
+        feature = upd(feature, l, fl)
+        split_bin = upd(split_bin, l, bl)
+        default_left = upd(default_left, l, dll)
+        is_leaf = upd(is_leaf, l, torch.zeros_like(do))
+        left = upd(left, l, li)
+        right = upd(right, l, ri)
+        child_depth = at(depth, l) + 1
+        depth = upd(upd(depth, li, child_depth), ri, child_depth)
+        gain_pf = gain_pf.scatter_add(1, fl[:, None], torch.where(do, bg_l, 0.0)[:, None])
+
+        # route the chosen leaf's rows, then its children's histograms
+        at_l = (node == l[:, None]) & do[:, None]
+        bv = torch.gather(binned_T, 1, fl[:, None, None].expand(K, 1, n))[:, 0].long()
+        go_left = torch.where(bv == missing_id, dll[:, None], bv <= bl[:, None])
+        node = torch.where(at_l, torch.where(go_left, li[:, None], ri[:, None]), node)
+        seg_base = torch.where(at_l, torch.where(node == ri[:, None], nbt, 0), 2 * nbt)
+        cg, cf, cb, cdl, _, cgt, cht = best(seg_base.to(torch.int32), 2)
+        can_split = do & (child_depth < depth_cap)
+        cg = torch.where(can_split[:, None], cg, -torch.inf)
+
+        node_g = upd(upd(node_g, li, cgt[:, 0]), ri, cgt[:, 1])
+        node_h = upd(upd(node_h, li, cht[:, 0]), ri, cht[:, 1])
+        bg = bg.scatter(1, l[:, None], torch.where(do, -torch.inf, bg_l)[:, None])
+        bg = bg.scatter(1, li[:, None], cg[:, :1]).scatter(1, ri[:, None], cg[:, 1:])
+        bf = upd(upd(bf, li, cf[:, 0]), ri, cf[:, 1])
+        bb = upd(upd(bb, li, cb[:, 0]), ri, cb[:, 1])
+        bdl = upd(upd(bdl, li, cdl[:, 0]), ri, cdl[:, 1])
+        n_nodes = n_nodes + torch.where(do, 2, 0)
+
+    allocated = torch.arange(M, device=dev)[None, :] < n_nodes[:, None]
+    lv = _leaf_weight(node_g, node_h, p.reg_alpha, p.reg_lambda, p.learning_rate)
+    leaf_value = torch.where(is_leaf & allocated & (node_h > 0), lv, 0.0)
+    i32 = torch.int32
+    tree = (feature.to(i32), split_bin.to(i32), default_left, is_leaf, left.to(i32),
+            right.to(i32), leaf_value)
+    return tree, gain_pf, node
+
+
+def _predict_tree_lossguide(tree, binned_T: torch.Tensor, missing_id: int,
+                            n_steps: int) -> torch.Tensor:
+    """Leaf value [K, N] of one leaf-wise tree per lane on binned_T [K, F, N]
+    (pointer chasing, ``n_steps`` steps)."""
+    feature, split_bin, default_left, is_leaf, left, right, leaf_value = tree
+    K, n_f, n = binned_T.shape
+    flat = binned_T.reshape(K, n_f * n)
+    rows = torch.arange(n, device=binned_T.device)
+    node = torch.zeros(K, n, dtype=torch.long, device=binned_T.device)
+    for _ in range(n_steps):
+        bv = torch.gather(flat, 1, torch.gather(feature, 1, node).long() * n + rows).long()
+        go_left = torch.where(bv == missing_id, torch.gather(default_left, 1, node),
+                              bv <= torch.gather(split_bin, 1, node))
+        child = torch.where(go_left, torch.gather(left, 1, node), torch.gather(right, 1, node))
+        node = torch.where(torch.gather(is_leaf, 1, node), node, child.long())
+    return torch.gather(leaf_value, 1, node)
+
+
 # ---------------------------------------------------------------------------
 # the boosting loop
 # ---------------------------------------------------------------------------
@@ -321,20 +479,24 @@ def _val_logloss(margin_val, yv, vmask):
 
 
 def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[int],
-              p: GBDTParams, objective, early_stop: int, hist_fn: HistFn):
+              p: GBDTParams, objective, early_stop: int, hist_fn: HistFn,
+              seg_hist_fn: SegHistFn):
     """K batched fits. binned_T [K, F, N] int16; y, w [K, N] f32; row_ids
     [K, N]; validation binned_val_T [K, F, Nv], yv [K, Nv], vmask [K, Nv]
-    bool (None without a validation set); seeds [K].
+    bool (None without a validation set); seeds [K]. ``hist_fn`` builds a
+    depthwise fit's level histograms, ``seg_hist_fn`` a leaf-wise fit's.
 
-    Returns (Forest of [K, R, ...] buffers, gains [K, F], metrics [K, R]
-    numpy, best-iteration validation margins [K, Nv] numpy (NaN when the
-    fit did not early-stop))."""
+    Returns (Forest or LGForest of [K, R, ...] buffers, gains [K, F],
+    metrics [K, R] numpy, best-iteration validation margins [K, Nv] numpy
+    (NaN when the fit did not early-stop))."""
     if p.eval_metric != "logloss":
         raise ValueError(f"eval_metric {p.eval_metric!r}: the port evaluates logloss only")
+    if p.grow_policy not in GROW_POLICIES:
+        raise ValueError(f"grow_policy {p.grow_policy!r}: the port grows {GROW_POLICIES}")
+    lossguide = p.grow_policy == "lossguide"
     K, n_f, n = binned_T.shape
     dev = binned_T.device
     R, depth = p.n_rounds, p.max_depth
-    n_int, n_heap = 2 ** depth - 1, 2 ** (depth + 1) - 1
     has_val = binned_val_T is not None
     nv = binned_val_T.shape[2] if has_val else 1
 
@@ -342,11 +504,22 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
     k_sub = torch.from_numpy(np.stack([r[0] for r in rand])).to(dev)  # [K, R, 2]
     col_masks = torch.from_numpy(np.stack([r[1] for r in rand])).to(dev)  # [K, R, F]
 
-    bufs = [torch.zeros(K, R, n_int, dtype=torch.int32, device=dev),
-            torch.full((K, R, n_int), -1, dtype=torch.int32, device=dev),
-            torch.zeros(K, R, n_int, dtype=torch.bool, device=dev),
-            torch.zeros(K, R, n_int, dtype=torch.bool, device=dev),
-            torch.zeros(K, R, n_heap, dtype=torch.float32, device=dev)]
+    if lossguide:
+        M = 2 * p.max_leaves - 1
+        lg_steps = lossguide_steps(p)
+        i32 = dict(dtype=torch.int32, device=dev)
+        bufs = [torch.zeros(K, R, M, **i32), torch.full((K, R, M), -1, **i32),
+                torch.zeros(K, R, M, dtype=torch.bool, device=dev),
+                torch.ones(K, R, M, dtype=torch.bool, device=dev),
+                torch.zeros(K, R, M, **i32), torch.zeros(K, R, M, **i32),
+                torch.zeros(K, R, M, dtype=torch.float32, device=dev)]
+    else:
+        n_int, n_heap = 2 ** depth - 1, 2 ** (depth + 1) - 1
+        bufs = [torch.zeros(K, R, n_int, dtype=torch.int32, device=dev),
+                torch.full((K, R, n_int), -1, dtype=torch.int32, device=dev),
+                torch.zeros(K, R, n_int, dtype=torch.bool, device=dev),
+                torch.zeros(K, R, n_int, dtype=torch.bool, device=dev),
+                torch.zeros(K, R, n_heap, dtype=torch.float32, device=dev)]
     metrics = torch.full((K, R), torch.inf if has_val else torch.nan, device=dev)
     gain_sum = torch.zeros(K, n_f, dtype=torch.float32, device=dev)
     margin = torch.full((K, n), p.base_score, dtype=torch.float32, device=dev)
@@ -374,8 +547,12 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
             grad = torch.where(m, grad, 0.0)
             hess = torch.where(m, hess, 0.0)
         gh = torch.stack([grad, hess], dim=-1).contiguous()
-        tree, gains, node = _train_tree(binned_T, gh, col_masks[:, r], p, hist_fn)
-        new_margin = margin + torch.gather(tree[4], 1, node)
+        if lossguide:
+            tree, gains, node = _train_tree_lossguide(binned_T, gh, col_masks[:, r], p,
+                                                      seg_hist_fn)
+        else:
+            tree, gains, node = _train_tree(binned_T, gh, col_masks[:, r], p, hist_fn)
+        new_margin = margin + torch.gather(tree[-1], 1, node)
 
         a1 = active[:, None]
         margin = torch.where(a1, new_margin, margin)
@@ -384,7 +561,10 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
         gain_sum = torch.where(a1, gain_sum + gains, gain_sum)
         if not has_val:
             continue
-        new_mv = margin_val + _predict_tree(tree, binned_val_T, p.n_bins, depth + 1)
+        if lossguide:
+            new_mv = margin_val + _predict_tree_lossguide(tree, binned_val_T, p.n_bins, lg_steps)
+        else:
+            new_mv = margin_val + _predict_tree(tree, binned_val_T, p.n_bins, depth + 1)
         metric = _val_logloss(new_mv, yv, vmask)
         margin_val = torch.where(a1, new_mv, margin_val)
         metrics[:, r] = torch.where(active, metric, metrics[:, r])
@@ -400,7 +580,8 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
 
     if not early:
         best_mv = torch.full_like(best_mv, torch.nan)
-    return Forest(*bufs), gain_sum, metrics.cpu().numpy(), best_mv.cpu().numpy()
+    forest = LGForest(*bufs) if lossguide else Forest(*bufs)
+    return forest, gain_sum, metrics.cpu().numpy(), best_mv.cpu().numpy()
 
 
 def _best_iteration(h: np.ndarray, early_stopping_rounds: Optional[int]) -> int:
@@ -428,7 +609,7 @@ def _models_from_fit(forest: Forest, gains, metrics, best_mv, specs, params,
             if early_stopping_rounds and np.isfinite(best_mv[k]).all():
                 val_margin = best_mv[k]
         models.append(GBDTModel(
-            forest=Forest(*[a[k] for a in forest]), bin_spec=spec, params=params,
+            forest=type(forest)(*[a[k] for a in forest]), bin_spec=spec, params=params,
             best_iteration=best_it, importance_gain=gains[k],
             eval_history=metrics[k], val_margin=val_margin))
     return models
@@ -446,10 +627,12 @@ def train_gbdt(X_train: np.ndarray, y_train: np.ndarray,
                scale_pos_weight: float = 1.0, objective: Optional[Objective] = None,
                X_val: Optional[np.ndarray] = None, y_val: Optional[np.ndarray] = None,
                early_stopping_rounds: Optional[int] = None, device: DeviceLike = None,
-               hist_fn: HistFn = hist_cuda.build_histograms) -> GBDTModel:
+               hist_fn: HistFn = hist_cuda.build_histograms,
+               seg_hist_fn: SegHistFn = hist_cuda.build_seg_histograms) -> GBDTModel:
     """Fit one boosted-tree model (``xgb.train`` with the reference's
-    parameter surface). ``hist_fn`` builds the level histograms: the K1
-    wrapper, or a plain version to compare the fit against."""
+    parameter surface). ``hist_fn`` builds a depthwise fit's level
+    histograms (the K1 wrapper), ``seg_hist_fn`` a leaf-wise fit's (the K3
+    wrapper); either may be a plain version to compare the fit against."""
     dev = resolve_device(device)
     objective = objective or objectives.logistic
     X_train = np.asarray(X_train, np.float32)
@@ -478,7 +661,7 @@ def train_gbdt(X_train: np.ndarray, y_train: np.ndarray,
     es = int(early_stopping_rounds or 0)
     forest, gains, metrics, best_mv = _fit_impl(
         binned_T, y, w, row_ids, binned_val_T, yv, vmask, [params.seed], params,
-        objective, es, hist_fn)
+        objective, es, hist_fn, seg_hist_fn)
     return _models_from_fit(forest, gains, metrics, best_mv, [bin_spec], params,
                             has_val, early_stopping_rounds)[0]
 
@@ -547,9 +730,12 @@ def train_gbdt_folds(folds, params: GBDTParams, objective: Optional[Objective] =
                      early_stopping_rounds: Optional[int] = None,
                      pad_rows_to: Optional[int] = None,
                      pad_val_rows_to: Optional[int] = None, device: DeviceLike = None,
-                     hist_fn: HistFn = hist_cuda.build_histograms) -> List[GBDTModel]:
+                     hist_fn: HistFn = hist_cuda.build_histograms,
+                     seg_hist_fn: SegHistFn = hist_cuda.build_seg_histograms
+                     ) -> List[GBDTModel]:
     """Train every CV fold as ONE batched fit (a leading fold axis on every
-    tensor; one K1 launch per level covers all folds).
+    tensor; one K1 launch per level, or one K3 launch per leaf-wise split
+    step, covers all folds).
 
     ``folds``: dicts with y, w (optional), y_val, spw, seed (optional) and
     either X / X_val or a shared X_parent with tr_idx / va_idx (X may then
@@ -563,7 +749,7 @@ def train_gbdt_folds(folds, params: GBDTParams, objective: Optional[Objective] =
     forest, gains, metrics, best_mv = _fit_impl(
         arrs["binned_T"], arrs["y"], arrs["w"], arrs["row_ids"], arrs["binned_val_T"],
         arrs["yv"], arrs["vmask"], [f.get("seed", params.seed) for f in folds], params,
-        objective, es, hist_fn)
+        objective, es, hist_fn, seg_hist_fn)
     return _models_from_fit(forest, gains, metrics, best_mv, specs, params, True,
                             early_stopping_rounds)
 
@@ -572,14 +758,16 @@ def train_gbdt_folds(folds, params: GBDTParams, objective: Optional[Objective] =
 # prediction
 # ---------------------------------------------------------------------------
 
-def predict_margin_folds(forest: Forest, binned: torch.Tensor,
+def predict_margin_folds(forest, binned: torch.Tensor,
                          n_trees: torch.Tensor, missing_id: int, depth: int,
                          base_score: float = 0.0) -> torch.Tensor:
     """Margins [K, N] of K stacked fold forests ([K, R, ...]) on a binned
     matrix, shared [N, F] or one per fold [K, N, F]. Tree r of fold k
     counts only when r < n_trees[k] (the early-stopping
     ``best_iteration + 1`` truncation). Every tree of every fold routes at
-    once, one level at a time, over a [K, N, R] node tensor."""
+    once, one level at a time, over a [K, N, R] node tensor: ``depth`` + 1
+    heap levels of a ``Forest`` (depth = max_depth), ``depth``
+    pointer-chasing steps of an ``LGForest`` (depth = ``lossguide_steps``)."""
     K, R, n_internal = forest.feature.shape
     N = binned.shape[-2]
     dev = binned.device
@@ -589,14 +777,20 @@ def predict_margin_folds(forest: Forest, binned: torch.Tensor,
     kk = torch.arange(K, device=dev)[:, None, None]
     rr = torch.arange(R, device=dev)[None, None, :]
     node = torch.zeros(K, N, R, dtype=torch.long, device=dev)
-    for _ in range(depth + 1):
-        cn = node.clamp(0, n_internal - 1)
+    lossguide = isinstance(forest, LGForest)
+    for _ in range(depth if lossguide else depth + 1):
+        cn = node if lossguide else node.clamp(0, n_internal - 1)
         feat = forest.feature[kk, rr, cn].long()  # [K, N, R]
         bv = torch.gather(b, 2, feat)
         go_left = torch.where(bv == missing_id, forest.default_left[kk, rr, cn],
                               bv <= forest.split_bin[kk, rr, cn])
-        child = 2 * node + torch.where(go_left, 1, 2)
-        stays = (node >= n_internal) | forest.is_leaf[kk, rr, cn]
+        if lossguide:
+            child = torch.where(go_left, forest.left[kk, rr, cn],
+                                forest.right[kk, rr, cn]).long()
+            stays = forest.is_leaf[kk, rr, cn]
+        else:
+            child = 2 * node + torch.where(go_left, 1, 2)
+            stays = (node >= n_internal) | forest.is_leaf[kk, rr, cn]
         node = torch.where(stays, node, child)
     leaf = forest.leaf_value[kk, rr, node]  # [K, N, R]
     live = torch.arange(R, device=dev)[None, :] < n_trees.to(dev)[:, None]  # [K, R]
@@ -608,16 +802,24 @@ def predict_margin_folds(forest: Forest, binned: torch.Tensor,
 PREDICT_CHUNK = 2048
 
 
-def predict_margin_models(models: Sequence[GBDTModel], X: torch.Tensor) -> torch.Tensor:
-    """Margins [K, N] of K same-config fold models on one float matrix
-    [N, F] (each fold bins it with its own edges), in row chunks."""
+def predict_margin_models(models: Sequence[GBDTModel], X) -> torch.Tensor:
+    """Margins [K, N] of K same-config fold models (depthwise or leaf-wise)
+    on one float matrix [N, F], or on one matrix per fold (a sequence of
+    [N_k, F], padded to the longest with NaN rows), each fold binning with
+    its own edges, in row chunks."""
     p = models[0].params
     forest = stack_forests([m.forest for m in models])
     n_trees = torch.tensor([m.n_trees for m in models])
+    depth = lossguide_steps(p) if isinstance(forest, LGForest) else p.max_depth
+    if not torch.is_tensor(X):
+        n_max = max(x.shape[0] for x in X)
+        X = torch.stack([torch.cat([x, x.new_full((n_max - x.shape[0], x.shape[1]),
+                                                  float("nan"))]) for x in X])
     out = []
-    for s in range(0, X.shape[0], PREDICT_CHUNK):
-        Xc = X[s:s + PREDICT_CHUNK]
-        binned = torch.stack([apply_bins(m.bin_spec, Xc) for m in models])
-        out.append(predict_margin_folds(forest, binned, n_trees, p.n_bins, p.max_depth,
+    for s in range(0, X.shape[-2], PREDICT_CHUNK):
+        Xc = X[..., s:s + PREDICT_CHUNK, :]
+        binned = torch.stack([apply_bins(m.bin_spec, Xc if Xc.dim() == 2 else Xc[k])
+                              for k, m in enumerate(models)])
+        out.append(predict_margin_folds(forest, binned, n_trees, p.n_bins, depth,
                                         p.base_score))
     return torch.cat(out, dim=1)

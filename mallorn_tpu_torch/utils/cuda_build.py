@@ -126,8 +126,12 @@ def load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.mallorn_chol_inv.argtypes = [p, p, p, i, i, p]
             lib.mallorn_chol_inv.restype = ctypes.c_int
+            lib.mallorn_chol_inv_large.argtypes = [p, p, p, p, i, i, p]
+            lib.mallorn_chol_inv_large.restype = ctypes.c_int
             lib.mallorn_hist.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.mallorn_hist.restype = ctypes.c_int
+            lib.mallorn_seg_hist.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.mallorn_seg_hist.restype = ctypes.c_int
             lib.mallorn_cuda_error_string.argtypes = [i]
             lib.mallorn_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

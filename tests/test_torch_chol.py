@@ -4,16 +4,17 @@
 ``chol_inv`` runs on a CPU tensor) against ``cholesky_inverse_lanes`` in
 Pallas interpret mode and against float64 numpy, at the bars of
 ``tests/test_chol_pallas.py``: Linv 5e-5, logdet rtol 1e-5 / atol 1e-4,
-Kinv rtol 1e-4. The CUDA kernel itself is held against the same plain
-version on the card by ``chip_smoke.py``.
+Kinv rtol 1e-4. The CUDA kernels themselves are held against the same
+plain version on the card by ``chip_smoke.py`` and by the ``cuda`` case
+below. The machine with the card has no JAX, so the JAX package is
+imported inside the tests that use it, and the file runs there as
+``pytest --noconftest -m cuda tests/test_torch_chol.py``.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from mallorn_tpu.ops.chol_pallas import cholesky_inverse_lanes
 from mallorn_tpu_torch.ops import chol_cuda
 from mallorn_tpu_torch.ops.chol_cuda import cho_solve, chol_inv, chol_inv_plain
 
@@ -32,6 +33,12 @@ def _spd(b, t, seed=0, n_pad=0):
     return K.astype(np.float32)
 
 
+def cholesky_inverse_lanes(K, interpret):
+    from mallorn_tpu.ops.chol_pallas import cholesky_inverse_lanes as lanes
+
+    return lanes(K, interpret=interpret)
+
+
 def _f64_reference(K):
     L = np.linalg.cholesky(K.astype(np.float64))
     Linv = np.stack([np.linalg.inv(l) for l in L])
@@ -44,7 +51,7 @@ def test_chol_inv_plain_matches_pallas_and_f64(b, t, n_pad):
     Linv, ld = chol_inv(torch.from_numpy(K))  # CPU tensor -> plain version
     Linv, ld = Linv.numpy(), ld.numpy()
 
-    j_Linv, j_ld = cholesky_inverse_lanes(jnp.asarray(K), interpret=True)
+    j_Linv, j_ld = cholesky_inverse_lanes(np.asarray(K), interpret=True)
     np.testing.assert_allclose(Linv, np.asarray(j_Linv), rtol=5e-5, atol=5e-5)
     np.testing.assert_allclose(ld, np.asarray(j_ld), rtol=1e-5, atol=1e-4)
 
@@ -72,7 +79,7 @@ def test_non_spd_gives_nan_not_an_exception():
     assert torch.isnan(ld).tolist() == [False, True, False]
     assert bool(torch.isnan(Linv[1]).any())
     assert bool(torch.isfinite(Linv[0]).all()) and bool(torch.isfinite(Linv[2]).all())
-    j_Linv, j_ld = cholesky_inverse_lanes(jnp.asarray(K), interpret=True)
+    j_Linv, j_ld = cholesky_inverse_lanes(np.asarray(K), interpret=True)
     assert np.isnan(np.asarray(j_ld)).tolist() == [False, True, False]
 
 
@@ -91,3 +98,57 @@ def test_plain_calls_are_not_counted_and_other_devices_raise():
     assert chol_cuda.launches == 0
     with pytest.raises(ValueError):
         chol_inv(torch.empty(2, 8, 8, device="meta"))
+
+
+def test_gp_features_of_objects_wider_than_the_shared_memory_kernel():
+    """Objects with more than MAX_T = 240 usable points (a compacted width
+    of 320): the GP family through ``chol_inv`` (its plain version here;
+    the wide kernel on the card) against the JAX package's, at the gate of
+    tests/test_torch_gp.py (per column >= 90% of lanes within rtol 2e-3,
+    mean >= 97%)."""
+    from mallorn_tpu.data.synthetic import generate_dataset
+    from mallorn_tpu.features import multiband_gp as jgp
+    from mallorn_tpu_torch.data.packing import from_numpy
+    from mallorn_tpu_torch.features import multiband_gp as tgp
+
+    packed, _, _ = generate_dataset(n_objects=4, seed=5, mean_obs_per_band=48.0)
+    tp = from_numpy([np.asarray(x) for x in packed[:-1]], packed.time_offset, device="cpu")
+    counts = tgp._use_mask(tp).sum(1).numpy()
+    _, widths = tgp.gp_schedule(counts, tp.all_time.shape[1], 8)
+    assert counts.min() > chol_cuda.MAX_T and widths[0] > chol_cuda.MAX_T
+    want = {k: np.asarray(v, np.float64) for k, v in jgp.extract(packed, n_steps=8).items()}
+    got = {k: v.double().numpy() for k, v in tgp.extract(tp, n_steps=8).items()}
+    assert list(got) == list(want)
+    fracs = []
+    for k in want:
+        a, b = want[k], got[k]
+        np.testing.assert_array_equal(np.isnan(b), np.isnan(a), err_msg=k)
+        close = np.isclose(b, a, rtol=2e-3, atol=2e-3 * np.nanmax(np.abs(a), initial=0.0))
+        close |= np.isnan(a) & np.isnan(b)
+        assert close.mean() >= 0.90, (k, close.mean())
+        fracs.append(close.mean())
+    assert np.mean(fracs) >= 0.97
+
+
+@pytest.mark.cuda
+def test_wide_kernel_matches_plain_on_the_card():
+    """T > MAX_T takes the wide kernel (Schur complement in a global
+    scratch) at the bars above; a non-positive pivot gives NaN in that
+    matrix only."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    for t in (256, 320, 400):
+        K = torch.from_numpy(_spd(6, t, seed=t, n_pad=t // 8)).cuda()
+        K[2, 7, 7] = -1.0
+        chol_cuda.reset_launches()
+        Linv, ld = chol_inv(K)
+        torch.cuda.synchronize()
+        assert chol_cuda.large_launches >= 1 and chol_cuda.launches == 0
+        Lp, ldp = chol_inv_plain(K.double())
+        ok = [0, 1, 3, 4, 5]
+        assert torch.isnan(ld).tolist() == [i == 2 for i in range(6)]
+        np.testing.assert_allclose(Linv[ok].cpu().numpy(), Lp[ok].cpu().numpy(),
+                                   rtol=5e-5, atol=5e-5)
+        np.testing.assert_allclose(ld[ok].cpu().numpy(), ldp[ok].cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4)
+        assert float(torch.triu(Linv[ok], 1).abs().max()) == 0.0

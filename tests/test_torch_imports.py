@@ -44,7 +44,7 @@ def test_import_closure_has_no_jax_pandas_sklearn_or_jax_package():
     walked = set(lines["NAMES"].split(","))
     for m in ("utils.prng", "trees.objectives", "trees.xla_cpu", "ops.hist_cuda",
               "train.cv", "train.adversarial", "train.feature_selection",
-              "train.pipelines", "io.submission"):
+              "train.pipelines", "io.submission", "io.model_store", "features.research"):
         assert f"mallorn_tpu_torch.{m}" in walked, m
     assert lines["BANNED"].strip() == "", f"the port pulled in: {lines['BANNED']}"
 

@@ -1,0 +1,75 @@
+"""Port -> JAX package: model files written by the port.
+
+A depthwise CV trained by the port (``train_cv``) is saved with the
+port's ``save_cv_models``; the JAX package's ``load_cv_models`` reads it
+and its ``predict_proba_folds`` gives the port's fold probabilities to
+1e-6. The port reads its own files back to the same tensors. The format
+has no child pointers, so a leaf-wise model refuses to be saved. (The
+other direction, a JAX-trained model served by the port, is
+tests/test_torch_serving.py.)
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from mallorn_tpu.io import model_store as jstore
+from mallorn_tpu.trees.gbdt import predict_proba_folds
+from mallorn_tpu_torch.io import model_store as tstore
+from mallorn_tpu_torch.train.cv import train_cv
+from mallorn_tpu_torch.trees.gbdt import GBDTParams, predict_margin_models, train_gbdt
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def trained():
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(300, 9)).astype(np.float32)
+    y = (X[:, 0] - 0.7 * X[:, 4] + 0.5 * rng.normal(size=300) > 0.4).astype(np.float32)
+    X[rng.random(X.shape) < 0.1] = np.nan
+    cv = train_cv(X, y, None, GBDTParams(n_rounds=30, max_depth=4, learning_rate=0.2),
+                  n_folds=3, device="cpu")
+    return X, cv
+
+
+def test_port_saved_model_loads_in_jax_and_predicts_the_same(trained, tmp_path):
+    X, cv = trained
+    names = [f"c{i}" for i in range(X.shape[1])]
+    tstore.save_cv_models(tmp_path, cv.models, cv.best_threshold, names)
+    jmodels, man = jstore.load_cv_models(tmp_path)
+    assert man == {"n_folds": 3, "threshold": cv.best_threshold, "feature_names": names}
+    Xt = torch.from_numpy(X)
+    want = torch.sigmoid(predict_margin_models(cv.models, Xt)).numpy()
+    got = np.asarray(predict_proba_folds(jmodels, X))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    for jm, tm in zip(jmodels, cv.models):
+        assert jm.best_iteration == tm.best_iteration
+        assert jm.params.max_depth == tm.params.max_depth
+        np.testing.assert_array_equal(np.asarray(jm.bin_spec.edges), tm.bin_spec.edges.numpy())
+
+
+def test_port_reads_its_own_files_back(trained, tmp_path):
+    X, cv = trained
+    tstore.save_cv_models(tmp_path, cv.models, cv.best_threshold, ["a"] * X.shape[1])
+    models, man = tstore.load_cv_models(tmp_path, device="cpu")
+    assert json.loads((tmp_path / "manifest.json").read_text()) == man
+    for a, b in zip(models, cv.models):
+        for x, z in zip(a.forest, b.forest):
+            assert torch.equal(x, z)
+        assert a.params == b.params and a.best_iteration == b.best_iteration
+        np.testing.assert_array_equal(a.eval_history, b.eval_history)
+        np.testing.assert_array_equal(a.importance_gain, b.importance_gain)
+    assert not list(tmp_path.glob("*.tmp*"))
+
+
+def test_leaf_wise_models_cannot_be_saved(trained, tmp_path):
+    X, cv = trained
+    y = (np.nan_to_num(X[:, 0]) > 0).astype(np.float32)
+    lg = train_gbdt(X, y, GBDTParams(n_rounds=3, grow_policy="lossguide", max_leaves=4),
+                    device="cpu")
+    with pytest.raises(ValueError, match="child pointers"):
+        tstore.save_model(tmp_path / "lg.npz", lg)
+    assert not (tmp_path / "lg.npz").exists()
