@@ -12,6 +12,11 @@ Phases, each printing its wall time on its own line:
    B=2047, T=72, its wide variant (T > 240) at B=64, T=256/320 and at the
    wide server's B=2048, T=256, a non-SPD matrix giving NaN in each, and
    times (kernel, plain, a two-call library yardstick, the roofline bound);
+   the factor-only Cholesky kernel (K6) against its plain version at
+   B=2048, T=64/160/192 and B=64, T=256/320 (rtol / atol 2e-5, upper
+   triangle exactly 0, two launches bit for bit equal), a non-SPD matrix
+   giving NaN in that matrix only, and its times (library:
+   ``cholesky_ex``);
 4. serving: the 7,124-object test split of ``.bench_data_v2.npz`` through
    ``V92dServer`` at full v92d width (5 folds x 500 trees of depth 5 over
    222 columns, random weights from a fixed seed, bin edges fitted on the
@@ -29,7 +34,11 @@ Phases, each printing its wall time on its own line:
    plain version (float32 and float64, and bit for bit against its
    fixed-point arithmetic in plain PyTorch), two launches of each bit for
    bit equal, and times (kernel, plain, a one-call ``scatter_add_``
-   yardstick, the bound);
+   yardstick, the bound); then the histogram modes' kernels, K5 (int8
+   fixed-point digits) bit for bit equal to its plain version and K4 (bf16
+   digits) within rtol 1e-5 / atol 1e-4 of the float64 oracle, at every
+   K1 shape and the ragged one, two launches of each bit for bit equal,
+   with the same times;
 7. kernel against plain in training: a 600 x 30 fixture (NaNs, subsample
    and colsample 0.8, 20 rounds of depth 5) fitted with K1 twice and once
    with the kernel's fixed-point arithmetic in plain PyTorch, and the same
@@ -40,6 +49,10 @@ Phases, each printing its wall time on its own line:
    assembly, adversarial weights, the 5-fold v92d CV, the threshold sweep)
    with the seconds of each stage; OOF F1 must reach 0.633 and the K1
    launch count must equal the rounds each fit ran times its depth;
+   then the histogram modes: the same workload with
+   ``hist_dtype="int8"`` (K5) and ``"i8bf16"`` (K4) in all three fits,
+   each with its stage seconds, OOF F1 (gate 0.633) and test F1, the mode
+   kernel's launches equal to rounds x depth and no K1 launch;
 9. serving the trained model: the v92d winner saved with
    ``save_cv_models``, loaded back and served over the test split through
    ``V92dServer`` at that split's ``serving_config``; the served
@@ -143,6 +156,17 @@ ENSEMBLE_F1_GATE, V114D_F1_GATE = 0.637, 0.641
 # 0.093). Served in the training run's own GP chunks, every row must agree.
 SERVE_RTOL, SERVE_SHARE, SERVE_MAX_DP = 1e-4, 0.97, 0.15
 WIDE_T = 256  # the wide server's GP width (> chol_cuda.MAX_T)
+# the factor-only Cholesky (K6): the bars of tests/test_chol_pallas.py:19
+CHOL_TOL = (2e-5, 2e-5)
+# the histogram modes run through the training path, in this order, and
+# the kernel each runs: (row name, launch counter, wrapper, plain version)
+MODES = ("int8", "i8bf16")
+MODE_KERNELS = {
+    "int8": ("hist_i8", "i8_launches", hist_cuda.build_histograms_i8,
+             hist_cuda.build_histograms_i8_plain),
+    "i8bf16": ("hist_bf16", "bf16_launches", hist_cuda.build_histograms_bf16,
+               hist_cuda.build_histograms_bf16_plain),
+}
 
 
 def log(msg: str) -> None:
@@ -268,6 +292,58 @@ def check_non_spd(T: int = 64) -> None:
         raise AssertionError("a non-positive pivot must give NaN in that matrix only")
     if torch.isnan(ldp).tolist() != nan_k:
         raise AssertionError("plain version disagrees on the NaN lanes")
+
+
+def check_cholesky(B: int, T: int, seed: int) -> dict:
+    """K6 (``chol_cuda.cholesky``) against its plain version (float32 and
+    float64) at CHOL_TOL, its upper triangle exactly 0, two launches bit for
+    bit equal; times (kernel, plain, ``cholesky_ex``, the bound)."""
+    K = spd_batch(B, T, seed).float().contiguous()
+    L = chol_cuda.cholesky(K)
+    L2 = chol_cuda.cholesky(K)
+    torch.cuda.synchronize()
+    repeat_equal = bool(torch.equal(L, L2))
+    upper_zero = float(torch.triu(L, 1).abs().max()) == 0.0
+    rows = {"vs_plain": close(L, chol_cuda.cholesky_plain(K), *CHOL_TOL),
+            "vs_f64": close(L, chol_cuda.cholesky_plain(K.double()), *CHOL_TOL)}
+    tag = f"cholesky B={B} T={T}"
+    for name, (abs_e, rel_e, ok) in rows.items():
+        log(f"  {tag} {name}: max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
+            f"(rtol={CHOL_TOL[0]:g}, atol={CHOL_TOL[1]:g}) {'ok' if ok else 'FAIL'}")
+    log(f"  {tag} upper triangle exactly 0: {upper_zero}; two launches bit for bit "
+        f"equal: {repeat_equal}")
+    if not (repeat_equal and upper_zero) or not all(ok for _, _, ok in rows.values()):
+        raise AssertionError(f"K6 {tag} failed its checks")
+
+    ms = cuda_ms(lambda: chol_cuda.cholesky(K), reps=20 if T <= chol_cuda.MAX_T else 5)
+    plain_ms = cuda_ms(lambda: chol_cuda.cholesky_plain(K), reps=2, warmup=1)
+    library_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps=10)
+    # K's lower triangle in, L out; T^3/3 flops per matrix
+    n_bytes = B * (T * (T + 1) // 2 + T * T) * 4
+    n_flop = B * T ** 3 / 3.0
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_flop = n_flop / F32_FLOP_PER_S * 1e3
+    res = {"B": B, "T": T, "max_abs_err": rows["vs_plain"][0], "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_bytes, t_flop),
+           "bound_by": "bytes" if t_bytes >= t_flop else "operations"}
+    log(f"  {tag} times: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"library_ms={library_ms:.4f} (cholesky_ex, a yardstick the port never calls) "
+        f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: {n_bytes / 1e6:.1f} MB, "
+        f"{n_flop / 1e9:.2f} GFLOP)")
+    return res
+
+
+def check_cholesky_non_spd(T: int) -> None:
+    K = spd_batch(4, T, 7).float()
+    K[1, 10, 10] = -1.0
+    L = chol_cuda.cholesky(K.contiguous())
+    torch.cuda.synchronize()
+    nan_k = torch.isnan(L).flatten(1).any(dim=1).tolist()
+    plain_k = torch.isnan(chol_cuda.cholesky_plain(K)).flatten(1).any(dim=1).tolist()
+    log(f"  cholesky T={T} non-SPD matrix 1 of 4: matrices with NaN {nan_k} (plain "
+        f"version {plain_k})")
+    if nan_k != [False, True, False, False] or plain_k != nan_k:
+        raise AssertionError("K6: a non-positive pivot must give NaN in that matrix only")
 
 
 def column_agreement(got: dict, want: dict, rtol: float) -> dict:
@@ -439,11 +515,20 @@ def check_hist(fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
         f"fixed-point arithmetic in plain PyTorch: {fixed_equal}")
     if not (repeat_equal and fixed_equal) or not all(ok for _, _, ok in rows.values()):
         raise AssertionError(f"K1 {tag} failed its checks")
+    return {"fit": fit, "K": K, "F": F, "N": N, "nodes": k_nodes,
+            "max_abs_err": rows["vs_plain"][0],
+            **hist_times(tag, hist_cuda.build_histograms, hist_cuda.build_histograms_plain,
+                         binned, node_q, gh, k_nodes)}
 
+
+def hist_times(tag: str, kernel, plain, binned, node_q, gh, k_nodes: int) -> dict:
+    """Times of a level-histogram wrapper (K1, K4, K5) and its plain
+    version, a one-call ``scatter_add_`` yardstick, and the bound."""
+    K, F, N = binned.shape
     # the yardstick: one scatter_add_ over every (fold, feature, node, bin)
     # segment (the segment ids and the expanded values are set-up, untimed)
     nq = node_q.long()
-    active = nq < k_nodes
+    active = (nq >= 0) & (nq < k_nodes)
     n_seg = K * F * k_nodes * N_BINS_TOT
     kf = (torch.arange(K, device="cuda")[:, None] * F + torch.arange(F, device="cuda")[None, :])
     seg = (kf[:, :, None] * k_nodes + nq[:, None, :]) * N_BINS_TOT + binned.long()
@@ -451,10 +536,8 @@ def check_hist(fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
     vals = gh[:, None, :, :].expand(K, F, N, 2).reshape(-1, 2)
     sink = torch.zeros(n_seg + 1, 2, device="cuda")
 
-    ms = cuda_ms(lambda: hist_cuda.build_histograms(binned, node_q, gh, k_nodes, N_BINS_TOT),
-                 reps=50)
-    plain_ms = cuda_ms(lambda: hist_cuda.build_histograms_plain(binned, node_q, gh, k_nodes,
-                                                                N_BINS_TOT), reps=3, warmup=1)
+    ms = cuda_ms(lambda: kernel(binned, node_q, gh, k_nodes, N_BINS_TOT), reps=50)
+    plain_ms = cuda_ms(lambda: plain(binned, node_q, gh, k_nodes, N_BINS_TOT), reps=3, warmup=1)
     library_ms = cuda_ms(lambda: sink.scatter_add_(0, seg, vals), reps=20)
     # bins, node ids and (g, h) in, the histograms out; two adds per active
     # (row, feature)
@@ -462,15 +545,50 @@ def check_hist(fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
     n_ops = 2.0 * F * float(active.sum())
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_FLOP_PER_S * 1e3
-    res = {"fit": fit, "K": K, "F": F, "N": N, "nodes": k_nodes,
-           "max_abs_err": rows["vs_plain"][0], "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+    res = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     log(f"  {tag} times: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
         f"library_ms={library_ms:.4f} (one scatter_add_, a yardstick the port never "
         f"calls) bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: "
         f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M adds)")
     return res
+
+
+def check_mode_hist(mode: str, fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
+                    inactive: float = 0.0) -> dict:
+    """A histogram mode's kernel (K5 for "int8", K4 for "i8bf16") at one of
+    K1's shapes: K5 bit for bit equal to its plain version, K4 within
+    HIST_TOL of the float64 oracle; two launches bit for bit equal; times."""
+    name, _, kernel, plain_fn = MODE_KERNELS[mode]
+    binned, node_q, gh = hist_inputs(K, F, N, k_nodes, seed, inactive)
+    a = kernel(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    b = kernel(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    torch.cuda.synchronize()
+    repeat_equal = bool(torch.equal(a, b))
+    plain = plain_fn(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    f64 = hist_cuda.build_histograms_plain(binned, node_q, gh.double(), k_nodes, N_BINS_TOT)
+    tag = f"{name} {fit} K={K} F={F} N={N} nodes={k_nodes} inactive={inactive:g}"
+    vs_plain = close(a, plain, *HIST_TOL)
+    vs_f64 = close(a, f64, *HIST_TOL)
+    if mode == "int8":
+        plain_equal = bool(torch.equal(a, plain))
+        # the quantization's bound (hist_pallas.py:317-329): N s 2^-27
+        q_bound = (N * gh.abs().amax(dim=1) * 2.0 ** -27).max().item()
+        log(f"  {tag}: bit for bit equal to its plain version: {plain_equal}; vs_f64 "
+            f"max_abs={vs_f64[0]:.3e} (quantization bound N s 2^-27 = {q_bound:.3e})")
+        ok = plain_equal
+    else:
+        log(f"  {tag} vs_f64: max_abs={vs_f64[0]:.3e} max_rel={vs_f64[1]:.3e} "
+            f"(rtol={HIST_TOL[0]:g}, atol={HIST_TOL[1]:g}) {'ok' if vs_f64[2] else 'FAIL'}; "
+            f"vs the float32 plain version: max_abs={vs_plain[0]:.3e}")
+        ok = vs_f64[2]
+    log(f"  {tag} two launches bit for bit equal: {repeat_equal}")
+    if not (ok and repeat_equal):
+        raise AssertionError(f"{name} {tag} failed its checks")
+    return {"fit": fit, "K": K, "F": F, "N": N, "nodes": k_nodes,
+            "max_abs_err": vs_plain[0],
+            **hist_times(tag, kernel, plain_fn, binned, node_q, gh, k_nodes)}
 
 
 def check_seg_hist(name: str, K: int, F: int, N: int, n_nodes: int, seed: int,
@@ -656,6 +774,47 @@ def run_training(device) -> dict:
     return {"launches": launches, "chol_launches": chol_launches, "oof_f1": win.best_f1,
             "total_s": out.timings["total"], "out": out, "te": (te_packed, te_meta),
             "tr": (tr_packed, tr_meta)}
+
+
+def run_mode_training(mode: str, trained: dict, dev) -> dict:
+    """``train_v92d`` with every fit (selection, adversarial, v92d) in the
+    histogram mode ``mode``: stage seconds, OOF F1 (gate F1_GATE), test F1,
+    and the mode kernel's launches, which must equal the rounds each fit ran
+    times its depth, with no launch of K1 or of the other mode's kernel."""
+    tr_packed, tr_meta = trained["tr"]
+    te_packed, te_meta = trained["te"]
+    name, counter, _, _ = MODE_KERNELS[mode]
+    hist_cuda.reset_launches()
+    out = train_v92d(tr_packed, tr_meta, te_packed, te_meta, gp_steps=GP_STEPS,
+                     selection_cache=None, params=V34A_PARAMS._replace(hist_dtype=mode),
+                     adv_params=ADV_PARAMS._replace(hist_dtype=mode), device=dev)
+    torch.cuda.synchronize()
+    counts = {c: getattr(hist_cuda, c)
+              for c in ("launches", "bf16_launches", "i8_launches", "seg_launches")}
+    launches = counts.pop(counter)
+    log(f"[{mode}] training stages (s): "
+        + ", ".join(f"{k}={v:.3f}" for k, v in out.timings.items()))
+    depth = {"selection": V34A_PARAMS.max_depth, "adversarial": ADV_PARAMS.max_depth,
+             "v92d": V34A_PARAMS.max_depth}
+    want = sum(out.rounds_run[k] * depth[k] for k in depth)
+    win = out.winner
+    log(f"[{mode}] rounds run: " + ", ".join(f"{k}={v}" for k, v in out.rounds_run.items())
+        + f"; {name} launches {launches} (rounds x depth predicts {want}); other "
+        f"histogram kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    log(f"[{mode}] v92d OOF F1 {win.best_f1:.4f} @ {win.best_threshold:.3f}; fold F1 "
+        + ", ".join(f"{f:.4f}" for f in win.fold_f1s)
+        + f"; TEST F1 under shift {out.test_f1:.4f}; adversarial AUC {out.adversarial.auc:.4f}")
+    if launches != want or launches == 0 or any(counts.values()):
+        raise AssertionError(f"[{mode}] the histogram launch counts disagree with the prediction")
+    oof, test = win.oof_preds, win.test_preds
+    if (oof.shape != (tr_packed.n_objects,) or test.shape != (te_packed.n_objects,)
+            or not (np.isfinite(oof).all() and np.isfinite(test).all())):
+        raise AssertionError(f"[{mode}] training produced malformed probabilities")
+    log(f"[{mode}] OOF F1 gate: {win.best_f1:.4f} >= {F1_GATE} "
+        f"{'ok' if win.best_f1 >= F1_GATE else 'FAIL'}")
+    if win.best_f1 < F1_GATE:
+        raise AssertionError(f"[{mode}] v92d OOF F1 {win.best_f1:.4f} below the gate {F1_GATE}")
+    return {"launches": launches, "oof_f1": win.best_f1, "total_s": out.timings["total"]}
 
 
 def agreement(got: np.ndarray, want: np.ndarray) -> float:
@@ -853,6 +1012,14 @@ def main() -> int:
         check_non_spd(320)
         if chol_cuda.launches or not chol_cuda.large_launches:
             raise AssertionError("T > 240 did not take the wide kernel")
+        # K6: its launches in this phase (checks and timing) are its row's
+        # count: no path of the port calls it
+        chol_cuda.reset_launches()
+        chol_results = [check_cholesky(B, T, seed=5000 + T)
+                        for B, T in ((2048, 64), (2048, 160), (2048, 192), (64, 256), (64, 320))]
+        check_cholesky_non_spd(64)
+        check_cholesky_non_spd(320)
+        k6_launches = chol_cuda.chol_launches
 
     with Phase("serving data + model"):
         packed, zz, ebv = load_test_split(dev)
@@ -921,12 +1088,21 @@ def main() -> int:
         seg_results = [check_seg_hist(name, SEG_LANES, SEG_F, N, nodes, seed=4000 + i,
                                       inactive=inactive)
                        for i, (name, N, nodes, inactive) in enumerate(SEG_SHAPES)]
+        mode_results = {mode: [check_mode_hist(mode, fit, K, F, N, k, seed=6000 + 17 * i + k)
+                               for i, (fit, K, F, N, nodes) in enumerate(HIST_SHAPES)
+                               for k in sorted(set(nodes))]
+                        for mode in MODES}
+        for mode in MODES:
+            check_mode_hist(mode, "ragged", 5, 222, 2443, 4, seed=6999, inactive=0.3)
 
     with Phase("kernel against plain in training"):
         check_training_kernel_vs_plain(dev)
 
     with Phase("training"):
         trained = run_training(dev)
+
+    with Phase("histogram modes"):
+        mode_runs = {mode: run_mode_training(mode, trained, dev) for mode in MODES}
 
     with Phase("serving the trained model"):
         served = serve_trained(trained, dev)
@@ -981,6 +1157,32 @@ def main() -> int:
         "plain_ms": main_seg["plain_ms"], "bound_ms": main_seg["bound_ms"],
         "bound_by": main_seg["bound_by"], "library_ms": main_seg["library_ms"],
         "shape": [main_seg["K"], main_seg["F"], main_seg["N"], main_seg["n_seg"]],
+    })
+    # the histogram modes' rows: the v92d CV's deepest level, launches from
+    # the mode's training run
+    for mode in MODES:
+        name = MODE_KERNELS[mode][0]
+        r = next(r for r in mode_results[mode] if (r["fit"], r["nodes"]) == ("v92d", 8))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mallorn_tpu_torch/csrc/hist.cu",
+            "replaces": ("mallorn_tpu/ops/hist_pallas.py:368" if mode == "int8"
+                         else "mallorn_tpu/ops/hist_pallas.py:202"),
+            "launches": mode_runs[mode]["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
+        })
+    # the factor-only Cholesky's row: the GP's batch at T = 160
+    r = next(r for r in chol_results if (r["B"], r["T"]) == (2048, 160))
+    kernels.append({
+        "name": "chol", "route": "cuda",
+        "source": "mallorn_tpu_torch/csrc/chol_inv.cu",
+        "replaces": "mallorn_tpu/ops/chol_pallas.py:28",
+        "launches": k6_launches,
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": [r["B"], r["T"], r["T"]],
     })
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(f"card: {smi}")  # every time above was taken on this card, at this limit

@@ -1,6 +1,7 @@
-// Batched fused Cholesky factorisation + inverse for the 2D-GP.
+// Batched Cholesky factorisation, fused with the inverse for the 2D-GP (K2)
+// or alone (K6).
 //
-// Replaces mallorn_tpu/ops/chol_pallas.py:_chol_inv_kernel (the Pallas
+// K2 replaces mallorn_tpu/ops/chol_pallas.py:_chol_inv_kernel (the Pallas
 // kernel behind cholesky_inverse_lanes). Contract, per matrix b of a
 // [B, T, T] float32 row-major batch of SPD matrices (identity on masked
 // rows):
@@ -46,6 +47,16 @@
 // matrix per SM at a time, so that the working sets stay in L2. It exists
 // so that any object width runs, as the reference's does.
 
+// K6 replaces mallorn_tpu/ops/chol_pallas.py:_chol_kernel (the Pallas
+// kernel behind cholesky_lanes): L = chol(K) alone, row-major with its
+// upper triangle exactly 0, L[j, j] = pivot * rsqrt(pivot) as the Pallas
+// kernel forms it; NaN from a non-positive pivot on, in that matrix only.
+// It is the same kernel (chol_kernel) with the inverse switched off: A
+// alone in shared memory (T(T+1)/2 floats) for T <= 240, in the global
+// scratch beyond; the diagonal is written back in phase 2 (no thread reads
+// A[j, j] there) and L goes out once, at the end. Bound: K's lower
+// triangle in, L out (B (T(T+1)/2 + T^2) 4 bytes), T^3/3 flops per matrix.
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -63,29 +74,34 @@ __device__ __forceinline__ int col_base(int c, int T) {
 __device__ __forceinline__ int row_base(int i) { return (i * (i + 1)) / 2; }
 
 // kThreadsY rows of 32 threads; small matrices take fewer threads per
-// block so more blocks share an SM and hide each other's barriers
-template <int kThreadsY>
+// block so more blocks share an SM and hide each other's barriers.
+// kInverse: K2 (Linv and logdet) or K6 (L). kShared: A (and X) in dynamic
+// shared memory (T <= 240), or A in scratch[b] and X in the output.
+template <int kThreadsY, bool kInverse, bool kShared>
 __global__ void __launch_bounds__(kThreadsX * kThreadsY)
-chol_inv_kernel(const float* __restrict__ K, float* __restrict__ Linv,
-                float* __restrict__ logdet, int T) {
+chol_kernel(const float* __restrict__ K, float* __restrict__ out,
+            float* __restrict__ logdet, float* __restrict__ scratch, int T) {
   constexpr int kThreads = kThreadsX * kThreadsY;
   extern __shared__ float smem[];
   const int tri = (T * (T + 1)) / 2;
-  float* A = smem;
-  float* X = smem + tri;
-
   const int b = blockIdx.x;
   const float* Kb = K + static_cast<size_t>(b) * T * T;
-  float* Lb = Linv + static_cast<size_t>(b) * T * T;
+  float* Ob = out + static_cast<size_t>(b) * T * T;
+  float* A = kShared ? smem : scratch + static_cast<size_t>(b) * tri;
+  float* X = kShared ? smem + tri : Ob;  // Linv in progress (kInverse)
+  // start of row i of X: packed in shared memory, full rows in the output
+  auto xrow = [T](int i) { return kShared ? row_base(i) : i * T; };
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int tid = ty * kThreadsX + tx;
 
-  // K's lower triangle into A (coalesced along each row of K); X = I
+  // K's lower triangle into A (coalesced along each row of K); X = I,
+  // over whole rows when X is the output
   for (int i = ty; i < T; i += kThreadsY) {
-    for (int c = tx; c <= i; c += kThreadsX) {
-      A[col_base(c, T) + i - c] = Kb[static_cast<size_t>(i) * T + c];
-      X[row_base(i) + c] = (i == c) ? 1.0f : 0.0f;
+    const int cols = (kInverse && !kShared) ? T : i + 1;
+    for (int c = tx; c < cols; c += kThreadsX) {
+      if (c <= i) A[col_base(c, T) + i - c] = Kb[static_cast<size_t>(i) * T + c];
+      if (kInverse) X[xrow(i) + c] = (i == c) ? 1.0f : 0.0f;
     }
   }
   __syncthreads();
@@ -93,21 +109,29 @@ chol_inv_kernel(const float* __restrict__ K, float* __restrict__ Linv,
   float ld = 0.0f;
   for (int j = 0; j < T; ++j) {
     const int cj = col_base(j, T);
-    const int rj = row_base(j);
     const float piv = A[cj];
     const float d = rsqrtf(piv);
 
-    // phase 1: column j of L (rows below the pivot), final row j of Linv
+    // phase 1: column j of L (rows below the pivot); with the inverse,
+    // row j of Linv is final (in shared memory it goes to the output here,
+    // zeros above the diagonal included)
     for (int i = j + 1 + tid; i < T; i += kThreads) A[cj + i - j] *= d;
-    for (int k = tid; k < T; k += kThreads) {
-      float v = 0.0f;
-      if (k <= j) {
-        v = X[rj + k] * d;
-        X[rj + k] = v;
+    if (kInverse) {
+      float* xj = X + xrow(j);
+      if (kShared) {
+        for (int k = tid; k < T; k += kThreads) {
+          float v = 0.0f;
+          if (k <= j) {
+            v = xj[k] * d;
+            xj[k] = v;
+          }
+          Ob[static_cast<size_t>(j) * T + k] = v;
+        }
+      } else {
+        for (int k = tid; k <= j; k += kThreads) xj[k] *= d;
       }
-      Lb[static_cast<size_t>(j) * T + k] = v;
+      if (tid == 0) ld += logf(piv);
     }
-    if (tid == 0) ld += logf(piv);
     __syncthreads();
 
     // phase 2: trailing Schur update, one column of A per row of threads
@@ -117,105 +141,87 @@ chol_inv_kernel(const float* __restrict__ K, float* __restrict__ Linv,
       float* colc = A + col_base(c, T) - c;  // colc[i] = A[i, c]
       for (int i = c + tx; i < T; i += kThreadsX) colc[i] -= colj[i] * lc;
     }
-    // forward substitution into the rows of Linv below j
-    const float* xj = X + rj;
-    for (int i = j + 1 + ty; i < T; i += kThreadsY) {
-      const float lij = colj[i];
-      float* xi = X + row_base(i);
-      for (int k = tx; k <= j; k += kThreadsX) xi[k] -= lij * xj[k];
+    if (kInverse) {
+      // forward substitution into the rows of Linv below j
+      const float* xj = X + xrow(j);
+      for (int i = j + 1 + ty; i < T; i += kThreadsY) {
+        const float lij = colj[i];
+        float* xi = X + xrow(i);
+        for (int k = tx; k <= j; k += kThreadsX) xi[k] -= lij * xj[k];
+      }
+    } else if (tid == 0) {
+      A[cj] = piv * d;  // L[j, j]
     }
     __syncthreads();
   }
-  if (tid == 0) logdet[b] = ld;
+  if (kInverse) {
+    if (tid == 0) logdet[b] = ld;
+  } else {
+    for (int i = ty; i < T; i += kThreadsY)
+      for (int c = tx; c < T; c += kThreadsX)
+        Ob[static_cast<size_t>(i) * T + c] = (c <= i) ? A[col_base(c, T) + i - c] : 0.0f;
+  }
 }
 
-template <int kThreadsY>
-int launch(const float* K, float* Linv, float* logdet, int B, int T,
+template <int kThreadsY, bool kInverse, bool kShared>
+int launch(const float* K, float* out, float* logdet, float* scratch, int B, int T,
            size_t smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      chol_inv_kernel<kThreadsY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = chol_kernel<kThreadsY, kInverse, kShared>;
+  if (smem > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 block(kThreadsX, kThreadsY);
-  chol_inv_kernel<kThreadsY><<<B, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      K, Linv, logdet, T);
+  kernel<<<B, block, smem, static_cast<cudaStream_t>(stream)>>>(K, out, logdet, scratch, T);
   return static_cast<int>(cudaGetLastError());
 }
 
-// T > 240: A in scratch[b], X in Linv[b] itself
-template <int kThreadsY>
-__global__ void __launch_bounds__(kThreadsX * kThreadsY)
-chol_inv_large_kernel(const float* __restrict__ K, float* __restrict__ Linv,
-                      float* __restrict__ logdet, float* __restrict__ scratch, int T) {
-  constexpr int kThreads = kThreadsX * kThreadsY;
-  const int tri = (T * (T + 1)) / 2;
-  const int b = blockIdx.x;
-  float* A = scratch + static_cast<size_t>(b) * tri;
-  const float* Kb = K + static_cast<size_t>(b) * T * T;
-  float* X = Linv + static_cast<size_t>(b) * T * T;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kThreadsX + tx;
+// T <= 240: the matrix in shared memory, T(T + 1) floats with the inverse,
+// T(T + 1) / 2 without
+template <bool kInverse>
+int launch_shared(const float* K, float* out, float* logdet, int B, int T, void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  const size_t smem = static_cast<size_t>(T) * (T + 1) / (kInverse ? 1 : 2) * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxSmemBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 64) return launch<4, kInverse, true>(K, out, logdet, nullptr, B, T, smem, stream);
+  if (T <= 96) return launch<8, kInverse, true>(K, out, logdet, nullptr, B, T, smem, stream);
+  return launch<16, kInverse, true>(K, out, logdet, nullptr, B, T, smem, stream);
+}
 
-  // K's lower triangle into A; X = I over the whole matrix
-  for (int i = ty; i < T; i += kThreadsY) {
-    for (int c = tx; c < T; c += kThreadsX) {
-      if (c <= i) A[col_base(c, T) + i - c] = Kb[static_cast<size_t>(i) * T + c];
-      X[static_cast<size_t>(i) * T + c] = (i == c) ? 1.0f : 0.0f;
-    }
-  }
-  __syncthreads();
-
-  float ld = 0.0f;
-  for (int j = 0; j < T; ++j) {
-    const int cj = col_base(j, T);
-    float* xj = X + static_cast<size_t>(j) * T;
-    const float piv = A[cj];
-    const float d = rsqrtf(piv);
-
-    for (int i = j + 1 + tid; i < T; i += kThreads) A[cj + i - j] *= d;
-    for (int k = tid; k <= j; k += kThreads) xj[k] *= d;
-    if (tid == 0) ld += logf(piv);
-    __syncthreads();
-
-    const float* colj = A + cj - j;  // colj[i] = L[i, j]
-    for (int c = j + 1 + ty; c < T; c += kThreadsY) {
-      const float lc = colj[c];
-      float* colc = A + col_base(c, T) - c;
-      for (int i = c + tx; i < T; i += kThreadsX) colc[i] -= colj[i] * lc;
-    }
-    for (int i = j + 1 + ty; i < T; i += kThreadsY) {
-      const float lij = colj[i];
-      float* xi = X + static_cast<size_t>(i) * T;
-      for (int k = tx; k <= j; k += kThreadsX) xi[k] -= lij * xj[k];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) logdet[b] = ld;
+// T > 240: A in scratch (B * T(T+1)/2 floats), X in the output
+template <bool kInverse>
+int launch_wide(const float* K, float* out, float* logdet, float* scratch, int B, int T,
+                void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<16, kInverse, false>(K, out, logdet, scratch, B, T, 0, stream);
 }
 
 }  // namespace
 
-// scratch: B * T(T+1)/2 floats
+// K2, T > 240; scratch: B * T(T+1)/2 floats
 extern "C" int mallorn_chol_inv_large(const float* K, float* Linv, float* logdet,
                                       float* scratch, int B, int T, void* stream) {
-  if (B <= 0 || T <= 0) return 0;
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kThreadsX, 16);
-  chol_inv_large_kernel<16><<<B, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      K, Linv, logdet, scratch, T);
-  return static_cast<int>(cudaGetLastError());
+  return launch_wide<true>(K, Linv, logdet, scratch, B, T, stream);
 }
 
+// K2, T <= 240
 extern "C" int mallorn_chol_inv(const float* K, float* Linv, float* logdet,
                                 int B, int T, void* stream) {
-  if (B <= 0 || T <= 0) return 0;
-  const size_t smem = static_cast<size_t>(T) * (T + 1) * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmemBytes))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (T <= 64) return launch<4>(K, Linv, logdet, B, T, smem, stream);
-  if (T <= 96) return launch<8>(K, Linv, logdet, B, T, smem, stream);
-  return launch<16>(K, Linv, logdet, B, T, smem, stream);
+  return launch_shared<true>(K, Linv, logdet, B, T, stream);
+}
+
+// K6, T > 240; scratch: B * T(T+1)/2 floats
+extern "C" int mallorn_chol_large(const float* K, float* L, float* scratch, int B, int T,
+                                  void* stream) {
+  return launch_wide<false>(K, L, nullptr, scratch, B, T, stream);
+}
+
+// K6, T <= 240
+extern "C" int mallorn_chol(const float* K, float* L, int B, int T, void* stream) {
+  return launch_shared<false>(K, L, nullptr, B, T, stream);
 }
 
 extern "C" const char* mallorn_cuda_error_string(int code) {

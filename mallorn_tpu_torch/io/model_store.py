@@ -36,10 +36,11 @@ def forest_from_numpy(feature, split_bin, default_left, is_leaf, leaf_value,
 
 
 def params_from_dict(d: dict) -> GBDTParams:
-    """The port's params from a model file; the TPU-only knobs
-    (``use_pallas_hist``, ``hist_dtype``, ...) are dropped. The format's
-    heap forests are depthwise binary trees: any other model (leaf-wise or
-    symmetric trees, DART, multiclass) raises."""
+    """The port's params from a model file, ``hist_dtype`` (the histogram
+    mode it was trained in) included; the TPU-only knobs
+    (``use_pallas_hist``, ``use_binlane_hist``, ...) are dropped. The
+    format's heap forests are depthwise binary trees: any other model
+    (leaf-wise or symmetric trees, DART, multiclass) raises."""
     if (d.get("grow_policy", "depthwise") != "depthwise" or d.get("dart_rate", 0.0) > 0
             or d.get("num_class", 0) >= 2):
         raise ValueError("a model file holds a depthwise binary forest; "

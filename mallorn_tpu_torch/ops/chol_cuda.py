@@ -1,5 +1,6 @@
-"""Batched fused Cholesky-inverse for the 2D-GP: the Hopper kernel and its
-plain PyTorch version.
+"""Batched Cholesky for the 2D-GP: the Hopper kernels and their plain
+PyTorch versions. K2, the fused Cholesky-inverse, is below; K6, the
+factorisation alone (``cholesky``), is at the end of this module.
 
 Counterpart of ``mallorn_tpu/ops/chol_pallas.py:cholesky_inverse_lanes``
 (Pallas body ``_chol_inv_kernel``). For a [B, T, T] float32 batch of SPD
@@ -20,8 +21,8 @@ there.
 - ``chol_inv_plain`` is the same right-looking column loop in PyTorch,
   batched over B. The CPU tests use it, and ``chip_smoke.py`` holds both
   kernels against it on the card.
-- ``launches`` and ``large_launches`` count the two kernels' launches
-  (plain calls do not count).
+- ``launches`` and ``large_launches`` count K2's launches at the two
+  widths, ``chol_launches`` K6's at either (plain calls do not count).
 """
 
 from __future__ import annotations
@@ -38,12 +39,12 @@ MAX_T = 240
 
 launches = 0
 large_launches = 0
+chol_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, large_launches
-    launches = 0
-    large_launches = 0
+    global launches, large_launches, chol_launches
+    launches = large_launches = chol_launches = 0
 
 
 def chol_inv_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -68,19 +69,23 @@ def chol_inv_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return X, ld
 
 
+def _check_cuda_batch(name: str, K: torch.Tensor) -> None:
+    if K.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {K.device}")
+    if K.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {K.dtype}")
+    if K.dim() != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"{name}: expected [B, T, T], got {tuple(K.shape)}")
+    if not K.is_contiguous():
+        raise ValueError(f"{name}: K must be contiguous")
+
+
 def chol_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Linv [B, T, T], logdet [B]) for a batch of SPD matrices."""
     global launches
     if K.device.type == "cpu":
         return chol_inv_plain(K)
-    if K.device.type != "cuda":
-        raise ValueError(f"chol_inv: unsupported device {K.device}")
-    if K.dtype != torch.float32:
-        raise TypeError(f"chol_inv: expected float32, got {K.dtype}")
-    if K.dim() != 3 or K.shape[1] != K.shape[2]:
-        raise ValueError(f"chol_inv: expected [B, T, T], got {tuple(K.shape)}")
-    if not K.is_contiguous():
-        raise ValueError("chol_inv: K must be contiguous")
+    _check_cuda_batch("chol_inv", K)
     B, T, _ = K.shape
     Linv = torch.empty_like(K)
     logdet = torch.empty(B, dtype=torch.float32, device=K.device)
@@ -107,27 +112,89 @@ def wide_chunk(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _wide_launches(K: torch.Tensor, name: str, launch) -> int:
+    """The T > MAX_T kernel ``name`` over K in chunks of ``wide_chunk``
+    matrices: ``launch(lib, start, n, scratch, stream)`` returns its CUDA
+    status; returns the launch count."""
+    B, T, _ = K.shape
+    chunk = min(B, wide_chunk(K.device))
+    scratch = torch.empty(chunk * (T * (T + 1) // 2), dtype=torch.float32, device=K.device)
+    lib = cuda_build.load()
+    n_launches = 0
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        for s in range(0, B, chunk):
+            cuda_build.check(launch(lib, s, min(chunk, B - s), scratch.data_ptr(), stream),
+                             name)
+            n_launches += 1
+    return n_launches
+
+
 def _chol_inv_large(K: torch.Tensor, Linv: torch.Tensor, logdet: torch.Tensor) -> None:
     """The T > MAX_T kernel into ``Linv`` / ``logdet``, one launch per
     chunk of ``wide_chunk`` matrices."""
     global large_launches
-    B, T, _ = K.shape
-    tri = T * (T + 1) // 2
-    chunk = min(B, wide_chunk(K.device))
-    scratch = torch.empty(chunk * tri, dtype=torch.float32, device=K.device)
-    lib = cuda_build.load()
-    with torch.cuda.device(K.device):
-        stream = torch.cuda.current_stream(K.device).cuda_stream
-        for s in range(0, B, chunk):
-            n = min(chunk, B - s)
-            rc = lib.mallorn_chol_inv_large(
-                K[s].data_ptr(), Linv[s].data_ptr(), logdet[s:].data_ptr(),
-                scratch.data_ptr(), n, T, stream)
-            cuda_build.check(rc, "mallorn_chol_inv_large")
-            large_launches += 1
+    T = K.shape[1]
+    def launch(lib, s, n, scratch, stream):
+        return lib.mallorn_chol_inv_large(K[s].data_ptr(), Linv[s].data_ptr(),
+                                          logdet[s:].data_ptr(), scratch, n, T, stream)
+
+    large_launches += _wide_launches(K, "mallorn_chol_inv_large", launch)
 
 
 def cho_solve(Linv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """K^-1 r = Linv^T (Linv r) for [B, T, T] Linv and [B, T] r."""
     z = torch.matmul(Linv, r.unsqueeze(-1))
     return torch.matmul(Linv.transpose(1, 2), z).squeeze(-1)
+
+
+# ---------------------------------------------------------------------------
+# K6: the factorisation alone
+# ---------------------------------------------------------------------------
+# Counterpart of ``mallorn_tpu/ops/chol_pallas.py:cholesky_lanes`` (Pallas
+# body ``_chol_kernel``): L = chol(K) [B, T, T], upper triangle exactly 0,
+# L[j, j] = pivot * rsqrt(pivot); a non-positive pivot gives NaN in that
+# matrix only. The kernel is K2's with the inverse switched off
+# (``csrc/chol_inv.cu`` ``chol_kernel``), shared memory for T <= MAX_T and
+# the chunked global scratch beyond, as K2.
+
+
+def cholesky_plain(K: torch.Tensor) -> torch.Tensor:
+    """The right-looking column loop in K's dtype (float64 for an oracle)."""
+    if K.dim() != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"expected [B, T, T], got {tuple(K.shape)}")
+    B, T, _ = K.shape
+    A = K.clone()
+    L = torch.zeros_like(K)
+    for j in range(T):
+        piv = A[:, j, j]
+        col = A[:, j:, j] * torch.rsqrt(piv)[:, None]  # L[j:, j]
+        L[:, j:, j] = col
+        A[:, j + 1:, j + 1:] -= col[:, 1:, None] * col[:, None, 1:]
+    return L
+
+
+def cholesky(K: torch.Tensor) -> torch.Tensor:
+    """L [B, T, T] with K = L L^T for a batch of SPD matrices."""
+    global chol_launches
+    if K.device.type == "cpu":
+        return cholesky_plain(K)
+    _check_cuda_batch("cholesky", K)
+    B, T, _ = K.shape
+    L = torch.empty_like(K)
+    if B == 0:
+        return L
+    if T > MAX_T:
+        def launch(lib, s, n, scratch, stream):
+            return lib.mallorn_chol_large(K[s].data_ptr(), L[s].data_ptr(), scratch, n, T,
+                                          stream)
+
+        chol_launches += _wide_launches(K, "mallorn_chol_large", launch)
+        return L
+    lib = cuda_build.load()
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        rc = lib.mallorn_chol(K.data_ptr(), L.data_ptr(), B, T, stream)
+    cuda_build.check(rc, "mallorn_chol")
+    chol_launches += 1
+    return L

@@ -1,14 +1,19 @@
 """GBDT histograms, batched over folds or lanes: the Hopper kernels and
 their plain PyTorch versions.
 
-Two kernels of ``csrc/hist.cu``: the depthwise level histogram (K1,
-``build_histograms``) and the leaf-wise segment histogram (K3,
-``build_seg_histograms``, at the end of this module).
+Four kernels of ``csrc/hist.cu``: the depthwise level histogram (K1,
+``build_histograms``), the leaf-wise segment histogram (K3,
+``build_seg_histograms``) and the depthwise fit's two histogram modes on
+the tensor cores (K4, ``build_histograms_bf16``, and K5,
+``build_histograms_i8``; ``GBDTParams.hist_dtype``), each in its own
+section below.
 
-Counterpart of ``mallorn_tpu/ops/hist_pallas.py:build_histograms_fullhot``
-(Pallas body ``_fullhot_kernel``), with a leading fold axis so one launch
-covers every fold of a CV. For fold k, feature f, node c < ``k_nodes`` and
-bin b < ``n_bins_tot`` (bin ``n_bins_tot - 1`` is the missing bin)::
+K1 is the counterpart of
+``mallorn_tpu/ops/hist_pallas.py:build_histograms_fullhot`` (Pallas body
+``_fullhot_kernel``), with a leading fold axis so one launch covers every
+fold of a CV (K4 and K5 keep its contract). For fold k, feature f, node
+c < ``k_nodes`` and bin b < ``n_bins_tot`` (bin ``n_bins_tot - 1`` is the
+missing bin)::
 
     hist[k, f, c, b, :] = sum_r [node_q[k, r] == c] [binned[k, f, r] == b] gh[k, r, :]
 
@@ -28,8 +33,9 @@ the level is built by subtraction.
 - ``build_histograms_fixed`` is the kernel's own arithmetic in plain
   PyTorch (the same scale, rounding and int64 sums): it equals the kernel
   bit for bit, so a fit through it must build the kernel's forest.
-- ``launches`` counts K1's launches, ``seg_launches`` K3's (plain calls do
-  not count).
+- ``launches`` counts K1's launches, ``seg_launches`` K3's,
+  ``bf16_launches`` K4's and ``i8_launches`` K5's (plain calls do not
+  count).
 """
 
 from __future__ import annotations
@@ -43,12 +49,13 @@ SMEM_BYTES = 232448
 
 launches = 0
 seg_launches = 0
+bf16_launches = 0
+i8_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, seg_launches
-    launches = 0
-    seg_launches = 0
+    global launches, seg_launches, bf16_launches, i8_launches
+    launches = seg_launches = bf16_launches = i8_launches = 0
 
 
 def _check_shapes(binned, node_q, gh):
@@ -60,25 +67,33 @@ def _check_shapes(binned, node_q, gh):
         raise ValueError("binned, node_q and gh disagree on folds or rows")
 
 
+def _segment_sums(binned, node_q, vals, k_nodes: int, n_bins_tot: int) -> torch.Tensor:
+    """[K, F, k_nodes, n_bins_tot, C] sums of ``vals`` [K, N, C] in its
+    dtype: an ``index_add_`` per feature over the flattened (fold, node,
+    bin) segments."""
+    K, F, N = binned.shape
+    C = vals.shape[2]
+    n_seg = k_nodes * n_bins_tot
+    dev = vals.device
+    nq = node_q.long()
+    node_ok = (nq >= 0) & (nq < k_nodes)
+    base = torch.arange(K, device=dev)[:, None] * n_seg + nq * n_bins_tot
+    flat = vals.reshape(K * N, C)
+    out = torch.zeros(F, K * n_seg + 1, C, dtype=vals.dtype, device=dev)
+    for f in range(F):
+        b = binned[:, f, :].long()
+        ok = node_ok & (b >= 0) & (b < n_bins_tot)
+        seg = torch.where(ok, base + b, K * n_seg)  # inactive -> a sink segment
+        out[f].index_add_(0, seg.reshape(-1), flat)
+    return out[:, :-1].reshape(F, K, k_nodes, n_bins_tot, C).transpose(0, 1).contiguous()
+
+
 def build_histograms_plain(binned: torch.Tensor, node_q: torch.Tensor,
                            gh: torch.Tensor, k_nodes: int,
                            n_bins_tot: int) -> torch.Tensor:
     """[K, F, k_nodes, n_bins_tot, 2] histograms in ``gh``'s dtype."""
     _check_shapes(binned, node_q, gh)
-    K, F, N = binned.shape
-    n_seg = k_nodes * n_bins_tot
-    dev = gh.device
-    nq = node_q.long()
-    node_ok = (nq >= 0) & (nq < k_nodes)
-    base = torch.arange(K, device=dev)[:, None] * n_seg + nq * n_bins_tot
-    vals = gh.reshape(K * N, 2)
-    out = torch.zeros(F, K * n_seg + 1, 2, dtype=gh.dtype, device=dev)
-    for f in range(F):
-        b = binned[:, f, :].long()
-        ok = node_ok & (b >= 0) & (b < n_bins_tot)
-        seg = torch.where(ok, base + b, K * n_seg)  # inactive -> a sink segment
-        out[f].index_add_(0, seg.reshape(-1), vals)
-    return out[:, :-1].reshape(F, K, k_nodes, n_bins_tot, 2).transpose(0, 1).contiguous()
+    return _segment_sums(binned, node_q, gh, k_nodes, n_bins_tot)
 
 
 def _log2_ceil(n: int) -> int:
@@ -121,6 +136,21 @@ def build_histograms_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch
                        scale, finite)
 
 
+def _check_cuda_inputs(name: str, binned, node_q, gh) -> None:
+    """What the level-histogram kernels (K1, K4, K5) take: CUDA tensors on
+    one device, int16 bins, int32 node ids, float32 (g, h), contiguous."""
+    if binned.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {binned.device}")
+    _check_shapes(binned, node_q, gh)
+    if (binned.dtype, node_q.dtype, gh.dtype) != (torch.int16, torch.int32, torch.float32):
+        raise TypeError(f"{name}: expected int16 bins, int32 node ids and "
+                        f"float32 (g, h); got {binned.dtype}, {node_q.dtype}, {gh.dtype}")
+    if not (binned.is_contiguous() and node_q.is_contiguous() and gh.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if not (node_q.device == gh.device == binned.device):
+        raise ValueError(f"{name}: inputs on different devices")
+
+
 def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                      k_nodes: int, n_bins_tot: int) -> torch.Tensor:
     """[K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess) histograms from
@@ -128,16 +158,7 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
     global launches
     if binned.device.type == "cpu":
         return build_histograms_plain(binned, node_q, gh, k_nodes, n_bins_tot)
-    if binned.device.type != "cuda":
-        raise ValueError(f"build_histograms: unsupported device {binned.device}")
-    _check_shapes(binned, node_q, gh)
-    if (binned.dtype, node_q.dtype, gh.dtype) != (torch.int16, torch.int32, torch.float32):
-        raise TypeError(f"build_histograms: expected int16 bins, int32 node ids and "
-                        f"float32 (g, h); got {binned.dtype}, {node_q.dtype}, {gh.dtype}")
-    if not (binned.is_contiguous() and node_q.is_contiguous() and gh.is_contiguous()):
-        raise ValueError("build_histograms: inputs must be contiguous")
-    if not (node_q.device == gh.device == binned.device):
-        raise ValueError("build_histograms: inputs on different devices")
+    _check_cuda_inputs("build_histograms", binned, node_q, gh)
     if k_nodes * n_bins_tot * 2 * 8 > SMEM_BYTES:
         raise ValueError(f"build_histograms: {k_nodes} nodes x {n_bins_tot} bins exceed "
                          f"the kernel's shared memory ({SMEM_BYTES} bytes per CTA)")
@@ -247,3 +268,175 @@ def build_seg_histograms(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch
     cuda_build.check(rc, "mallorn_seg_hist")
     seg_launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5: the depthwise fit's histogram modes (GBDTParams.hist_dtype)
+# ---------------------------------------------------------------------------
+# K1's contract, with (g, h) entering as digits and summed on the tensor
+# cores:
+#
+# - K4 (``hist_dtype`` "bf16" / "i8bf16"; counterpart of
+#   ``hist_pallas.build_histograms_binlane``, Pallas body
+#   ``_binlane_kernel``): three bf16 digits each of g and h
+#   (``split_gh_digits``), float32 sums per digit, each channel
+#   (S d0 + S d1) + S d2. The JAX package's "bf16" and "i8bf16" differ only
+#   in how the TPU streams the one-hot, and give equal outputs; here they
+#   are one kernel.
+# - K5 (``hist_dtype`` "int8"; counterpart of
+#   ``hist_pallas.build_histograms_binlane_i8``, Pallas body
+#   ``_binlane_kernel_i8``): per fold and channel, q = round(x / s 2^26)
+#   with s = max |x| over the fold's rows, as 4 balanced base-128 int8
+#   digits (``quantize_gh_i8``); exact integer sums per digit, recombined
+#   in float32 as P0 + 128 P1 + 128^2 P2 + 128^3 P3 (added in that order,
+#   XLA:CPU's order for the JAX package's einsum) times s / 2^26. A cell is
+#   within N s 2^-27 of the exact sum (``hist_pallas.py:317-329``).
+#
+# The plain versions repeat the digits and sums with ``index_add_``: K5's
+# (``build_histograms_i8_plain``) is bit for bit the kernel's and the JAX
+# package's; K4's (``build_histograms_bf16_plain``, float32 sums) is held
+# with K4 to ``build_histograms_plain(..., gh.double())``, the float64
+# oracle, at the JAX package's histogram bar.
+
+Q_BITS = 26  # hist_pallas._Q_BITS
+ROW_ALIGN = 32  # the kernels' rows per int8 mma: digits and node ids pad to it
+
+
+def split_gh_digits(gh: torch.Tensor) -> torch.Tensor:
+    """[K, N, 6] bf16: three digits of g, then of h
+    (``hist_pallas.split_gh_digits``): d0 = bf16(x), r = x - d0,
+    d1 = bf16(r), d2 = bf16(r - d1); each cast rounds to nearest even and
+    each difference is a float32 subtraction."""
+    x = gh.float()
+    d0 = x.to(torch.bfloat16)
+    r = x - d0.float()
+    d1 = r.to(torch.bfloat16)
+    d2 = (r - d1.float()).to(torch.bfloat16)
+    return torch.stack([d0, d1, d2], dim=-1).reshape(*gh.shape[:2], 6)
+
+
+def quantize_gh_i8(gh: torch.Tensor):
+    """(digits [K, N, 8] int8, scale [K, 2] float32) of float32 (g, h)
+    [K, N, 2] (``hist_pallas.quantize_gh_i8`` per fold): s = max(max |x|,
+    1e-30) over the fold's rows, q = round_half_even(x / s * 2^26) (a true
+    division), balanced base-128 digits d0..d2 in [-64, 64] and the rest
+    d3 (|d3| <= 32): g's four digits, then h's."""
+    x = gh.float()
+    K, N, _ = x.shape
+    amax = x.abs().amax(dim=1) if N else torch.zeros(K, 2, device=x.device)
+    s = torch.clamp(amax, min=1e-30)
+    q = torch.round(x / s[:, None, :] * float(2 ** Q_BITS)).to(torch.int32)
+    ds, r = [], q
+    for _ in range(3):
+        d = ((r + 64) & 127) - 64
+        ds.append(d)
+        r = (r - d) >> 7
+    ds.append(r)
+    return torch.stack(ds, dim=-1).reshape(K, N, 8).to(torch.int8), s
+
+
+def _recombine_i8(P: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Integer digit sums [K, F, C, 8, B] -> float32 (g, h) [K, F, C, B, 2]:
+    per channel ((P0 + 128 P1) + 128^2 P2) + 128^3 P3 in float32 (each
+    product exact), times s / 2^26."""
+    p = P.float()
+    s = (scale / float(2 ** Q_BITS)).reshape(-1, 1, 1, 1, 2)
+
+    def channel(o):
+        return ((p[:, :, :, o] + p[:, :, :, o + 1] * 128.0) + p[:, :, :, o + 2] * 16384.0) \
+            + p[:, :, :, o + 3] * 2097152.0
+
+    return torch.stack([channel(0), channel(4)], dim=-1) * s
+
+
+def build_histograms_i8_plain(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                              k_nodes: int, n_bins_tot: int) -> torch.Tensor:
+    """K5's arithmetic in plain PyTorch: the digits, int64 ``index_add_``
+    sums of the 8 digit columns, the float32 recombination. Bit for bit the
+    kernel's, and the JAX package's ``build_histograms_binlane_i8``."""
+    _check_shapes(binned, node_q, gh)
+    digits, scale = quantize_gh_i8(gh)
+    P = _segment_sums(binned, node_q, digits.long(), k_nodes, n_bins_tot)
+    return _recombine_i8(P.transpose(3, 4), scale)
+
+
+def build_histograms_bf16_plain(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                                k_nodes: int, n_bins_tot: int) -> torch.Tensor:
+    """K4's arithmetic in plain PyTorch: the digits, three float32
+    ``index_add_`` histograms (one per digit), summed (S0 + S1) + S2."""
+    _check_shapes(binned, node_q, gh)
+    d = split_gh_digits(gh).float()
+    S = [_segment_sums(binned, node_q, d[..., [i, 3 + i]], k_nodes, n_bins_tot)
+         for i in range(3)]
+    return (S[0] + S[1]) + S[2]
+
+
+def _digit_major(digits: torch.Tensor) -> torch.Tensor:
+    """[K, N, C] digits -> [K, 8, Np] (Np = N rounded up to ROW_ALIGN; zero
+    digit slots C..7 and zero padded rows), the kernels' layout."""
+    K, N, C = digits.shape
+    Np = -(-N // ROW_ALIGN) * ROW_ALIGN
+    out = torch.zeros(K, 8, Np, dtype=digits.dtype, device=digits.device)
+    out[:, :C, :N] = digits.transpose(1, 2)
+    return out
+
+
+def _padded_nodes(node_q: torch.Tensor) -> torch.Tensor:
+    """[K, N] node ids -> [K, Np], padded rows -1 (inactive)."""
+    K, N = node_q.shape
+    Np = -(-N // ROW_ALIGN) * ROW_ALIGN
+    out = torch.full((K, Np), -1, dtype=torch.int32, device=node_q.device)
+    out[:, :N] = node_q
+    return out
+
+
+def _launch_mode(fn_name: str, binned, nodes, digits, out, k_nodes, n_bins_tot) -> None:
+    K, F, N = binned.shape
+    lib = cuda_build.load()
+    with torch.cuda.device(binned.device):
+        stream = torch.cuda.current_stream(binned.device).cuda_stream
+        rc = getattr(lib, fn_name)(binned.data_ptr(), nodes.data_ptr(), digits.data_ptr(),
+                                   out.data_ptr(), K, F, N, nodes.shape[1], k_nodes,
+                                   n_bins_tot, stream)
+    cuda_build.check(rc, fn_name)
+
+
+def build_histograms_bf16(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                          k_nodes: int, n_bins_tot: int) -> torch.Tensor:
+    """K4: [K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess) histograms
+    summed as bf16 digits, from int16 bins [K, F, N], int32 node ids
+    [K, N] and float32 (g, h) [K, N, 2]."""
+    global bf16_launches
+    if binned.device.type == "cpu":
+        return build_histograms_bf16_plain(binned, node_q, gh, k_nodes, n_bins_tot)
+    _check_cuda_inputs("build_histograms_bf16", binned, node_q, gh)
+    K, F, _ = binned.shape
+    out = torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.float32, device=binned.device)
+    if K == 0 or F == 0:
+        return out
+    digits = _digit_major(split_gh_digits(gh))
+    _launch_mode("mallorn_hist_bf16", binned, _padded_nodes(node_q), digits, out, k_nodes,
+                 n_bins_tot)
+    bf16_launches += 1
+    return out
+
+
+def build_histograms_i8(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                        k_nodes: int, n_bins_tot: int) -> torch.Tensor:
+    """K5: [K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess) histograms
+    of the int8 fixed-point digits, from int16 bins [K, F, N], int32 node
+    ids [K, N] and float32 (g, h) [K, N, 2]."""
+    global i8_launches
+    if binned.device.type == "cpu":
+        return build_histograms_i8_plain(binned, node_q, gh, k_nodes, n_bins_tot)
+    _check_cuda_inputs("build_histograms_i8", binned, node_q, gh)
+    K, F, _ = binned.shape
+    if K == 0 or F == 0:
+        return torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.float32,
+                           device=binned.device)
+    digits, scale = quantize_gh_i8(gh)
+    P = torch.empty(K, F, k_nodes, 8, n_bins_tot, dtype=torch.int32, device=binned.device)
+    _launch_mode("mallorn_hist_i8", binned, _padded_nodes(node_q), _digit_major(digits), P,
+                 k_nodes, n_bins_tot)
+    i8_launches += 1
+    return _recombine_i8(P, scale)

@@ -14,12 +14,14 @@ Training (``train_gbdt``, ``train_gbdt_folds``) is XGBoost's depthwise
 (or a custom) grad/hess times the sample weights, a row subsample keyed
 by (round key, row position) and a column sample from the round key,
 then one tree grown level by level. Each level builds (grad, hess)
-histograms over (fold, feature, node, bin) through the Hopper kernel K1
-(``ops.hist_cuda``); from level 1 on only left children are built and a
-right child is its parent minus its sibling. The split search is an
+histograms over (fold, feature, node, bin) through a Hopper kernel of
+``ops.hist_cuda`` chosen by ``GBDTParams.hist_dtype``: K1 (exact sums,
+"i8full", the default), K4 (bf16 digits, "bf16" / "i8bf16") or K5 (int8
+fixed-point digits, "int8"); from level 1 on only left children are built
+and a right child is its parent minus its sibling. The split search is an
 argmax over (feature, bin, default direction) per node, taking the first
 index on ties. Every tensor carries a leading fold axis K: the folds of a
-CV train together, with K1 covering all of them in one launch.
+CV train together, with one kernel launch covering all of them.
 
 Early stopping reproduces the JAX package's batched ``while_loop``: a
 fold stops ``early_stopping_rounds`` rounds past its best validation
@@ -60,12 +62,17 @@ Objective = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
 HistFn = Callable[..., torch.Tensor]
 SegHistFn = Callable[..., torch.Tensor]
 GROW_POLICIES = ("depthwise", "lossguide")
+# the depthwise fit's level-histogram kernel per GBDTParams.hist_dtype
+HIST_DTYPE_FNS = {"i8full": hist_cuda.build_histograms,
+                  "bf16": hist_cuda.build_histograms_bf16,
+                  "i8bf16": hist_cuda.build_histograms_bf16,
+                  "int8": hist_cuda.build_histograms_i8}
 
 
 class GBDTParams(NamedTuple):
     """The JAX package's ``GBDTParams`` for depthwise and leaf-wise binary
     training, without its TPU-only knobs (``use_pallas_hist``,
-    ``use_binlane_hist``, ``hist_dtype``, ``route``, ``stub_hist``)."""
+    ``use_binlane_hist``, ``route``, ``stub_hist``)."""
 
     n_rounds: int = 500
     max_depth: int = 5
@@ -87,6 +94,11 @@ class GBDTParams(NamedTuple):
     # max_leaves leaves, max_depth the joint depth cap, <= 0 = no cap)
     grow_policy: str = "depthwise"
     max_leaves: int = 31
+    # the depthwise level histogram's arithmetic (a leaf-wise fit ignores
+    # it): "i8full" exact sums (K1), "bf16" / "i8bf16" float32 sums of bf16
+    # digits (K4, one mode here; the JAX package's two differ only in how
+    # the TPU streams the one-hot), "int8" 26-bit fixed-point digits (K5)
+    hist_dtype: str = "i8full"
 
 
 # The v21/v34a/v92 shape (reference: scripts/train_v34a_bazin.py:134-148).
@@ -478,13 +490,23 @@ def _val_logloss(margin_val, yv, vmask):
     return torch.where(vmask, ll, 0.0).sum(dim=1) / den
 
 
+def level_hist_fn(p: GBDTParams) -> HistFn:
+    """The depthwise fit's level-histogram wrapper for ``p.hist_dtype``;
+    an unknown mode raises."""
+    if p.hist_dtype not in HIST_DTYPE_FNS:
+        raise ValueError(f"hist_dtype {p.hist_dtype!r}: expected one of "
+                         f"{tuple(HIST_DTYPE_FNS)}")
+    return HIST_DTYPE_FNS[p.hist_dtype]
+
+
 def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[int],
-              p: GBDTParams, objective, early_stop: int, hist_fn: HistFn,
+              p: GBDTParams, objective, early_stop: int, hist_fn: Optional[HistFn],
               seg_hist_fn: SegHistFn):
     """K batched fits. binned_T [K, F, N] int16; y, w [K, N] f32; row_ids
     [K, N]; validation binned_val_T [K, F, Nv], yv [K, Nv], vmask [K, Nv]
     bool (None without a validation set); seeds [K]. ``hist_fn`` builds a
-    depthwise fit's level histograms, ``seg_hist_fn`` a leaf-wise fit's.
+    depthwise fit's level histograms (None: ``p.hist_dtype``'s kernel),
+    ``seg_hist_fn`` a leaf-wise fit's.
 
     Returns (Forest or LGForest of [K, R, ...] buffers, gains [K, F],
     metrics [K, R] numpy, best-iteration validation margins [K, Nv] numpy
@@ -493,6 +515,8 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
         raise ValueError(f"eval_metric {p.eval_metric!r}: the port evaluates logloss only")
     if p.grow_policy not in GROW_POLICIES:
         raise ValueError(f"grow_policy {p.grow_policy!r}: the port grows {GROW_POLICIES}")
+    mode_fn = level_hist_fn(p)  # an unknown hist_dtype raises in every fit
+    hist_fn = hist_fn or mode_fn
     lossguide = p.grow_policy == "lossguide"
     K, n_f, n = binned_T.shape
     dev = binned_T.device
@@ -627,12 +651,13 @@ def train_gbdt(X_train: np.ndarray, y_train: np.ndarray,
                scale_pos_weight: float = 1.0, objective: Optional[Objective] = None,
                X_val: Optional[np.ndarray] = None, y_val: Optional[np.ndarray] = None,
                early_stopping_rounds: Optional[int] = None, device: DeviceLike = None,
-               hist_fn: HistFn = hist_cuda.build_histograms,
+               hist_fn: Optional[HistFn] = None,
                seg_hist_fn: SegHistFn = hist_cuda.build_seg_histograms) -> GBDTModel:
     """Fit one boosted-tree model (``xgb.train`` with the reference's
     parameter surface). ``hist_fn`` builds a depthwise fit's level
-    histograms (the K1 wrapper), ``seg_hist_fn`` a leaf-wise fit's (the K3
-    wrapper); either may be a plain version to compare the fit against."""
+    histograms (None: the wrapper ``params.hist_dtype`` names, K1 by
+    default), ``seg_hist_fn`` a leaf-wise fit's (the K3 wrapper); either
+    may be a plain version to compare the fit against."""
     dev = resolve_device(device)
     objective = objective or objectives.logistic
     X_train = np.asarray(X_train, np.float32)
@@ -730,12 +755,13 @@ def train_gbdt_folds(folds, params: GBDTParams, objective: Optional[Objective] =
                      early_stopping_rounds: Optional[int] = None,
                      pad_rows_to: Optional[int] = None,
                      pad_val_rows_to: Optional[int] = None, device: DeviceLike = None,
-                     hist_fn: HistFn = hist_cuda.build_histograms,
+                     hist_fn: Optional[HistFn] = None,
                      seg_hist_fn: SegHistFn = hist_cuda.build_seg_histograms
                      ) -> List[GBDTModel]:
     """Train every CV fold as ONE batched fit (a leading fold axis on every
-    tensor; one K1 launch per level, or one K3 launch per leaf-wise split
-    step, covers all folds).
+    tensor; one level-histogram launch per level, or one K3 launch per
+    leaf-wise split step, covers all folds). ``hist_fn`` as in
+    ``train_gbdt``.
 
     ``folds``: dicts with y, w (optional), y_val, spw, seed (optional) and
     either X / X_val or a shared X_parent with tr_idx / va_idx (X may then

@@ -1,4 +1,5 @@
-"""Port vs JAX package: the fused Cholesky-inverse (K2).
+"""Port vs JAX package: the fused Cholesky-inverse (K2) and the
+factorisation alone (K6, at the end).
 
 ``chol_inv_plain`` (the CUDA kernel's plain PyTorch version, which is what
 ``chol_inv`` runs on a CPU tensor) against ``cholesky_inverse_lanes`` in
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 from mallorn_tpu_torch.ops import chol_cuda
-from mallorn_tpu_torch.ops.chol_cuda import cho_solve, chol_inv, chol_inv_plain
+from mallorn_tpu_torch.ops.chol_cuda import (cho_solve, chol_inv, chol_inv_plain, cholesky,
+                                             cholesky_plain)
 
 torch.set_num_threads(2)
 
@@ -152,3 +154,58 @@ def test_wide_kernel_matches_plain_on_the_card():
         np.testing.assert_allclose(ld[ok].cpu().numpy(), ldp[ok].cpu().numpy(),
                                    rtol=1e-5, atol=1e-4)
         assert float(torch.triu(Linv[ok], 1).abs().max()) == 0.0
+
+
+# K6: ``cholesky_plain`` (what ``cholesky`` runs on a CPU tensor) against
+# ``cholesky_lanes`` in Pallas interpret mode at the bars of
+# tests/test_chol_pallas.py:19 (rtol / atol 2e-5, upper triangle exactly 0).
+
+def test_cholesky_plain_matches_cholesky_lanes_and_f64():
+    from mallorn_tpu.ops.chol_pallas import cholesky_lanes
+
+    K = _spd(5, 24)
+    L = cholesky(torch.from_numpy(K)).numpy()
+    np.testing.assert_allclose(L, np.asarray(cholesky_lanes(np.asarray(K), interpret=True)),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(L, np.linalg.cholesky(K.astype(np.float64)), rtol=2e-5, atol=2e-5)
+    assert np.max(np.abs(np.triu(L, 1))) == 0.0
+
+
+def test_cholesky_plain_float64_is_the_oracle_and_nan_stays_in_its_matrix():
+    K = _spd(3, 18, seed=8, n_pad=4).astype(np.float64)
+    L = cholesky_plain(torch.from_numpy(K)).numpy()
+    np.testing.assert_allclose(L, np.linalg.cholesky(K), rtol=1e-12, atol=1e-12)
+    K = K.astype(np.float32)
+    K[2, 6, 6] = -1.0
+    L = cholesky(torch.from_numpy(K))
+    assert torch.isnan(L).flatten(1).any(1).tolist() == [False, False, True]
+    assert float(torch.triu(L[:2], 1).abs().max()) == 0.0
+    chol_cuda.reset_launches()
+    cholesky(torch.from_numpy(K))
+    assert chol_cuda.chol_launches == 0
+    with pytest.raises(ValueError):
+        cholesky(torch.empty(2, 8, 8, device="meta"))
+
+
+@pytest.mark.cuda
+def test_cholesky_kernel_matches_plain_on_the_card():
+    """T <= MAX_T (shared memory) and T > MAX_T (global scratch) at the
+    bars above; two launches bit for bit equal; a non-positive pivot gives
+    NaN in that matrix only."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    for t in (24, 160, 256):
+        K = torch.from_numpy(_spd(6, t, seed=t, n_pad=t // 8)).cuda()
+        K[4, 3, 3] = -1.0
+        chol_cuda.reset_launches()
+        L = cholesky(K)
+        L2 = cholesky(K)
+        torch.cuda.synchronize()
+        assert chol_cuda.chol_launches == 2 and chol_cuda.launches == 0
+        assert torch.equal(torch.isnan(L), torch.isnan(L2))
+        assert torch.equal(torch.nan_to_num(L), torch.nan_to_num(L2))
+        ok = [0, 1, 2, 3, 5]
+        assert torch.isnan(L).flatten(1).any(1).tolist() == [i == 4 for i in range(6)]
+        want = cholesky_plain(K.double())[ok].cpu().numpy()
+        np.testing.assert_allclose(L[ok].cpu().numpy(), want, rtol=2e-5, atol=2e-5)
+        assert float(torch.triu(L[ok], 1).abs().max()) == 0.0

@@ -1,0 +1,244 @@
+"""Port vs JAX package: the depthwise fit's histogram modes
+(``GBDTParams.hist_dtype``), K4 ("bf16" / "i8bf16") and K5 ("int8").
+
+- K5's plain version (``build_histograms_i8_plain``, what
+  ``build_histograms_i8`` runs on a CPU tensor): its digits and scales
+  equal ``hist_pallas.quantize_gh_i8``'s, and its histograms equal
+  ``build_histograms_binlane_i8`` in Pallas interpret mode bit for bit.
+- K4's plain version (``build_histograms_bf16_plain``): its digits equal
+  ``split_gh_digits``'s, and its histograms are within the JAX package's
+  histogram bar (rtol 1e-5, atol 1e-4; tests/test_hist_pallas.py:56) of
+  ``build_histograms_binlane`` in interpret mode and of the float64 oracle.
+- Fits in each mode against the JAX package's binlane path in the same
+  mode, on the fixtures of tests/test_torch_gbdt_train.py (seed 7, and the
+  unweighted seed-11 folds padded to 384 rows): identical forests under
+  that file's bars.
+- Routing: ``hist_dtype`` picks the level-histogram kernel; an unknown
+  mode raises; a leaf-wise fit ignores the mode.
+
+The CUDA kernels are held against the plain versions on the card by the
+``cuda`` case below and by ``chip_smoke.py``. The machine with the card
+has no JAX, so the JAX package is imported inside the tests that use it,
+and the file runs there as ``pytest --noconftest -m cuda
+tests/test_torch_hist_modes.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mallorn_tpu_torch.ops import hist_cuda
+from mallorn_tpu_torch.trees import gbdt as T
+
+torch.set_num_threads(2)
+
+K, F, N, NBT = 2, 12, 500, 257
+RTOL, ATOL = 1e-5, 1e-4
+
+
+def _fixture(n_nodes, seed=9):
+    """binned [K, F, N], node ids [K, N] (n_nodes = inactive), gh [K, N, 2]
+    shaped like weighted logistic gradients, some rows subsampled to 0."""
+    rng = np.random.default_rng(seed + n_nodes)
+    binned = rng.integers(0, NBT, size=(K, F, N)).astype(np.int16)
+    binned[:, :, ::5] = NBT - 1  # a crowded missing bin
+    node_q = rng.integers(0, n_nodes + 1, size=(K, N)).astype(np.int32)
+    p = rng.random((K, N))
+    y = rng.random((K, N)) < 0.2
+    w = rng.uniform(0.5, 2.0, (K, N))
+    keep = rng.random((K, N)) < 0.8
+    gh = np.stack([w * (p - y) * keep, w * p * (1 - p) * keep], -1).astype(np.float32)
+    return binned, node_q, gh
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def test_i8_digits_and_scales_equal_quantize_gh_i8():
+    import jax.numpy as jnp
+
+    from mallorn_tpu.ops import hist_pallas as hp
+
+    _, _, gh = _fixture(1)
+    gh[1, 3, 0] = -np.abs(gh[1]).max() * 1.5  # the scale's extreme is negative
+    digits, scale = hist_cuda.quantize_gh_i8(torch.from_numpy(gh))
+    assert digits.dtype == torch.int8 and scale.dtype == torch.float32
+    for k in range(K):
+        gd, s_g, s_h = hp.quantize_gh_i8(jnp.asarray(gh[k, :, 0]), jnp.asarray(gh[k, :, 1]))
+        np.testing.assert_array_equal(digits[k].numpy(), np.asarray(gd))
+        np.testing.assert_array_equal(scale[k].numpy(), np.array([s_g, s_h], np.float32))
+
+
+@pytest.mark.parametrize("n_nodes", [1, 4])
+def test_i8_plain_equals_binlane_i8_bit_for_bit(n_nodes):
+    import jax.numpy as jnp
+
+    from mallorn_tpu.ops import hist_pallas as hp
+
+    binned, node_q, gh = _fixture(n_nodes)
+    got = hist_cuda.build_histograms_i8(*_t(binned, node_q, gh), n_nodes, NBT).numpy()
+    assert got.shape == (K, F, n_nodes, NBT, 2) and got.dtype == np.float32
+    for k in range(K):
+        bhot, hib = hp.precompute_binlane_i8(jnp.asarray(binned[k].astype(np.int32)))
+        gd, s_g, s_h = hp.quantize_gh_i8(jnp.asarray(gh[k, :, 0]), jnp.asarray(gh[k, :, 1]))
+        want = hp.build_histograms_binlane_i8(bhot, hib, jnp.asarray(node_q[k]), gd, s_g, s_h,
+                                              n_nodes, NBT, interpret=True)
+        np.testing.assert_array_equal(got[k], np.asarray(want))
+
+
+def test_i8_plain_is_within_its_quantization_error_of_the_f64_oracle():
+    """|cell - exact| <= N s 2^-27 (hist_pallas.py:317-329) plus the float32
+    roundings of the recombination."""
+    binned, node_q, gh = _fixture(4)
+    tb, tq, tg = _t(binned, node_q, gh)
+    got = hist_cuda.build_histograms_i8(tb, tq, tg, 4, NBT).numpy().astype(np.float64)
+    want = hist_cuda.build_histograms_plain(tb, tq, tg.double(), 4, NBT).numpy()
+    s = np.abs(gh).max(axis=1)  # [K, 2]
+    bound = N * s * 2.0 ** -27
+    err = np.abs(got - want).max(axis=(1, 2, 3))  # [K, 2]
+    assert (err <= bound + 4 * np.finfo(np.float32).eps * np.abs(want).max()).all(), (err, bound)
+
+
+def test_bf16_digits_equal_split_gh_digits():
+    import jax.numpy as jnp
+
+    from mallorn_tpu.ops import hist_pallas as hp
+
+    _, _, gh = _fixture(2)
+    got = hist_cuda.split_gh_digits(torch.from_numpy(gh))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (K, N, 6)
+    for k in range(K):
+        want = hp.split_gh_digits(jnp.asarray(gh[k, :, 0]), jnp.asarray(gh[k, :, 1]))
+        np.testing.assert_array_equal(got[k].float().numpy(), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("n_nodes", [1, 4])
+def test_bf16_plain_matches_binlane_interpret_and_f64(n_nodes):
+    import jax.numpy as jnp
+
+    from mallorn_tpu.ops import hist_pallas as hp
+
+    binned, node_q, gh = _fixture(n_nodes, seed=21)
+    tb, tq, tg = _t(binned, node_q, gh)
+    got = hist_cuda.build_histograms_bf16(tb, tq, tg, n_nodes, NBT).numpy()
+    assert got.shape == (K, F, n_nodes, NBT, 2) and got.dtype == np.float32
+    want64 = hist_cuda.build_histograms_plain(tb, tq, tg.double(), n_nodes, NBT).numpy()
+    np.testing.assert_allclose(got, want64, rtol=RTOL, atol=ATOL)
+    for k in range(K):
+        bhot, hib = hp.precompute_binlane(jnp.asarray(binned[k].astype(np.int32)))
+        gd = hp.split_gh_digits(jnp.asarray(gh[k, :, 0]), jnp.asarray(gh[k, :, 1]))
+        want = hp.build_histograms_binlane(bhot, hib, jnp.asarray(node_q[k]), gd, n_nodes, NBT,
+                                           interpret=True)
+        np.testing.assert_allclose(got[k], np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_hist_dtype_picks_the_kernel_and_unknown_modes_raise():
+    modes = {"i8full": hist_cuda.build_histograms, "bf16": hist_cuda.build_histograms_bf16,
+             "i8bf16": hist_cuda.build_histograms_bf16, "int8": hist_cuda.build_histograms_i8}
+    for mode, fn in modes.items():
+        assert T.level_hist_fn(T.GBDTParams(hist_dtype=mode)) is fn
+    assert T.GBDTParams().hist_dtype == "i8full"
+    X = np.random.default_rng(0).normal(size=(64, 4)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    for p in (T.GBDTParams(n_rounds=2, hist_dtype="fp8"),
+              T.GBDTParams(n_rounds=2, hist_dtype="int8 ", grow_policy="lossguide")):
+        with pytest.raises(ValueError, match="hist_dtype"):
+            T.train_gbdt(X, y, p, device="cpu")
+
+
+def test_a_fit_calls_only_its_modes_kernel(monkeypatch):
+    """Every level of a depthwise fit goes through the mode's wrapper; a
+    leaf-wise fit ignores the mode."""
+    calls = {}
+
+    def counting(name, fn):
+        def wrapped(*a):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a)
+        return wrapped
+
+    for mode in ("i8full", "bf16", "int8"):
+        monkeypatch.setitem(T.HIST_DTYPE_FNS, mode, counting(mode, T.HIST_DTYPE_FNS[mode]))
+    X = np.random.default_rng(1).normal(size=(96, 5)).astype(np.float32)
+    y = (X[:, 1] + 0.3 * X[:, 2] > 0).astype(np.float32)
+    T.train_gbdt(X, y, T.GBDTParams(n_rounds=3, max_depth=3, hist_dtype="int8"), device="cpu")
+    assert calls == {"int8": 9}
+    lg = T.GBDTParams(n_rounds=3, max_depth=3, grow_policy="lossguide", max_leaves=4)
+    a = T.train_gbdt(X, y, lg._replace(hist_dtype="int8"), device="cpu")
+    b = T.train_gbdt(X, y, lg, device="cpu")
+    assert calls == {"int8": 9}
+    for x, z in zip(a.forest, b.forest):
+        assert torch.equal(x, z)
+
+
+def _gbdt_fixtures():
+    import test_torch_gbdt_train as base
+
+    return base
+
+
+@pytest.mark.parametrize("mode", ["int8", "i8bf16"])
+def test_train_gbdt_matches_jax_in_the_mode(mode):
+    from mallorn_tpu.trees import gbdt as J
+
+    base = _gbdt_fixtures()
+    X, y, Xv, yv = base._fixture(7)
+    spw = float((y == 0).sum() / (y == 1).sum())
+    jm = J.train_gbdt(X, y, J.GBDTParams(**base.COMMON, use_binlane_hist=True, hist_dtype=mode),
+                      scale_pos_weight=spw, X_val=Xv, y_val=yv,
+                      early_stopping_rounds=base.ES)
+    tm = T.train_gbdt(X, y, T.GBDTParams(**base.COMMON, hist_dtype=mode), scale_pos_weight=spw,
+                      X_val=Xv, y_val=yv, early_stopping_rounds=base.ES, device="cpu")
+    base._assert_same_forest(jm, tm)
+    np.testing.assert_allclose(tm.val_margin, jm.val_margin, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["int8", "i8bf16"])
+def test_train_gbdt_folds_matches_jax_in_the_mode(mode):
+    from mallorn_tpu.trees import gbdt as J
+
+    base = _gbdt_fixtures()
+    folds = base._folds(11, weighted=False)
+    jms = J.train_gbdt_folds(folds, J.GBDTParams(**base.COMMON, use_binlane_hist=True,
+                                                 hist_dtype=mode),
+                             early_stopping_rounds=base.ES, pad_rows_to=384)
+    tms = T.train_gbdt_folds(folds, T.GBDTParams(**base.COMMON, hist_dtype=mode),
+                             early_stopping_rounds=base.ES, pad_rows_to=384, device="cpu")
+    for jm, tm in zip(jms, tms):
+        base._assert_same_forest(jm, tm)
+        np.testing.assert_allclose(tm.val_margin, jm.val_margin, atol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    binned, node_q, gh = _t(*_fixture(2))
+    hist_cuda.reset_launches()
+    a = hist_cuda.build_histograms_bf16(binned, node_q, gh, 2, NBT)
+    b = hist_cuda.build_histograms_i8(binned, node_q, gh, 2, NBT)
+    assert hist_cuda.bf16_launches == 0 and hist_cuda.i8_launches == 0
+    assert torch.equal(a, hist_cuda.build_histograms_bf16_plain(binned, node_q, gh, 2, NBT))
+    assert torch.equal(b, hist_cuda.build_histograms_i8_plain(binned, node_q, gh, 2, NBT))
+    with pytest.raises(ValueError):
+        hist_cuda.build_histograms_i8(binned.to("meta"), node_q.to("meta"), gh.to("meta"),
+                                      2, NBT)
+
+
+@pytest.mark.cuda
+def test_mode_kernels_match_plain_and_repeat_bit_for_bit_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    for n_nodes in (1, 4, 8, 11):
+        binned, node_q, gh = (torch.from_numpy(a).cuda() for a in _fixture(n_nodes))
+        node_q[:, 1::9] = -1  # outside [0, k_nodes): inactive
+        hist_cuda.reset_launches()
+        a5 = hist_cuda.build_histograms_i8(binned, node_q, gh, n_nodes, NBT)
+        b5 = hist_cuda.build_histograms_i8(binned, node_q, gh, n_nodes, NBT)
+        a4 = hist_cuda.build_histograms_bf16(binned, node_q, gh, n_nodes, NBT)
+        b4 = hist_cuda.build_histograms_bf16(binned, node_q, gh, n_nodes, NBT)
+        torch.cuda.synchronize()
+        assert (hist_cuda.i8_launches, hist_cuda.bf16_launches, hist_cuda.launches) == (2, 2, 0)
+        assert torch.equal(a5, b5) and torch.equal(a4, b4)
+        assert torch.equal(a5, hist_cuda.build_histograms_i8_plain(binned, node_q, gh, n_nodes,
+                                                                    NBT))
+        want = hist_cuda.build_histograms_plain(binned, node_q, gh.double(), n_nodes, NBT)
+        np.testing.assert_allclose(a4.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)

@@ -73,3 +73,29 @@ def test_leaf_wise_models_cannot_be_saved(trained, tmp_path):
     with pytest.raises(ValueError, match="child pointers"):
         tstore.save_model(tmp_path / "lg.npz", lg)
     assert not (tmp_path / "lg.npz").exists()
+
+
+def test_model_files_keep_the_histogram_mode(tmp_path):
+    """``hist_dtype`` travels with the params both ways: a JAX-written
+    int8-mode model loads in the port with its mode, and a port-written
+    int8-mode model reads back in the JAX package with its mode and its
+    forest."""
+    from mallorn_tpu.trees import gbdt as J
+
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(160, 6)).astype(np.float32)
+    y = (X[:, 1] + 0.5 * rng.normal(size=160) > 0).astype(np.float32)
+    jm = J.train_gbdt(X, y, J.GBDTParams(n_rounds=4, max_depth=3, hist_dtype="int8"))
+    jstore.save_cv_models(tmp_path / "jax", [jm], 0.5, [f"c{i}" for i in range(6)])
+    (got,), _ = tstore.load_cv_models(tmp_path / "jax", device="cpu")
+    assert got.params.hist_dtype == "int8"
+    assert got.params == GBDTParams(n_rounds=4, max_depth=3, hist_dtype="int8")
+
+    tm = train_gbdt(X, y, GBDTParams(n_rounds=4, max_depth=3, hist_dtype="int8"), device="cpu")
+    tstore.save_cv_models(tmp_path / "port", [tm], 0.5, [f"c{i}" for i in range(6)])
+    (back,), _ = jstore.load_cv_models(tmp_path / "port")
+    assert back.params.hist_dtype == "int8"
+    assert back.params == J.GBDTParams(n_rounds=4, max_depth=3, hist_dtype="int8")
+    for name in ("feature", "split_bin", "default_left", "is_leaf", "leaf_value"):
+        np.testing.assert_array_equal(np.asarray(getattr(back.forest, name)),
+                                      getattr(tm.forest, name).numpy(), err_msg=name)
