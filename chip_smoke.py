@@ -36,9 +36,12 @@ Phases, each printing its wall time on its own line:
    bit equal, and times (kernel, plain, a one-call ``scatter_add_``
    yardstick, the bound); then the histogram modes' kernels, K5 (int8
    fixed-point digits) bit for bit equal to its plain version and K4 (bf16
-   digits) within rtol 1e-5 / atol 1e-4 of the float64 oracle, at every
-   K1 shape and the ragged one, two launches of each bit for bit equal,
-   with the same times;
+   digits) bit for bit equal to its fixed-point twin and within rtol 1e-5 /
+   atol 1e-4 of the float64 oracle, at every K1 shape, the ragged one and
+   17 nodes,
+   two launches of each bit for bit equal, with the same times, the
+   launch alone on prepared digits (``kernel_only_ms``) and the distance
+   from the float64 oracle (``max_abs_err_f64``);
 7. kernel against plain in training: a 600 x 30 fixture (NaNs, subsample
    and colsample 0.8, 20 rounds of depth 5) fitted with K1 twice and once
    with the kernel's fixed-point arithmetic in plain PyTorch, and the same
@@ -159,13 +162,14 @@ WIDE_T = 256  # the wide server's GP width (> chol_cuda.MAX_T)
 # the factor-only Cholesky (K6): the bars of tests/test_chol_pallas.py:19
 CHOL_TOL = (2e-5, 2e-5)
 # the histogram modes run through the training path, in this order, and
-# the kernel each runs: (row name, launch counter, wrapper, plain version)
+# the kernel each runs: (row name, launch counter, wrapper, plain version
+# with the kernel's arithmetic, equal to it bit for bit)
 MODES = ("int8", "i8bf16")
 MODE_KERNELS = {
     "int8": ("hist_i8", "i8_launches", hist_cuda.build_histograms_i8,
              hist_cuda.build_histograms_i8_plain),
     "i8bf16": ("hist_bf16", "bf16_launches", hist_cuda.build_histograms_bf16,
-               hist_cuda.build_histograms_bf16_plain),
+               hist_cuda.build_histograms_bf16_fixed),
 }
 
 
@@ -558,36 +562,52 @@ def hist_times(tag: str, kernel, plain, binned, node_q, gh, k_nodes: int) -> dic
 def check_mode_hist(mode: str, fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
                     inactive: float = 0.0) -> dict:
     """A histogram mode's kernel (K5 for "int8", K4 for "i8bf16") at one of
-    K1's shapes: K5 bit for bit equal to its plain version, K4 within
-    HIST_TOL of the float64 oracle; two launches bit for bit equal; times."""
+    K1's shapes: bit for bit equal to its plain version (K5's plain version,
+    K4's fixed-point twin), K4 also within HIST_TOL of the float64 oracle;
+    two launches bit for bit equal; times, with the launch alone on
+    prepared digits beside the wrapper's."""
     name, _, kernel, plain_fn = MODE_KERNELS[mode]
+    int8 = mode == "int8"
     binned, node_q, gh = hist_inputs(K, F, N, k_nodes, seed, inactive)
     a = kernel(binned, node_q, gh, k_nodes, N_BINS_TOT)
     b = kernel(binned, node_q, gh, k_nodes, N_BINS_TOT)
     torch.cuda.synchronize()
     repeat_equal = bool(torch.equal(a, b))
     plain = plain_fn(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    plain_equal = bool(torch.equal(a, plain))
     f64 = hist_cuda.build_histograms_plain(binned, node_q, gh.double(), k_nodes, N_BINS_TOT)
     tag = f"{name} {fit} K={K} F={F} N={N} nodes={k_nodes} inactive={inactive:g}"
     vs_plain = close(a, plain, *HIST_TOL)
     vs_f64 = close(a, f64, *HIST_TOL)
-    if mode == "int8":
-        plain_equal = bool(torch.equal(a, plain))
+    if int8:
         # the quantization's bound (hist_pallas.py:317-329): N s 2^-27
         q_bound = (N * gh.abs().amax(dim=1) * 2.0 ** -27).max().item()
         log(f"  {tag}: bit for bit equal to its plain version: {plain_equal}; vs_f64 "
             f"max_abs={vs_f64[0]:.3e} (quantization bound N s 2^-27 = {q_bound:.3e})")
         ok = plain_equal
     else:
-        log(f"  {tag} vs_f64: max_abs={vs_f64[0]:.3e} max_rel={vs_f64[1]:.3e} "
-            f"(rtol={HIST_TOL[0]:g}, atol={HIST_TOL[1]:g}) {'ok' if vs_f64[2] else 'FAIL'}; "
-            f"vs the float32 plain version: max_abs={vs_plain[0]:.3e}")
-        ok = vs_f64[2]
+        f32 = close(a, hist_cuda.build_histograms_bf16_plain(binned, node_q, gh, k_nodes,
+                                                             N_BINS_TOT), *HIST_TOL)
+        log(f"  {tag}: bit for bit equal to its fixed-point twin: {plain_equal}; vs_f64 "
+            f"max_abs={vs_f64[0]:.3e} max_rel={vs_f64[1]:.3e} (rtol={HIST_TOL[0]:g}, "
+            f"atol={HIST_TOL[1]:g}) {'ok' if vs_f64[2] else 'FAIL'}; vs the float32 "
+            f"index_add_ version: max_abs={f32[0]:.3e}")
+        ok = plain_equal and vs_f64[2]
     log(f"  {tag} two launches bit for bit equal: {repeat_equal}")
     if not (ok and repeat_equal):
         raise AssertionError(f"{name} {tag} failed its checks")
+    # the launch alone, on the digits and scales the wrapper would prepare
+    digits, scale = hist_cuda.launch_inputs(int8, gh)
+    out = torch.empty_like(a)
+    kernel_only_ms = cuda_ms(lambda: hist_cuda.launch_mode_kernel(
+        int8, binned, node_q, digits, scale, out, k_nodes, N_BINS_TOT), reps=50)
+    torch.cuda.synchronize()
+    if not torch.equal(out, a):
+        raise AssertionError(f"{name} {tag}: the launch alone disagrees with the wrapper")
+    log(f"  {tag} kernel_only_ms={kernel_only_ms:.4f} (the launch on prepared digits)")
     return {"fit": fit, "K": K, "F": F, "N": N, "nodes": k_nodes,
-            "max_abs_err": vs_plain[0],
+            "max_abs_err": vs_plain[0], "max_abs_err_f64": vs_f64[0],
+            "kernel_only_ms": kernel_only_ms,
             **hist_times(tag, kernel, plain_fn, binned, node_q, gh, k_nodes)}
 
 
@@ -1094,6 +1114,8 @@ def main() -> int:
                         for mode in MODES}
         for mode in MODES:
             check_mode_hist(mode, "ragged", 5, 222, 2443, 4, seed=6999, inactive=0.3)
+            # three node groups of the grid's z axis (8 + 8 + 1 nodes)
+            check_mode_hist(mode, "nodes17", 5, 222, 2444, 17, seed=6998)
 
     with Phase("kernel against plain in training"):
         check_training_kernel_vs_plain(dev)
@@ -1159,7 +1181,9 @@ def main() -> int:
         "shape": [main_seg["K"], main_seg["F"], main_seg["N"], main_seg["n_seg"]],
     })
     # the histogram modes' rows: the v92d CV's deepest level, launches from
-    # the mode's training run
+    # the mode's training run; max_abs_err and plain_ms against the plain
+    # version with the kernel's arithmetic (K4's fixed-point twin), and
+    # max_abs_err_f64 the distance from the float64 oracle
     for mode in MODES:
         name = MODE_KERNELS[mode][0]
         r = next(r for r in mode_results[mode] if (r["fit"], r["nodes"]) == ("v92d", 8))
@@ -1169,7 +1193,8 @@ def main() -> int:
             "replaces": ("mallorn_tpu/ops/hist_pallas.py:368" if mode == "int8"
                          else "mallorn_tpu/ops/hist_pallas.py:202"),
             "launches": mode_runs[mode]["launches"],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": r["max_abs_err"], "max_abs_err_f64": r["max_abs_err_f64"],
+            "ms": r["ms"], "kernel_only_ms": r["kernel_only_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
         })

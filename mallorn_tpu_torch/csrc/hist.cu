@@ -1,7 +1,8 @@
 // (grad, hess) histograms of the GBDT, batched over folds or lanes: the
 // depthwise level histogram (K1, hist_kernel), the leaf-wise segment
 // histogram (K3, seg_hist_kernel) and the depthwise fit's two histogram
-// modes on the tensor cores (K4 / K5, mode_hist_kernel, further down).
+// modes (K4 / K5, mode_hist_kernel, further down), all shared-memory
+// integer histograms.
 //
 // K1 replaces mallorn_tpu/ops/hist_pallas.py:_fullhot_kernel (the Pallas
 // kernel behind build_histograms_fullhot). Contract, for fold k, feature f,
@@ -84,54 +85,100 @@ __device__ __forceinline__ double fixed_scale(float maxabs, int log2n) {
   return ldexp(1.0, 62 - log2n - e);
 }
 
-// One CTA per (lane k, feature f) = (blockIdx.y, blockIdx.x): row r adds
-// into segment ids[k, r] * id_scale + bin when ids[k, r] * id_scale lies
-// in [0, n_seg) and bin in [0, n_bins); the [n_seg, 2] int64 histogram is
-// written out as float32 sums.
+// The row walk of every kernel in this file: all kBlock threads stride the
+// N rows and call add(s, r) for each row r whose segment
+// s = (ids[r] - id0) * id_scale + bins[r] lies in [0, n_seg), with
+// (ids[r] - id0) * id_scale in [0, n_seg) and the bin in [0, n_bins).
+template <int kBlock, typename Add>
+__device__ __forceinline__ void for_each_row(const int16_t* __restrict__ bins,
+                                             const int32_t* __restrict__ ids, int N, int id0,
+                                             int id_scale, int n_bins, int n_seg, Add add) {
+  for (int r = threadIdx.x; r < N; r += kBlock) {
+    const long long base = (static_cast<long long>(ids[r]) - id0) * id_scale;
+    const int bin = bins[r];
+    if (base < 0 || base >= n_seg ||
+        static_cast<unsigned>(bin) >= static_cast<unsigned>(n_bins))
+      continue;
+    const long long s = base + bin;
+    if (s < n_seg) add(static_cast<int>(s), r);
+  }
+}
+
+// The fixed-point histogram of K1, K3 and K4: zeroes the [n_seg, C] int64
+// histogram in shared memory, gives channel c the scale
+// S_c = 2^(62 - log2n - e) with maxabs[c] < 2^e, and adds
+// round(x_c * S_c) of each active row's C values (load(r, x)) with integer
+// atomics. Returns whether every maxabs is finite (if not, nothing is
+// added and every cell is NaN) and sets inv[c] = 1 / S_c (exact: S_c is a
+// power of 2); the sums are in smem after its closing __syncthreads.
+template <int C, int kBlock, typename Load>
+__device__ __forceinline__ bool accumulate_fixed(uint4* smem, const float* __restrict__ maxabs,
+                                                 int log2n, const int16_t* __restrict__ bins,
+                                                 const int32_t* __restrict__ ids, int N, int id0,
+                                                 int id_scale, int n_bins, int n_seg, Load load,
+                                                 double (&inv)[C]) {
+  static_assert(C % 2 == 0, "the histogram is zeroed as whole uint4s");
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(smem);
+  for (int i = threadIdx.x; i < n_seg * C / 2; i += kBlock) smem[i] = make_uint4(0u, 0u, 0u, 0u);
+
+  bool finite = true;
+  double sc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float m = maxabs[c];
+    finite = finite && isfinite(m);
+    sc[c] = fixed_scale(m, log2n);
+    inv[c] = 1.0 / sc[c];
+  }
+  __syncthreads();
+
+  if (finite) {
+    for_each_row<kBlock>(bins, ids, N, id0, id_scale, n_bins, n_seg, [&](int s, int r) {
+      float x[C];
+      load(r, x);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const long long q = __double2ll_rn(__dmul_rn(static_cast<double>(x[c]), sc[c]));
+        if (q) atomicAdd(acc + s * C + c, static_cast<unsigned long long>(q));
+      }
+    });
+  }
+  __syncthreads();
+  return finite;
+}
+
+// one int64 fixed-point sum, converted once: sum / S to float32
+__device__ __forceinline__ float from_fixed(unsigned long long a, double inv) {
+  return __double2float_rn(__dmul_rn(__ll2double_rn(static_cast<long long>(a)), inv));
+}
+
+// K1 and K3: one CTA per (lane k, feature f) = (blockIdx.y, blockIdx.x);
+// row r adds (g, h) into segment ids[k, r] * id_scale + bin, and the
+// [n_seg, 2] histogram is written out as float32 sums.
 __device__ __forceinline__ void accumulate(
     const int16_t* __restrict__ binned, const int32_t* __restrict__ ids,
     const float2* __restrict__ gh, const float* __restrict__ maxabs,
     float* __restrict__ out, int F, int N, int id_scale, int n_bins, int n_seg,
     int log2n) {
-  extern __shared__ unsigned long long acc[];
+  extern __shared__ uint4 smem[];
   const int f = blockIdx.x;
   const int k = blockIdx.y;
-  const int cells = n_seg * 2;
-  for (int i = threadIdx.x; i < cells; i += kThreads) acc[i] = 0ull;
+  const float2* v = gh + static_cast<size_t>(k) * N;
+  double inv[2];
+  const bool finite = accumulate_fixed<2, kThreads>(
+      smem, maxabs + 2 * k, log2n, binned + (static_cast<size_t>(k) * F + f) * N,
+      ids + static_cast<size_t>(k) * N, N, 0, id_scale, n_bins, n_seg,
+      [&](int r, float(&x)[2]) {
+        const float2 w = v[r];
+        x[0] = w.x;
+        x[1] = w.y;
+      },
+      inv);
 
-  const float mg = maxabs[2 * k], mh = maxabs[2 * k + 1];
-  const bool finite = isfinite(mg) && isfinite(mh);
-  const double sg = fixed_scale(mg, log2n), sh = fixed_scale(mh, log2n);
-  __syncthreads();
-
-  if (finite) {
-    const int16_t* b = binned + (static_cast<size_t>(k) * F + f) * N;
-    const int32_t* id = ids + static_cast<size_t>(k) * N;
-    const float2* v = gh + static_cast<size_t>(k) * N;
-    for (int r = threadIdx.x; r < N; r += kThreads) {
-      const long long base = static_cast<long long>(id[r]) * id_scale;
-      const int bin = b[r];
-      if (base < 0 || base >= n_seg ||
-          static_cast<unsigned>(bin) >= static_cast<unsigned>(n_bins))
-        continue;
-      const long long s = base + bin;
-      if (s < n_seg) {
-        const float2 x = v[r];
-        const long long qg = __double2ll_rn(static_cast<double>(x.x) * sg);
-        const long long qh = __double2ll_rn(static_cast<double>(x.y) * sh);
-        atomicAdd(acc + 2 * s, static_cast<unsigned long long>(qg));
-        atomicAdd(acc + 2 * s + 1, static_cast<unsigned long long>(qh));
-      }
-    }
-  }
-  __syncthreads();
-
-  float* o = out + (static_cast<size_t>(k) * F + f) * cells;
-  const double ig = 1.0 / sg, ih = 1.0 / sh;
-  for (int i = threadIdx.x; i < cells; i += kThreads) {
-    const double s = static_cast<double>(static_cast<long long>(acc[i]));
-    o[i] = finite ? static_cast<float>(s * ((i & 1) ? ih : ig)) : __int_as_float(0x7fc00000);
-  }
+  const unsigned long long* acc = reinterpret_cast<const unsigned long long*>(smem);
+  float* o = out + (static_cast<size_t>(k) * F + f) * n_seg * 2;
+  for (int i = threadIdx.x; i < n_seg * 2; i += kThreads)
+    o[i] = finite ? from_fixed(acc[i], inv[i & 1]) : __int_as_float(0x7fc00000);
 }
 
 // K1: segment = node * n_bins_tot + bin
@@ -173,8 +220,8 @@ int launch(Kernel kernel, int K, int F, int n_seg, void* stream, Args... args) {
 }
 
 // ---------------------------------------------------------------------------
-// K4 / K5: the depthwise fit's histogram modes on the tensor cores
-// (GBDTParams.hist_dtype "bf16" / "i8bf16" and "int8").
+// K4 / K5: the depthwise fit's histogram modes (GBDTParams.hist_dtype
+// "bf16" / "i8bf16" and "int8"), one template: mode_hist_kernel<kInt8>.
 //
 // K4 (mode_hist_kernel<false>) replaces mallorn_tpu/ops/hist_pallas.py:
 // _binlane_kernel (behind build_histograms_binlane); K5
@@ -186,221 +233,172 @@ int launch(Kernel kernel, int K, int F, int n_seg, void* stream, Args... args) {
 // (hist_cuda.split_gh_digits), K5 4 balanced base-128 int8 digits of a
 // 26-bit fixed-point (g, h) (hist_cuda.quantize_gh_i8).
 //
-// Both are one product per (fold, feature): D [digit slot x node, bin] =
-// A [digit slot x node, row] . B [row, bin], with
-//   A[8 c + d, r] = digit d of row r if row r is at node c, else 0
-//     (the i8full form's feature-independent node matrix,
-//     _fullhot_kernel at hist_pallas.py:526-537, node-major with 8 digit
-//     slots per node: 6 bf16 digits + 2 zero slots, or 8 int8 digits), so
-//     a 16-row m-tile holds all digits of 2 nodes;
-//   B[r, b] = [binned[k, f, r] == b], built in registers from the int16
-//     bins for each 8-bin n-tile, never stored.
-// The product runs on mma.sync: m16n8k16 bf16 -> f32 (K4), m16n8k32 s8 ->
-// s32 (K5). One CTA per (fold, feature, group of 8 nodes); each warp owns
-// 3 n-tiles (24 bins) and walks every row of the fold in order, 16 (K4) or
-// 32 (K5) rows per mma; an n-tile that no active row of the step hits is
-// skipped (a warp vote). Each accumulator lives in one thread and is added
-// in row order, with no atomics: two launches give the same bits.
+// The TPU kernels scatter through the MXU (a one-hot times the digits),
+// because a TPU has no scatter. Here the design is K1's: one CTA per
+// (fold, feature, group of <= 8 nodes) (grid (F, K, ceil(k_nodes / 8))),
+// a [nodes, n_bins_tot, C] integer histogram in shared memory, every
+// thread striding the fold's rows once (for_each_row, K1's row walk with
+// the group's first node as id0) and adding an active row's C digit
+// channels with shared-memory integer atomics (a zero digit adds
+// nothing and is skipped). Integer sums are exact and order-free, so two
+// launches give the same bits.
 //
-// K4 sums each mma's products with a zero accumulator and adds that
-// partial to the running float32 sum with an IEEE add, so a cell is a
-// float32 sum over 16-row groups (a group rarely holds more than one row
-// of a cell), not the tensor core's truncating long accumulation. Its
-// output is (S d0 + S d1) + S d2 per channel, the order of the Pallas
-// kernel's o[0:C] + o[C:2C] + o[2C:3C], formed in the epilogue through
-// warp shuffles. K5's int32 partials are exact, so any order gives the
-// Pallas kernel's partials bit for bit; it writes them out as
-// [K, F, k_nodes, 8, n_bins_tot] and the wrapper recombines them in
-// float32 in the JAX package's order (hist_cuda._recombine_i8).
+// K5: C = 8 int32 cells, the digits themselves (g's four, then h's); 8
+// nodes x 257 bins take 65,792 B. |digit| <= 64, so a cell is exact up to
+// 2^25 rows. The epilogue recombines each channel in float32 in the JAX
+// package's order, ((P0 + 128 P1) + 128^2 P2) + 128^3 P3, times s / 2^26
+// (hist_pallas.py:317-329), every operation an explicit IEEE
+// __fadd_rn / __fmul_rn so that nvcc contracts nothing into an FMA: bit
+// for bit hist_cuda._recombine_i8 of the same integer sums, hence bit for
+// bit the plain version and the JAX package.
 //
-// Inputs: binned [K, F, N] int16; nodes [K, Np] int32 (Np = N padded to a
-// multiple of 32, padded rows -1; an id outside [0, k_nodes) is an
-// inactive row); digits [K, 8, Np] (bf16 for K4, int8 for K5), digit-major
-// so one 32-bit load gives a thread its 2 (K4) or 4 (K5) rows of one digit.
+// K4: C = 6 int64 fixed-point cells (g's d0, d1, d2, then h's); 8 nodes x
+// 257 bins take 98,688 B. It runs K1's fixed-point body, accumulate_fixed,
+// with six channels, and differs from K1 only in its epilogue. Each digit
+// channel gets K1's per-fold scale,
+// S = 2^(62 - ceil(log2 N) - e) with max |digit| < 2^e over the fold's rows
+// (fixed_scale), a digit is rounded to the nearest integer of digit * S
+// (exact for every digit above max |digit| 2^(ceil(log2 N) - 62)) and the
+// integer sum is converted once to float32; each digit sum is therefore
+// the exact sum to within one float32 ulp (plus N / (2 S)), and the output
+// is (S0 + S1) + S2 per channel in float32, the order of the Pallas
+// kernel's o[0:C] + o[C:2C] + o[2C:3C]. The same bits come out of
+// hist_cuda.build_histograms_bf16_fixed. A fold whose digits hold a
+// non-finite value gets NaN in every cell, as in K1.
 //
-// Bound on an H100: as K1's, the bins once and the rows' (node, digits)
-// once per fold, the histograms written once (~7 us at the v92d CV's
-// deepest level). This first version is bound by its instruction count:
-// every warp of a CTA re-reads the rows (through L1) and rebuilds A, and
-// most of each mma's 8 x 16 product is zeros (one-hot B); wgmma, a shared
-// A per CTA and sparser tiles are later work.
+// Inputs: binned [K, F, N] int16; nodes [K, N] int32 (an id outside
+// [0, k_nodes) is an inactive row); digits row-major, [K, N, 8] int8 for
+// K5 (one 8-byte load per row) or [K, N, 6] bf16 for K4 (three 4-byte
+// loads); scale [K, 2] float32 s (K5) or [K, 6] float32 max |digit| per
+// channel (K4). Output [K, F, k_nodes, n_bins_tot, 2] float32.
+//
+// Bound on an H100: as K1's, the bins once (K F N 2 bytes), the rows'
+// node ids and digits once per fold (they stay in L2 across the fold's
+// CTAs), the histograms written once: at the v92d CV's deepest level
+// (K = 5, F = 222, N = 2,444, k_nodes = 8) ~24 MB, ~7 us at 3.35 TB/s. The
+// kernel spends its time as K1 does, on shared-memory atomics (8 int32 or
+// 6 int64 per active row and feature, serialised where rows share a bin,
+// as in a crowded missing bin) and on zeroing and writing the whole
+// histogram.
 
-constexpr int kModeTilesPerWarp = 3;  // 8-bin n-tiles a warp owns
-constexpr int kModeMTiles = 4;        // 16-row m-tiles per CTA: 8 nodes
-constexpr int kModeMaxWarps = 16;
+// 512 threads per CTA: an SM holds 3 (K5) or 2 (K4) CTAs of 65,792 /
+// 98,688 B, 1,536 / 1,024 threads; of 256, 512 and 1,024, 512 was the
+// fastest for both modes at the v92d CV's deepest level on an H100 (at one
+// node, K4 is faster with 256)
+constexpr int kModeThreads = 512;
+constexpr int kModeNodes = 8;  // nodes per CTA
 
 template <bool kInt8>
 struct ModeTraits;
 
 template <>
-struct ModeTraits<false> {  // K4: bf16 digits, float32 sums
-  static constexpr int kPack = 2;  // rows per 32-bit register
-  static constexpr uint32_t kOne = 0x3F80u;  // bf16 1.0
-  static constexpr uint32_t kLane = 0xFFFFu;
-  using Acc = float;
-  __device__ __forceinline__ static void mma_add(float (&acc)[4], const uint32_t (&a)[4],
-                                                 const uint32_t (&b)[2]) {
-    float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-    acc[0] = __fadd_rn(acc[0], d0);
-    acc[1] = __fadd_rn(acc[1], d1);
-    acc[2] = __fadd_rn(acc[2], d2);
-    acc[3] = __fadd_rn(acc[3], d3);
-  }
+struct ModeTraits<false> {  // K4
+  static constexpr int kChannels = 6;
+  using Cell = unsigned long long;
 };
 
 template <>
-struct ModeTraits<true> {  // K5: int8 digits, exact int32 sums
-  static constexpr int kPack = 4;
-  static constexpr uint32_t kOne = 0x01u;
-  static constexpr uint32_t kLane = 0xFFu;
-  using Acc = int;
-  __device__ __forceinline__ static void mma_add(int (&acc)[4], const uint32_t (&a)[4],
-                                                 const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
+struct ModeTraits<true> {  // K5
+  static constexpr int kChannels = 8;
+  using Cell = int;
 };
 
-// grid (F, K, ceil(k_nodes / 8)); 32 x min(16, ceil(n_tiles / 3)) threads.
-// Lane (gq, tq) = (lane / 4, lane % 4) holds, per mma, A rows gq (node
-// 2 mt, digit gq) and gq + 8 (node 2 mt + 1, digit gq) and B column gq of
-// each n-tile, for two packs of W rows: base + W tq + i and base + 4 W +
-// W tq + i (i < W), the PTX fragment layouts of both mma shapes.
 template <bool kInt8>
-__global__ void __launch_bounds__(kModeMaxWarps * 32)
+__global__ void __launch_bounds__(kModeThreads)
 mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ nodes,
-                 const uint32_t* __restrict__ digits, void* __restrict__ out, int F, int N,
-                 int Np, int k_nodes, int n_bins_tot) {
-  using Tr = ModeTraits<kInt8>;
-  using Acc = typename Tr::Acc;
-  constexpr int W = Tr::kPack;
-  constexpr int kStep = 8 * W;  // rows per mma
+                 const void* __restrict__ digits, const float* __restrict__ scale,
+                 float* __restrict__ out, int F, int N, int k_nodes, int n_bins_tot,
+                 int log2n) {
+  constexpr int C = ModeTraits<kInt8>::kChannels;
+  extern __shared__ uint4 smem[];
   const int f = blockIdx.x;
   const int k = blockIdx.y;
-  const int node0 = blockIdx.z * 2 * kModeMTiles;
-  const int node_end = min(k_nodes, node0 + 2 * kModeMTiles);
-  const int m_tiles = (node_end - node0 + 1) / 2;
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  const int n_tiles = (n_bins_tot + 7) / 8;
-  const int16_t* bins = binned + (static_cast<size_t>(k) * F + f) * N;
-  const int32_t* nd = nodes + static_cast<size_t>(k) * Np;
-  const uint32_t* dg = digits + (static_cast<size_t>(k) * 8 + gq) * (Np / W);
+  const int node0 = blockIdx.z * kModeNodes;
+  const int n_nodes = min(kModeNodes, k_nodes - node0);
+  const int n_seg = n_nodes * n_bins_tot;
+  const int16_t* b = binned + (static_cast<size_t>(k) * F + f) * N;
+  const int32_t* nd = nodes + static_cast<size_t>(k) * N;
+  // output cell i = (node, bin) * 2 + channel: its digit cells are
+  // acc[i * C / 2 .. + C / 2), the group's output one contiguous run
+  float* o = out + ((static_cast<size_t>(k) * F + f) * k_nodes + node0) * n_bins_tot * 2;
+  const int n_out = n_seg * 2;
 
-  for (int tile0 = warp * kModeTilesPerWarp; tile0 < n_tiles;
-       tile0 += n_warps * kModeTilesPerWarp) {
-    Acc acc[kModeMTiles][kModeTilesPerWarp][4];
+  if constexpr (kInt8) {
+    int* acc = reinterpret_cast<int*>(smem);
+    for (int i = threadIdx.x; i < n_seg * C / 4; i += kModeThreads)
+      smem[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+    const uint2* w = static_cast<const uint2*>(digits) + static_cast<size_t>(k) * N;
+    for_each_row<kModeThreads>(b, nd, N, node0, n_bins_tot, n_bins_tot, n_seg,
+                               [&](int s, int r) {
+                                 const uint2 d = w[r];
+                                 int* cell = acc + s * C;
 #pragma unroll
-    for (int mt = 0; mt < kModeMTiles; ++mt)
-#pragma unroll
-      for (int j = 0; j < kModeTilesPerWarp; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][j][e] = Acc(0);
+                                 for (int j = 0; j < 4; ++j) {
+                                   // sign-extended byte j of g's and h's words
+                                   const int dg = static_cast<int>(d.x << (24 - 8 * j)) >> 24;
+                                   const int dh = static_cast<int>(d.y << (24 - 8 * j)) >> 24;
+                                   if (dg) atomicAdd(cell + j, dg);
+                                   if (dh) atomicAdd(cell + 4 + j, dh);
+                                 }
+                               });
+    __syncthreads();
 
-    for (int base = 0; base < N; base += kStep) {
-      uint32_t a[kModeMTiles][4];
-      int bin[2][W];
-      uint32_t hit = 0;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int r0 = base + 4 * W * p + W * tq;
-        const uint32_t word = dg[r0 / W];
-        int local[W];
-#pragma unroll
-        for (int i = 0; i < W; ++i) {
-          const int r = r0 + i;
-          const int q = nd[r];
-          local[i] = (q >= node0 && q < node_end) ? q - node0 : -1;
-          const int b = r < N ? static_cast<int>(bins[r]) : -1;
-          bin[p][i] = b;
-          const int rel = (b >> 3) - tile0;
-          if (local[i] >= 0 && b >= 0 && rel >= 0 && rel < kModeTilesPerWarp) hit |= 1u << rel;
-        }
-#pragma unroll
-        for (int mt = 0; mt < kModeMTiles; ++mt) {
-          uint32_t m0 = 0u, m1 = 0u;
-#pragma unroll
-          for (int i = 0; i < W; ++i) {
-            m0 |= (local[i] == 2 * mt ? Tr::kLane : 0u) << (i * (32 / W));
-            m1 |= (local[i] == 2 * mt + 1 ? Tr::kLane : 0u) << (i * (32 / W));
-          }
-          a[mt][2 * p] = word & m0;      // A row gq: node 2 mt
-          a[mt][2 * p + 1] = word & m1;  // A row gq + 8: node 2 mt + 1
-        }
-      }
-      hit = __reduce_or_sync(0xffffffffu, hit);
-#pragma unroll
-      for (int j = 0; j < kModeTilesPerWarp; ++j) {
-        if (!((hit >> j) & 1u)) continue;  // warp-uniform
-        const int col = (tile0 + j) * 8 + gq;  // this lane's bin
-        uint32_t b[2];
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          uint32_t v = 0u;
-#pragma unroll
-          for (int i = 0; i < W; ++i) v |= (bin[p][i] == col ? Tr::kOne : 0u) << (i * (32 / W));
-          b[p] = v;
-        }
-#pragma unroll
-        for (int mt = 0; mt < kModeMTiles; ++mt)
-          if (mt < m_tiles) Tr::mma_add(acc[mt][j], a[mt], b);
-      }
+    constexpr float kInvQ = 1.0f / 67108864.0f;  // 2^-26, exact
+    const float sg = __fmul_rn(scale[2 * k], kInvQ), sh = __fmul_rn(scale[2 * k + 1], kInvQ);
+    for (int i = threadIdx.x; i < n_out; i += kModeThreads) {
+      const int4 p = reinterpret_cast<const int4*>(acc)[i];
+      float v = __fadd_rn(__int2float_rn(p.x), __fmul_rn(__int2float_rn(p.y), 128.0f));
+      v = __fadd_rn(v, __fmul_rn(__int2float_rn(p.z), 16384.0f));
+      v = __fadd_rn(v, __fmul_rn(__int2float_rn(p.w), 2097152.0f));
+      o[i] = __fmul_rn(v, (i & 1) ? sh : sg);
     }
-
-    // epilogue: accumulator e of (mt, j) is A row gq (e < 2) or gq + 8
-    // (e >= 2), bin (tile0 + j) * 8 + 2 tq + (e & 1)
+  } else {
+    // three 4-byte words per row: bf16 digit 2 j in word j's low half
+    const uint32_t* w = static_cast<const uint32_t*>(digits) + static_cast<size_t>(k) * N * 3;
+    double inv[C];
+    const bool finite = accumulate_fixed<C, kModeThreads>(
+        smem, scale + C * k, log2n, b, nd, N, node0, n_bins_tot, n_bins_tot, n_seg,
+        [&](int r, float(&x)[C]) {
 #pragma unroll
-    for (int mt = 0; mt < kModeMTiles; ++mt) {
-      if (mt >= m_tiles) continue;  // warp-uniform
-#pragma unroll
-      for (int j = 0; j < kModeTilesPerWarp; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int node = node0 + 2 * mt + (e >> 1);
-          const int col = (tile0 + j) * 8 + 2 * tq + (e & 1);
-          const bool ok = node < k_nodes && col < n_bins_tot;
-          const size_t kfc = (static_cast<size_t>(k) * F + f) * k_nodes + node;
-          if constexpr (kInt8) {
-            if (ok) static_cast<int*>(out)[(kfc * 8 + gq) * n_bins_tot + col] = acc[mt][j][e];
-          } else {
-            // digit slots 0-2 are g's, 3-5 h's: lanes gq = 0 and 3 form
-            // (d0 + d1) + d2 from lanes gq + 1 and gq + 2
-            const float v = acc[mt][j][e];
-            const float v1 = __shfl_down_sync(0xffffffffu, v, 4);
-            const float v2 = __shfl_down_sync(0xffffffffu, v, 8);
-            if (ok && (gq == 0 || gq == 3))
-              static_cast<float*>(out)[(kfc * n_bins_tot + col) * 2 + (gq == 3)] =
-                  __fadd_rn(__fadd_rn(v, v1), v2);
+          for (int j = 0; j < 3; ++j) {
+            const uint32_t v = w[3 * static_cast<size_t>(r) + j];
+            x[2 * j] = __uint_as_float(v << 16);
+            x[2 * j + 1] = __uint_as_float(v & 0xFFFF0000u);
           }
-        }
-      }
+        },
+        inv);
+
+    const unsigned long long* acc = reinterpret_cast<const unsigned long long*>(smem);
+    for (int i = threadIdx.x; i < n_out; i += kModeThreads) {
+      const unsigned long long* a = acc + 3 * i;
+      const int c0 = 3 * (i & 1);
+      o[i] = finite ? __fadd_rn(__fadd_rn(from_fixed(a[0], inv[c0]), from_fixed(a[1], inv[c0 + 1])),
+                                from_fixed(a[2], inv[c0 + 2]))
+                    : __int_as_float(0x7fc00000);
     }
   }
 }
 
 template <bool kInt8>
-int launch_mode(const int16_t* binned, const int32_t* nodes, const void* digits, void* out,
-                int K, int F, int N, int Np, int k_nodes, int n_bins_tot, void* stream) {
+int launch_mode(const int16_t* binned, const int32_t* nodes, const void* digits,
+                const float* scale, float* out, int K, int F, int N, int k_nodes,
+                int n_bins_tot, void* stream) {
+  using Tr = ModeTraits<kInt8>;
   if (K <= 0 || F <= 0 || k_nodes <= 0 || n_bins_tot <= 0) return 0;
-  const int n_tiles = (n_bins_tot + 7) / 8;
-  const int groups = (n_tiles + kModeTilesPerWarp - 1) / kModeTilesPerWarp;
-  const int warps = groups < kModeMaxWarps ? groups : kModeMaxWarps;
-  const int node_groups = (k_nodes + 2 * kModeMTiles - 1) / (2 * kModeMTiles);
-  if (Np % 32 != 0 || Np < N || K > 65535 || node_groups > 65535)
+  const int group = k_nodes < kModeNodes ? k_nodes : kModeNodes;
+  const size_t smem =
+      static_cast<size_t>(group) * n_bins_tot * Tr::kChannels * sizeof(typename Tr::Cell);
+  const int node_groups = (k_nodes + kModeNodes - 1) / kModeNodes;
+  if (smem > static_cast<size_t>(kMaxSmemBytes) || K > 65535 || node_groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  mode_hist_kernel<kInt8><<<dim3(F, K, node_groups), 32 * warps, 0,
+  cudaError_t err = cudaFuncSetAttribute(mode_hist_kernel<kInt8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mode_hist_kernel<kInt8><<<dim3(F, K, node_groups), kModeThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
-      binned, nodes, static_cast<const uint32_t*>(digits), out, F, N, Np, k_nodes,
-      n_bins_tot);
+      binned, nodes, digits, scale, out, F, N, k_nodes, n_bins_tot, ceil_log2(N));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -425,18 +423,18 @@ extern "C" int mallorn_hist(const int16_t* binned, const int32_t* node_q,
                 n_bins_tot, ceil_log2(N));
 }
 
-// K4: digits [K, 8, Np] bf16, out [K, F, k_nodes, n_bins_tot, 2] float32
+// K4: digits [K, N, 6] bf16, maxabs [K, 6] float32 (max |digit| per channel)
 extern "C" int mallorn_hist_bf16(const int16_t* binned, const int32_t* nodes,
-                                 const void* digits, float* out, int K, int F, int N,
-                                 int Np, int k_nodes, int n_bins_tot, void* stream) {
-  return launch_mode<false>(binned, nodes, digits, out, K, F, N, Np, k_nodes, n_bins_tot,
+                                 const void* digits, const float* maxabs, float* out, int K,
+                                 int F, int N, int k_nodes, int n_bins_tot, void* stream) {
+  return launch_mode<false>(binned, nodes, digits, maxabs, out, K, F, N, k_nodes, n_bins_tot,
                             stream);
 }
 
-// K5: digits [K, 8, Np] int8, out [K, F, k_nodes, 8, n_bins_tot] int32 partials
+// K5: digits [K, N, 8] int8, scale [K, 2] float32 (s per channel)
 extern "C" int mallorn_hist_i8(const int16_t* binned, const int32_t* nodes,
-                               const void* digits, int32_t* out, int K, int F, int N,
-                               int Np, int k_nodes, int n_bins_tot, void* stream) {
-  return launch_mode<true>(binned, nodes, digits, out, K, F, N, Np, k_nodes, n_bins_tot,
+                               const void* digits, const float* scale, float* out, int K,
+                               int F, int N, int k_nodes, int n_bins_tot, void* stream) {
+  return launch_mode<true>(binned, nodes, digits, scale, out, K, F, N, k_nodes, n_bins_tot,
                            stream);
 }

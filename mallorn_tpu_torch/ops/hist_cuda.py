@@ -1,12 +1,12 @@
 """GBDT histograms, batched over folds or lanes: the Hopper kernels and
 their plain PyTorch versions.
 
-Four kernels of ``csrc/hist.cu``: the depthwise level histogram (K1,
-``build_histograms``), the leaf-wise segment histogram (K3,
-``build_seg_histograms``) and the depthwise fit's two histogram modes on
-the tensor cores (K4, ``build_histograms_bf16``, and K5,
-``build_histograms_i8``; ``GBDTParams.hist_dtype``), each in its own
-section below.
+Four kernels of ``csrc/hist.cu``, all shared-memory integer histograms:
+the depthwise level histogram (K1, ``build_histograms``), the leaf-wise
+segment histogram (K3, ``build_seg_histograms``) and the depthwise fit's
+two histogram modes (K4, ``build_histograms_bf16``, and K5,
+``build_histograms_i8``, one kernel template; ``GBDTParams.hist_dtype``),
+each in its own section below.
 
 K1 is the counterpart of
 ``mallorn_tpu/ops/hist_pallas.py:build_histograms_fullhot`` (Pallas body
@@ -32,7 +32,9 @@ the level is built by subtraction.
   against it on the card.
 - ``build_histograms_fixed`` is the kernel's own arithmetic in plain
   PyTorch (the same scale, rounding and int64 sums): it equals the kernel
-  bit for bit, so a fit through it must build the kernel's forest.
+  bit for bit, so a fit through it must build the kernel's forest
+  (``build_seg_histograms_fixed`` and ``build_histograms_bf16_fixed`` are
+  K3's and K4's; K5's plain version is its kernel's arithmetic already).
 - ``launches`` counts K1's launches, ``seg_launches`` K3's,
   ``bf16_launches`` K4's and ``i8_launches`` K5's (plain calls do not
   count).
@@ -101,11 +103,11 @@ def _log2_ceil(n: int) -> int:
 
 
 def _fixed_point(gh: torch.Tensor):
-    """(q [K, N, 2] int64, scale [K, 2] float64, finite [K]): per fold and
+    """(q [K, N, C] int64, scale [K, C] float64, finite [K]): per fold and
     channel, S = 2^(62 - ceil(log2 N) - e) with max|gh| < 2^e, each value
     rounded to the nearest integer of value * S."""
-    K, N, _ = gh.shape
-    maxabs = gh.abs().amax(dim=1) if N else torch.zeros(K, 2, device=gh.device)
+    K, N, C = gh.shape
+    maxabs = gh.abs().amax(dim=1) if N else torch.zeros(K, C, device=gh.device)
     _, e = torch.frexp(maxabs)
     scale = torch.where(maxabs > 0,
                         torch.ldexp(torch.ones_like(maxabs, dtype=torch.float64),
@@ -116,10 +118,10 @@ def _fixed_point(gh: torch.Tensor):
 
 
 def _from_fixed(acc: torch.Tensor, scale: torch.Tensor, finite: torch.Tensor) -> torch.Tensor:
-    """Integer sums [K, ..., 2] -> float32 sums / S; NaN in every cell of a
+    """Integer sums [K, ..., C] -> float32 sums / S; NaN in every cell of a
     fold whose gh is not finite."""
     tail = (1,) * (acc.dim() - 2)
-    out = (acc.double() * (1.0 / scale).reshape(len(scale), *tail, 2)).float()
+    out = (acc.double() * (1.0 / scale).reshape(len(scale), *tail, scale.shape[1])).float()
     return torch.where(finite.reshape(-1, *tail, 1), out, torch.nan)
 
 
@@ -273,16 +275,15 @@ def build_seg_histograms(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch
 # ---------------------------------------------------------------------------
 # K4 / K5: the depthwise fit's histogram modes (GBDTParams.hist_dtype)
 # ---------------------------------------------------------------------------
-# K1's contract, with (g, h) entering as digits and summed on the tensor
-# cores:
+# K1's contract, with (g, h) entering as digits:
 #
 # - K4 (``hist_dtype`` "bf16" / "i8bf16"; counterpart of
 #   ``hist_pallas.build_histograms_binlane``, Pallas body
 #   ``_binlane_kernel``): three bf16 digits each of g and h
-#   (``split_gh_digits``), float32 sums per digit, each channel
-#   (S d0 + S d1) + S d2. The JAX package's "bf16" and "i8bf16" differ only
-#   in how the TPU streams the one-hot, and give equal outputs; here they
-#   are one kernel.
+#   (``split_gh_digits``), a sum per digit, each channel (S d0 + S d1) + S d2
+#   in float32. The JAX package's "bf16" and "i8bf16" differ only in how the
+#   TPU streams the one-hot, and give equal outputs; here they are one
+#   kernel.
 # - K5 (``hist_dtype`` "int8"; counterpart of
 #   ``hist_pallas.build_histograms_binlane_i8``, Pallas body
 #   ``_binlane_kernel_i8``): per fold and channel, q = round(x / s 2^26)
@@ -292,14 +293,30 @@ def build_seg_histograms(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch
 #   XLA:CPU's order for the JAX package's einsum) times s / 2^26. A cell is
 #   within N s 2^-27 of the exact sum (``hist_pallas.py:317-329``).
 #
-# The plain versions repeat the digits and sums with ``index_add_``: K5's
-# (``build_histograms_i8_plain``) is bit for bit the kernel's and the JAX
-# package's; K4's (``build_histograms_bf16_plain``, float32 sums) is held
-# with K4 to ``build_histograms_plain(..., gh.double())``, the float64
-# oracle, at the JAX package's histogram bar.
+# The kernel (``csrc/hist.cu`` ``mode_hist_kernel``) is K1's design: one
+# CTA per (fold, feature, group of <= 8 nodes) adds each active row's
+# digits into a shared-memory integer histogram (K5: the 8 digits as int32,
+# 65,792 B at 8 nodes x 257 bins; K4: the 6 digits in K1's int64 fixed
+# point with a per-fold scale per digit, 98,688 B, through K1's own device
+# body) and its epilogue writes
+# the float32 (g, h) histograms: K5's recombination in the order above,
+# K4's one conversion per digit sum, then (S0 + S1) + S2. Integer sums are
+# exact, so two launches agree bit for bit. The wrappers prepare the
+# digits row-major ([K, N, 8] int8 or [K, N, 6] bf16) and their scales
+# (``launch_inputs``), then launch (``launch_mode_kernel``).
+#
+# Plain versions: K5's (``build_histograms_i8_plain``, ``index_add_`` of
+# the digits, ``_recombine_i8``) is bit for bit the kernel's and the JAX
+# package's. K4 has two: ``build_histograms_bf16_plain`` (float32
+# ``index_add_`` per digit, what a CPU tensor runs, held with the JAX
+# package's binlane path on the CPU) and ``build_histograms_bf16_fixed``
+# (the kernel's fixed-point arithmetic, equal to the kernel bit for bit);
+# both within the JAX package's histogram bar of the float64 oracle
+# ``build_histograms_plain(..., gh.double())``.
 
 Q_BITS = 26  # hist_pallas._Q_BITS
-ROW_ALIGN = 32  # the kernels' rows per int8 mma: digits and node ids pad to it
+MODE_NODES = 8  # nodes per CTA of the mode kernel (grid z takes the rest)
+MODE_CELL_BYTES = {False: 6 * 8, True: 8 * 4}  # per (node, bin): K4, K5
 
 
 def split_gh_digits(gh: torch.Tensor) -> torch.Tensor:
@@ -326,13 +343,15 @@ def quantize_gh_i8(gh: torch.Tensor):
     amax = x.abs().amax(dim=1) if N else torch.zeros(K, 2, device=x.device)
     s = torch.clamp(amax, min=1e-30)
     q = torch.round(x / s[:, None, :] * float(2 ** Q_BITS)).to(torch.int32)
-    ds, r = [], q
-    for _ in range(3):
-        d = ((r + 64) & 127) - 64
-        ds.append(d)
-        r = (r - d) >> 7
-    ds.append(r)
-    return torch.stack(ds, dim=-1).reshape(K, N, 8).to(torch.int8), s
+    # q + 64 (1 + 128 + 128^2) = sum_{j<3} (d_j + 64) 128^j + d3 128^3, so
+    # the balanced digits are shifts and masks of one offset integer: the
+    # digits of the JAX package's loop d = ((r + 64) & 127) - 64,
+    # r = (r - d) >> 7, in half the ops
+    u = q + 64 * (1 + 128 + 128 ** 2)
+    shifts = torch.arange(0, 21, 7, dtype=torch.int32, device=x.device)
+    low = ((u[..., None] >> shifts) & 127) - 64
+    digits = torch.cat([low, (u >> 21)[..., None]], dim=-1)
+    return digits.reshape(K, N, 8).to(torch.int8), s
 
 
 def _recombine_i8(P: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -362,8 +381,9 @@ def build_histograms_i8_plain(binned: torch.Tensor, node_q: torch.Tensor, gh: to
 
 def build_histograms_bf16_plain(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                                 k_nodes: int, n_bins_tot: int) -> torch.Tensor:
-    """K4's arithmetic in plain PyTorch: the digits, three float32
-    ``index_add_`` histograms (one per digit), summed (S0 + S1) + S2."""
+    """K4's arithmetic in plain PyTorch with float32 sums: the digits, three
+    float32 ``index_add_`` histograms (one per digit), summed
+    (S0 + S1) + S2."""
     _check_shapes(binned, node_q, gh)
     d = split_gh_digits(gh).float()
     S = [_segment_sums(binned, node_q, d[..., [i, 3 + i]], k_nodes, n_bins_tot)
@@ -371,34 +391,77 @@ def build_histograms_bf16_plain(binned: torch.Tensor, node_q: torch.Tensor, gh: 
     return (S[0] + S[1]) + S[2]
 
 
-def _digit_major(digits: torch.Tensor) -> torch.Tensor:
-    """[K, N, C] digits -> [K, 8, Np] (Np = N rounded up to ROW_ALIGN; zero
-    digit slots C..7 and zero padded rows), the kernels' layout."""
-    K, N, C = digits.shape
-    Np = -(-N // ROW_ALIGN) * ROW_ALIGN
-    out = torch.zeros(K, 8, Np, dtype=digits.dtype, device=digits.device)
-    out[:, :C, :N] = digits.transpose(1, 2)
-    return out
+def bf16_digit_sums_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                          k_nodes: int, n_bins_tot: int) -> torch.Tensor:
+    """[K, F, k_nodes, n_bins_tot, 6] float32 sums of the six bf16 digits
+    (g's d0, d1, d2, then h's) in the kernel's fixed point: per fold and
+    digit channel S = 2^(62 - ceil(log2 N) - e) with max |digit| < 2^e,
+    int64 sums of round(digit * S), one conversion each; NaN in every cell
+    of a fold whose digits are not finite."""
+    _check_shapes(binned, node_q, gh)
+    q, scale, finite = _fixed_point(split_gh_digits(gh).float())
+    return _from_fixed(_segment_sums(binned, node_q, q, k_nodes, n_bins_tot), scale, finite)
 
 
-def _padded_nodes(node_q: torch.Tensor) -> torch.Tensor:
-    """[K, N] node ids -> [K, Np], padded rows -1 (inactive)."""
-    K, N = node_q.shape
-    Np = -(-N // ROW_ALIGN) * ROW_ALIGN
-    out = torch.full((K, Np), -1, dtype=torch.int32, device=node_q.device)
-    out[:, :N] = node_q
-    return out
+def build_histograms_bf16_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                                k_nodes: int, n_bins_tot: int) -> torch.Tensor:
+    """K4's kernel arithmetic in plain PyTorch (``bf16_digit_sums_fixed``,
+    then (S0 + S1) + S2 per channel in float32): equal to the kernel bit
+    for bit."""
+    S = bf16_digit_sums_fixed(binned, node_q, gh, k_nodes, n_bins_tot)
+    return torch.stack([(S[..., 3 * c] + S[..., 3 * c + 1]) + S[..., 3 * c + 2]
+                        for c in range(2)], dim=-1)
 
 
-def _launch_mode(fn_name: str, binned, nodes, digits, out, k_nodes, n_bins_tot) -> None:
+def launch_inputs(int8: bool, gh: torch.Tensor):
+    """(digits, scale) the mode kernel takes for float32 (g, h) [K, N, 2]:
+    K5 (``int8``) ``quantize_gh_i8``'s [K, N, 8] int8 digits and [K, 2]
+    scales s; K4 ``split_gh_digits``' [K, N, 6] bf16 digits and their
+    [K, 6] float32 max |digit| per fold."""
+    if int8:
+        return quantize_gh_i8(gh)
+    digits = split_gh_digits(gh)
+    K, N, _ = digits.shape
+    maxabs = digits.abs().amax(dim=1).float() if N else torch.zeros(
+        K, 6, dtype=torch.float32, device=gh.device)
+    return digits, maxabs
+
+
+def launch_mode_kernel(int8: bool, binned: torch.Tensor, node_q: torch.Tensor,
+                       digits: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
+                       k_nodes: int, n_bins_tot: int) -> None:
+    """One launch of the mode kernel (K5 if ``int8``, else K4) on inputs the
+    wrappers checked and ``launch_inputs`` prepared; writes ``out``
+    [K, F, k_nodes, n_bins_tot, 2] float32. Counts nothing."""
     K, F, N = binned.shape
+    fn_name = "mallorn_hist_i8" if int8 else "mallorn_hist_bf16"
     lib = cuda_build.load()
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
-        rc = getattr(lib, fn_name)(binned.data_ptr(), nodes.data_ptr(), digits.data_ptr(),
-                                   out.data_ptr(), K, F, N, nodes.shape[1], k_nodes,
+        rc = getattr(lib, fn_name)(binned.data_ptr(), node_q.data_ptr(), digits.data_ptr(),
+                                   scale.data_ptr(), out.data_ptr(), K, F, N, k_nodes,
                                    n_bins_tot, stream)
     cuda_build.check(rc, fn_name)
+
+
+def _mode_hist(int8: bool, name: str, binned, node_q, gh, k_nodes, n_bins_tot) -> torch.Tensor:
+    """K5 (``int8``) or K4 on CUDA tensors: check, prepare, launch, count."""
+    global bf16_launches, i8_launches
+    _check_cuda_inputs(name, binned, node_q, gh)
+    if min(k_nodes, MODE_NODES) * n_bins_tot * MODE_CELL_BYTES[int8] > SMEM_BYTES:
+        raise ValueError(f"{name}: {n_bins_tot} bins exceed the kernel's shared memory "
+                         f"({SMEM_BYTES} bytes per CTA)")
+    K, F, _ = binned.shape
+    out = torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.float32, device=binned.device)
+    if out.numel() == 0:
+        return out
+    digits, scale = launch_inputs(int8, gh)
+    launch_mode_kernel(int8, binned, node_q, digits, scale, out, k_nodes, n_bins_tot)
+    if int8:
+        i8_launches += 1
+    else:
+        bf16_launches += 1
+    return out
 
 
 def build_histograms_bf16(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
@@ -406,19 +469,9 @@ def build_histograms_bf16(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.
     """K4: [K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess) histograms
     summed as bf16 digits, from int16 bins [K, F, N], int32 node ids
     [K, N] and float32 (g, h) [K, N, 2]."""
-    global bf16_launches
     if binned.device.type == "cpu":
         return build_histograms_bf16_plain(binned, node_q, gh, k_nodes, n_bins_tot)
-    _check_cuda_inputs("build_histograms_bf16", binned, node_q, gh)
-    K, F, _ = binned.shape
-    out = torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.float32, device=binned.device)
-    if K == 0 or F == 0:
-        return out
-    digits = _digit_major(split_gh_digits(gh))
-    _launch_mode("mallorn_hist_bf16", binned, _padded_nodes(node_q), digits, out, k_nodes,
-                 n_bins_tot)
-    bf16_launches += 1
-    return out
+    return _mode_hist(False, "build_histograms_bf16", binned, node_q, gh, k_nodes, n_bins_tot)
 
 
 def build_histograms_i8(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
@@ -426,17 +479,6 @@ def build_histograms_i8(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Te
     """K5: [K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess) histograms
     of the int8 fixed-point digits, from int16 bins [K, F, N], int32 node
     ids [K, N] and float32 (g, h) [K, N, 2]."""
-    global i8_launches
     if binned.device.type == "cpu":
         return build_histograms_i8_plain(binned, node_q, gh, k_nodes, n_bins_tot)
-    _check_cuda_inputs("build_histograms_i8", binned, node_q, gh)
-    K, F, _ = binned.shape
-    if K == 0 or F == 0:
-        return torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.float32,
-                           device=binned.device)
-    digits, scale = quantize_gh_i8(gh)
-    P = torch.empty(K, F, k_nodes, 8, n_bins_tot, dtype=torch.int32, device=binned.device)
-    _launch_mode("mallorn_hist_i8", binned, _padded_nodes(node_q), _digit_major(digits), P,
-                 k_nodes, n_bins_tot)
-    i8_launches += 1
-    return _recombine_i8(P, scale)
+    return _mode_hist(True, "build_histograms_i8", binned, node_q, gh, k_nodes, n_bins_tot)

@@ -9,6 +9,10 @@
   ``split_gh_digits``'s, and its histograms are within the JAX package's
   histogram bar (rtol 1e-5, atol 1e-4; tests/test_hist_pallas.py:56) of
   ``build_histograms_binlane`` in interpret mode and of the float64 oracle.
+- K4's fixed-point twin (``build_histograms_bf16_fixed``, the kernel's
+  arithmetic): within the same bar of both; each digit sum within one
+  float32 ulp (plus the fixed point's rounding) of the float64 digit sum;
+  NaN in every cell of a fold with a non-finite g.
 - Fits in each mode against the JAX package's binlane path in the same
   mode, on the fixtures of tests/test_torch_gbdt_train.py (seed 7, and the
   unweighted seed-11 folds padded to 384 rows): identical forests under
@@ -16,7 +20,8 @@
 - Routing: ``hist_dtype`` picks the level-histogram kernel; an unknown
   mode raises; a leaf-wise fit ignores the mode.
 
-The CUDA kernels are held against the plain versions on the card by the
+The CUDA kernels are held against the plain versions on the card (K5 bit
+for bit against its plain version, K4 against its fixed-point twin) by the
 ``cuda`` case below and by ``chip_smoke.py``. The machine with the card
 has no JAX, so the JAX package is imported inside the tests that use it,
 and the file runs there as ``pytest --noconftest -m cuda
@@ -133,6 +138,67 @@ def test_bf16_plain_matches_binlane_interpret_and_f64(n_nodes):
         np.testing.assert_allclose(got[k], np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("n_nodes", [1, 4])
+def test_bf16_fixed_matches_binlane_interpret_and_f64(n_nodes):
+    import jax.numpy as jnp
+
+    from mallorn_tpu.ops import hist_pallas as hp
+
+    binned, node_q, gh = _fixture(n_nodes, seed=21)
+    tb, tq, tg = _t(binned, node_q, gh)
+    got = hist_cuda.build_histograms_bf16_fixed(tb, tq, tg, n_nodes, NBT).numpy()
+    assert got.shape == (K, F, n_nodes, NBT, 2) and got.dtype == np.float32
+    want64 = hist_cuda.build_histograms_plain(tb, tq, tg.double(), n_nodes, NBT).numpy()
+    np.testing.assert_allclose(got, want64, rtol=RTOL, atol=ATOL)
+    for k in range(K):
+        bhot, hib = hp.precompute_binlane(jnp.asarray(binned[k].astype(np.int32)))
+        gd = hp.split_gh_digits(jnp.asarray(gh[k, :, 0]), jnp.asarray(gh[k, :, 1]))
+        want = hp.build_histograms_binlane(bhot, hib, jnp.asarray(node_q[k]), gd, n_nodes, NBT,
+                                           interpret=True)
+        np.testing.assert_allclose(got[k], np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_nodes", [1, 4])
+def test_bf16_fixed_digit_sums_are_within_one_ulp_of_exact(n_nodes):
+    """Each fixed-point digit sum is the float32 rounding of an integer sum
+    that is within n / (2 S) of the exact one (n rows, S the channel's
+    scale): one float32 ulp of the float64 digit sum plus that."""
+    binned, node_q, gh = _fixture(n_nodes, seed=23)
+    tb, tq, tg = _t(binned, node_q, gh)
+    got = hist_cuda.bf16_digit_sums_fixed(tb, tq, tg, n_nodes, NBT).numpy().astype(np.float64)
+    d = hist_cuda.split_gh_digits(tg).double()
+    exact = np.stack([hist_cuda.build_histograms_plain(tb, tq, d[..., [i, 3 + i]], n_nodes,
+                                                       NBT).numpy() for i in range(3)], -1)
+    exact = exact.reshape(got.shape)  # [..., (g, h), digit] -> g's d0-d2, then h's
+    _, e = np.frexp(np.abs(d.numpy()).max(axis=1))  # [K, 6]: max |digit| < 2^e
+    scale = np.ldexp(1.0, 62 - int(np.ceil(np.log2(N))) - e)
+    slack = (N / (2 * scale))[:, None, None, None, :]
+    ulp = np.spacing(np.abs(exact).astype(np.float32)).astype(np.float64)
+    assert (np.abs(got - exact) <= ulp + slack).all()
+
+
+@pytest.mark.parametrize("n_nodes,bad", [(1, np.inf), (4, np.nan)])
+def test_bf16_fixed_is_nan_in_every_cell_of_a_non_finite_fold(n_nodes, bad):
+    binned, node_q, gh = _fixture(n_nodes, seed=21)
+    gh[1, 7, 0] = bad
+    got = hist_cuda.build_histograms_bf16_fixed(*_t(binned, node_q, gh), n_nodes, NBT).numpy()
+    assert np.isnan(got[1]).all() and np.isfinite(got[0]).all()
+
+
+def test_launch_inputs_are_row_major_digits_and_their_scales():
+    """What the mode kernel takes: K5 ``quantize_gh_i8``'s digits and scales;
+    K4 ``split_gh_digits``' [K, N, 6] bf16 digits, contiguous, with their
+    float32 max |digit| per fold and channel."""
+    tg = torch.from_numpy(_fixture(2)[2])
+    d5, s5 = hist_cuda.launch_inputs(True, tg)
+    want5 = hist_cuda.quantize_gh_i8(tg)
+    assert torch.equal(d5, want5[0]) and torch.equal(s5, want5[1]) and d5.is_contiguous()
+    d4, m4 = hist_cuda.launch_inputs(False, tg)
+    assert torch.equal(d4, hist_cuda.split_gh_digits(tg)) and d4.is_contiguous()
+    assert m4.dtype == torch.float32 and tuple(m4.shape) == (K, 6)
+    assert torch.equal(m4, d4.float().abs().amax(dim=1))
+
+
 def test_hist_dtype_picks_the_kernel_and_unknown_modes_raise():
     modes = {"i8full": hist_cuda.build_histograms, "bf16": hist_cuda.build_histograms_bf16,
              "i8bf16": hist_cuda.build_histograms_bf16, "int8": hist_cuda.build_histograms_i8}
@@ -227,7 +293,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
 def test_mode_kernels_match_plain_and_repeat_bit_for_bit_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernels run only on the card")
-    for n_nodes in (1, 4, 8, 11):
+    for n_nodes in (1, 4, 8, 11, 17):
         binned, node_q, gh = (torch.from_numpy(a).cuda() for a in _fixture(n_nodes))
         node_q[:, 1::9] = -1  # outside [0, k_nodes): inactive
         hist_cuda.reset_launches()
@@ -240,5 +306,7 @@ def test_mode_kernels_match_plain_and_repeat_bit_for_bit_on_the_card():
         assert torch.equal(a5, b5) and torch.equal(a4, b4)
         assert torch.equal(a5, hist_cuda.build_histograms_i8_plain(binned, node_q, gh, n_nodes,
                                                                     NBT))
+        assert torch.equal(a4, hist_cuda.build_histograms_bf16_fixed(binned, node_q, gh, n_nodes,
+                                                                      NBT))
         want = hist_cuda.build_histograms_plain(binned, node_q, gh.double(), n_nodes, NBT)
         np.testing.assert_allclose(a4.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
