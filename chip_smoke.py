@@ -7,11 +7,15 @@ Phases, each printing its wall time on its own line:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build: every CUDA source of the port, with plain ``nvcc``;
-3. kernel checks: the Cholesky-inverse kernel against its plain PyTorch
-   version (float32 and float64) at B=2048, T=64/128/160/192 and a ragged
-   B=2047, T=72, its wide variant (T > 240) at B=64, T=256/320 and at the
-   wide server's B=2048, T=256, a non-SPD matrix giving NaN in each, and
-   times (kernel, plain, a two-call library yardstick, the roofline bound);
+3. kernel checks: the Cholesky-inverse kernel (K2, the blocked kernel for
+   T <= 240) against its plain PyTorch version (float32 and float64) at
+   B=2048, T=64/128/160/184/192/240 and a ragged B=2047, T=72, two launches
+   bit for bit equal, its wide variant (T > 240) at B=64, T=256/320 and at
+   the wide server's B=2048, T=256, a non-SPD matrix giving NaN in that
+   matrix only (T=64/72/184/240/320), and times (kernel, plain, a two-call
+   library yardstick, the roofline bound); one GP Adam step
+   (``gp.batched_nll_grad``) at B=2048, T=64/160 split into the kernel
+   matrix, K2, ``Linv^T Linv`` and the rest;
    the factor-only Cholesky kernel (K6) against its plain version at
    B=2048, T=64/160/192 and B=64, T=256/320 (rtol / atol 2e-5, upper
    triangle exactly 0, two launches bit for bit equal), a non-SPD matrix
@@ -21,7 +25,8 @@ Phases, each printing its wall time on its own line:
    ``V92dServer`` at full v92d width (5 folds x 500 trees of depth 5 over
    222 columns, random weights from a fixed seed, bin edges fitted on the
    served matrix), as 4 requests of <= 2048 objects with 100 GP steps;
-   the kernel's launch count must equal the GP schedule's prediction;
+   the kernel's launch count must equal the GP schedule's prediction, with
+   launches at the coarse width (64) and at the server's;
 5. reference: 128 of those objects through the server's feature
    families on the CPU (the kernels' plain versions) and through bin +
    forest on both devices; each column must agree within its family's
@@ -85,6 +90,7 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import math
 import subprocess
 import sys
 import time
@@ -98,7 +104,7 @@ from mallorn_tpu_torch.data.packing import (Metadata, pack_lightcurves, pad_time
 from mallorn_tpu_torch.features import multiband_gp
 from mallorn_tpu_torch.io.model_store import (GBDTModel, forest_from_numpy, load_cv_models,
                                               save_cv_models)
-from mallorn_tpu_torch.ops import chol_cuda, hist_cuda
+from mallorn_tpu_torch.ops import chol_cuda, gp, hist_cuda
 from mallorn_tpu_torch.features.base import merge
 from mallorn_tpu_torch.serving import (SHIFT_FEATURES, V92dServer,
                                        assemble_v34a_matrix, drop_shift_features,
@@ -111,7 +117,7 @@ from mallorn_tpu_torch.trees.binning import fit_bins
 from mallorn_tpu_torch.trees.gbdt import (V34A_PARAMS, GBDTParams, predict_margin_models,
                                           train_gbdt)
 from mallorn_tpu_torch.utils import cuda_build
-from mallorn_tpu_torch.utils.constants import LSST_BANDS
+from mallorn_tpu_torch.utils.constants import LSST_BANDS, WAVELENGTHS_A
 
 ROOT = Path(__file__).resolve().parent
 DATA = ROOT / ".bench_data_v2.npz"
@@ -234,7 +240,9 @@ def check_kernel(B: int, T: int, seed: int) -> dict:
     r = torch.randn(B, T, generator=torch.Generator(device="cuda").manual_seed(seed + 1),
                     device="cuda", dtype=torch.float32)
     Linv, ld = chol_cuda.chol_inv(K)
+    Linv2, ld2 = chol_cuda.chol_inv(K)
     torch.cuda.synchronize()
+    repeat_equal = bool(torch.equal(Linv, Linv2) and torch.equal(ld, ld2))
     Lp, ldp = chol_cuda.chol_inv_plain(K)
     L64, ld64 = chol_cuda.chol_inv_plain(K.double())
     Kinv = torch.matmul(Linv.transpose(1, 2), Linv)
@@ -253,9 +261,11 @@ def check_kernel(B: int, T: int, seed: int) -> dict:
         tol = TOL[name.split("_")[0]]
         log(f"  B={B} T={T} {name}: max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
             f"(rtol={tol[0]:g}, atol={tol[1]:g}) {'ok' if ok else 'FAIL'}")
+    log(f"  B={B} T={T} two launches bit for bit equal: {repeat_equal}")
     bad = [n for n, (_, _, ok) in rows.items() if not ok]
-    if bad:
-        raise AssertionError(f"chol_inv B={B} T={T} outside tolerance: {bad}")
+    if bad or not repeat_equal:
+        raise AssertionError(f"chol_inv B={B} T={T} outside tolerance {bad} or not "
+                             f"repeatable")
 
     eye = torch.eye(T, device="cuda").expand(B, T, T)
 
@@ -290,12 +300,50 @@ def check_non_spd(T: int = 64) -> None:
     torch.cuda.synchronize()
     Lp, ldp = chol_cuda.chol_inv_plain(K)
     nan_k = torch.isnan(ld).tolist()
-    log(f"  T={T} non-SPD matrix 1 of 4: logdet={ld.tolist()} Linv has NaN: "
-        f"{bool(torch.isnan(Linv[1]).any())}")
-    if nan_k != [False, True, False, False] or not bool(torch.isnan(Linv[1]).any()):
+    nan_linv = torch.isnan(Linv).flatten(1).any(dim=1).tolist()
+    log(f"  T={T} non-SPD matrix 1 of 4: logdet={ld.tolist()} matrices of Linv with "
+        f"NaN: {nan_linv}")
+    if nan_k != [False, True, False, False] or nan_linv != nan_k:
         raise AssertionError("a non-positive pivot must give NaN in that matrix only")
     if torch.isnan(ldp).tolist() != nan_k:
         raise AssertionError("plain version disagrees on the NaN lanes")
+
+
+def time_gp_step(B: int, T: int, seed: int) -> None:
+    """One GP Adam step (``gp.batched_nll_grad``) at [B, T] split into its
+    parts, each timed alone on the same inputs: the kernel matrix
+    (``_masked_kernel``), K2 on it, ``Linv^T Linv``, and the rest (alpha, W
+    and the four gradient reductions) as the difference. Inputs are the
+    phase-1 initial state of seeded lightcurves, 3/4 to all of the T points
+    valid."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_valid = torch.randint(3 * T // 4, T + 1, (B, 1), generator=g, device="cuda")
+    mask = torch.arange(T, device="cuda")[None, :] < n_valid
+    t = torch.sort(torch.rand(B, T, generator=g, device="cuda") * 300.0, dim=1).values
+    bands = torch.randint(0, len(WAVELENGTHS_A), (B, T), generator=g, device="cuda")
+    lam = torch.tensor(WAVELENGTHS_A, device="cuda")[bands]
+    y = torch.randn(B, T, generator=g, device="cuda")
+    yerr = 0.05 + 0.2 * torch.rand(B, T, generator=g, device="cuda")
+    params = torch.stack([torch.zeros(B, device="cuda"), torch.zeros(B, device="cuda"),
+                          torch.full((B,), 2.0 * math.log(100.0), device="cuda"),
+                          torch.full((B,), 2.0 * math.log(6000.0), device="cuda")], dim=1)
+    dt2 = (t[:, :, None] - t[:, None, :]) ** 2
+    dl2 = (lam[:, :, None] - lam[:, None, :]) ** 2
+    args = (params, dt2, dl2, y, yerr, mask)
+    K = gp._masked_kernel(params, dt2, dl2, mask, yerr, True)[1]
+    Linv, _ = chol_cuda.chol_inv(K)
+    res = {"step_ms": cuda_ms(lambda: gp.batched_nll_grad(*args), reps=10),
+           "kernel_matrix_ms": cuda_ms(
+               lambda: gp._masked_kernel(params, dt2, dl2, mask, yerr, True), reps=10),
+           "k2_ms": cuda_ms(lambda: chol_cuda.chol_inv(K), reps=10),
+           "kinv_matmul_ms": cuda_ms(lambda: torch.matmul(Linv.transpose(1, 2), Linv),
+                                     reps=10)}
+    res["rest_ms"] = (res["step_ms"] - res["kernel_matrix_ms"] - res["k2_ms"]
+                      - res["kinv_matmul_ms"])
+    log(f"  GP Adam step B={B} T={T}: step_ms={res['step_ms']:.4f} = kernel matrix "
+        f"{res['kernel_matrix_ms']:.4f} + K2 {res['k2_ms']:.4f} + Linv^T Linv "
+        f"{res['kinv_matmul_ms']:.4f} + the rest {res['rest_ms']:.4f} (alpha, W, the four "
+        f"gradient reductions); K2 is {res['k2_ms'] / res['step_ms']:.1%} of the step")
 
 
 def check_cholesky(B: int, T: int, seed: int) -> dict:
@@ -756,6 +804,7 @@ def run_training(device) -> dict:
                      selection_cache=None, device=device)
     torch.cuda.synchronize()
     launches, chol_launches = hist_cuda.launches, chol_cuda.launches
+    chol_by_t = dict(chol_cuda.launches_by_t)
     log("training stages (s): " + ", ".join(f"{k}={v:.3f}" for k, v in out.timings.items()))
     depth = {"selection": V34A_PARAMS.max_depth, "adversarial": ADV_PARAMS.max_depth,
              "v92d": V34A_PARAMS.max_depth}
@@ -763,7 +812,8 @@ def run_training(device) -> dict:
     log("rounds run: " + ", ".join(f"{k}={v}" for k, v in out.rounds_run.items())
         + f"; K1 launches {launches} (rounds x depth predicts {want})")
     want_chol = expected_training_chol(tr_packed, te_packed, GP_STEPS)
-    log(f"chol_inv launches in training {chol_launches} (GP schedule predicts {want_chol})")
+    log(f"chol_inv launches in training {chol_launches} (GP schedule predicts {want_chol}); "
+        f"by width {chol_by_t}")
     if launches != want or launches == 0 or chol_launches != want_chol:
         raise AssertionError("training's kernel launch counts disagree with the prediction")
 
@@ -1024,8 +1074,12 @@ def main() -> int:
 
     with Phase("kernel checks"):
         results = [check_kernel(B, T, seed=1000 + T)
-                   for B, T in ((2048, 64), (2048, 128), (2048, 160), (2048, 192), (2047, 72))]
-        check_non_spd()
+                   for B, T in ((2048, 64), (2048, 128), (2048, 160), (2048, 184), (2048, 192),
+                                (2048, 240), (2047, 72))]
+        for T in (64, 72, 184, 240):
+            check_non_spd(T)
+        for T in (64, 160):
+            time_gp_step(REQUEST, T, seed=7000 + T)
         chol_cuda.reset_launches()
         wide_results = [check_kernel(B, T, seed=3000 + T)
                         for B, T in ((64, 256), (64, 320), (REQUEST, WIDE_T))]
@@ -1083,13 +1137,17 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = chol_cuda.launches
+        by_t = dict(chol_cuda.launches_by_t)
         want = expected_launches(n, server)
         log(f"serving: {n} objects in {len(requests(n))} requests, {wall:.3f} s, "
             f"{n / wall:.1f} objects/s")
         log("serving phases (s): " + ", ".join(f"{k}={v:.3f}" for k, v in timings.items()))
-        log(f"chol_inv launches: {launches} (GP schedule predicts {want})")
-        if launches != want or launches == 0:
-            raise AssertionError(f"chol_inv launched {launches} times, expected {want}")
+        log(f"chol_inv launches: {launches} (GP schedule predicts {want}); by width {by_t}")
+        # the coarse phase's width and the server's (phase 2 and predict)
+        widths = (multiband_gp._T_COARSE, gp_tc) if gp_two_phase else (gp_tc,)
+        if launches != want or launches == 0 or any(by_t.get(w, 0) == 0 for w in widths):
+            raise AssertionError(f"chol_inv launched {launches} times ({by_t}), expected "
+                                 f"{want} with launches at every width of {widths}")
         p = probs.cpu().numpy()
         if p.shape != (n,) or not np.isfinite(p).all() or p.min() < 0 or p.max() > 1:
             raise AssertionError(f"bad probabilities: shape {p.shape}, "
@@ -1132,18 +1190,19 @@ def main() -> int:
     with Phase("kaggle ensemble"):
         ensemble = run_ensemble(trained, dev)
 
-    # the kernel's row: the shape of the GP's full-width launches
-    main_shape = next(r for r in results if (r["B"], r["T"]) == (REQUEST, gp_tc))
-    kernels.append({
-        "name": "chol_inv", "route": "cuda",
-        "source": "mallorn_tpu_torch/csrc/chol_inv.cu",
-        "replaces": "mallorn_tpu/ops/chol_pallas.py:60",
-        "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"], "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
-        "shape": [REQUEST, gp_tc, gp_tc],
-    })
+    # K2's rows: the server's GP width (phase 2 and the predict) and the
+    # coarse phase's width, each with serving's launches at that width
+    for name, width in (("chol_inv", gp_tc), ("chol_inv_coarse", multiband_gp._T_COARSE)):
+        r = next(r for r in results if (r["B"], r["T"]) == (REQUEST, width))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mallorn_tpu_torch/csrc/chol_inv_blocked.cu",
+            "replaces": "mallorn_tpu/ops/chol_pallas.py:60",
+            "launches": by_t.get(width, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": [REQUEST, width, width],
+        })
     # the wide variant's row: the wide server's launches
     main_wide = next(r for r in wide_results if (r["B"], r["T"]) == (REQUEST, WIDE_T))
     kernels.append({

@@ -1,5 +1,6 @@
-// Batched Cholesky factorisation, fused with the inverse for the 2D-GP (K2)
-// or alone (K6).
+// Batched Cholesky factorisation as a column loop: K2's wide path
+// (T > 240) and K6 at every width. K2 at T <= 240 is the blocked kernel of
+// chol_inv_blocked.cu.
 //
 // K2 replaces mallorn_tpu/ops/chol_pallas.py:_chol_inv_kernel (the Pallas
 // kernel behind cholesky_inverse_lanes). Contract, per matrix b of a
@@ -10,32 +11,22 @@
 // A non-positive pivot gives NaN (rsqrt of a negative) that propagates
 // through the rest of the matrix: no early exit, no error.
 //
-// Design: one CTA per matrix (B = 2048 per launch fills 132 SMs many
-// times over). The matrix lives in dynamic shared memory as two packed
-// triangles, so T * (T + 1) floats suffice for K and Linv together
-// (T = 192: 148,224 B; the 232,448 B a block may use caps T at 240):
-//   A - the trailing Schur complement, lower triangle, packed column-major
-//       (column c holds rows c..T-1 contiguously), overwritten by L;
-//   X - Linv in progress, lower triangle, packed row-major.
-// Step j of the right-looking loop (the Pallas kernel's fori_loop):
-//   1. d = rsqrt(A[j,j]); scale column j of A by d (-> L[:, j]); scale
-//      row j of X by d -- that row of Linv is final and goes to global
-//      memory, zeros above the diagonal included;
-//   2. trailing update A[i,c] -= L[i,j] L[c,j] (j < c <= i) and forward
-//      substitution X[i,k] -= L[i,j] X[j,k] (i > j, k <= j).
-// Both phases read along contiguous packed runs, so a warp's 32 lanes
-// touch 32 consecutive words (no bank conflicts); two __syncthreads per
-// column. L[j,j] itself is never needed again, so it is not written back
-// (which also keeps the pivot read race-free within phase 1).
-//
-// Bound on an H100: device memory traffic is one read of K's lower
-// triangle and one write of Linv (B * (T(T+1)/2 + T^2) * 4 bytes: 315 MB,
-// ~0.094 ms at T = 160, B = 2048); the textbook 2T^3/3 flops per matrix
-// (Cholesky plus triangular inverse) take about as long at the float32
-// rate outside the tensor cores (5.6 GFLOP, ~0.083 ms), and bound it above
-// T of about 180. This first version does those flops in shared memory behind
-// 2T block-wide barriers and is limited by shared-memory bandwidth and the
-// barrier chain, not by HBM.
+// The column loop (chol_kernel): one CTA per matrix; step j of the
+// right-looking loop (the Pallas kernel's fori_loop) is
+//   1. d = rsqrt(A[j,j]); scale column j of A by d (-> L[:, j]); with the
+//      inverse, scale row j of X = Linv by d -- that row is final;
+//   2. trailing update A[i,c] -= L[i,j] L[c,j] (j < c <= i) and, with the
+//      inverse, forward substitution X[i,k] -= L[i,j] X[j,k] (i > j, k <= j).
+// A is the trailing Schur complement, lower triangle, packed column-major
+// (column c holds rows c..T-1 contiguously), overwritten by L; X is packed
+// row-major. Both phases read along contiguous packed runs, so a warp's 32
+// lanes touch 32 consecutive words; two __syncthreads per column. L[j,j]
+// itself is never needed again by the inverse, so it is not written back
+// there. Every FMA is a shared- or global-memory read-modify-write behind
+// 2T block-wide barriers: the loop is bound by that traffic and the barrier
+// chain, not by HBM. Its shared-memory path with the inverse (both
+// triangles in shared memory) is not instantiated: K2 at T <= 240 is the
+// blocked kernel.
 //
 // T > 240 (chol_inv_large_kernel): the same loop, with Linv built in place
 // in the output (row-major, its upper triangle never touched after the
@@ -45,7 +36,9 @@
 // through L1/L2 (T^3/6 read-modify-writes each per matrix), so this
 // variant is bound by cache bandwidth; the caller launches it on about one
 // matrix per SM at a time, so that the working sets stay in L2. It exists
-// so that any object width runs, as the reference's does.
+// so that any object width runs, as the reference's does. Bound on an
+// H100: K's lower triangle in, Linv out (B (T(T+1)/2 + T^2) 4 bytes)
+// against 2T^3/3 flops per matrix; operations above T of about 180.
 
 // K6 replaces mallorn_tpu/ops/chol_pallas.py:_chol_kernel (the Pallas
 // kernel behind cholesky_lanes): L = chol(K) alone, row-major with its
@@ -205,12 +198,6 @@ int launch_wide(const float* K, float* out, float* logdet, float* scratch, int B
 extern "C" int mallorn_chol_inv_large(const float* K, float* Linv, float* logdet,
                                       float* scratch, int B, int T, void* stream) {
   return launch_wide<true>(K, Linv, logdet, scratch, B, T, stream);
-}
-
-// K2, T <= 240
-extern "C" int mallorn_chol_inv(const float* K, float* Linv, float* logdet,
-                                int B, int T, void* stream) {
-  return launch_shared<true>(K, Linv, logdet, B, T, stream);
 }
 
 // K6, T > 240; scratch: B * T(T+1)/2 floats

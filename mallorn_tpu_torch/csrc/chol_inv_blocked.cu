@@ -1,0 +1,378 @@
+// K2 for T <= 240: the fused Cholesky-inverse of the 2D-GP as a blocked,
+// register-tiled kernel that forms the inverse in place.
+//
+// Replaces mallorn_tpu/ops/chol_pallas.py:_chol_inv_kernel (:60, behind
+// cholesky_inverse_lanes). Contract, per matrix b of a [B, T, T] float32
+// row-major batch of SPD matrices (identity on masked rows):
+//   Linv = chol(K)^-1 from K's lower triangle (upper triangle exactly 0),
+//   logdet[b] = sum_j log(pivot_j), accumulated in column order.
+// A non-positive pivot gives NaN (rsqrt of a negative) that spreads through
+// the rest of that matrix: no early exit, no error. No atomics: two launches
+// are bit for bit equal, and a matrix's result does not depend on B.
+//
+// Bound on an H100: one read of K's lower triangle and one write of Linv,
+// B (T(T+1)/2 + T^2) 4 bytes, against 2T^3/3 flops per matrix at the
+// float32 rate outside the tensor cores (TF32 stays off): bytes below T of
+// about 180, operations above.
+//
+// Design: one CTA per matrix. K's lower triangle, padded with identity to
+// Tp = 16 ceil(T / 16), lives in dynamic shared memory as nb x nb tiles
+// (nb = 16), packed by rows of tiles: Tp (Tp + 16) / 2 floats, one triangle
+// (T = 160: 56,320 B; T = 192: 79,872 B; T = 240: 122,880 B). Shared memory
+// would then hold 4 CTAs per SM at T = 160 and 2 at T = 192; the registers
+// (128 a thread) hold 4 CTAs of 128 threads (T <= 128) or 2 of 256. The padding is an identity block: its pivots are 1, it adds
+// log 1 = 0 to logdet, and it is never written out, so every T runs with
+// no masking inside the loops.
+//   Factorisation, panel k = 0 .. nt-1:
+//   (a) one warp factors the diagonal tile in registers (lane i holds row i;
+//       pivots and columns travel by shuffles, no block barrier; logdet
+//       gains log(pivot) column by column), then forms Linv_kk column by
+//       column by forward substitution and leaves it in the tile;
+//   (b) the panel below it, L[I, k] = A[I, k] Linv_kk^T, a row per thread,
+//       Linv_kk read from shared memory as broadcasts;
+//   (c) the trailing update A[I, J] -= L[I, k] L[J, k]^T on the lower
+//       triangle of tiles: 16 threads per tile, each holding a 4 x 4 block
+//       of A[I, J] in registers and streaming float4 fragments of the two
+//       panel tiles (2 FMAs per float loaded; the column loop did one FMA
+//       per two loads and a store). Warp 0 looks ahead: it updates the next
+//       diagonal tile first and runs (a) on it while the other warps update
+//       the rest, so the serial diagonal step hides behind (c).
+//   Inverse, block columns J = nt-2 .. 0 from the right, in place:
+//       W = L[J+1:, J] Linv_JJ (a row per thread), then
+//       Linv[I, J] = -sum_{M=J+1..I} Linv[I, M] W[M, J], each thread's 4 x 4
+//       block held in registers across a barrier before it overwrites W.
+// That is 2 barriers per panel and 2 per inverse block column (39 at
+// T = 160, against 2T = 320 in the column loop of chol_inv.cu), so the
+// barrier chain no longer bounds the kernel, and with one triangle instead
+// of two twice as many CTAs fit in an SM's shared memory. K's triangle comes
+// in by cp.async, every load of a thread in flight at once. Tiles store
+// their float4 chunks swizzled by row (chunk_off), so the rows a quarter
+// warp reads at once fall in distinct banks without padding.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kNb = 16;
+constexpr int kTile = kNb * kNb;
+constexpr int kMaxT = 240;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// tile (I, J), I >= J, in the row-packed triangle of tiles
+__device__ __forceinline__ float* tile(float* s, int I, int J) {
+  return s + ((I * (I + 1)) / 2 + J) * kTile;
+}
+
+// word offset of float4 chunk q (columns 4q .. 4q+3) of row r in a tile
+__device__ __forceinline__ int chunk_off(int r, int q) {
+  return r * kNb + (((q ^ (r >> 1)) & 3) << 2);
+}
+
+__device__ __forceinline__ int elem_off(int r, int c) {
+  return chunk_off(r, c >> 2) + (c & 3);
+}
+
+__device__ __forceinline__ float4 load4(const float* t, int r, int q) {
+  return *reinterpret_cast<const float4*>(t + chunk_off(r, q));
+}
+
+__device__ __forceinline__ void load_row(const float* t, int r, float (&x)[kNb]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 v = load4(t, r, q);
+    x[4 * q] = v.x;
+    x[4 * q + 1] = v.y;
+    x[4 * q + 2] = v.z;
+    x[4 * q + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void store_row(float* t, int r, const float (&x)[kNb]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    *reinterpret_cast<float4*>(t + chunk_off(r, q)) =
+        make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// (a) the diagonal tile's Cholesky-inverse by one warp, with no block
+// barrier: lane i (and i + 16) factors row i in registers, pivots and
+// columns travel by shuffles (logdet gains log(pivot) column by column);
+// L goes to the tile with 1 / L[i, i] on its diagonal, and lane k then forms
+// column k of Linv_kk by forward substitution, reading L as broadcasts.
+// Leaves Linv_kk in the tile, zeros above its diagonal.
+__device__ void diag_chol_inv(float* t, float& ld, int lane) {
+  const int i = lane & (kNb - 1);
+  float a[kNb];
+  load_row(t, i, a);
+  float dinv = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kNb; ++j) {
+    const float piv = __shfl_sync(kFullMask, a[j], j);
+    const float d = rsqrtf(piv);
+    ld += logf(piv);
+    dinv = (i == j) ? d : dinv;
+    const float lij = a[j] * d;  // L[i, j] (L[j, j] on lane j)
+    a[j] = lij;
+    // rows i > j: the trailing update; rows i <= j change only entries
+    // above their diagonal, which nothing reads
+#pragma unroll
+    for (int c = j + 1; c < kNb; ++c)
+      a[c] = fmaf(-lij, __shfl_sync(kFullMask, lij, c), a[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < kNb; ++c) a[c] = (c == i) ? dinv : a[c];
+  if (lane < kNb) store_row(t, i, a);
+  __syncwarp();
+  // x = column k of Linv_kk: x[r] = (delta_rk - sum_{m<r} L[r, m] x[m]) / L[r, r]
+  const int k = i;
+  float x[kNb];
+#pragma unroll
+  for (int r = 0; r < kNb; ++r) {
+    float acc = (r == k) ? 1.0f : 0.0f;
+    float diag = 0.0f;
+#pragma unroll
+    for (int q = 0; q <= r / 4; ++q) {
+      const float4 v = load4(t, r, q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (4 * q + e < r) acc = fmaf(-comp(v, e), x[4 * q + e], acc);
+        if (4 * q + e == r) diag = comp(v, e);
+      }
+    }
+    x[r] = acc * diag;
+  }
+  __syncwarp();
+  if (lane < kNb) {
+#pragma unroll
+    for (int r = 0; r < kNb; ++r) t[elem_off(r, k)] = x[r];
+  }
+}
+
+// row r of tile t times D^T (transpose = true) or D, D = the diagonal tile
+// of Linv (zeros above its diagonal), in place: (b) and the inverse's W
+template <bool kTranspose>
+__device__ __forceinline__ void row_times_diag(float* t, int r, const float* D) {
+  float x[kNb], y[kNb];
+  load_row(t, r, x);
+  if (kTranspose) {
+    // y[c] = sum_{m <= c} x[m] D[c, m]
+#pragma unroll
+    for (int c = 0; c < kNb; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int q = 0; q <= c / 4; ++q) {
+        const float4 v = load4(D, c, q);
+        acc = fmaf(x[4 * q], v.x, acc);
+        acc = fmaf(x[4 * q + 1], v.y, acc);
+        acc = fmaf(x[4 * q + 2], v.z, acc);
+        acc = fmaf(x[4 * q + 3], v.w, acc);
+      }
+      y[c] = acc;
+    }
+  } else {
+    // y[c] = sum_{m >= c} x[m] D[m, c]
+#pragma unroll
+    for (int c = 0; c < kNb; ++c) y[c] = 0.0f;
+#pragma unroll
+    for (int m = 0; m < kNb; ++m) {
+#pragma unroll
+      for (int q = 0; q <= m / 4; ++q) {
+        const float4 v = load4(D, m, q);
+        y[4 * q] = fmaf(x[m], v.x, y[4 * q]);
+        y[4 * q + 1] = fmaf(x[m], v.y, y[4 * q + 1]);
+        y[4 * q + 2] = fmaf(x[m], v.z, y[4 * q + 2]);
+        y[4 * q + 3] = fmaf(x[m], v.w, y[4 * q + 3]);
+      }
+    }
+  }
+  store_row(t, r, y);
+}
+
+// (c) one task of the trailing update after panel k: 4 x 4 elements of
+// tile (I, J) of the lower triangle of tiles below and right of tile (k, k)
+// (rows ra + 4u, columns cb + 4v of the tile)
+__device__ __forceinline__ void trailing_task(float* s, int k, int task) {
+  const int p = task >> 4;
+  const int ra = (task >> 2) & 3;
+  const int cb = task & 3;
+  // p -> (I, J), J <= I, of the (nt-1-k)-square block, packed by rows
+  int I = static_cast<int>((sqrtf(8.0f * p + 1.0f) - 1.0f) * 0.5f);
+  if (((I + 1) * (I + 2)) / 2 <= p) ++I;
+  if ((I * (I + 1)) / 2 > p) --I;
+  const int J = p - (I * (I + 1)) / 2;
+  const float* LI = tile(s, k + 1 + I, k);
+  const float* LJ = tile(s, k + 1 + J, k);
+  float* C = tile(s, k + 1 + I, k + 1 + J);
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = C[elem_off(ra + 4 * u, cb + 4 * v)];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float4 li[4], lj[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      li[u] = load4(LI, ra + 4 * u, q);
+      lj[u] = load4(LJ, cb + 4 * u, q);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          acc[u][v] = fmaf(-comp(li[u], e), comp(lj[v], e), acc[u][v]);
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) C[elem_off(ra + 4 * u, cb + 4 * v)] = acc[u][v];
+}
+
+// kThreads >= 16 (nt - 1): the inverse's second step holds one 4 x 4 block
+// per thread across a barrier; kThreads >= 64: warp 0 looks ahead
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+chol_inv_blocked_kernel(const float* __restrict__ K, float* __restrict__ Linv,
+                        float* __restrict__ logdet, int T) {
+  static_assert(kThreads >= 64 && kThreads % 32 == 0, "whole warps, warp 0 and others");
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);
+  const int nt = (T + kNb - 1) / kNb;
+  const int Tp = nt * kNb;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // K's lower triangle (coalesced along its rows) by cp.async, so that all
+  // of a thread's loads are in flight at once; identity beyond T, zeros
+  // above the diagonal of the diagonal tiles
+  const float* Kb = K + static_cast<size_t>(b) * T * T;
+  for (int i = warp; i < Tp; i += kWarps) {
+    const int I = i / kNb;
+    for (int c = lane; c < (I + 1) * kNb; c += 32) {
+      float* dst = tile(s, I, c / kNb) + elem_off(i % kNb, c % kNb);
+      if (c <= i && i < T) {
+        const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                     :: "r"(d), "l"(Kb + static_cast<size_t>(i) * T + c));
+      } else {
+        *dst = (c == i) ? 1.0f : 0.0f;
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  float ld = 0.0f;  // warp 0's, in column order
+  if (warp == 0) diag_chol_inv(tile(s, 0, 0), ld, lane);
+  __syncthreads();
+  for (int k = 0; k < nt - 1; ++k) {
+    const int m = nt - 1 - k;
+    for (int row = tid; row < m * kNb; row += kThreads)  // (b)
+      row_times_diag<true>(tile(s, k + 1 + row / kNb, k), row % kNb, tile(s, k, k));
+    __syncthreads();
+    // (c), looking ahead: warp 0 updates the next diagonal tile (the first
+    // 16 tasks) and runs (a) on it while the other warps update the rest
+    if (warp == 0) {
+      if (lane < 16) trailing_task(s, k, lane);
+      __syncwarp();
+      diag_chol_inv(tile(s, k + 1, k + 1), ld, lane);
+    } else {
+      for (int task = 16 + tid - 32; task < (m * (m + 1) / 2) * 16; task += kThreads - 32)
+        trailing_task(s, k, task);
+    }
+    __syncthreads();
+  }
+
+  for (int J = nt - 2; J >= 0; --J) {
+    const int m = nt - 1 - J;
+    for (int row = tid; row < m * kNb; row += kThreads)  // W = L[J+1:, J] Linv_JJ
+      row_times_diag<false>(tile(s, J + 1 + row / kNb, J), row % kNb, tile(s, J, J));
+    __syncthreads();
+    // Linv[I, J] = -sum_{M=J+1..I} Linv[I, M] W[M, J]: rows ra + 4u, the
+    // four columns of chunk cb
+    const bool active = tid < m * 16;
+    const int I = J + 1 + tid / 16;
+    const int ra = (tid >> 2) & 3;
+    const int cb = tid & 3;
+    float acc[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[u][v] = 0.0f;
+    if (active) {
+      for (int M = J + 1; M <= I; ++M) {
+        const float* LI = tile(s, I, M);
+        const float* WM = tile(s, M, J);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float4 li[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) li[u] = load4(LI, ra + 4 * u, q);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 w = load4(WM, 4 * q + e, cb);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float l = comp(li[u], e);
+              acc[u][0] = fmaf(l, w.x, acc[u][0]);
+              acc[u][1] = fmaf(l, w.y, acc[u][1]);
+              acc[u][2] = fmaf(l, w.z, acc[u][2]);
+              acc[u][3] = fmaf(l, w.w, acc[u][3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (active) {
+      float* C = tile(s, I, J);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        *reinterpret_cast<float4*>(C + chunk_off(ra + 4 * u, cb)) =
+            make_float4(-acc[u][0], -acc[u][1], -acc[u][2], -acc[u][3]);
+    }
+  }
+  __syncthreads();
+
+  if (tid == 0) logdet[b] = ld;
+  float* Ob = Linv + static_cast<size_t>(b) * T * T;
+  for (int i = warp; i < T; i += kWarps)
+    for (int c = lane; c < T; c += 32)
+      Ob[static_cast<size_t>(i) * T + c] =
+          (c <= i) ? tile(s, i / kNb, c / kNb)[elem_off(i % kNb, c % kNb)] : 0.0f;
+}
+
+template <int kThreads>
+int launch(const float* K, float* Linv, float* logdet, int B, int T, void* stream) {
+  const int nt = (T + kNb - 1) / kNb;
+  if (kThreads < 16 * (nt - 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(nt) * (nt + 1) / 2 * kTile * sizeof(float);
+  auto kernel = chol_inv_blocked_kernel<kThreads>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(K, Linv, logdet, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K2, T <= 240
+extern "C" int mallorn_chol_inv(const float* K, float* Linv, float* logdet,
+                                int B, int T, void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  if (T > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
+  // threads per CTA, picked by timing 64 to 512 on an H100: 128 up to
+  // T = 128, where more CTAs per SM hide each other's barriers, 256 beyond
+  if (T <= 128) return launch<128>(K, Linv, logdet, B, T, stream);
+  return launch<256>(K, Linv, logdet, B, T, stream);
+}

@@ -10,34 +10,39 @@ matrices (identity on masked rows) it returns ``Linv = chol(K)^-1``
 propagates; nothing raises, the GP's ``isfinite`` guards take it from
 there.
 
-- ``chol_inv`` launches a CUDA kernel (``csrc/chol_inv.cu``) for a CUDA
-  tensor and runs ``chol_inv_plain`` for a CPU tensor. A CUDA tensor never
-  falls back: a kernel launches or the call raises. The width picks the
-  kernel: T <= ``MAX_T`` keeps both triangles in shared memory
-  (``chol_inv_kernel``); a wider batch goes to ``chol_inv_large_kernel``,
-  which builds Linv in the output and keeps the Schur complement in a
-  global scratch allocated here, one launch per chunk of ``wide_chunk``
-  matrices (one per SM).
-- ``chol_inv_plain`` is the same right-looking column loop in PyTorch,
-  batched over B. The CPU tests use it, and ``chip_smoke.py`` holds both
-  kernels against it on the card.
+- ``chol_inv`` launches a CUDA kernel for a CUDA tensor and runs
+  ``chol_inv_plain`` for a CPU tensor. A CUDA tensor never falls back: a
+  kernel launches or the call raises. The width picks the kernel:
+  T <= ``MAX_T`` takes the blocked kernel (``csrc/chol_inv_blocked.cu``:
+  one triangle of 16 x 16 tiles in shared memory, register-tiled updates,
+  the inverse formed in place); a wider batch goes to
+  ``chol_inv_large_kernel`` (``csrc/chol_inv.cu``), which builds Linv in
+  the output and keeps the Schur complement in a global scratch allocated
+  here, one launch per chunk of ``wide_chunk`` matrices (one per SM).
+- ``chol_inv_plain`` is the right-looking column loop in PyTorch, batched
+  over B: the contract's plain version. The CPU tests use it, and
+  ``chip_smoke.py`` holds both kernels against it on the card.
+  ``chol_inv_blocked_plain`` is the blocked kernel's algorithm in its
+  order, held against the JAX package by the CPU tests; no path calls it.
 - ``launches`` and ``large_launches`` count K2's launches at the two
-  widths, ``chol_launches`` K6's at either (plain calls do not count).
+  widths, ``launches_by_t`` the T <= ``MAX_T`` launches per width T, and
+  ``chol_launches`` K6's at either (plain calls do not count).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from mallorn_tpu_torch.utils import cuda_build
 
-# the kernel keeps K and Linv as two packed triangles in one block's
-# shared memory: T * (T + 1) * 4 bytes <= 232,448
+# widest batch the shared-memory kernels take (K2: one triangle of 16 x 16
+# tiles, 122,880 bytes at T = 240); a wider batch takes the wide path
 MAX_T = 240
 
 launches = 0
+launches_by_t: Dict[int, int] = {}
 large_launches = 0
 chol_launches = 0
 
@@ -45,6 +50,7 @@ chol_launches = 0
 def reset_launches() -> None:
     global launches, large_launches, chol_launches
     launches = large_launches = chol_launches = 0
+    launches_by_t.clear()
 
 
 def chol_inv_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -67,6 +73,58 @@ def chol_inv_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         X[:, j + 1:, : j + 1] -= col[:, :, None] * xj[:, None, :]
         ld = ld + torch.log(piv)
     return X, ld
+
+
+def chol_inv_blocked_plain(K: torch.Tensor, nb: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The T <= MAX_T kernel's blocked algorithm in plain PyTorch: the same
+    (Linv, logdet) as ``chol_inv_plain``, in the kernel's order. No path
+    calls it; the CPU tests hold it against the JAX package.
+
+    K's lower triangle is padded with identity to a multiple of ``nb`` and
+    worked on in place, nb x nb tiles at a time:
+      factorisation, panel k: (a) the diagonal tile's Cholesky, column by
+      column (logdet in column order), then Linv_kk = L_kk^-1 by forward
+      substitution, left in that tile; (b) the panel below it,
+      L[I, k] = A[I, k] Linv_kk^T; (c) the trailing update
+      A[I, J] -= L[I, k] L[J, k]^T;
+      inverse, block columns J from the right:
+      Linv[J+1:, J] = -Linv[J+1:, J+1:] (L[J+1:, J] Linv_JJ).
+    """
+    if K.dim() != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"expected [B, T, T], got {tuple(K.shape)}")
+    B, T, _ = K.shape
+    nt = -(-T // nb)
+    Tp = nt * nb
+    A = torch.eye(Tp, dtype=K.dtype, device=K.device).expand(B, Tp, Tp).clone()
+    A[:, :T, :T] = torch.tril(K)
+    ld = torch.zeros(B, dtype=K.dtype, device=K.device)
+    eye = torch.eye(nb, dtype=K.dtype, device=K.device)
+
+    def tile(I, J):
+        return A[:, I * nb:(I + 1) * nb, J * nb:(J + 1) * nb]
+
+    for k in range(nt):
+        D = tile(k, k).clone()
+        dinv = torch.empty(B, nb, dtype=K.dtype, device=K.device)
+        for j in range(nb):  # (a)
+            piv = D[:, j, j].clone()
+            dinv[:, j] = torch.rsqrt(piv)
+            D[:, j:, j] *= dinv[:, j, None]
+            D[:, j + 1:, j + 1:] -= D[:, j + 1:, j, None] * D[:, None, j + 1:, j]
+            ld = ld + torch.log(piv)
+        X = torch.zeros_like(D)
+        for r in range(nb):
+            X[:, r] = (eye[r] - (D[:, r, None, :r] @ X[:, :r]).squeeze(1)) * dinv[:, r, None]
+        tile(k, k).copy_(X)
+        below = slice((k + 1) * nb, Tp)
+        panel = A[:, below, k * nb:(k + 1) * nb] @ X.transpose(1, 2)  # (b)
+        A[:, below, k * nb:(k + 1) * nb] = panel
+        A[:, below, below] -= panel @ panel.transpose(1, 2)  # (c)
+    for J in range(nt - 2, -1, -1):
+        below, cols = slice((J + 1) * nb, Tp), slice(J * nb, (J + 1) * nb)
+        W = A[:, below, cols] @ tile(J, J)
+        A[:, below, cols] = -torch.tril(A[:, below, below]) @ W
+    return torch.tril(A)[:, :T, :T].contiguous(), ld
 
 
 def _check_cuda_batch(name: str, K: torch.Tensor) -> None:
@@ -101,6 +159,7 @@ def chol_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                                   logdet.data_ptr(), B, T, stream)
     cuda_build.check(rc, "mallorn_chol_inv")
     launches += 1
+    launches_by_t[T] = launches_by_t.get(T, 0) + 1
     return Linv, logdet
 
 

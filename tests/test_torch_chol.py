@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from mallorn_tpu_torch.ops import chol_cuda
-from mallorn_tpu_torch.ops.chol_cuda import (cho_solve, chol_inv, chol_inv_plain, cholesky,
-                                             cholesky_plain)
+from mallorn_tpu_torch.ops.chol_cuda import (cho_solve, chol_inv, chol_inv_blocked_plain,
+                                             chol_inv_plain, cholesky, cholesky_plain)
 
 torch.set_num_threads(2)
 
@@ -149,6 +149,79 @@ def test_wide_kernel_matches_plain_on_the_card():
         Lp, ldp = chol_inv_plain(K.double())
         ok = [0, 1, 3, 4, 5]
         assert torch.isnan(ld).tolist() == [i == 2 for i in range(6)]
+        np.testing.assert_allclose(Linv[ok].cpu().numpy(), Lp[ok].cpu().numpy(),
+                                   rtol=5e-5, atol=5e-5)
+        np.testing.assert_allclose(ld[ok].cpu().numpy(), ldp[ok].cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4)
+        assert float(torch.triu(Linv[ok], 1).abs().max()) == 0.0
+
+
+# The T <= MAX_T kernel's blocked algorithm (``chol_inv_blocked_plain``:
+# panels of nb columns, the inverse formed in place) against the JAX
+# package and float64 at the bars above, at widths that are not multiples
+# of nb (the kernel pads with identity) and with identity-padded rows.
+
+@pytest.mark.parametrize("b,t,nb,n_pad", [(3, 24, 16, 6), (4, 40, 16, 5), (2, 72, 32, 9)])
+def test_chol_inv_blocked_plain_matches_pallas_and_f64(b, t, nb, n_pad):
+    K = _spd(b, t, seed=10 * t + nb, n_pad=n_pad)
+    Linv, ld = chol_inv_blocked_plain(torch.from_numpy(K), nb)
+    Linv, ld = Linv.numpy(), ld.numpy()
+
+    j_Linv, j_ld = cholesky_inverse_lanes(np.asarray(K), interpret=True)
+    np.testing.assert_allclose(Linv, np.asarray(j_Linv), rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(ld, np.asarray(j_ld), rtol=1e-5, atol=1e-4)
+
+    ref_Linv, ref_ld = _f64_reference(K)
+    np.testing.assert_allclose(Linv, ref_Linv, rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(ld, ref_ld, rtol=1e-5, atol=1e-4)
+    assert np.max(np.abs(np.triu(Linv, 1))) == 0.0
+    Kinv = Linv.transpose(0, 2, 1) @ Linv
+    np.testing.assert_allclose(Kinv, np.linalg.inv(K.astype(np.float64)),
+                               rtol=1e-4, atol=1e-5)
+    # float64 in, the oracle out
+    L64, ld64 = chol_inv_blocked_plain(torch.from_numpy(K.astype(np.float64)), nb)
+    np.testing.assert_allclose(L64.numpy(), ref_Linv, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(ld64.numpy(), ref_ld, rtol=1e-12)
+
+
+def test_chol_inv_blocked_plain_nan_stays_in_its_matrix():
+    """A non-positive pivot in the second panel gives NaN in that matrix
+    only, as in the JAX package; K's upper triangle is never read."""
+    K = _spd(3, 40, seed=12, n_pad=4)
+    K[1, 20, 20] = -1.0
+    K[2][np.triu_indices(40, 1)] = np.nan
+    Linv, ld = chol_inv_blocked_plain(torch.from_numpy(K))
+    assert torch.isnan(ld).tolist() == [False, True, False]
+    assert torch.isnan(Linv).flatten(1).any(1).tolist() == [False, True, False]
+    j_Linv, j_ld = cholesky_inverse_lanes(np.tril(K), interpret=True)
+    assert np.isnan(np.asarray(j_ld)).tolist() == [False, True, False]
+    np.testing.assert_allclose(Linv[2].numpy(), np.asarray(j_Linv)[2], rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.cuda
+def test_blocked_kernel_matches_plain_on_the_card():
+    """T <= MAX_T takes the blocked kernel at every width, multiples of 16
+    or not: within the bars above of the plain version (float64), two
+    launches bit for bit equal, a non-positive pivot giving NaN in that
+    matrix only, and one launch counted per call at its width."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    for t in (64, 72, 184, 240):
+        K = torch.from_numpy(_spd(6, t, seed=t, n_pad=t // 8)).cuda()
+        K[3, 17, 17] = -1.0
+        chol_cuda.reset_launches()
+        Linv, ld = chol_inv(K)
+        Linv2, ld2 = chol_inv(K)
+        torch.cuda.synchronize()
+        assert chol_cuda.launches == 2 and chol_cuda.launches_by_t == {t: 2}
+        assert chol_cuda.large_launches == 0
+        assert torch.equal(torch.nan_to_num(Linv), torch.nan_to_num(Linv2))
+        assert torch.equal(torch.isnan(ld), torch.isnan(ld2))
+        assert torch.equal(torch.nan_to_num(ld), torch.nan_to_num(ld2))
+        assert torch.isnan(ld).tolist() == [i == 3 for i in range(6)]
+        assert torch.isnan(Linv).flatten(1).any(1).tolist() == [i == 3 for i in range(6)]
+        ok = [0, 1, 2, 4, 5]
+        Lp, ldp = chol_inv_plain(K.double())
         np.testing.assert_allclose(Linv[ok].cpu().numpy(), Lp[ok].cpu().numpy(),
                                    rtol=5e-5, atol=5e-5)
         np.testing.assert_allclose(ld[ok].cpu().numpy(), ldp[ok].cpu().numpy(),
