@@ -8,19 +8,21 @@ Phases, each printing its wall time on its own line:
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build: every CUDA source of the port, with plain ``nvcc``;
 3. kernel checks: the Cholesky-inverse kernel (K2, the blocked kernel for
-   T <= 240) against its plain PyTorch version (float32 and float64) at
-   B=2048, T=64/128/160/184/192/240 and a ragged B=2047, T=72, two launches
-   bit for bit equal, its wide variant (T > 240) at B=64, T=256/320 and at
-   the wide server's B=2048, T=256, a non-SPD matrix giving NaN in that
-   matrix only (T=64/72/184/240/320), and times (kernel, plain, a two-call
-   library yardstick, the roofline bound); one GP Adam step
-   (``gp.batched_nll_grad``) at B=2048, T=64/160 split into the kernel
-   matrix, K2, ``Linv^T Linv`` and the rest;
-   the factor-only Cholesky kernel (K6) against its plain version at
-   B=2048, T=64/160/192 and B=64, T=256/320 (rtol / atol 2e-5, upper
+   T <= 320) against its plain PyTorch version (float32 and float64) at
+   B=2048, T=64/128/160/184/192/240/256/288/320 (256 is the wide server's
+   width), a ragged B=2047, T=72 and B=64, T=256/320, two launches bit for
+   bit equal, and its column loop (T > 320) at B=64, T=336/400, a non-SPD
+   matrix giving NaN in that matrix only (T=64/72/184/240/256/288/320/336/
+   400), no column-loop launch at T <= 320 and only column-loop launches
+   beyond, and times (kernel, plain, a two-call library yardstick, the
+   roofline bound); one GP Adam step (``gp.batched_nll_grad``) at B=2048,
+   T=64/160 split into the kernel matrix, K2, ``Linv^T Linv`` and the rest;
+   the factor-only Cholesky kernel (K6, the same blocked kernel without the
+   inverse) against its plain version at B=2048, T=64/160/192/240 and B=64,
+   T=256/320, and its column loop at B=64, T=400 (rtol / atol 2e-5, upper
    triangle exactly 0, two launches bit for bit equal), a non-SPD matrix
-   giving NaN in that matrix only, and its times (library:
-   ``cholesky_ex``);
+   giving NaN in that matrix only (T=64/320/400), the same dispatch by
+   width, and its times (library: ``cholesky_ex``);
 4. serving: the 7,124-object test split of ``.bench_data_v2.npz`` through
    ``V92dServer`` at full v92d width (5 folds x 500 trees of depth 5 over
    222 columns, random weights from a fixed seed, bin edges fitted on the
@@ -69,8 +71,8 @@ Phases, each printing its wall time on its own line:
    the largest difference), the rows that flip at the OOF threshold
    counted; served again in the training run's own count-sorted GP chunks
    (one server per chunk width), where every row must agree; then a
-   server built for objects of
-   up to 256 points (the wide Cholesky-inverse kernel) serves the first
+   server built for objects of up to 256 points (the blocked K2's
+   384-thread instantiation, one launch per GP step) serves the first
    request, held to the same gate;
 10. the shipped Kaggle ensemble (``train_kaggle_ensemble``: the training
    phase's features and selection, the research family of both splits,
@@ -164,7 +166,7 @@ ENSEMBLE_F1_GATE, V114D_F1_GATE = 0.637, 0.641
 # by more than SERVE_MAX_DP (the largest difference read on an H100 was
 # 0.093). Served in the training run's own GP chunks, every row must agree.
 SERVE_RTOL, SERVE_SHARE, SERVE_MAX_DP = 1e-4, 0.97, 0.15
-WIDE_T = 256  # the wide server's GP width (> chol_cuda.MAX_T)
+WIDE_T = 256  # the wide server's GP width (> 240: K2's 384-thread instantiation)
 # the factor-only Cholesky (K6): the bars of tests/test_chol_pallas.py:19
 CHOL_TOL = (2e-5, 2e-5)
 # the histogram modes run through the training path, in this order, and
@@ -976,8 +978,8 @@ def serve_trained(trained: dict, dev) -> dict:
     if share_ch < 1.0:
         raise AssertionError("served in training's chunks, the model still disagrees")
 
-    # a server built for objects of up to WIDE_T points (the wide kernel),
-    # its request packed to that width
+    # a server built for objects of up to WIDE_T points (the blocked K2 at
+    # 384 threads), its request packed to that width
     wide = V92dServer(models, man["feature_names"], out.selection.selected,
                       gp_steps=GP_STEPS, gp_t_compact=WIDE_T, gp_two_phase=gp_two_phase,
                       device=dev)
@@ -988,18 +990,19 @@ def serve_trained(trained: dict, dev) -> dict:
     t0 = time.perf_counter()
     pw = wide(sub, zz[s:e], ebv[s:e]).cpu().numpy()
     wall_w = time.perf_counter() - t0
-    large, small = chol_cuda.large_launches, chol_cuda.launches
+    by_t_w, large = dict(chol_cuda.launches_by_t), chol_cuda.large_launches
     n_phase2 = (max(GP_STEPS // 6, 8) + 1) if gp_two_phase else GP_STEPS + 1
-    # (phase 2's) steps + final NLL, then the predict; one launch per chunk
-    want_large = (n_phase2 + 1) * -(-(e - s) // chol_cuda.wide_chunk(dev))
+    # (phase 2's) steps + final NLL, then the predict; one blocked launch each
+    want_wide = n_phase2 + 1
     share_w = agreement(pw, p[s:e])
     log(f"wide server (GP width {WIDE_T}): {e - s} objects in {wall_w:.3f} s; chol_inv "
-        f"launches: wide kernel {large} (predicted {want_large}), T <= {chol_cuda.MAX_T} "
-        f"kernel {small} (the coarse phase); {share_w:.4f} of rows within rtol "
-        f"{SERVE_RTOL:g} of the width-{gp_tc} server's (needs {SERVE_SHARE})")
-    if large != want_large or share_w < SERVE_SHARE or not np.isfinite(pw).all():
+        f"launches by width {by_t_w} (predicted {want_wide} at {WIDE_T}, the rest the "
+        f"coarse phase), column loop {large} (predicted 0); {share_w:.4f} of rows within "
+        f"rtol {SERVE_RTOL:g} of the width-{gp_tc} server's (needs {SERVE_SHARE})")
+    if (by_t_w.get(WIDE_T, 0) != want_wide or large or share_w < SERVE_SHARE
+            or not np.isfinite(pw).all()):
         raise AssertionError("the wide server failed its checks")
-    return {"large_launches": large, "objects_per_s": n / wall}
+    return {"wide_launches": by_t_w[WIDE_T], "objects_per_s": n / wall}
 
 
 def run_ensemble(trained: dict, dev) -> dict:
@@ -1080,20 +1083,48 @@ def main() -> int:
             check_non_spd(T)
         for T in (64, 160):
             time_gp_step(REQUEST, T, seed=7000 + T)
+        # K2 beyond 240: the blocked kernel up to MAX_T, never the column
+        # loop; the column loop beyond, never the blocked kernel
         chol_cuda.reset_launches()
         wide_results = [check_kernel(B, T, seed=3000 + T)
-                        for B, T in ((64, 256), (64, 320), (REQUEST, WIDE_T))]
-        check_non_spd(320)
-        if chol_cuda.launches or not chol_cuda.large_launches:
-            raise AssertionError("T > 240 did not take the wide kernel")
-        # K6: its launches in this phase (checks and timing) are its row's
-        # count: no path of the port calls it
+                        for B, T in ((REQUEST, WIDE_T), (REQUEST, 288), (REQUEST, 320),
+                                     (64, 256), (64, 320))]
+        for T in (256, 288, 320):
+            check_non_spd(T)
+        log(f"  T <= {chol_cuda.MAX_T}: blocked launches by width "
+            f"{dict(chol_cuda.launches_by_t)}, column loop {chol_cuda.large_launches}")
+        if chol_cuda.large_launches or not chol_cuda.launches:
+            raise AssertionError(f"T <= {chol_cuda.MAX_T} took the column loop")
+        # the column loop's launches in this phase are its row's count: no
+        # path of the port reaches T > MAX_T
+        chol_cuda.reset_launches()
+        loop_results = [check_kernel(64, T, seed=3000 + T) for T in (336, 400)]
+        for T in (336, 400):
+            check_non_spd(T)
+        k2_loop_launches = chol_cuda.large_launches
+        log(f"  T > {chol_cuda.MAX_T}: column loop {k2_loop_launches}, blocked "
+            f"{chol_cuda.launches}")
+        if chol_cuda.launches or not k2_loop_launches:
+            raise AssertionError(f"T > {chol_cuda.MAX_T} did not take the column loop alone")
+        # K6: its launches in this phase (checks and timing) are its rows'
+        # counts: no path of the port calls it
         chol_cuda.reset_launches()
         chol_results = [check_cholesky(B, T, seed=5000 + T)
-                        for B, T in ((2048, 64), (2048, 160), (2048, 192), (64, 256), (64, 320))]
+                        for B, T in ((2048, 64), (2048, 160), (2048, 192), (2048, 240),
+                                     (64, 256), (64, 320))]
         check_cholesky_non_spd(64)
         check_cholesky_non_spd(320)
         k6_launches = chol_cuda.chol_launches
+        if chol_cuda.chol_large_launches or not k6_launches:
+            raise AssertionError(f"K6 at T <= {chol_cuda.MAX_T} took the column loop")
+        chol_cuda.reset_launches()
+        chol_loop = check_cholesky(64, 400, seed=5400)
+        check_cholesky_non_spd(400)
+        k6_loop_launches = chol_cuda.chol_large_launches
+        log(f"  K6 launches: blocked {k6_launches} (T <= {chol_cuda.MAX_T}), column loop "
+            f"{k6_loop_launches} (T = 400, blocked {chol_cuda.chol_launches})")
+        if chol_cuda.chol_launches or not k6_loop_launches:
+            raise AssertionError(f"K6 at T > {chol_cuda.MAX_T} did not take the column loop")
 
     with Phase("serving data + model"):
         packed, zz, ebv = load_test_split(dev)
@@ -1203,18 +1234,22 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [REQUEST, width, width],
         })
-    # the wide variant's row: the wide server's launches
+    # K2 beyond 240: the blocked kernel at the wide server's width, with
+    # its launches, and the column loop (T > 320) with this phase's
     main_wide = next(r for r in wide_results if (r["B"], r["T"]) == (REQUEST, WIDE_T))
-    kernels.append({
-        "name": "chol_inv_large", "route": "cuda",
-        "source": "mallorn_tpu_torch/csrc/chol_inv.cu",
-        "replaces": "mallorn_tpu/ops/chol_pallas.py:60",
-        "launches": served["large_launches"],
-        "max_abs_err": main_wide["max_abs_err"], "ms": main_wide["ms"],
-        "plain_ms": main_wide["plain_ms"], "bound_ms": main_wide["bound_ms"],
-        "bound_by": main_wide["bound_by"], "library_ms": main_wide["library_ms"],
-        "shape": [REQUEST, WIDE_T, WIDE_T],
-    })
+    loop = next(r for r in loop_results if r["T"] == 400)
+    for name, source, r, n_launches in (
+            ("chol_inv_wide_server", "chol_inv_blocked.cu", main_wide, served["wide_launches"]),
+            ("chol_inv_column_loop", "chol_inv.cu", loop, k2_loop_launches)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mallorn_tpu_torch/csrc/{source}",
+            "replaces": "mallorn_tpu/ops/chol_pallas.py:60",
+            "launches": n_launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": [r["B"], r["T"], r["T"]],
+        })
     # the histogram kernel's row: the v92d CV's deepest level
     main_hist = next(r for r in hist_results if (r["fit"], r["nodes"]) == ("v92d", 8))
     kernels.append({
@@ -1257,17 +1292,21 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
         })
-    # the factor-only Cholesky's row: the GP's batch at T = 160
-    r = next(r for r in chol_results if (r["B"], r["T"]) == (2048, 160))
-    kernels.append({
-        "name": "chol", "route": "cuda",
-        "source": "mallorn_tpu_torch/csrc/chol_inv.cu",
-        "replaces": "mallorn_tpu/ops/chol_pallas.py:28",
-        "launches": k6_launches,
-        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "shape": [r["B"], r["T"], r["T"]],
-    })
+    # the factor-only Cholesky's rows: the blocked kernel at the GP's batch
+    # and T = 160, the column loop at B = 64, T = 400
+    main_chol = next(r for r in chol_results if (r["B"], r["T"]) == (2048, 160))
+    for name, source, r, n_launches in (
+            ("chol", "chol_inv_blocked.cu", main_chol, k6_launches),
+            ("chol_column_loop", "chol_inv.cu", chol_loop, k6_loop_launches)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mallorn_tpu_torch/csrc/{source}",
+            "replaces": "mallorn_tpu/ops/chol_pallas.py:28",
+            "launches": n_launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": [r["B"], r["T"], r["T"]],
+        })
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(f"card: {smi}")  # every time above was taken on this card, at this limit
     print(json.dumps({"kernels": kernels}), flush=True)

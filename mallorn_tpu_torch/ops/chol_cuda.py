@@ -15,18 +15,20 @@ there.
   kernel launches or the call raises. The width picks the kernel:
   T <= ``MAX_T`` takes the blocked kernel (``csrc/chol_inv_blocked.cu``:
   one triangle of 16 x 16 tiles in shared memory, register-tiled updates,
-  the inverse formed in place); a wider batch goes to
-  ``chol_inv_large_kernel`` (``csrc/chol_inv.cu``), which builds Linv in
-  the output and keeps the Schur complement in a global scratch allocated
-  here, one launch per chunk of ``wide_chunk`` matrices (one per SM).
+  the inverse formed in place), one launch per call; a wider batch goes to
+  the column loop ``chol_kernel`` (``csrc/chol_inv.cu``), which builds
+  Linv in the output and keeps the Schur complement in a global scratch
+  allocated here, one launch per chunk of ``wide_chunk`` matrices (one
+  per SM).
 - ``chol_inv_plain`` is the right-looking column loop in PyTorch, batched
   over B: the contract's plain version. The CPU tests use it, and
   ``chip_smoke.py`` holds both kernels against it on the card.
   ``chol_inv_blocked_plain`` is the blocked kernel's algorithm in its
   order, held against the JAX package by the CPU tests; no path calls it.
-- ``launches`` and ``large_launches`` count K2's launches at the two
-  widths, ``launches_by_t`` the T <= ``MAX_T`` launches per width T, and
-  ``chol_launches`` K6's at either (plain calls do not count).
+- ``launches`` and ``large_launches`` count K2's launches of the blocked
+  kernel and of the column loop, ``launches_by_t`` the blocked launches
+  per width T; ``chol_launches`` and ``chol_large_launches`` count K6's
+  the same way (plain calls do not count).
 """
 
 from __future__ import annotations
@@ -37,19 +39,22 @@ import torch
 
 from mallorn_tpu_torch.utils import cuda_build
 
-# widest batch the shared-memory kernels take (K2: one triangle of 16 x 16
-# tiles, 122,880 bytes at T = 240); a wider batch takes the wide path
-MAX_T = 240
+# widest batch the blocked kernel takes, for K2 and K6 (one triangle of
+# 16 x 16 tiles in shared memory: 215,040 bytes at T = 320, and T = 336
+# would pass the 232,448 a block may take); a wider batch takes the column
+# loop
+MAX_T = 320
 
 launches = 0
 launches_by_t: Dict[int, int] = {}
 large_launches = 0
 chol_launches = 0
+chol_large_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, large_launches, chol_launches
-    launches = large_launches = chol_launches = 0
+    global launches, large_launches, chol_launches, chol_large_launches
+    launches = large_launches = chol_launches = chol_large_launches = 0
     launches_by_t.clear()
 
 
@@ -75,6 +80,40 @@ def chol_inv_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return X, ld
 
 
+def _blocked_factor(K: torch.Tensor, nb: int, inverse: bool):
+    """The blocked kernel's factorisation in its panel order: (A, logdet),
+    A the [B, Tp, Tp] identity-padded triangle with L below the diagonal
+    tiles and, in them, Linv_kk (``inverse``) or L_kk."""
+    if K.dim() != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"expected [B, T, T], got {tuple(K.shape)}")
+    B, T, _ = K.shape
+    nt = -(-T // nb)
+    Tp = nt * nb
+    A = torch.eye(Tp, dtype=K.dtype, device=K.device).expand(B, Tp, Tp).clone()
+    A[:, :T, :T] = torch.tril(K)
+    ld = torch.zeros(B, dtype=K.dtype, device=K.device)
+    eye = torch.eye(nb, dtype=K.dtype, device=K.device)
+    for k in range(nt):
+        kk = slice(k * nb, (k + 1) * nb)
+        D = A[:, kk, kk].clone()
+        dinv = torch.empty(B, nb, dtype=K.dtype, device=K.device)
+        for j in range(nb):  # (a)
+            piv = D[:, j, j].clone()
+            dinv[:, j] = torch.rsqrt(piv)
+            D[:, j:, j] *= dinv[:, j, None]
+            D[:, j + 1:, j + 1:] -= D[:, j + 1:, j, None] * D[:, None, j + 1:, j]
+            ld = ld + torch.log(piv)
+        X = torch.zeros_like(D)
+        for r in range(nb):
+            X[:, r] = (eye[r] - (D[:, r, None, :r] @ X[:, :r]).squeeze(1)) * dinv[:, r, None]
+        A[:, kk, kk] = X if inverse else torch.tril(D)
+        below = slice((k + 1) * nb, Tp)
+        panel = A[:, below, kk] @ X.transpose(1, 2)  # (b)
+        A[:, below, kk] = panel
+        A[:, below, below] -= panel @ panel.transpose(1, 2)  # (c)
+    return A, ld
+
+
 def chol_inv_blocked_plain(K: torch.Tensor, nb: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
     """The T <= MAX_T kernel's blocked algorithm in plain PyTorch: the same
     (Linv, logdet) as ``chol_inv_plain``, in the kernel's order. No path
@@ -90,39 +129,11 @@ def chol_inv_blocked_plain(K: torch.Tensor, nb: int = 16) -> Tuple[torch.Tensor,
       inverse, block columns J from the right:
       Linv[J+1:, J] = -Linv[J+1:, J+1:] (L[J+1:, J] Linv_JJ).
     """
-    if K.dim() != 3 or K.shape[1] != K.shape[2]:
-        raise ValueError(f"expected [B, T, T], got {tuple(K.shape)}")
-    B, T, _ = K.shape
-    nt = -(-T // nb)
-    Tp = nt * nb
-    A = torch.eye(Tp, dtype=K.dtype, device=K.device).expand(B, Tp, Tp).clone()
-    A[:, :T, :T] = torch.tril(K)
-    ld = torch.zeros(B, dtype=K.dtype, device=K.device)
-    eye = torch.eye(nb, dtype=K.dtype, device=K.device)
-
-    def tile(I, J):
-        return A[:, I * nb:(I + 1) * nb, J * nb:(J + 1) * nb]
-
-    for k in range(nt):
-        D = tile(k, k).clone()
-        dinv = torch.empty(B, nb, dtype=K.dtype, device=K.device)
-        for j in range(nb):  # (a)
-            piv = D[:, j, j].clone()
-            dinv[:, j] = torch.rsqrt(piv)
-            D[:, j:, j] *= dinv[:, j, None]
-            D[:, j + 1:, j + 1:] -= D[:, j + 1:, j, None] * D[:, None, j + 1:, j]
-            ld = ld + torch.log(piv)
-        X = torch.zeros_like(D)
-        for r in range(nb):
-            X[:, r] = (eye[r] - (D[:, r, None, :r] @ X[:, :r]).squeeze(1)) * dinv[:, r, None]
-        tile(k, k).copy_(X)
-        below = slice((k + 1) * nb, Tp)
-        panel = A[:, below, k * nb:(k + 1) * nb] @ X.transpose(1, 2)  # (b)
-        A[:, below, k * nb:(k + 1) * nb] = panel
-        A[:, below, below] -= panel @ panel.transpose(1, 2)  # (c)
-    for J in range(nt - 2, -1, -1):
+    A, ld = _blocked_factor(K, nb, inverse=True)
+    T, Tp = K.shape[1], A.shape[1]
+    for J in range(Tp // nb - 2, -1, -1):
         below, cols = slice((J + 1) * nb, Tp), slice(J * nb, (J + 1) * nb)
-        W = A[:, below, cols] @ tile(J, J)
+        W = A[:, below, cols] @ A[:, cols, cols]
         A[:, below, cols] = -torch.tril(A[:, below, below]) @ W
     return torch.tril(A)[:, :T, :T].contiguous(), ld
 
@@ -164,10 +175,10 @@ def chol_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def wide_chunk(device: torch.device) -> int:
-    """Matrices per launch of the T > MAX_T kernel: one per SM. Each CTA
+    """Matrices per launch of the T > MAX_T column loop: one per SM. Each CTA
     works on its matrix's triangle and Linv through L1/L2; with more CTAs
     than SMs resident those working sets no longer fit in L2 and the
-    kernel waits on HBM (PERF.md, the wide kernel's row)."""
+    kernel waits on HBM (PERF.md, the column loop's row)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -213,9 +224,13 @@ def cho_solve(Linv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 # Counterpart of ``mallorn_tpu/ops/chol_pallas.py:cholesky_lanes`` (Pallas
 # body ``_chol_kernel``): L = chol(K) [B, T, T], upper triangle exactly 0,
 # L[j, j] = pivot * rsqrt(pivot); a non-positive pivot gives NaN in that
-# matrix only. The kernel is K2's with the inverse switched off
-# (``csrc/chol_inv.cu`` ``chol_kernel``), shared memory for T <= MAX_T and
-# the chunked global scratch beyond, as K2.
+# matrix only. The kernels are K2's with the inverse switched off: the
+# blocked kernel (``csrc/chol_inv_blocked.cu``, ``kInverse = false``: L_kk
+# stays in the diagonal tiles, Linv_kk for the panel step in one extra
+# tile) for T <= MAX_T, counted in ``chol_launches``, and the column loop
+# in the chunked global scratch beyond, counted in
+# ``chol_large_launches``. ``cholesky_blocked_plain`` is the blocked
+# kernel's algorithm in its order; no path calls it.
 
 
 def cholesky_plain(K: torch.Tensor) -> torch.Tensor:
@@ -233,9 +248,20 @@ def cholesky_plain(K: torch.Tensor) -> torch.Tensor:
     return L
 
 
+def cholesky_blocked_plain(K: torch.Tensor, nb: int = 16) -> torch.Tensor:
+    """The T <= MAX_T kernel's K6 algorithm in plain PyTorch: the same L as
+    ``cholesky_plain``, in the kernel's panel order with identity padding
+    (``chol_inv_blocked_plain`` without the inverse and logdet; L_kk stays
+    in the diagonal tiles, Linv_kk serves the panel step). No path calls
+    it; the CPU tests hold it against the JAX package."""
+    A, _ = _blocked_factor(K, nb, inverse=False)
+    T = K.shape[1]
+    return torch.tril(A)[:, :T, :T].contiguous()
+
+
 def cholesky(K: torch.Tensor) -> torch.Tensor:
     """L [B, T, T] with K = L L^T for a batch of SPD matrices."""
-    global chol_launches
+    global chol_launches, chol_large_launches
     if K.device.type == "cpu":
         return cholesky_plain(K)
     _check_cuda_batch("cholesky", K)
@@ -248,7 +274,7 @@ def cholesky(K: torch.Tensor) -> torch.Tensor:
             return lib.mallorn_chol_large(K[s].data_ptr(), L[s].data_ptr(), scratch, n, T,
                                           stream)
 
-        chol_launches += _wide_launches(K, "mallorn_chol_large", launch)
+        chol_large_launches += _wide_launches(K, "mallorn_chol_large", launch)
         return L
     lib = cuda_build.load()
     with torch.cuda.device(K.device):

@@ -18,7 +18,8 @@ import torch
 
 from mallorn_tpu_torch.ops import chol_cuda
 from mallorn_tpu_torch.ops.chol_cuda import (cho_solve, chol_inv, chol_inv_blocked_plain,
-                                             chol_inv_plain, cholesky, cholesky_plain)
+                                             chol_inv_plain, cholesky, cholesky_blocked_plain,
+                                             cholesky_plain)
 
 torch.set_num_threads(2)
 
@@ -103,11 +104,12 @@ def test_plain_calls_are_not_counted_and_other_devices_raise():
 
 
 def test_gp_features_of_objects_wider_than_the_shared_memory_kernel():
-    """Objects with more than MAX_T = 240 usable points (a compacted width
-    of 320): the GP family through ``chol_inv`` (its plain version here;
-    the wide kernel on the card) against the JAX package's, at the gate of
-    tests/test_torch_gp.py (per column >= 90% of lanes within rtol 2e-3,
-    mean >= 97%)."""
+    """Objects with 274-314 usable points, at a compacted width of 320
+    (272 < width <= MAX_T: the blocked kernel's widest instantiation, 320
+    threads and a 215,040-byte triangle): the GP family through
+    ``chol_inv`` (its plain version here; the blocked kernel on the card)
+    against the JAX package's, at the gate of tests/test_torch_gp.py (per
+    column >= 90% of lanes within rtol 2e-3, mean >= 97%)."""
     from mallorn_tpu.data.synthetic import generate_dataset
     from mallorn_tpu.features import multiband_gp as jgp
     from mallorn_tpu_torch.data.packing import from_numpy
@@ -117,7 +119,7 @@ def test_gp_features_of_objects_wider_than_the_shared_memory_kernel():
     tp = from_numpy([np.asarray(x) for x in packed[:-1]], packed.time_offset, device="cpu")
     counts = tgp._use_mask(tp).sum(1).numpy()
     _, widths = tgp.gp_schedule(counts, tp.all_time.shape[1], 8)
-    assert counts.min() > chol_cuda.MAX_T and widths[0] > chol_cuda.MAX_T
+    assert counts.min() > 272 and 272 < widths[0] <= chol_cuda.MAX_T
     want = {k: np.asarray(v, np.float64) for k, v in jgp.extract(packed, n_steps=8).items()}
     got = {k: v.double().numpy() for k, v in tgp.extract(tp, n_steps=8).items()}
     assert list(got) == list(want)
@@ -134,12 +136,12 @@ def test_gp_features_of_objects_wider_than_the_shared_memory_kernel():
 
 @pytest.mark.cuda
 def test_wide_kernel_matches_plain_on_the_card():
-    """T > MAX_T takes the wide kernel (Schur complement in a global
+    """T > MAX_T takes the column loop (Schur complement in a global
     scratch) at the bars above; a non-positive pivot gives NaN in that
     matrix only."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    for t in (256, 320, 400):
+    for t in (336, 400):
         K = torch.from_numpy(_spd(6, t, seed=t, n_pad=t // 8)).cuda()
         K[2, 7, 7] = -1.0
         chol_cuda.reset_launches()
@@ -184,6 +186,21 @@ def test_chol_inv_blocked_plain_matches_pallas_and_f64(b, t, nb, n_pad):
     np.testing.assert_allclose(ld64.numpy(), ref_ld, rtol=1e-12)
 
 
+def test_chol_inv_blocked_plain_at_nineteen_panels_matches_f64():
+    """nt = 19 panels (T = 300), a width of the 320-thread instantiation,
+    against float64 numpy only: Pallas interpret mode at T = 300 would
+    cost tens of seconds of the CPU test budget."""
+    K = _spd(2, 300, seed=300, n_pad=12)
+    Linv, ld = chol_inv_blocked_plain(torch.from_numpy(K))
+    ref_Linv, ref_ld = _f64_reference(K)
+    np.testing.assert_allclose(Linv.numpy(), ref_Linv, rtol=5e-5, atol=5e-5)
+    np.testing.assert_allclose(ld.numpy(), ref_ld, rtol=1e-5, atol=1e-4)
+    assert float(torch.triu(Linv, 1).abs().max()) == 0.0
+    L64, ld64 = chol_inv_blocked_plain(torch.from_numpy(K.astype(np.float64)))
+    np.testing.assert_allclose(L64.numpy(), ref_Linv, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(ld64.numpy(), ref_ld, rtol=1e-12)
+
+
 def test_chol_inv_blocked_plain_nan_stays_in_its_matrix():
     """A non-positive pivot in the second panel gives NaN in that matrix
     only, as in the JAX package; K's upper triangle is never read."""
@@ -206,7 +223,7 @@ def test_blocked_kernel_matches_plain_on_the_card():
     matrix only, and one launch counted per call at its width."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    for t in (64, 72, 184, 240):
+    for t in (64, 72, 184, 240, 256, 288, 320):
         K = torch.from_numpy(_spd(6, t, seed=t, n_pad=t // 8)).cuda()
         K[3, 17, 17] = -1.0
         chol_cuda.reset_launches()
@@ -260,21 +277,61 @@ def test_cholesky_plain_float64_is_the_oracle_and_nan_stays_in_its_matrix():
         cholesky(torch.empty(2, 8, 8, device="meta"))
 
 
+# The T <= MAX_T kernel's K6 algorithm (``cholesky_blocked_plain``: the
+# panels of ``chol_inv_blocked_plain`` with L_kk left in the diagonal tiles
+# and no inverse) against the JAX package and float64 at the bars above.
+
+@pytest.mark.parametrize("b,t,nb,n_pad", [(3, 24, 16, 6), (4, 40, 16, 5), (2, 72, 32, 9)])
+def test_cholesky_blocked_plain_matches_cholesky_lanes_and_f64(b, t, nb, n_pad):
+    from mallorn_tpu.ops.chol_pallas import cholesky_lanes
+
+    K = _spd(b, t, seed=20 * t + nb, n_pad=n_pad)
+    L = cholesky_blocked_plain(torch.from_numpy(K), nb).numpy()
+    np.testing.assert_allclose(L, np.asarray(cholesky_lanes(np.asarray(K), interpret=True)),
+                               rtol=2e-5, atol=2e-5)
+    ref = np.linalg.cholesky(K.astype(np.float64))
+    np.testing.assert_allclose(L, ref, rtol=2e-5, atol=2e-5)
+    assert np.max(np.abs(np.triu(L, 1))) == 0.0
+    # float64 in, the oracle out
+    L64 = cholesky_blocked_plain(torch.from_numpy(K.astype(np.float64)), nb).numpy()
+    np.testing.assert_allclose(L64, ref, rtol=1e-10, atol=1e-12)
+
+
+def test_cholesky_blocked_plain_nan_stays_in_its_matrix():
+    """A non-positive pivot in the second panel gives NaN in that matrix
+    only, as in the JAX package; K's upper triangle is never read."""
+    from mallorn_tpu.ops.chol_pallas import cholesky_lanes
+
+    K = _spd(3, 40, seed=13, n_pad=4)
+    K[1, 20, 20] = -1.0
+    K[2][np.triu_indices(40, 1)] = np.nan
+    L = cholesky_blocked_plain(torch.from_numpy(K))
+    assert torch.isnan(L).flatten(1).any(1).tolist() == [False, True, False]
+    j_L = np.asarray(cholesky_lanes(np.tril(K), interpret=True))
+    assert np.isnan(j_L).reshape(3, -1).any(1).tolist() == [False, True, False]
+    np.testing.assert_allclose(L[2].numpy(), j_L[2], rtol=2e-5, atol=2e-5)
+    assert float(torch.triu(L[[0, 2]], 1).abs().max()) == 0.0
+
+
 @pytest.mark.cuda
 def test_cholesky_kernel_matches_plain_on_the_card():
-    """T <= MAX_T (shared memory) and T > MAX_T (global scratch) at the
-    bars above; two launches bit for bit equal; a non-positive pivot gives
-    NaN in that matrix only."""
+    """T <= MAX_T (the blocked kernel, counted in ``chol_launches``) and
+    T > MAX_T (the column loop in a global scratch, counted in
+    ``chol_large_launches``) at the bars above; two launches bit for bit
+    equal; a non-positive pivot gives NaN in that matrix only."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    for t in (24, 160, 256):
+    for t in (24, 160, 256, 320, 400):
         K = torch.from_numpy(_spd(6, t, seed=t, n_pad=t // 8)).cuda()
         K[4, 3, 3] = -1.0
         chol_cuda.reset_launches()
         L = cholesky(K)
         L2 = cholesky(K)
         torch.cuda.synchronize()
-        assert chol_cuda.chol_launches == 2 and chol_cuda.launches == 0
+        blocked = t <= chol_cuda.MAX_T
+        assert chol_cuda.chol_launches == (2 if blocked else 0)
+        assert (chol_cuda.chol_large_launches >= 2) != blocked
+        assert chol_cuda.launches == 0 and chol_cuda.large_launches == 0
         assert torch.equal(torch.isnan(L), torch.isnan(L2))
         assert torch.equal(torch.nan_to_num(L), torch.nan_to_num(L2))
         ok = [0, 1, 2, 3, 5]
