@@ -37,11 +37,14 @@ Phases, each printing its wall time on its own line:
    at the fit shapes of training and of the ensemble's 25-lane members and
    every node count they use, and the leaf-wise segment-histogram kernel
    (K3) at the v114d member's shapes (25 lanes, 228 columns; the root, a
-   pair of children, a pair with 70% of rows inactive), each against its
-   plain version (float32 and float64, and bit for bit against its
-   fixed-point arithmetic in plain PyTorch), two launches of each bit for
-   bit equal, and times (kernel, plain, a one-call ``scatter_add_``
-   yardstick, the bound); then the histogram modes' kernels, K5 (int8
+   pair of children, a pair with 70% of rows inactive, a pair with half
+   its bins in the missing bin), each against its plain version (float32
+   and float64, and bit for bit against its fixed-point arithmetic in
+   plain PyTorch), two launches of each bit for bit equal, and times
+   (kernel, plain, a one-call ``scatter_add_`` yardstick, the bound; K3's
+   launch alone beside its wrapper); K3 also at its edges (1, 17, 2,443
+   rows with a ragged last feature group, an all-inactive lane, NaN and
+   -inf lanes beside finite ones, the segment limit); then the histogram modes' kernels, K5 (int8
    fixed-point digits) bit for bit equal to its plain version and K4 (bf16
    digits) bit for bit equal to its fixed-point twin and within rtol 1e-5 /
    atol 1e-4 of the float64 oracle, at every K1 shape, the ragged one and
@@ -150,9 +153,14 @@ HIST_SHAPES = (("selection", 5, 307, 2444, (1, 1, 2, 4, 8)),
                ("v92d", 5, 222, 2444, (1, 1, 2, 4, 8)),
                ("kaggle", 25, 224, 2444, (1, 1, 2, 4, 8)))
 # the leaf-wise v114d member's K3 calls: 25 lanes, 222 + 6 columns, the
-# padded fold rows; (name, rows, nodes, share of rows inactive)
-SEG_LANES, SEG_F, SEG_SHAPES = 25, 228, (("root", 2444, 1, 0.0), ("pair", 2444, 2, 0.0),
-                                         ("ragged", 2443, 2, 0.7))
+# padded fold rows; (name, rows, nodes, share of rows inactive, share of
+# (row, feature) bins moved to the missing bin): the root, a pair of
+# children, a pair with 70% of rows inactive, a pair whose features miss
+# half their rows (atomics crowding one cell)
+SEG_LANES, SEG_F, SEG_SHAPES = 25, 228, (("root", 2444, 1, 0.0, 0.0),
+                                         ("pair", 2444, 2, 0.0, 0.0),
+                                         ("ragged", 2443, 2, 0.7, 0.0),
+                                         ("crowded", 2444, 2, 0.0, 0.5))
 # OOF F1 gate: the JAX package's lowest recorded OOF F1 on this data
 # (0.6702) less the reference's fold-F1 std (0.0375)
 F1_GATE = 0.633
@@ -213,6 +221,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """float32 tensors equal bit for bit (NaN included)."""
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
 def close(a, b, rtol, atol):
@@ -661,24 +674,37 @@ def check_mode_hist(mode: str, fit: str, K: int, F: int, N: int, k_nodes: int, s
             **hist_times(tag, kernel, plain_fn, binned, node_q, gh, k_nodes)}
 
 
-def check_seg_hist(name: str, K: int, F: int, N: int, n_nodes: int, seed: int,
-                   inactive: float) -> dict:
-    """K3 at one of the leaf-wise fit's shapes, held as K1 is."""
+def seg_inputs(K: int, F: int, N: int, n_nodes: int, seed: int, inactive: float = 0.0,
+               missing: float = 0.0, root: bool = False):
+    """K3's inputs from K1's (``hist_inputs``): segment bases node x 257
+    (inactive rows at n_nodes x 257 = n_seg; every row at 0 for a tree's
+    root), a share ``missing`` of (row, feature) bins moved to the missing
+    bin 256."""
     binned, node_q, gh = hist_inputs(K, F, N, n_nodes, seed, inactive)
-    if name == "root":  # a tree's root histogram takes every row
+    if root:
         node_q = torch.zeros_like(node_q)
-    seg_base = (node_q * N_BINS_TOT).contiguous()  # inactive rows: n_nodes * 257 = n_seg
-    n_seg = n_nodes * N_BINS_TOT
+    if missing:
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        binned[torch.rand(K, F, N, generator=g, device="cuda") < missing] = N_BINS_TOT - 1
+    return binned, (node_q * N_BINS_TOT).contiguous(), gh
+
+
+def seg_hist_holds(tag: str, binned, seg_base, gh, n_seg: int):
+    """K3 twice against ``build_seg_histograms_fixed`` (bit for bit) and
+    the float32 and float64 plain versions (HIST_TOL, over the lanes whose
+    (g, h) are finite: the kernel makes every cell of any other lane NaN);
+    raises on any failure. Returns (output, rows of (max abs, max rel,
+    ok))."""
     a = hist_cuda.build_seg_histograms(binned, seg_base, gh, n_seg)
     b = hist_cuda.build_seg_histograms(binned, seg_base, gh, n_seg)
     torch.cuda.synchronize()
-    repeat_equal = bool(torch.equal(a, b))
-    fixed_equal = bool(torch.equal(a, hist_cuda.build_seg_histograms_fixed(
-        binned, seg_base, gh, n_seg)))
+    repeat_equal = bits_equal(a, b)
+    fixed_equal = bits_equal(a, hist_cuda.build_seg_histograms_fixed(binned, seg_base, gh, n_seg))
     plain = hist_cuda.build_seg_histograms_plain(binned, seg_base, gh, n_seg)
     f64 = hist_cuda.build_seg_histograms_plain(binned, seg_base, gh.double(), n_seg)
-    rows = {"vs_plain": close(a, plain, *HIST_TOL), "vs_f64": close(a, f64, *HIST_TOL)}
-    tag = f"seg {name} K={K} F={F} N={N} n_seg={n_seg} inactive={inactive:g}"
+    lanes = torch.isfinite(gh).flatten(1).all(dim=1)
+    rows = {"vs_plain": close(a[lanes], plain[lanes], *HIST_TOL),
+            "vs_f64": close(a[lanes], f64[lanes], *HIST_TOL)}
     for rname, (abs_e, rel_e, ok) in rows.items():
         log(f"  {tag} {rname}: max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
             f"(rtol={HIST_TOL[0]:g}, atol={HIST_TOL[1]:g}) {'ok' if ok else 'FAIL'}")
@@ -686,6 +712,19 @@ def check_seg_hist(name: str, K: int, F: int, N: int, n_nodes: int, seed: int,
         f"fixed-point arithmetic in plain PyTorch: {fixed_equal}")
     if not (repeat_equal and fixed_equal) or not all(ok for _, _, ok in rows.values()):
         raise AssertionError(f"K3 {tag} failed its checks")
+    return a, rows
+
+
+def check_seg_hist(name: str, K: int, F: int, N: int, n_nodes: int, seed: int,
+                   inactive: float, missing: float) -> dict:
+    """K3 at one of the leaf-wise fit's shapes, held as K1 is, with the
+    launch alone timed beside the wrapper."""
+    binned, seg_base, gh = seg_inputs(K, F, N, n_nodes, seed, inactive, missing,
+                                      root=name == "root")
+    n_seg = n_nodes * N_BINS_TOT
+    tag = (f"seg {name} K={K} F={F} N={N} n_seg={n_seg} inactive={inactive:g} "
+           f"missing={missing:g}")
+    a, rows = seg_hist_holds(tag, binned, seg_base, gh, n_seg)
 
     # the yardstick: one scatter_add_ over every (lane, feature, segment)
     sb = seg_base.long()
@@ -697,7 +736,14 @@ def check_seg_hist(name: str, K: int, F: int, N: int, n_nodes: int, seed: int,
     vals = gh[:, None, :, :].expand(K, F, N, 2).reshape(-1, 2)
     sink = torch.zeros(n_all + 1, 2, device="cuda")
 
+    layout = hist_cuda.seg_hist_layout(n_seg)
+    out = torch.empty_like(a)
     ms = cuda_ms(lambda: hist_cuda.build_seg_histograms(binned, seg_base, gh, n_seg), reps=50)
+    launch_ms = cuda_ms(lambda: hist_cuda.launch_seg_kernel(binned, seg_base, gh, out, n_seg),
+                        reps=50)
+    torch.cuda.synchronize()
+    if not bits_equal(out, a):
+        raise AssertionError(f"K3 {tag}: the launch alone disagrees with the wrapper")
     plain_ms = cuda_ms(lambda: hist_cuda.build_seg_histograms_plain(binned, seg_base, gh, n_seg),
                        reps=3, warmup=1)
     library_ms = cuda_ms(lambda: sink.scatter_add_(0, seg, vals), reps=20)
@@ -708,14 +754,49 @@ def check_seg_hist(name: str, K: int, F: int, N: int, n_nodes: int, seed: int,
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_FLOP_PER_S * 1e3
     res = {"name": name, "K": K, "F": F, "N": N, "n_seg": n_seg,
-           "max_abs_err": rows["vs_plain"][0], "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+           "max_abs_err": rows["vs_plain"][0], "ms": ms, "launch_ms": launch_ms,
+           "features_per_cta": layout[0], "tile_rows": layout[1],
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    log(f"  {tag} times: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-        f"library_ms={library_ms:.4f} (one scatter_add_, a yardstick the port never "
-        f"calls) bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: "
-        f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M adds)")
+    log(f"  {tag} times: kernel_ms={ms:.4f} launch_ms={launch_ms:.4f} (G={layout[0]}, "
+        f"{layout[1]}-row tiles) plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} (one "
+        f"scatter_add_, a yardstick the port never calls) bound_ms={res['bound_ms']:.4f} "
+        f"({res['bound_by']}: {n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M adds)")
     return res
+
+
+def check_seg_hist_edges() -> None:
+    """K3 at its edges, each held by ``seg_hist_holds``: 1, 17 and 2,443
+    rows with F not a multiple of the features per CTA (a ragged last
+    group), an all-inactive lane, a NaN and a -inf lane beside finite
+    ones, and the most segments the kernel takes."""
+    G = hist_cuda.seg_hist_layout(2 * N_BINS_TOT)[0]
+    for i, N in enumerate((1, 17, 2443)):
+        binned, seg_base, gh = seg_inputs(5, 2 * G + 1, N, 2, seed=4100 + i, inactive=0.3)
+        seg_hist_holds(f"seg edge N={N} F={2 * G + 1}", binned, seg_base, gh, 2 * N_BINS_TOT)
+    binned, seg_base, gh = seg_inputs(5, 9, 700, 2, seed=4110)
+    seg_base[1] = 2 * N_BINS_TOT
+    a, _ = seg_hist_holds("seg edge lane 1 inactive", binned, seg_base, gh, 2 * N_BINS_TOT)
+    if bool((a[1] != 0).any()) or not bool((a[0] != 0).any()):
+        raise AssertionError("K3: an all-inactive lane is not zero")
+    binned, seg_base, gh = seg_inputs(5, 9, 700, 2, seed=4111)
+    gh[1, 3, 0] = float("nan")
+    gh[3, 699, 1] = -float("inf")
+    a, _ = seg_hist_holds("seg edge NaN lane 1, -inf lane 3", binned, seg_base, gh,
+                          2 * N_BINS_TOT)
+    nan_lanes = [bool(torch.isnan(a[k]).all()) for k in range(5)]
+    finite_lanes = [bool(torch.isfinite(a[k]).all()) for k in range(5)]
+    log(f"  seg edge: all-NaN lanes {nan_lanes}, all-finite lanes {finite_lanes}")
+    if nan_lanes != [False, True, False, True, False] or finite_lanes != [True, False, True,
+                                                                          False, True]:
+        raise AssertionError("K3: the NaN rule does not hold lane by lane")
+    lim = hist_cuda.SEG_MAX_SEGMENTS
+    g = torch.Generator(device="cuda").manual_seed(4112)
+    binned, _, gh = seg_inputs(2, 3, 500, 1, seed=4113)
+    seg_base = torch.randint(0, lim - N_BINS_TOT + 60, (2, 500), generator=g, device="cuda",
+                             dtype=torch.int32)
+    seg_hist_holds(f"seg edge n_seg={lim} (layout {hist_cuda.seg_hist_layout(lim)})",
+                   binned, seg_base, gh, lim)
 
 
 def check_training_kernel_vs_plain(device) -> None:
@@ -1195,8 +1276,9 @@ def main() -> int:
                         for k in sorted(set(nodes))]
         check_hist("ragged", 5, 222, 2443, 4, seed=2999, inactive=0.3)
         seg_results = [check_seg_hist(name, SEG_LANES, SEG_F, N, nodes, seed=4000 + i,
-                                      inactive=inactive)
-                       for i, (name, N, nodes, inactive) in enumerate(SEG_SHAPES)]
+                                      inactive=inactive, missing=missing)
+                       for i, (name, N, nodes, inactive, missing) in enumerate(SEG_SHAPES)]
+        check_seg_hist_edges()
         mode_results = {mode: [check_mode_hist(mode, fit, K, F, N, k, seed=6000 + 17 * i + k)
                                for i, (fit, K, F, N, nodes) in enumerate(HIST_SHAPES)
                                for k in sorted(set(nodes))]
@@ -1270,6 +1352,7 @@ def main() -> int:
         "replaces": "mallorn_tpu/ops/hist_pallas.py:42",
         "launches": ensemble["k3"],
         "max_abs_err": main_seg["max_abs_err"], "ms": main_seg["ms"],
+        "launch_ms": main_seg["launch_ms"], "features_per_cta": main_seg["features_per_cta"],
         "plain_ms": main_seg["plain_ms"], "bound_ms": main_seg["bound_ms"],
         "bound_by": main_seg["bound_by"], "library_ms": main_seg["library_ms"],
         "shape": [main_seg["K"], main_seg["F"], main_seg["N"], main_seg["n_seg"]],

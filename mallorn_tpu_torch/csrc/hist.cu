@@ -1,8 +1,8 @@
 // (grad, hess) histograms of the GBDT, batched over folds or lanes: the
 // depthwise level histogram (K1, hist_kernel), the leaf-wise segment
-// histogram (K3, seg_hist_kernel) and the depthwise fit's two histogram
-// modes (K4 / K5, mode_hist_kernel, further down), all shared-memory
-// integer histograms.
+// histogram (K3, seg_hist_group_kernel) and the depthwise fit's two
+// histogram modes (K4 / K5, mode_hist_kernel, further down), all
+// shared-memory integer histograms.
 //
 // K1 replaces mallorn_tpu/ops/hist_pallas.py:_fullhot_kernel (the Pallas
 // kernel behind build_histograms_fullhot). Contract, for fold k, feature f,
@@ -43,32 +43,56 @@
 // zeroing and writing the whole histogram even where it is sparse.
 
 //
-// seg_hist_kernel: the segment histograms of the leaf-wise fit. Replaces
-// mallorn_tpu/ops/hist_pallas.py:_hist_kernel (the Pallas kernel behind
-// build_histograms_pallas, K3), with a leading lane axis. Contract, for
+// seg_hist_group_kernel: the segment histograms of the leaf-wise fit (K3).
+// Replaces mallorn_tpu/ops/hist_pallas.py:_hist_kernel (the Pallas kernel
+// behind build_histograms_pallas), with a leading lane axis. Contract, for
 // lane k, feature f and segment s < n_seg:
 //   out[k, f, s, :] = sum_r [seg_base[k, r] + binned[k, f, r] == s] gh[k, r, :]
 // Inputs: binned [K, F, N] int16, seg_base [K, N] int32 (a row's node
 // times n_bins_tot; a row whose seg_base is outside [0, n_seg), or whose
-// bin is negative, is inactive), gh [K, N, 2] float32, maxabs [K, 2].
-// Output [K, F, n_seg, 2]
-// float32 (n_seg = 257 at a tree's root, 514 for a pair of children). The
-// TPU kernel splits each id into two 128-wide one-hots and multiplies
-// them through the MXU at HIGHEST precision; here both kernels run one
-// device body (accumulate), which differs between them only in how a row's
-// segment is formed: one CTA per (lane, feature) adds int64 fixed point
-// into a [n_seg, 2] shared-memory histogram (8,224 B at 514 segments),
-// with the same scale, rounding, NaN rule and launch-to-launch identity
-// as K1. Taking seg_base and
-// the int16 bins, not a [K, F, N] int32 id tensor, keeps the ids out of
-// device memory.
+// bin is negative, is inactive; so is a (row, feature) whose segment is
+// n_seg or beyond), gh [K, N, 2] float32. Output [K, F, n_seg, 2] float32
+// (n_seg = 257 at a tree's root, 514 for a pair of children). The TPU
+// kernel splits each id into two 128-wide one-hots and multiplies them
+// through the MXU at HIGHEST precision. Here the arithmetic is K1's int64
+// fixed point (the same scale, rounding, NaN rule and launch-to-launch
+// identity), so any tiling of the work gives the same bits.
 //
 // Bound: the bins once (K F N 2 bytes), seg_base and (g, h) once per lane,
 // the histograms written once. At v114d's split step (K = 25, F = 228,
 // N = 2,443, n_seg = 514) that is 28.0 MB in and 23.4 MB out: ~15 us at
-// 3.35 TB/s. A split step's rows are mostly inactive, so the CTA's time
-// goes to reading the lane's rows and to zeroing and writing the
-// histogram.
+// 3.35 TB/s.
+//
+// What held the first design (one CTA per (lane, feature), K1's body) at
+// 9x that bound: 5,700 CTAs of ~10 rows per thread, each paying for
+// zeroing, two barriers and a 1,028-cell epilogue; every feature's CTA
+// re-reading a row's seg_base and (g, h) from L2 (~167 MB per launch
+// against 28 MB of bins) and redoing its fixed-point conversion; a row
+// walk of dependent loads (seg_base, then the bin, then (g, h)) with 2 B
+// per thread in flight; and two PyTorch ops in the wrapper for the scale.
+// This kernel:
+// - one CTA per (lane, group of G features) (grid (ceil(F / G), K); the
+//   last group is ragged), G [n_seg, 2] int64 histograms in shared memory;
+//   G and the tile's rows come from the wrapper (hist_cuda.seg_hist_layout);
+// - the lane's scale found in the kernel: the CTA reads the lane's (g, h)
+//   once, keeps max |g|, max |h| (exact in any order) and a flag for any
+//   non-finite value (fmaxf drops NaN; an infinity must give NaN too);
+// - rows in tiles of R, their seg_base and the G features' bins staged in
+//   shared memory by cp.async 16-byte copies, two stages, so that the
+//   next tile lands while this one is added;
+// - each warp compacts its rows of the tile once (ballot, __popc prefix)
+//   into a list of (row, base, q_g, q_h), q computed once per row from the
+//   (g, h) of the active rows alone (the scale's pass has just brought
+//   them into L1); its lanes then add (entry, feature) items into the G
+//   histograms: an inactive row costs its seg_base;
+// - an int64 cell is a low and a high 32-bit word, added with two native
+//   32-bit atomics and the carry passed on (add_fixed): an int64
+//   atomicAdd on shared memory compiles to a compare-and-swap loop
+//   (ATOMS.CAST.SPIN.64), which held the first design too. The words lie
+//   in four planes (g low, g high, h low, h high), so a warp's random
+//   segments spread over all 32 banks;
+// - the epilogue converts each sum once (from_fixed) and writes two
+//   segments' (g, h) per float4.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,8 +109,9 @@ __device__ __forceinline__ double fixed_scale(float maxabs, int log2n) {
   return ldexp(1.0, 62 - log2n - e);
 }
 
-// The row walk of every kernel in this file: all kBlock threads stride the
-// N rows and call add(s, r) for each row r whose segment
+// The row walk of K1, K4 and K5 (K3 stages its rows in tiles, below):
+// all kBlock threads stride the N rows and call add(s, r) for each row r
+// whose segment
 // s = (ids[r] - id0) * id_scale + bins[r] lies in [0, n_seg), with
 // (ids[r] - id0) * id_scale in [0, n_seg) and the bin in [0, n_bins).
 template <int kBlock, typename Add>
@@ -104,7 +129,7 @@ __device__ __forceinline__ void for_each_row(const int16_t* __restrict__ bins,
   }
 }
 
-// The fixed-point histogram of K1, K3 and K4: zeroes the [n_seg, C] int64
+// The fixed-point histogram of K1 and K4: zeroes the [n_seg, C] int64
 // histogram in shared memory, gives channel c the scale
 // S_c = 2^(62 - log2n - e) with maxabs[c] < 2^e, and adds
 // round(x_c * S_c) of each active row's C values (load(r, x)) with integer
@@ -152,7 +177,7 @@ __device__ __forceinline__ float from_fixed(unsigned long long a, double inv) {
   return __double2float_rn(__dmul_rn(__ll2double_rn(static_cast<long long>(a)), inv));
 }
 
-// K1 and K3: one CTA per (lane k, feature f) = (blockIdx.y, blockIdx.x);
+// K1: one CTA per (fold k, feature f) = (blockIdx.y, blockIdx.x);
 // row r adds (g, h) into segment ids[k, r] * id_scale + bin, and the
 // [n_seg, 2] histogram is written out as float32 sums.
 __device__ __forceinline__ void accumulate(
@@ -191,12 +216,255 @@ hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ node
              k_nodes * n_bins_tot, log2n);
 }
 
-// K3: segment = seg_base + bin
-__global__ void __launch_bounds__(kThreads)
-seg_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ seg_base,
-                const float2* __restrict__ gh, const float* __restrict__ maxabs,
-                float* __restrict__ out, int F, int N, int n_seg, int log2n) {
-  accumulate(binned, seg_base, gh, maxabs, out, F, N, 1, n_seg, n_seg, log2n);
+// ---------------------------------------------------------------------------
+// K3 (seg_hist_group_kernel; the design is in the header above)
+
+constexpr int kSegThreads = 256;
+constexpr int kSegWarps = kSegThreads / 32;
+constexpr int kSegStages = 2;          // row tiles in flight
+constexpr int kSegMaxTileRows = 4096;  // a list entry keeps its row in 16 bits
+
+// shared memory of one CTA, in this order: the G int64 [n_seg, 2]
+// histograms as four planes of 32-bit words (g's low and high words, then
+// h's: neighbouring segments fall in neighbouring banks); kSegStages row
+// tiles, each seg_base (4 B a row) and G features' bins (2 B), each array
+// with 16 spare bytes for its alignment; the active list, R entries of
+// (q_g, q_h) (16 B) and row | base << 16 (4 B), each warp's own R / 8;
+// per warp max |g|, max |h| and the non-finite flag (16 B).
+// hist_cuda._seg_smem_bytes repeats this sum for seg_hist_layout;
+// tests/test_torch_seg_hist.py reads these two functions and holds them equal.
+__host__ __device__ __forceinline__ size_t seg_stage_bytes(int group, int rows) {
+  return 4 * static_cast<size_t>(rows) + 16 + static_cast<size_t>(group) * (2 * rows + 16);
+}
+
+size_t seg_smem_bytes(int n_seg, int group, int rows) {
+  return 16 * static_cast<size_t>(group) * n_seg + kSegStages * seg_stage_bytes(group, rows) +
+         20 * static_cast<size_t>(rows) + 16 * kSegWarps;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Stages the elements [r0, r1) of src (n elements) into dst by the
+// 16-byte chunks that cover them: element r lands at byte
+// (address of src[r]) mod 16 + (r - r0) sizeof(T) of dst when r0 sizeof(T)
+// is a multiple of 16. A chunk that reaches outside src[0, n) is copied
+// element by element, so nothing outside the array is read.
+template <typename T>
+__device__ __forceinline__ void stage_rows(char* dst, const T* src, int n, int r0, int r1) {
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t hi = lo + static_cast<uintptr_t>(n) * sizeof(T);
+  const uintptr_t a0 = (lo + static_cast<uintptr_t>(r0) * sizeof(T)) & ~uintptr_t{15};
+  const uintptr_t a1 = lo + static_cast<uintptr_t>(r1) * sizeof(T);
+  const int n_chunks = static_cast<int>((a1 - a0 + 15) >> 4);
+  for (int c = threadIdx.x; c < n_chunks; c += kSegThreads) {
+    const uintptr_t g = a0 + 16 * static_cast<uintptr_t>(c);
+    if (g >= lo && g + 16 <= hi) {
+      cp_async16(dst + 16 * c, reinterpret_cast<const void*>(g));
+    } else {
+      for (int b = 0; b < 16; b += static_cast<int>(sizeof(T)))
+        if (g + b >= lo && g + b < hi)
+          *reinterpret_cast<T*>(dst + 16 * c + b) = *reinterpret_cast<const T*>(g + b);
+    }
+  }
+}
+
+// Adds q to an int64 cell kept as a low and a high 32-bit word, with two
+// native shared-memory atomics (an int64 atomicAdd on shared memory is a
+// compare-and-swap loop): the low word's old value gives its carry, which
+// the high word takes with q's high word. Every wrap of the low word is
+// counted once, so the cell ends at the exact int64 sum, mod 2^64, in any
+// order.
+__device__ __forceinline__ void add_fixed(unsigned* lo_word, unsigned* hi_word, long long q) {
+  const unsigned long long u = static_cast<unsigned long long>(q);
+  const unsigned lo = static_cast<unsigned>(u);
+  unsigned hi = static_cast<unsigned>(u >> 32);
+  if (lo) hi += atomicAdd(lo_word, lo) > ~lo ? 1u : 0u;  // old + lo wrapped
+  if (hi) atomicAdd(hi_word, hi);
+}
+
+// K3: segment = seg_base + bin. One CTA per (lane k, features f0 ..
+// f0 + group - 1) = (blockIdx.y, blockIdx.x); tile_rows a multiple of
+// kSegThreads.
+__global__ void __launch_bounds__(kSegThreads)
+seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ seg_base,
+                      const float2* __restrict__ gh, float* __restrict__ out, int F, int N,
+                      int n_seg, int group, int tile_rows, int log2n) {
+  extern __shared__ uint4 smem[];
+  const int k = blockIdx.y;
+  const int f0 = blockIdx.x * group;
+  const int n_f = min(group, F - f0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = tile_rows;
+
+  // the carve-up of seg_smem_bytes
+  const int plane = group * n_seg;  // words per plane; feature g's at g * n_seg
+  unsigned* words = reinterpret_cast<unsigned*>(smem);
+  char* stage0 = reinterpret_cast<char*>(smem) + 16 * static_cast<size_t>(plane);
+  const size_t stage_bytes = seg_stage_bytes(group, R);
+  const int bins_off = 4 * R + 16, bin_bytes = 2 * R + 16;
+  longlong2* list_q = reinterpret_cast<longlong2*>(stage0 + kSegStages * stage_bytes);
+  unsigned* list_rb = reinterpret_cast<unsigned*>(list_q + R);
+  float2* red_max = reinterpret_cast<float2*>(list_rb + R);
+  int* red_bad = reinterpret_cast<int*>(red_max + kSegWarps);
+  const int per_warp = R / kSegWarps;  // a warp's rows of a tile, and its list entries
+  const int w0 = warp * per_warp;
+  list_q += w0;
+  list_rb += w0;
+
+  const int32_t* sb = seg_base + static_cast<size_t>(k) * N;
+  const float2* v = gh + static_cast<size_t>(k) * N;
+  const int16_t* bins = binned + (static_cast<size_t>(k) * F + f0) * N;
+  // where element r0 of a tile sits in its staged array (the same for
+  // every tile: R sizeof(T) is a multiple of 16)
+  const int sb_mis = static_cast<int>(reinterpret_cast<uintptr_t>(sb) & 15);
+  const unsigned bins_mis = static_cast<unsigned>(reinterpret_cast<uintptr_t>(bins));
+  const int n_tiles = (N + R - 1) / R;
+
+  // one commit group per tile (empty past the last), so that a wait for
+  // kSegStages - 2 pending groups always means tile t has landed
+  auto stage_tile = [&](int t) {
+    if (t < n_tiles) {
+      char* st = stage0 + (t % kSegStages) * stage_bytes;
+      const int r0 = t * R, r1 = min(N, r0 + R);
+      stage_rows(st, sb, N, r0, r1);
+      for (int g = 0; g < n_f; ++g)
+        stage_rows(st + bins_off + g * bin_bytes, bins + static_cast<size_t>(g) * N, N, r0, r1);
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < kSegStages - 1; ++t) stage_tile(t);
+
+  for (int i = tid; i < plane; i += kSegThreads) smem[i] = make_uint4(0u, 0u, 0u, 0u);
+
+  // the lane's scale: max |g|, max |h| over its rows (exact in any order)
+  // and whether any value is not finite; eight loads in flight a thread
+  float mg = 0.0f, mh = 0.0f;
+  bool bad = false;
+  for (int r0 = tid; r0 < N; r0 += 8 * kSegThreads) {
+    float2 w[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int r = r0 + u * kSegThreads;
+      w[u] = r < N ? v[r] : make_float2(0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      mg = fmaxf(mg, fabsf(w[u].x));
+      mh = fmaxf(mh, fabsf(w[u].y));
+      bad = bad || !(isfinite(w[u].x) && isfinite(w[u].y));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, o));
+    mh = fmaxf(mh, __shfl_xor_sync(0xffffffffu, mh, o));
+  }
+  bad = __any_sync(0xffffffffu, bad);
+  if (lane == 0) {
+    red_max[warp] = make_float2(mg, mh);
+    red_bad[warp] = bad;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kSegWarps; ++w) {
+    mg = fmaxf(mg, red_max[w].x);
+    mh = fmaxf(mh, red_max[w].y);
+    bad = bad || red_bad[w];
+  }
+  const bool finite = !bad;
+  const double sg = fixed_scale(mg, log2n), sh = fixed_scale(mh, log2n);
+
+  if (finite) {
+    for (int t = 0; t < n_tiles; ++t) {
+      cp_async_wait<kSegStages - 2>();
+      // tile t staged for every thread; the histograms zeroed; tile t - 1
+      // added, so its stage takes tile t + kSegStages - 1
+      __syncthreads();
+      stage_tile(t + kSegStages - 1);
+      const char* st = stage0 + (t % kSegStages) * stage_bytes;
+      const int32_t* t_sb = reinterpret_cast<const int32_t*>(st + sb_mis);
+      const int r0 = t * R, rows = min(R, N - r0);
+
+      // the warp's active rows of the tile, compacted into its list; q
+      // once per row, from (g, h) read for the active rows alone (the
+      // scale's pass has just brought them into L1)
+      int cnt = 0;
+      for (int j = 0; j < per_warp; j += 32) {
+        const int i = w0 + j + lane;
+        const int base = i < rows ? t_sb[i] : -1;
+        const bool act = static_cast<unsigned>(base) < static_cast<unsigned>(n_seg);
+        const unsigned mask = __ballot_sync(0xffffffffu, act);
+        if (act) {
+          const int pos = cnt + __popc(mask & ((1u << lane) - 1u));
+          const float2 x = v[r0 + i];
+          list_q[pos] = make_longlong2(__double2ll_rn(__dmul_rn(static_cast<double>(x.x), sg)),
+                                       __double2ll_rn(__dmul_rn(static_cast<double>(x.y), sh)));
+          list_rb[pos] = static_cast<unsigned>(i) | (static_cast<unsigned>(base) << 16);
+        }
+        cnt += __popc(mask);
+      }
+      __syncwarp();
+
+      // (entry, feature) items, feature fastest (rows that crowd one cell,
+      // as in a missing bin, meet in a warp's atomics G times less often):
+      // the staged bin, the range check of for_each_row, the int64 adds
+      for (int it = lane; it < cnt * n_f; it += 32) {
+        const int e = it / n_f;
+        const int g = it - e * n_f;
+        const unsigned rb = list_rb[e];
+        const int i = static_cast<int>(rb & 0xffffu), base = static_cast<int>(rb >> 16);
+        const int16_t* t_bins = reinterpret_cast<const int16_t*>(
+            st + bins_off + g * bin_bytes + ((bins_mis + 2u * static_cast<unsigned>(N) * g) & 15u));
+        const int bin = t_bins[i];
+        if (static_cast<unsigned>(bin) < static_cast<unsigned>(n_seg - base)) {
+          const longlong2 q = list_q[e];
+          const int c = g * n_seg + base + bin;
+          add_fixed(words + c, words + plane + c, q.x);
+          add_fixed(words + 2 * plane + c, words + 3 * plane + c, q.y);
+        }
+      }
+      __syncwarp();  // the list is free again
+    }
+    __syncthreads();  // every add is in
+  }
+  cp_async_wait<0>();
+
+  // the epilogue: one conversion per sum, two segments per float4 store
+  const double inv_g = 1.0 / sg, inv_h = 1.0 / sh;
+  auto cell = [&](int c) {
+    if (!finite) return make_float2(__int_as_float(0x7fc00000), __int_as_float(0x7fc00000));
+    const unsigned long long a_g =
+        static_cast<unsigned long long>(words[plane + c]) << 32 | words[c];
+    const unsigned long long a_h =
+        static_cast<unsigned long long>(words[3 * plane + c]) << 32 | words[2 * plane + c];
+    return make_float2(from_fixed(a_g, inv_g), from_fixed(a_h, inv_h));
+  };
+  for (int g = 0; g < n_f; ++g) {
+    const int c0 = g * n_seg;
+    float* o = out + (static_cast<size_t>(k) * F + f0 + g) * n_seg * 2;
+    const int head = (reinterpret_cast<uintptr_t>(o) & 15) ? 1 : 0;  // o is 8-byte aligned
+    const int n_pairs = (n_seg - head) >> 1;
+    for (int p = tid; p < n_pairs; p += kSegThreads) {
+      const int s = head + 2 * p;
+      const float2 x = cell(c0 + s), y = cell(c0 + s + 1);
+      *reinterpret_cast<float4*>(o + 2 * s) = make_float4(x.x, x.y, y.x, y.y);
+    }
+    if (tid == 0 && head) *reinterpret_cast<float2*>(o) = cell(c0);
+    if (tid == kSegThreads - 1 && ((n_seg - head) & 1))
+      *reinterpret_cast<float2*>(o + 2 * (n_seg - 1)) = cell(c0 + n_seg - 1);
+  }
 }
 
 int ceil_log2(int n) {
@@ -205,8 +473,9 @@ int ceil_log2(int n) {
   return log2n;
 }
 
-// one CTA per (lane, feature) with an [n_seg, 2] int64 histogram in
-// shared memory; args... follow (binned, ids, gh, maxabs, out) of the kernel
+// K1's launch: one CTA per (fold, feature) with an [n_seg, 2] int64
+// histogram in shared memory; args... follow (binned, ids, gh, maxabs, out)
+// of the kernel
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, int K, int F, int n_seg, void* stream, Args... args) {
   const size_t smem = static_cast<size_t>(n_seg) * 2 * sizeof(unsigned long long);
@@ -404,13 +673,25 @@ int launch_mode(const int16_t* binned, const int32_t* nodes, const void* digits,
 
 }  // namespace
 
+// K3: group features per CTA and tile_rows rows per staged tile
+// (hist_cuda.seg_hist_layout); refuses a layout that does not fit
 extern "C" int mallorn_seg_hist(const int16_t* binned, const int32_t* seg_base,
-                                const float* gh, const float* maxabs, float* out,
-                                int K, int F, int N, int n_seg, void* stream) {
+                                const float* gh, float* out, int K, int F, int N, int n_seg,
+                                int group, int tile_rows, void* stream) {
   if (K <= 0 || F <= 0 || n_seg <= 0) return 0;
-  return launch(seg_hist_kernel, K, F, n_seg, stream, binned, seg_base,
-                reinterpret_cast<const float2*>(gh), maxabs, out, F, N, n_seg,
-                ceil_log2(N));
+  if (N < 0 || K > 65535 || n_seg > 65535 || group < 1 ||
+      tile_rows < kSegThreads || tile_rows % kSegThreads || tile_rows > kSegMaxTileRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = seg_smem_bytes(n_seg, group, tile_rows);
+  if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      seg_hist_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  seg_hist_group_kernel<<<dim3((F + group - 1) / group, K), kSegThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      binned, seg_base, reinterpret_cast<const float2*>(gh), out, F, N, n_seg, group, tile_rows,
+      ceil_log2(N));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int mallorn_hist(const int16_t* binned, const int32_t* node_q,

@@ -46,7 +46,11 @@ import torch
 
 from mallorn_tpu_torch.utils import cuda_build
 
-# a CTA holds one (fold, feature) histogram as int64 cells in shared memory
+# the shared memory a CTA may take on an H100. K1 holds one (fold, feature)
+# histogram of int64 cells in it, K4 / K5 one (fold, feature, <= 8 nodes)
+# histogram, K3 its group's histograms, its staged row tiles and its
+# active list (``seg_hist_layout``: at most SEG_MAX_SEGMENTS = 14,004
+# segments, against 14,528 for one bare histogram)
 SMEM_BYTES = 232448
 
 launches = 0
@@ -193,8 +197,61 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
 #
 # ``seg_base`` is a row's node times ``n_bins_tot`` (the ids the JAX
 # package's ``_build_level_hist`` composes); a row whose ``seg_base`` is
-# outside ``[0, n_seg)``, or whose bin is negative, is inactive. The three versions mirror K1's: the
-# wrapper, ``index_add_`` in gh's dtype, and the kernel's fixed point.
+# outside ``[0, n_seg)``, or whose bin is negative, is inactive. The three
+# versions mirror K1's: the wrapper, ``index_add_`` in gh's dtype, and the
+# kernel's fixed point (``build_seg_histograms_fixed``, equal to the
+# kernel bit for bit at any layout: integer sums do not depend on order).
+#
+# The kernel (``csrc/hist.cu`` ``seg_hist_group_kernel``; its note says
+# more) is bound by bytes: at v114d's split step (K = 25, F = 228,
+# N = 2,443, n_seg = 514) 28.0 MB in and 23.4 MB out, ~15 us at 3.35 TB/s.
+# Its first design (one CTA per (lane, feature)) took 9x that: 5,700 CTAs
+# of ~10 rows per thread, each zeroing and writing a whole histogram; each
+# feature's CTA re-reading every row's seg_base and (g, h) and redoing its
+# fixed-point conversion; a row walk of dependent loads; two PyTorch ops
+# for the scale before every launch. Now one CTA takes a lane and a group
+# of G features, finds the lane's scale itself (max |g|, max |h| and a
+# non-finite flag), stages the rows in tiles with asynchronous copies,
+# compacts each tile's active rows once, computes q once per row and adds
+# it into its G histograms. The wrapper allocates ``out`` and launches,
+# nothing else. ``seg_hist_layout`` picks G and the tile from ``n_seg``.
+
+SEG_THREADS = 256  # threads per CTA (csrc/hist.cu kSegThreads)
+SEG_STAGES = 2  # row tiles in flight (kSegStages)
+# features per CTA and rows per tile at the fit's widths (the fastest of
+# G = 2, 4, 8 and 256-, 512-, 1,024-row tiles on an H100 at a v114d split
+# step; tools/time_seg_hist.py --layouts times them); a wider n_seg halves
+# G down to 1, then the tile down to SEG_THREADS rows, until the CTA fits
+# SMEM_BYTES
+SEG_GROUP, SEG_TILE_ROWS = 4, 512
+
+
+def _seg_smem_bytes(n_seg: int, group: int, rows: int) -> int:
+    """K3's shared memory per CTA (csrc/hist.cu ``seg_smem_bytes``): the
+    group's int64 [n_seg, 2] histograms, SEG_STAGES staged tiles (seg_base
+    and the group's bins, 16 spare bytes per array), the active list (20 B
+    a row) and the per-warp reductions."""
+    stage = 4 * rows + 16 + group * (2 * rows + 16)
+    return 16 * group * n_seg + SEG_STAGES * stage + 20 * rows + 16 * (SEG_THREADS // 32)
+
+
+SEG_MAX_SEGMENTS = (SMEM_BYTES - _seg_smem_bytes(0, 1, SEG_THREADS)) // 16
+
+
+def seg_hist_layout(n_seg: int):
+    """(features per CTA G, rows per tile, shared-memory bytes) of K3 at
+    ``n_seg`` segments: G = SEG_GROUP and SEG_TILE_ROWS rows, G halved
+    while a CTA would exceed SMEM_BYTES, then the rows (not below
+    SEG_THREADS). Raises beyond SEG_MAX_SEGMENTS."""
+    if not 1 <= n_seg <= SEG_MAX_SEGMENTS:
+        raise ValueError(f"build_seg_histograms: {n_seg} segments; the kernel's shared memory "
+                         f"({SMEM_BYTES} bytes per CTA) takes 1 to {SEG_MAX_SEGMENTS}")
+    group, rows = SEG_GROUP, SEG_TILE_ROWS
+    while group > 1 and _seg_smem_bytes(n_seg, group, rows) > SMEM_BYTES:
+        group //= 2
+    while _seg_smem_bytes(n_seg, group, rows) > SMEM_BYTES:
+        rows //= 2
+    return group, rows, _seg_smem_bytes(n_seg, group, rows)
 
 
 def _check_seg_shapes(binned, seg_base, gh):
@@ -236,6 +293,21 @@ def build_seg_histograms_fixed(binned: torch.Tensor, seg_base: torch.Tensor,
     return _from_fixed(build_seg_histograms_plain(binned, seg_base, q, n_seg), scale, finite)
 
 
+def launch_seg_kernel(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch.Tensor,
+                      out: torch.Tensor, n_seg: int) -> None:
+    """One launch of K3 on inputs the wrapper checked, at
+    ``seg_hist_layout(n_seg)``; writes ``out`` [K, F, n_seg, 2] float32.
+    Counts nothing."""
+    K, F, N = binned.shape
+    group, rows, _ = seg_hist_layout(n_seg)
+    lib = cuda_build.load()
+    with torch.cuda.device(binned.device):
+        stream = torch.cuda.current_stream(binned.device).cuda_stream
+        rc = lib.mallorn_seg_hist(binned.data_ptr(), seg_base.data_ptr(), gh.data_ptr(),
+                                  out.data_ptr(), K, F, N, n_seg, group, rows, stream)
+    cuda_build.check(rc, "mallorn_seg_hist")
+
+
 def build_seg_histograms(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch.Tensor,
                          n_seg: int) -> torch.Tensor:
     """[K, F, n_seg, 2] float32 (grad, hess) segment sums from int16 bins
@@ -253,21 +325,12 @@ def build_seg_histograms(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch
         raise ValueError("build_seg_histograms: inputs must be contiguous")
     if not (seg_base.device == gh.device == binned.device):
         raise ValueError("build_seg_histograms: inputs on different devices")
-    if n_seg * 2 * 8 > SMEM_BYTES:
-        raise ValueError(f"build_seg_histograms: {n_seg} segments exceed the kernel's "
-                         f"shared memory ({SMEM_BYTES} bytes per CTA)")
-    K, F, N = binned.shape
+    seg_hist_layout(n_seg)  # refuses n_seg beyond the kernel's shared memory
+    K, F, _ = binned.shape
     out = torch.empty(K, F, n_seg, 2, dtype=torch.float32, device=binned.device)
     if K == 0 or F == 0:
         return out
-    maxabs = gh.abs().amax(dim=1).contiguous() if N else torch.zeros(
-        K, 2, dtype=torch.float32, device=gh.device)
-    lib = cuda_build.load()
-    with torch.cuda.device(binned.device):
-        stream = torch.cuda.current_stream(binned.device).cuda_stream
-        rc = lib.mallorn_seg_hist(binned.data_ptr(), seg_base.data_ptr(), gh.data_ptr(),
-                                  maxabs.data_ptr(), out.data_ptr(), K, F, N, n_seg, stream)
-    cuda_build.check(rc, "mallorn_seg_hist")
+    launch_seg_kernel(binned, seg_base, gh, out, n_seg)
     seg_launches += 1
     return out
 
