@@ -41,8 +41,8 @@ Phases, each printing its wall time on its own line:
    its bins in the missing bin), each against its plain version (float32
    and float64, and bit for bit against its fixed-point arithmetic in
    plain PyTorch), two launches of each bit for bit equal, and times
-   (kernel, plain, a one-call ``scatter_add_`` yardstick, the bound; K3's
-   launch alone beside its wrapper); K3 also at its edges (1, 17, 2,443
+   (kernel, plain, a one-call ``scatter_add_`` yardstick, the bound; K1's
+   and K3's launch alone beside the wrapper); K3 also at its edges (1, 17, 2,443
    rows with a ragged last feature group, an all-inactive lane, NaN and
    -inf lanes beside finite ones, the segment limit); then the histogram modes' kernels, K5 (int8
    fixed-point digits) bit for bit equal to its plain version and K4 (bf16
@@ -582,8 +582,19 @@ def check_hist(fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
         f"fixed-point arithmetic in plain PyTorch: {fixed_equal}")
     if not (repeat_equal and fixed_equal) or not all(ok for _, _, ok in rows.values()):
         raise AssertionError(f"K1 {tag} failed its checks")
+    # the launch alone, beside the wrapper's time (hist_times)
+    group, tile_rows, _ = hist_cuda.hist_layout(k_nodes, N_BINS_TOT)
+    out = torch.empty_like(a)
+    launch_ms = cuda_ms(lambda: hist_cuda.launch_hist_kernel(binned, node_q, gh, out, k_nodes,
+                                                             N_BINS_TOT), reps=50)
+    torch.cuda.synchronize()
+    if not bits_equal(out, a):
+        raise AssertionError(f"K1 {tag}: the launch alone disagrees with the wrapper")
+    log(f"  {tag} launch_ms={launch_ms:.4f} (the launch alone; G={group}, "
+        f"{tile_rows}-row tiles)")
     return {"fit": fit, "K": K, "F": F, "N": N, "nodes": k_nodes,
-            "max_abs_err": rows["vs_plain"][0],
+            "max_abs_err": rows["vs_plain"][0], "launch_ms": launch_ms,
+            "features_per_cta": group, "tile_rows": tile_rows,
             **hist_times(tag, hist_cuda.build_histograms, hist_cuda.build_histograms_plain,
                          binned, node_q, gh, k_nodes)}
 
@@ -1332,18 +1343,22 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["B"], r["T"], r["T"]],
         })
-    # the histogram kernel's row: the v92d CV's deepest level
-    main_hist = next(r for r in hist_results if (r["fit"], r["nodes"]) == ("v92d", 8))
-    kernels.append({
-        "name": "hist", "route": "cuda",
-        "source": "mallorn_tpu_torch/csrc/hist.cu",
-        "replaces": "mallorn_tpu/ops/hist_pallas.py:508",
-        "launches": trained["launches"],
-        "max_abs_err": main_hist["max_abs_err"], "ms": main_hist["ms"],
-        "plain_ms": main_hist["plain_ms"], "bound_ms": main_hist["bound_ms"],
-        "bound_by": main_hist["bound_by"], "library_ms": main_hist["library_ms"],
-        "shape": [main_hist["K"], main_hist["F"], main_hist["N"], main_hist["nodes"]],
-    })
+    # the level histogram's rows: the deepest level of the v92d CV, with
+    # training's launches, and of the ensemble's 25-lane members, with the
+    # ensemble's
+    for name, fit, n_launches in (("hist", "v92d", trained["launches"]),
+                                  ("hist_ensemble", "kaggle", ensemble["k1"])):
+        r = next(r for r in hist_results if (r["fit"], r["nodes"]) == (fit, 8))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mallorn_tpu_torch/csrc/hist.cu",
+            "replaces": "mallorn_tpu/ops/hist_pallas.py:508",
+            "launches": n_launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "launch_ms": r["launch_ms"],
+            "features_per_cta": r["features_per_cta"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
+        })
     # the segment histogram's row: a v114d split step's pair of children
     main_seg = next(r for r in seg_results if r["name"] == "pair")
     kernels.append({

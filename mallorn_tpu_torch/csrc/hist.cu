@@ -1,52 +1,25 @@
 // (grad, hess) histograms of the GBDT, batched over folds or lanes: the
-// depthwise level histogram (K1, hist_kernel), the leaf-wise segment
-// histogram (K3, seg_hist_group_kernel) and the depthwise fit's two
-// histogram modes (K4 / K5, mode_hist_kernel, further down), all
+// depthwise level histogram (K1) and the leaf-wise segment histogram (K3),
+// one kernel template (group_hist_kernel<kLevel>), and the depthwise fit's
+// two histogram modes (K4 / K5, mode_hist_kernel, further down), all
 // shared-memory integer histograms.
 //
-// K1 replaces mallorn_tpu/ops/hist_pallas.py:_fullhot_kernel (the Pallas
-// kernel behind build_histograms_fullhot). Contract, for fold k, feature f,
-// node c < k_nodes and bin b < n_bins_tot:
+// K1 (group_hist_kernel<true>) replaces mallorn_tpu/ops/hist_pallas.py:
+// _fullhot_kernel (the Pallas kernel behind build_histograms_fullhot), with
+// a leading fold axis. Contract, for fold k, feature f, node c < k_nodes
+// and bin b < n_bins_tot:
 //   out[k, f, c, b, :] = sum_r [node_q[k, r] == c] [binned[k, f, r] == b]
 //                        (gh[k, r, 0], gh[k, r, 1])
 // Inputs: binned [K, F, N] int16, node_q [K, N] int32 (k_nodes or any id
-// outside [0, k_nodes) = inactive row), gh [K, N, 2] float32, and
-// maxabs [K, 2] float32 = max_r |gh[k, r, :]|. Output [K, F, k_nodes,
-// n_bins_tot, 2] float32. Bin n_bins_tot - 1 is the missing bin; a bin id
-// outside [0, n_bins_tot) is skipped like an inactive row.
+// outside [0, k_nodes) = inactive row), gh [K, N, 2] float32. Output
+// [K, F, k_nodes, n_bins_tot, 2] float32. Bin n_bins_tot - 1 is the
+// missing bin; a bin id outside [0, n_bins_tot) is skipped like an
+// inactive row. The TPU kernel scatters through the MXU: an int8 full-bin
+// one-hot times bf16x3 digits of (g, h). None of that carries over.
 //
-// The TPU kernel scatters through the MXU: an int8 full-bin one-hot times
-// bf16x3 digits of (g, h). None of that carries over. Here each CTA owns
-// one (fold, feature), walks the fold's rows once and accumulates into a
-// [k_nodes, n_bins_tot, 2] histogram in shared memory (k_nodes = 8,
-// the deepest level with subtraction: 32,896 B).
-//
-// Determinism: float atomics add in an order that changes from launch to
-// launch, and a flipped last bit flips knife-edge splits. The CTA adds in
-// 64-bit fixed point instead: g (and h) is scaled by S = 2^(62 - ceil(log2
-// N) - e), where max|g| < 2^e for the fold, rounded to the nearest integer
-// and added with integer atomics, which are exact and order-free; the
-// integer sum (|sum| < 2^63 by the choice of S) is converted once to
-// double, divided by S and rounded to float32. Each row's rounding is at
-// most 1/(2S), so a cell is within N/(2S) <= max|g| * 2^(2 ceil(log2 N) - 62)
-// of the exact sum before the final float32 rounding (N = 8,143:
-// 1.5e-11 * max|g|): the result is the exact sum to within one float32 ulp,
-// bit-identical from launch to launch. A fold whose g or h holds a
-// non-finite value gets NaN in every cell (fixed point cannot carry it).
-//
-// Bound on an H100: the bins are read once (K F N 2 bytes), node ids and
-// (g, h) once per fold (they stay in L2 across the fold's F CTAs), the
-// histograms written once. At the v92d CV's shape (K = 5, F = 222, N =
-// 2,444, k_nodes = 8) that is 5.4 MB in and 18.3 MB out: ~7 us at
-// 3.35 TB/s. This first version spends its time on shared-memory atomics
-// (two per row and feature, serialised where rows share a bin) and on
-// zeroing and writing the whole histogram even where it is sparse.
-
-//
-// seg_hist_group_kernel: the segment histograms of the leaf-wise fit (K3).
-// Replaces mallorn_tpu/ops/hist_pallas.py:_hist_kernel (the Pallas kernel
-// behind build_histograms_pallas), with a leading lane axis. Contract, for
-// lane k, feature f and segment s < n_seg:
+// K3 (group_hist_kernel<false>) replaces mallorn_tpu/ops/hist_pallas.py:
+// _hist_kernel (the Pallas kernel behind build_histograms_pallas), with a
+// leading lane axis. Contract, for lane k, feature f and segment s < n_seg:
 //   out[k, f, s, :] = sum_r [seg_base[k, r] + binned[k, f, r] == s] gh[k, r, :]
 // Inputs: binned [K, F, N] int16, seg_base [K, N] int32 (a row's node
 // times n_bins_tot; a row whose seg_base is outside [0, n_seg), or whose
@@ -54,62 +27,101 @@
 // n_seg or beyond), gh [K, N, 2] float32. Output [K, F, n_seg, 2] float32
 // (n_seg = 257 at a tree's root, 514 for a pair of children). The TPU
 // kernel splits each id into two 128-wide one-hots and multiplies them
-// through the MXU at HIGHEST precision. Here the arithmetic is K1's int64
-// fixed point (the same scale, rounding, NaN rule and launch-to-launch
-// identity), so any tiling of the work gives the same bits.
+// through the MXU at HIGHEST precision.
 //
-// Bound: the bins once (K F N 2 bytes), seg_base and (g, h) once per lane,
-// the histograms written once. At v114d's split step (K = 25, F = 228,
-// N = 2,443, n_seg = 514) that is 28.0 MB in and 23.4 MB out: ~15 us at
-// 3.35 TB/s.
+// K1's output is K3's with n_seg = k_nodes n_bins_tot and a row's base
+// node_q n_bins_tot; the two differ only in which (row, feature) counts:
+// K1 checks the node against k_nodes and the bin against n_bins_tot, K3
+// the base against n_seg and base + bin against n_seg. kLevel picks the
+// rule; everything else is one body.
 //
-// What held the first design (one CTA per (lane, feature), K1's body) at
-// 9x that bound: 5,700 CTAs of ~10 rows per thread, each paying for
-// zeroing, two barriers and a 1,028-cell epilogue; every feature's CTA
-// re-reading a row's seg_base and (g, h) from L2 (~167 MB per launch
-// against 28 MB of bins) and redoing its fixed-point conversion; a row
-// walk of dependent loads (seg_base, then the bin, then (g, h)) with 2 B
-// per thread in flight; and two PyTorch ops in the wrapper for the scale.
-// This kernel:
-// - one CTA per (lane, group of G features) (grid (ceil(F / G), K); the
+// Determinism: float atomics add in an order that changes from launch to
+// launch, and a flipped last bit flips knife-edge splits. The kernel adds
+// in 64-bit fixed point instead: g (and h) is scaled by S = 2^(62 -
+// ceil(log2 N) - e), where max|g| < 2^e for the fold, rounded to the
+// nearest integer and added with integer atomics, which are exact and
+// order-free; the integer sum (|sum| < 2^63 by the choice of S) is
+// converted once to double, divided by S and rounded to float32. Each
+// row's rounding is at most 1/(2S), so a cell is within N/(2S) <= max|g| *
+// 2^(2 ceil(log2 N) - 62) of the exact sum before the final float32
+// rounding (N = 8,143: 1.5e-11 * max|g|): the result is the exact sum to
+// within one float32 ulp, bit-identical from launch to launch and for any
+// tiling of the work. A fold whose g or h holds a non-finite value gets NaN
+// in every cell (fixed point cannot carry it).
+//
+// Bound on an H100: the bins once (K F N 2 bytes), the ids and (g, h) once
+// per fold, the histograms written once. At v114d's split step (K3: K = 25,
+// F = 228, N = 2,443, n_seg = 514) that is 28.0 MB in and 23.4 MB out:
+// ~15 us at 3.35 TB/s; at the v92d CV's deepest level (K1: K = 5, F = 222,
+// N = 2,444, k_nodes = 8) 5.4 MB in and 18.3 MB out: ~7 us.
+//
+// What held the first design (one CTA per (fold, feature), which both
+// kernels had before they moved onto this one) at 5-19x that bound: thousands of CTAs of ~10 rows per thread, each paying
+// for zeroing, two barriers and a whole-histogram epilogue; every
+// feature's CTA re-reading a row's ids and (g, h) from L2 (12 B a row
+// against 2 B of bins) and redoing its fixed-point conversion; a row walk
+// of dependent loads (id, then the bin, then (g, h)); int64 shared-memory
+// atomics; and two PyTorch ops in the wrapper for the scale. This kernel:
+// - one CTA per (fold, group of G features) (grid (ceil(F / G), K); the
 //   last group is ragged), G [n_seg, 2] int64 histograms in shared memory;
-//   G and the tile's rows come from the wrapper (hist_cuda.seg_hist_layout);
-// - the lane's scale found in the kernel: the CTA reads the lane's (g, h)
+//   G and the tile's rows come from the wrapper (hist_cuda.hist_layout for
+//   K1, by level; hist_cuda.seg_hist_layout for K3), so that deep levels
+//   take a smaller G than the root and a small grid a smaller G than a
+//   large one;
+// - the fold's scale found in the kernel: the CTA reads the fold's (g, h)
 //   once, keeps max |g|, max |h| (exact in any order) and a flag for any
 //   non-finite value (fmaxf drops NaN; an infinity must give NaN too);
-// - rows in tiles of R, their seg_base and the G features' bins staged in
+// - rows in tiles of R, their ids and the G features' bins staged in
 //   shared memory by cp.async 16-byte copies, two stages, so that the
 //   next tile lands while this one is added;
 // - each warp compacts its rows of the tile once (ballot, __popc prefix)
 //   into a list of (row, base, q_g, q_h), q computed once per row from the
 //   (g, h) of the active rows alone (the scale's pass has just brought
 //   them into L1); its lanes then add (entry, feature) items into the G
-//   histograms: an inactive row costs its seg_base;
+//   histograms: an inactive row costs its id;
 // - an int64 cell is a low and a high 32-bit word, added with two native
 //   32-bit atomics and the carry passed on (add_fixed): an int64
 //   atomicAdd on shared memory compiles to a compare-and-swap loop
-//   (ATOMS.CAST.SPIN.64), which held the first design too. The words lie
-//   in four planes (g low, g high, h low, h high), so a warp's random
-//   segments spread over all 32 banks;
+//   (ATOMS.CAST.SPIN.64), which held the first design too. An item adds
+//   g's and h's low words before it reads either old value, so the two
+//   round trips overlap. The words lie in four planes (g low, g high,
+//   h low, h high), so a warp's random segments spread over all 32 banks;
 // - the epilogue converts each sum once (from_fixed) and writes two
-//   segments' (g, h) per float4.
+//   segments' (g, h) per float4;
+// - the launcher raises an instantiation's dynamic shared-memory limit
+//   (cudaFuncSetAttribute) only when a launch asks for more than it was
+//   last given on the device, not on every launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 232448;
 
-__device__ __forceinline__ double fixed_scale(float maxabs, int log2n) {
-  if (!(maxabs > 0.0f)) return 1.0;
+// The fixed-point scale S = 2^p of a channel whose values are at most
+// maxabs: p = 62 - log2n - e with maxabs < 2^e (p = 0 where maxabs is 0 or
+// not finite; such a scale is never used). |p| <= 210.
+__device__ __forceinline__ int fixed_exponent(float maxabs, int log2n) {
+  if (!(maxabs > 0.0f) || isinf(maxabs)) return 0;
   int e;
   frexpf(maxabs, &e);  // maxabs < 2^e
-  return ldexp(1.0, 62 - log2n - e);
+  return 62 - log2n - e;
 }
 
-// The row walk of K1, K4 and K5 (K3 stages its rows in tiles, below):
+// 2^p for p in [-1022, 1023], built from its bits: exact, and no call to
+// a library routine (ldexp, or a double division for 1 / S)
+__device__ __forceinline__ double exp2_exact(int p) {
+  return __longlong_as_double(static_cast<long long>(p + 1023) << 52);
+}
+
+__device__ __forceinline__ double fixed_scale(float maxabs, int log2n) {
+  return exp2_exact(fixed_exponent(maxabs, log2n));
+}
+
+// The row walk of K4 and K5 (K1 and K3 stage their rows in tiles, below):
 // all kBlock threads stride the N rows and call add(s, r) for each row r
 // whose segment
 // s = (ids[r] - id0) * id_scale + bins[r] lies in [0, n_seg), with
@@ -129,13 +141,13 @@ __device__ __forceinline__ void for_each_row(const int16_t* __restrict__ bins,
   }
 }
 
-// The fixed-point histogram of K1 and K4: zeroes the [n_seg, C] int64
-// histogram in shared memory, gives channel c the scale
-// S_c = 2^(62 - log2n - e) with maxabs[c] < 2^e, and adds
-// round(x_c * S_c) of each active row's C values (load(r, x)) with integer
-// atomics. Returns whether every maxabs is finite (if not, nothing is
-// added and every cell is NaN) and sets inv[c] = 1 / S_c (exact: S_c is a
-// power of 2); the sums are in smem after its closing __syncthreads.
+// The fixed-point histogram of K4: zeroes the [n_seg, C] int64 histogram
+// in shared memory, gives channel c the scale S_c = 2^(62 - log2n - e)
+// with maxabs[c] < 2^e, and adds round(x_c * S_c) of each active row's C
+// values (load(r, x)) with integer atomics. Returns whether every maxabs
+// is finite (if not, nothing is added and every cell is NaN) and sets
+// inv[c] = 1 / S_c (exact: S_c is a power of 2); the sums are in smem
+// after its closing __syncthreads.
 template <int C, int kBlock, typename Load>
 __device__ __forceinline__ bool accumulate_fixed(uint4* smem, const float* __restrict__ maxabs,
                                                  int log2n, const int16_t* __restrict__ bins,
@@ -177,47 +189,8 @@ __device__ __forceinline__ float from_fixed(unsigned long long a, double inv) {
   return __double2float_rn(__dmul_rn(__ll2double_rn(static_cast<long long>(a)), inv));
 }
 
-// K1: one CTA per (fold k, feature f) = (blockIdx.y, blockIdx.x);
-// row r adds (g, h) into segment ids[k, r] * id_scale + bin, and the
-// [n_seg, 2] histogram is written out as float32 sums.
-__device__ __forceinline__ void accumulate(
-    const int16_t* __restrict__ binned, const int32_t* __restrict__ ids,
-    const float2* __restrict__ gh, const float* __restrict__ maxabs,
-    float* __restrict__ out, int F, int N, int id_scale, int n_bins, int n_seg,
-    int log2n) {
-  extern __shared__ uint4 smem[];
-  const int f = blockIdx.x;
-  const int k = blockIdx.y;
-  const float2* v = gh + static_cast<size_t>(k) * N;
-  double inv[2];
-  const bool finite = accumulate_fixed<2, kThreads>(
-      smem, maxabs + 2 * k, log2n, binned + (static_cast<size_t>(k) * F + f) * N,
-      ids + static_cast<size_t>(k) * N, N, 0, id_scale, n_bins, n_seg,
-      [&](int r, float(&x)[2]) {
-        const float2 w = v[r];
-        x[0] = w.x;
-        x[1] = w.y;
-      },
-      inv);
-
-  const unsigned long long* acc = reinterpret_cast<const unsigned long long*>(smem);
-  float* o = out + (static_cast<size_t>(k) * F + f) * n_seg * 2;
-  for (int i = threadIdx.x; i < n_seg * 2; i += kThreads)
-    o[i] = finite ? from_fixed(acc[i], inv[i & 1]) : __int_as_float(0x7fc00000);
-}
-
-// K1: segment = node * n_bins_tot + bin
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ node_q,
-            const float2* __restrict__ gh, const float* __restrict__ maxabs,
-            float* __restrict__ out, int F, int N, int k_nodes, int n_bins_tot,
-            int log2n) {
-  accumulate(binned, node_q, gh, maxabs, out, F, N, n_bins_tot, n_bins_tot,
-             k_nodes * n_bins_tot, log2n);
-}
-
 // ---------------------------------------------------------------------------
-// K3 (seg_hist_group_kernel; the design is in the header above)
+// K1 and K3 (group_hist_kernel<kLevel>; the design is in the header above)
 
 constexpr int kSegThreads = 256;
 constexpr int kSegWarps = kSegThreads / 32;
@@ -227,12 +200,13 @@ constexpr int kSegMaxTileRows = 4096;  // a list entry keeps its row in 16 bits
 // shared memory of one CTA, in this order: the G int64 [n_seg, 2]
 // histograms as four planes of 32-bit words (g's low and high words, then
 // h's: neighbouring segments fall in neighbouring banks); kSegStages row
-// tiles, each seg_base (4 B a row) and G features' bins (2 B), each array
-// with 16 spare bytes for its alignment; the active list, R entries of
-// (q_g, q_h) (16 B) and row | base << 16 (4 B), each warp's own R / 8;
+// tiles, each the rows' ids (4 B a row) and G features' bins (2 B), each
+// array with 16 spare bytes for its alignment; the active list, R entries
+// of (q_g, q_h) (16 B) and row | base << 16 (4 B), each warp's own R / 8;
 // per warp max |g|, max |h| and the non-finite flag (16 B).
-// hist_cuda._seg_smem_bytes repeats this sum for seg_hist_layout;
-// tests/test_torch_seg_hist.py reads these two functions and holds them equal.
+// hist_cuda._seg_smem_bytes repeats this sum for hist_layout and
+// seg_hist_layout; tests/test_torch_seg_hist.py and
+// tests/test_torch_hist.py read these two functions and hold them equal.
 __host__ __device__ __forceinline__ size_t seg_stage_bytes(int group, int rows) {
   return 4 * static_cast<size_t>(rows) + 16 + static_cast<size_t>(group) * (2 * rows + 16);
 }
@@ -280,27 +254,38 @@ __device__ __forceinline__ void stage_rows(char* dst, const T* src, int n, int r
   }
 }
 
-// Adds q to an int64 cell kept as a low and a high 32-bit word, with two
-// native shared-memory atomics (an int64 atomicAdd on shared memory is a
-// compare-and-swap loop): the low word's old value gives its carry, which
-// the high word takes with q's high word. Every wrap of the low word is
-// counted once, so the cell ends at the exact int64 sum, mod 2^64, in any
+// Adds (q_g, q_h) to cell c's two int64 sums, each kept as a low and a
+// high 32-bit word in the planes of words, with native shared-memory
+// atomics (an int64 atomicAdd on shared memory is a compare-and-swap
+// loop): a low word's old value gives its carry, which the high word takes
+// with q's high word. Both low words are added before either old value is
+// read, so that the two round trips overlap. Every wrap of a low word is
+// counted once, so each sum ends at the exact int64 sum, mod 2^64, in any
 // order.
-__device__ __forceinline__ void add_fixed(unsigned* lo_word, unsigned* hi_word, long long q) {
-  const unsigned long long u = static_cast<unsigned long long>(q);
-  const unsigned lo = static_cast<unsigned>(u);
-  unsigned hi = static_cast<unsigned>(u >> 32);
-  if (lo) hi += atomicAdd(lo_word, lo) > ~lo ? 1u : 0u;  // old + lo wrapped
-  if (hi) atomicAdd(hi_word, hi);
+__device__ __forceinline__ void add_fixed(unsigned* words, int plane, int c, longlong2 q) {
+  const unsigned long long ug = static_cast<unsigned long long>(q.x);
+  const unsigned long long uh = static_cast<unsigned long long>(q.y);
+  const unsigned lg = static_cast<unsigned>(ug), lh = static_cast<unsigned>(uh);
+  const unsigned og = lg ? atomicAdd(words + c, lg) : 0u;
+  const unsigned oh = lh ? atomicAdd(words + 2 * plane + c, lh) : 0u;
+  // old + lo wrapped: carry 1 into the high word
+  const unsigned hg = static_cast<unsigned>(ug >> 32) + (og > ~lg ? 1u : 0u);
+  const unsigned hh = static_cast<unsigned>(uh >> 32) + (oh > ~lh ? 1u : 0u);
+  if (hg) atomicAdd(words + plane + c, hg);
+  if (hh) atomicAdd(words + 3 * plane + c, hh);
 }
 
-// K3: segment = seg_base + bin. One CTA per (lane k, features f0 ..
-// f0 + group - 1) = (blockIdx.y, blockIdx.x); tile_rows a multiple of
-// kSegThreads.
+// One CTA per (fold k, features f0 .. f0 + group - 1) = (blockIdx.y,
+// blockIdx.x); tile_rows a multiple of kSegThreads. A row is active for an
+// id in [0, id_limit). ids are K1's node ids (kLevel: id_limit = k_nodes,
+// a row's base is node * n_bins and a bin counts in [0, n_bins)) or K3's
+// segment bases (id_limit = n_seg, a bin counts in [0, n_seg - base);
+// n_bins unused).
+template <bool kLevel>
 __global__ void __launch_bounds__(kSegThreads)
-seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ seg_base,
-                      const float2* __restrict__ gh, float* __restrict__ out, int F, int N,
-                      int n_seg, int group, int tile_rows, int log2n) {
+group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ ids,
+                  const float2* __restrict__ gh, float* __restrict__ out, int F, int N,
+                  int n_seg, int id_limit, int n_bins, int group, int tile_rows, int log2n) {
   extern __shared__ uint4 smem[];
   const int k = blockIdx.y;
   const int f0 = blockIdx.x * group;
@@ -323,12 +308,12 @@ seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restr
   list_q += w0;
   list_rb += w0;
 
-  const int32_t* sb = seg_base + static_cast<size_t>(k) * N;
+  const int32_t* row_ids = ids + static_cast<size_t>(k) * N;
   const float2* v = gh + static_cast<size_t>(k) * N;
   const int16_t* bins = binned + (static_cast<size_t>(k) * F + f0) * N;
   // where element r0 of a tile sits in its staged array (the same for
   // every tile: R sizeof(T) is a multiple of 16)
-  const int sb_mis = static_cast<int>(reinterpret_cast<uintptr_t>(sb) & 15);
+  const int ids_mis = static_cast<int>(reinterpret_cast<uintptr_t>(row_ids) & 15);
   const unsigned bins_mis = static_cast<unsigned>(reinterpret_cast<uintptr_t>(bins));
   const int n_tiles = (N + R - 1) / R;
 
@@ -338,7 +323,7 @@ seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restr
     if (t < n_tiles) {
       char* st = stage0 + (t % kSegStages) * stage_bytes;
       const int r0 = t * R, r1 = min(N, r0 + R);
-      stage_rows(st, sb, N, r0, r1);
+      stage_rows(st, row_ids, N, r0, r1);
       for (int g = 0; g < n_f; ++g)
         stage_rows(st + bins_off + g * bin_bytes, bins + static_cast<size_t>(g) * N, N, r0, r1);
     }
@@ -348,7 +333,7 @@ seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restr
 
   for (int i = tid; i < plane; i += kSegThreads) smem[i] = make_uint4(0u, 0u, 0u, 0u);
 
-  // the lane's scale: max |g|, max |h| over its rows (exact in any order)
+  // the fold's scale: max |g|, max |h| over its rows (exact in any order)
   // and whether any value is not finite; eight loads in flight a thread
   float mg = 0.0f, mh = 0.0f;
   bool bad = false;
@@ -384,7 +369,8 @@ seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restr
     bad = bad || red_bad[w];
   }
   const bool finite = !bad;
-  const double sg = fixed_scale(mg, log2n), sh = fixed_scale(mh, log2n);
+  const int pg = fixed_exponent(mg, log2n), ph = fixed_exponent(mh, log2n);
+  const double sg = exp2_exact(pg), sh = exp2_exact(ph);
 
   if (finite) {
     for (int t = 0; t < n_tiles; ++t) {
@@ -394,7 +380,7 @@ seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restr
       __syncthreads();
       stage_tile(t + kSegStages - 1);
       const char* st = stage0 + (t % kSegStages) * stage_bytes;
-      const int32_t* t_sb = reinterpret_cast<const int32_t*>(st + sb_mis);
+      const int32_t* t_ids = reinterpret_cast<const int32_t*>(st + ids_mis);
       const int r0 = t * R, rows = min(R, N - r0);
 
       // the warp's active rows of the tile, compacted into its list; q
@@ -403,11 +389,12 @@ seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restr
       int cnt = 0;
       for (int j = 0; j < per_warp; j += 32) {
         const int i = w0 + j + lane;
-        const int base = i < rows ? t_sb[i] : -1;
-        const bool act = static_cast<unsigned>(base) < static_cast<unsigned>(n_seg);
+        const int id = i < rows ? t_ids[i] : -1;
+        const bool act = static_cast<unsigned>(id) < static_cast<unsigned>(id_limit);
         const unsigned mask = __ballot_sync(0xffffffffu, act);
         if (act) {
           const int pos = cnt + __popc(mask & ((1u << lane) - 1u));
+          const int base = kLevel ? id * n_bins : id;
           const float2 x = v[r0 + i];
           list_q[pos] = make_longlong2(__double2ll_rn(__dmul_rn(static_cast<double>(x.x), sg)),
                                        __double2ll_rn(__dmul_rn(static_cast<double>(x.y), sh)));
@@ -419,7 +406,7 @@ seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restr
 
       // (entry, feature) items, feature fastest (rows that crowd one cell,
       // as in a missing bin, meet in a warp's atomics G times less often):
-      // the staged bin, the range check of for_each_row, the int64 adds
+      // the staged bin, its range check, the int64 adds
       for (int it = lane; it < cnt * n_f; it += 32) {
         const int e = it / n_f;
         const int g = it - e * n_f;
@@ -428,11 +415,8 @@ seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restr
         const int16_t* t_bins = reinterpret_cast<const int16_t*>(
             st + bins_off + g * bin_bytes + ((bins_mis + 2u * static_cast<unsigned>(N) * g) & 15u));
         const int bin = t_bins[i];
-        if (static_cast<unsigned>(bin) < static_cast<unsigned>(n_seg - base)) {
-          const longlong2 q = list_q[e];
-          const int c = g * n_seg + base + bin;
-          add_fixed(words + c, words + plane + c, q.x);
-          add_fixed(words + 2 * plane + c, words + 3 * plane + c, q.y);
+        if (static_cast<unsigned>(bin) < static_cast<unsigned>(kLevel ? n_bins : n_seg - base)) {
+          add_fixed(words, plane, g * n_seg + base + bin, list_q[e]);
         }
       }
       __syncwarp();  // the list is free again
@@ -442,7 +426,7 @@ seg_hist_group_kernel(const int16_t* __restrict__ binned, const int32_t* __restr
   cp_async_wait<0>();
 
   // the epilogue: one conversion per sum, two segments per float4 store
-  const double inv_g = 1.0 / sg, inv_h = 1.0 / sh;
+  const double inv_g = exp2_exact(-pg), inv_h = exp2_exact(-ph);  // 1 / S, exact
   auto cell = [&](int c) {
     if (!finite) return make_float2(__int_as_float(0x7fc00000), __int_as_float(0x7fc00000));
     const unsigned long long a_g =
@@ -473,18 +457,43 @@ int ceil_log2(int n) {
   return log2n;
 }
 
-// K1's launch: one CTA per (fold, feature) with an [n_seg, 2] int64
-// histogram in shared memory; args... follow (binned, ids, gh, maxabs, out)
-// of the kernel
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int K, int F, int n_seg, void* stream, Args... args) {
-  const size_t smem = static_cast<size_t>(n_seg) * 2 * sizeof(unsigned long long);
-  if (smem > static_cast<size_t>(kMaxSmemBytes) || K > 65535)
+constexpr int kMaxDevices = 64;
+
+// K1's and K3's launch at a layout the wrapper picked (hist_cuda.hist_layout
+// or seg_hist_layout); refuses one that does not fit. The kernel's dynamic
+// shared-memory limit is raised only when this launch needs more than the
+// instantiation was last given on the current device (a driver call per
+// launch otherwise): limits only grow, under a lock, so every launch runs
+// under a limit at least its own.
+template <bool kLevel>
+int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, float* out, int K,
+                 int F, int N, int n_seg, int id_limit, int n_bins, int group, int tile_rows,
+                 void* stream) {
+  static std::mutex lock;
+  static size_t granted[kMaxDevices] = {};
+  if (K <= 0 || F <= 0 || n_seg <= 0) return 0;
+  if (N < 0 || K > 65535 || n_seg > 65535 || group < 1 ||
+      tile_rows < kSegThreads || tile_rows % kSegThreads || tile_rows > kSegMaxTileRows)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const size_t smem = seg_smem_bytes(n_seg, group, tile_rows);
+  if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(F, K), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    if (dev >= kMaxDevices || smem > granted[dev]) {
+      err = cudaFuncSetAttribute(group_hist_kernel<kLevel>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (dev < kMaxDevices) granted[dev] = smem;
+    }
+  }
+  group_hist_kernel<kLevel><<<dim3((F + group - 1) / group, K), kSegThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      binned, ids, reinterpret_cast<const float2*>(gh), out, F, N, n_seg, id_limit, n_bins,
+      group, tile_rows, ceil_log2(N));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -503,11 +512,11 @@ int launch(Kernel kernel, int K, int F, int n_seg, void* stream, Args... args) {
 // 26-bit fixed-point (g, h) (hist_cuda.quantize_gh_i8).
 //
 // The TPU kernels scatter through the MXU (a one-hot times the digits),
-// because a TPU has no scatter. Here the design is K1's: one CTA per
+// because a TPU has no scatter. Here the design is K1's first one: one CTA per
 // (fold, feature, group of <= 8 nodes) (grid (F, K, ceil(k_nodes / 8))),
 // a [nodes, n_bins_tot, C] integer histogram in shared memory, every
-// thread striding the fold's rows once (for_each_row, K1's row walk with
-// the group's first node as id0) and adding an active row's C digit
+// thread striding the fold's rows once (for_each_row, the first K1's row
+// walk, with the group's first node as id0) and adding an active row's C digit
 // channels with shared-memory integer atomics (a zero digit adds
 // nothing and is skipped). Integer sums are exact and order-free, so two
 // launches give the same bits.
@@ -522,9 +531,9 @@ int launch(Kernel kernel, int K, int F, int n_seg, void* stream, Args... args) {
 // bit the plain version and the JAX package.
 //
 // K4: C = 6 int64 fixed-point cells (g's d0, d1, d2, then h's); 8 nodes x
-// 257 bins take 98,688 B. It runs K1's fixed-point body, accumulate_fixed,
-// with six channels, and differs from K1 only in its epilogue. Each digit
-// channel gets K1's per-fold scale,
+// 257 bins take 98,688 B. It runs the first K1's fixed-point body,
+// accumulate_fixed, with six channels. Each digit channel gets K1's
+// per-fold scale,
 // S = 2^(62 - ceil(log2 N) - e) with max |digit| < 2^e over the fold's rows
 // (fixed_scale), a digit is rounded to the nearest integer of digit * S
 // (exact for every digit above max |digit| 2^(ceil(log2 N) - 62)) and the
@@ -545,10 +554,10 @@ int launch(Kernel kernel, int K, int F, int n_seg, void* stream, Args... args) {
 // node ids and digits once per fold (they stay in L2 across the fold's
 // CTAs), the histograms written once: at the v92d CV's deepest level
 // (K = 5, F = 222, N = 2,444, k_nodes = 8) ~24 MB, ~7 us at 3.35 TB/s. The
-// kernel spends its time as K1 does, on shared-memory atomics (8 int32 or
-// 6 int64 per active row and feature, serialised where rows share a bin,
-// as in a crowded missing bin) and on zeroing and writing the whole
-// histogram.
+// kernel spends its time as the first K1 did, on shared-memory atomics
+// (8 int32 or 6 int64 per active row and feature, serialised where rows
+// share a bin, as in a crowded missing bin) and on zeroing and writing the
+// whole histogram.
 
 // 512 threads per CTA: an SM holds 3 (K5) or 2 (K4) CTAs of 65,792 /
 // 98,688 B, 1,536 / 1,024 threads; of 256, 512 and 1,024, 512 was the
@@ -678,30 +687,20 @@ int launch_mode(const int16_t* binned, const int32_t* nodes, const void* digits,
 extern "C" int mallorn_seg_hist(const int16_t* binned, const int32_t* seg_base,
                                 const float* gh, float* out, int K, int F, int N, int n_seg,
                                 int group, int tile_rows, void* stream) {
-  if (K <= 0 || F <= 0 || n_seg <= 0) return 0;
-  if (N < 0 || K > 65535 || n_seg > 65535 || group < 1 ||
-      tile_rows < kSegThreads || tile_rows % kSegThreads || tile_rows > kSegMaxTileRows)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = seg_smem_bytes(n_seg, group, tile_rows);
-  if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      seg_hist_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  seg_hist_group_kernel<<<dim3((F + group - 1) / group, K), kSegThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      binned, seg_base, reinterpret_cast<const float2*>(gh), out, F, N, n_seg, group, tile_rows,
-      ceil_log2(N));
-  return static_cast<int>(cudaGetLastError());
+  return launch_group<false>(binned, seg_base, gh, out, K, F, N, n_seg, n_seg, 0, group,
+                             tile_rows, stream);
 }
 
-extern "C" int mallorn_hist(const int16_t* binned, const int32_t* node_q,
-                            const float* gh, const float* maxabs, float* out,
-                            int K, int F, int N, int k_nodes, int n_bins_tot,
-                            void* stream) {
-  if (K <= 0 || F <= 0 || k_nodes <= 0 || n_bins_tot <= 0) return 0;
-  return launch(hist_kernel, K, F, k_nodes * n_bins_tot, stream, binned, node_q,
-                reinterpret_cast<const float2*>(gh), maxabs, out, F, N, k_nodes,
-                n_bins_tot, ceil_log2(N));
+// K1: group features per CTA and tile_rows rows per staged tile
+// (hist_cuda.hist_layout); refuses a layout that does not fit
+extern "C" int mallorn_hist(const int16_t* binned, const int32_t* node_q, const float* gh,
+                            float* out, int K, int F, int N, int k_nodes, int n_bins_tot,
+                            int group, int tile_rows, void* stream) {
+  if (k_nodes <= 0 || n_bins_tot <= 0) return 0;
+  const long long n_seg = static_cast<long long>(k_nodes) * n_bins_tot;
+  if (n_seg > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_group<true>(binned, node_q, gh, out, K, F, N, static_cast<int>(n_seg), k_nodes,
+                            n_bins_tot, group, tile_rows, stream);
 }
 
 // K4: digits [K, N, 6] bf16, maxabs [K, 6] float32 (max |digit| per channel)

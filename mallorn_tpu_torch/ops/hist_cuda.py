@@ -2,11 +2,11 @@
 their plain PyTorch versions.
 
 Four kernels of ``csrc/hist.cu``, all shared-memory integer histograms:
-the depthwise level histogram (K1, ``build_histograms``), the leaf-wise
-segment histogram (K3, ``build_seg_histograms``) and the depthwise fit's
-two histogram modes (K4, ``build_histograms_bf16``, and K5,
-``build_histograms_i8``, one kernel template; ``GBDTParams.hist_dtype``),
-each in its own section below.
+the depthwise level histogram (K1, ``build_histograms``) and the leaf-wise
+segment histogram (K3, ``build_seg_histograms``), one kernel template,
+and the depthwise fit's two histogram modes (K4, ``build_histograms_bf16``,
+and K5, ``build_histograms_i8``, one kernel template;
+``GBDTParams.hist_dtype``), each in its own section below.
 
 K1 is the counterpart of
 ``mallorn_tpu/ops/hist_pallas.py:build_histograms_fullhot`` (Pallas body
@@ -19,7 +19,8 @@ missing bin)::
 
 Rows whose node id is outside ``[0, k_nodes)`` (the depthwise fit uses
 ``k_nodes``) are inactive: rows not on this level, or right children when
-the level is built by subtraction.
+the level is built by subtraction. A bin outside ``[0, n_bins_tot)`` is
+skipped like an inactive row.
 
 - ``build_histograms`` launches the CUDA kernel (``csrc/hist.cu``) for CUDA
   tensors and runs ``build_histograms_plain`` for CPU tensors. A CUDA
@@ -38,6 +39,18 @@ the level is built by subtraction.
 - ``launches`` counts K1's launches, ``seg_launches`` K3's,
   ``bf16_launches`` K4's and ``i8_launches`` K5's (plain calls do not
   count).
+
+K1 and K3 run one kernel, ``csrc/hist.cu`` ``group_hist_kernel`` (its note
+says more): K1's output is K3's with n_seg = k_nodes n_bins_tot and a
+row's segment base its node times n_bins_tot, and the two differ only in
+which (row, feature) counts. One CTA takes a fold and a group of G
+features, finds the fold's scale itself (max |g|, max |h| and a
+non-finite flag), stages the rows in tiles with asynchronous copies,
+compacts each tile's active rows once, computes q once per row and adds it
+into its G histograms as pairs of 32-bit atomics. G and the tile come from
+the shape: ``hist_layout`` (K1, by level) and ``seg_hist_layout`` (K3).
+The wrappers allocate ``out`` and launch, nothing else; ``launch_hist_kernel``
+and ``launch_seg_kernel`` are the launches alone.
 """
 
 from __future__ import annotations
@@ -46,11 +59,10 @@ import torch
 
 from mallorn_tpu_torch.utils import cuda_build
 
-# the shared memory a CTA may take on an H100. K1 holds one (fold, feature)
-# histogram of int64 cells in it, K4 / K5 one (fold, feature, <= 8 nodes)
-# histogram, K3 its group's histograms, its staged row tiles and its
-# active list (``seg_hist_layout``: at most SEG_MAX_SEGMENTS = 14,004
-# segments, against 14,528 for one bare histogram)
+# the shared memory a CTA may take on an H100. K1 and K3 hold their group's
+# histograms, staged row tiles and active list in it (``_group_layout``:
+# at most SEG_MAX_SEGMENTS = 14,004 segments, 54 nodes at 257 bins), K4 /
+# K5 one (fold, feature, <= 8 nodes) histogram
 SMEM_BYTES = 232448
 
 launches = 0
@@ -157,6 +169,96 @@ def _check_cuda_inputs(name: str, binned, node_q, gh) -> None:
         raise ValueError(f"{name}: inputs on different devices")
 
 
+# ---------------------------------------------------------------------------
+# The group kernel's layout (K1 and K3: csrc/hist.cu group_hist_kernel)
+# ---------------------------------------------------------------------------
+# The kernel is bound by bytes: K1 at the v92d CV's deepest level (K = 5,
+# F = 222, N = 2,444, 8 nodes) moves 5.4 MB in and 18.3 MB out, ~7 us at
+# 3.35 TB/s; K3 at v114d's split step (K = 25, F = 228, N = 2,443,
+# n_seg = 514) 28.0 MB in and 23.4 MB out, ~15 us. A CTA holds G features'
+# int64 histograms (16 G n_seg bytes), two staged row tiles and the active
+# list, so G and the tile trade the histograms' room against the grid:
+# ceil(F / G) x K CTAs on 132 SMs.
+
+SEG_THREADS = 256  # threads per CTA (csrc/hist.cu kSegThreads)
+SEG_STAGES = 2  # row tiles in flight (kSegStages)
+# K3's features per CTA and rows per tile at the fit's widths (the fastest
+# of G = 2, 4, 8 and 256-, 512-, 1,024-row tiles on an H100 at a v114d
+# split step; tools/time_seg_hist.py --layouts times them)
+SEG_GROUP, SEG_TILE_ROWS = 4, 512
+# K1's features per CTA and rows per tile by level (nodes per launch; a
+# level between two entries takes the larger's): the fastest of G = 1, 2,
+# 4, 8 and 256-, 512-, 1,024-row tiles on an H100 at the fits' shapes
+# (tools/time_hist.py --layouts times them)
+HIST_LAYOUTS = {1: (4, 512), 2: (4, 512), 4: (2, 512), 8: (1, 256), 16: (1, 256)}
+
+
+def _seg_smem_bytes(n_seg: int, group: int, rows: int) -> int:
+    """The group kernel's shared memory per CTA (csrc/hist.cu
+    ``seg_smem_bytes``): the group's int64 [n_seg, 2] histograms,
+    SEG_STAGES staged tiles (the rows' ids and the group's bins, 16 spare
+    bytes per array), the active list (20 B a row) and the per-warp
+    reductions."""
+    stage = 4 * rows + 16 + group * (2 * rows + 16)
+    return 16 * group * n_seg + SEG_STAGES * stage + 20 * rows + 16 * (SEG_THREADS // 32)
+
+
+SEG_MAX_SEGMENTS = (SMEM_BYTES - _seg_smem_bytes(0, 1, SEG_THREADS)) // 16
+
+
+def _group_layout(name: str, n_seg: int, group: int, rows: int):
+    """(G, rows per tile, shared-memory bytes) from a starting G and tile:
+    G halved while a CTA would exceed SMEM_BYTES, then the rows (not below
+    SEG_THREADS). Raises beyond SEG_MAX_SEGMENTS."""
+    if not 1 <= n_seg <= SEG_MAX_SEGMENTS:
+        raise ValueError(f"{name}: {n_seg} segments; the kernel's shared memory "
+                         f"({SMEM_BYTES} bytes per CTA) takes 1 to {SEG_MAX_SEGMENTS}")
+    while group > 1 and _seg_smem_bytes(n_seg, group, rows) > SMEM_BYTES:
+        group //= 2
+    while _seg_smem_bytes(n_seg, group, rows) > SMEM_BYTES:
+        rows //= 2
+    return group, rows, _seg_smem_bytes(n_seg, group, rows)
+
+
+def hist_layout(k_nodes: int, n_bins_tot: int):
+    """(features per CTA G, rows per tile, shared-memory bytes) of K1 at
+    ``k_nodes`` x ``n_bins_tot`` segments: HIST_LAYOUTS' entry for the
+    level, shrunk as ``_group_layout`` does until the CTA fits. Raises
+    beyond SEG_MAX_SEGMENTS segments (54 nodes at 257 bins)."""
+    levels = sorted(HIST_LAYOUTS)
+    level = next((c for c in levels if c >= k_nodes), levels[-1])
+    return _group_layout(f"build_histograms ({k_nodes} nodes x {n_bins_tot} bins)",
+                         k_nodes * n_bins_tot, *HIST_LAYOUTS[level])
+
+
+def seg_hist_layout(n_seg: int):
+    """(features per CTA G, rows per tile, shared-memory bytes) of K3 at
+    ``n_seg`` segments: SEG_GROUP and SEG_TILE_ROWS, shrunk as
+    ``_group_layout`` does until the CTA fits. Raises beyond
+    SEG_MAX_SEGMENTS."""
+    return _group_layout("build_seg_histograms", n_seg, SEG_GROUP, SEG_TILE_ROWS)
+
+
+# ---------------------------------------------------------------------------
+# K1: level histograms of the depthwise fit
+# ---------------------------------------------------------------------------
+
+def launch_hist_kernel(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                       out: torch.Tensor, k_nodes: int, n_bins_tot: int) -> None:
+    """One launch of K1 on inputs the wrapper checked, at
+    ``hist_layout(k_nodes, n_bins_tot)``; writes ``out`` [K, F, k_nodes,
+    n_bins_tot, 2] float32. Counts nothing."""
+    K, F, N = binned.shape
+    group, rows, _ = hist_layout(k_nodes, n_bins_tot)
+    lib = cuda_build.load()
+    with torch.cuda.device(binned.device):
+        stream = torch.cuda.current_stream(binned.device).cuda_stream
+        rc = lib.mallorn_hist(binned.data_ptr(), node_q.data_ptr(), gh.data_ptr(),
+                              out.data_ptr(), K, F, N, k_nodes, n_bins_tot, group, rows,
+                              stream)
+    cuda_build.check(rc, "mallorn_hist")
+
+
 def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                      k_nodes: int, n_bins_tot: int) -> torch.Tensor:
     """[K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess) histograms from
@@ -165,23 +267,12 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
     if binned.device.type == "cpu":
         return build_histograms_plain(binned, node_q, gh, k_nodes, n_bins_tot)
     _check_cuda_inputs("build_histograms", binned, node_q, gh)
-    if k_nodes * n_bins_tot * 2 * 8 > SMEM_BYTES:
-        raise ValueError(f"build_histograms: {k_nodes} nodes x {n_bins_tot} bins exceed "
-                         f"the kernel's shared memory ({SMEM_BYTES} bytes per CTA)")
-    K, F, N = binned.shape
-    out = torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.float32,
-                      device=binned.device)
+    hist_layout(k_nodes, n_bins_tot)  # refuses a level beyond the kernel's shared memory
+    K, F, _ = binned.shape
+    out = torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.float32, device=binned.device)
     if K == 0 or F == 0:
         return out
-    maxabs = gh.abs().amax(dim=1).contiguous() if N else torch.zeros(
-        K, 2, dtype=torch.float32, device=gh.device)
-    lib = cuda_build.load()
-    with torch.cuda.device(binned.device):
-        stream = torch.cuda.current_stream(binned.device).cuda_stream
-        rc = lib.mallorn_hist(binned.data_ptr(), node_q.data_ptr(), gh.data_ptr(),
-                              maxabs.data_ptr(), out.data_ptr(), K, F, N, k_nodes,
-                              n_bins_tot, stream)
-    cuda_build.check(rc, "mallorn_hist")
+    launch_hist_kernel(binned, node_q, gh, out, k_nodes, n_bins_tot)
     launches += 1
     return out
 
@@ -201,57 +292,8 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
 # versions mirror K1's: the wrapper, ``index_add_`` in gh's dtype, and the
 # kernel's fixed point (``build_seg_histograms_fixed``, equal to the
 # kernel bit for bit at any layout: integer sums do not depend on order).
-#
-# The kernel (``csrc/hist.cu`` ``seg_hist_group_kernel``; its note says
-# more) is bound by bytes: at v114d's split step (K = 25, F = 228,
-# N = 2,443, n_seg = 514) 28.0 MB in and 23.4 MB out, ~15 us at 3.35 TB/s.
-# Its first design (one CTA per (lane, feature)) took 9x that: 5,700 CTAs
-# of ~10 rows per thread, each zeroing and writing a whole histogram; each
-# feature's CTA re-reading every row's seg_base and (g, h) and redoing its
-# fixed-point conversion; a row walk of dependent loads; two PyTorch ops
-# for the scale before every launch. Now one CTA takes a lane and a group
-# of G features, finds the lane's scale itself (max |g|, max |h| and a
-# non-finite flag), stages the rows in tiles with asynchronous copies,
-# compacts each tile's active rows once, computes q once per row and adds
-# it into its G histograms. The wrapper allocates ``out`` and launches,
-# nothing else. ``seg_hist_layout`` picks G and the tile from ``n_seg``.
-
-SEG_THREADS = 256  # threads per CTA (csrc/hist.cu kSegThreads)
-SEG_STAGES = 2  # row tiles in flight (kSegStages)
-# features per CTA and rows per tile at the fit's widths (the fastest of
-# G = 2, 4, 8 and 256-, 512-, 1,024-row tiles on an H100 at a v114d split
-# step; tools/time_seg_hist.py --layouts times them); a wider n_seg halves
-# G down to 1, then the tile down to SEG_THREADS rows, until the CTA fits
-# SMEM_BYTES
-SEG_GROUP, SEG_TILE_ROWS = 4, 512
-
-
-def _seg_smem_bytes(n_seg: int, group: int, rows: int) -> int:
-    """K3's shared memory per CTA (csrc/hist.cu ``seg_smem_bytes``): the
-    group's int64 [n_seg, 2] histograms, SEG_STAGES staged tiles (seg_base
-    and the group's bins, 16 spare bytes per array), the active list (20 B
-    a row) and the per-warp reductions."""
-    stage = 4 * rows + 16 + group * (2 * rows + 16)
-    return 16 * group * n_seg + SEG_STAGES * stage + 20 * rows + 16 * (SEG_THREADS // 32)
-
-
-SEG_MAX_SEGMENTS = (SMEM_BYTES - _seg_smem_bytes(0, 1, SEG_THREADS)) // 16
-
-
-def seg_hist_layout(n_seg: int):
-    """(features per CTA G, rows per tile, shared-memory bytes) of K3 at
-    ``n_seg`` segments: G = SEG_GROUP and SEG_TILE_ROWS rows, G halved
-    while a CTA would exceed SMEM_BYTES, then the rows (not below
-    SEG_THREADS). Raises beyond SEG_MAX_SEGMENTS."""
-    if not 1 <= n_seg <= SEG_MAX_SEGMENTS:
-        raise ValueError(f"build_seg_histograms: {n_seg} segments; the kernel's shared memory "
-                         f"({SMEM_BYTES} bytes per CTA) takes 1 to {SEG_MAX_SEGMENTS}")
-    group, rows = SEG_GROUP, SEG_TILE_ROWS
-    while group > 1 and _seg_smem_bytes(n_seg, group, rows) > SMEM_BYTES:
-        group //= 2
-    while _seg_smem_bytes(n_seg, group, rows) > SMEM_BYTES:
-        rows //= 2
-    return group, rows, _seg_smem_bytes(n_seg, group, rows)
+# The kernel is K1's (the group kernel above) with K3's rule for which
+# (row, feature) counts.
 
 
 def _check_seg_shapes(binned, seg_base, gh):
@@ -356,12 +398,12 @@ def build_seg_histograms(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch
 #   XLA:CPU's order for the JAX package's einsum) times s / 2^26. A cell is
 #   within N s 2^-27 of the exact sum (``hist_pallas.py:317-329``).
 #
-# The kernel (``csrc/hist.cu`` ``mode_hist_kernel``) is K1's design: one
-# CTA per (fold, feature, group of <= 8 nodes) adds each active row's
-# digits into a shared-memory integer histogram (K5: the 8 digits as int32,
-# 65,792 B at 8 nodes x 257 bins; K4: the 6 digits in K1's int64 fixed
-# point with a per-fold scale per digit, 98,688 B, through K1's own device
-# body) and its epilogue writes
+# The kernel (``csrc/hist.cu`` ``mode_hist_kernel``) is K1's first
+# design: one CTA per (fold, feature, group of <= 8 nodes) adds each active
+# row's digits into a shared-memory integer histogram (K5: the 8 digits as
+# int32, 65,792 B at 8 nodes x 257 bins; K4: the 6 digits in K1's int64
+# fixed point with a per-fold scale per digit, 98,688 B, through the first
+# K1's device body, ``accumulate_fixed``) and its epilogue writes
 # the float32 (g, h) histograms: K5's recombination in the order above,
 # K4's one conversion per digit sum, then (S0 + S1) + S2. Integer sums are
 # exact, so two launches agree bit for bit. The wrappers prepare the

@@ -6,11 +6,19 @@ is what ``build_histograms`` runs on a CPU tensor) against
 fold, and against a float64 numpy oracle, at the JAX package's bar for
 its histogram kernels (tests/test_hist_pallas.py): rtol 1e-5, atol 1e-4.
 The fixture is that of ``test_fullhot_matches_binlane_interpret`` (F=37,
-N=500, 257 bins, 1/2/8 nodes, inactive rows), with a fold axis of 3. The
-CUDA kernel itself is held against the plain version on the card (the
-``cuda`` case below, and ``chip_smoke.py``). The machine with the card has
-no JAX, so this file imports the JAX package inside the test that uses it
-and runs there as ``pytest --noconftest -m cuda tests/test_torch_hist.py``.
+N=500, 257 bins, 1/2/8 nodes, inactive rows), with a fold axis of 3. Also
+on the CPU: the kernel's layout rule (``hist_layout``: it fits the shared
+memory at 1 to 54 nodes of 257 bins and refuses more, and its byte sum is
+the kernel source's ``seg_smem_bytes``), and CPU tensors taking the plain
+version with no launch counted. The CUDA kernel itself is held against
+the plain version on the card (the ``cuda`` cases below: bit for bit
+``build_histograms_fixed`` and two launches equal and counted, at 1, 17,
+2,443 and 8,143 rows, F = 222 with a ragged last feature group, 1, 8 and
+16 nodes, K1's rule for node ids and bins out of range, NaN and inf folds
+beside finite ones, an all-inactive fold; and ``chip_smoke.py``). The
+machine with the card has no JAX, so this file imports the JAX package
+inside the test that uses it and runs there as
+``pytest --noconftest -m cuda tests/test_torch_hist.py``.
 """
 
 import numpy as np
@@ -18,8 +26,10 @@ import pytest
 import torch
 
 from mallorn_tpu_torch.ops import hist_cuda
-from mallorn_tpu_torch.ops.hist_cuda import (build_histograms, build_histograms_fixed,
-                                             build_histograms_plain)
+from mallorn_tpu_torch.ops.hist_cuda import (SEG_MAX_SEGMENTS, SMEM_BYTES, build_histograms,
+                                             build_histograms_fixed, build_histograms_plain,
+                                             hist_layout)
+from test_torch_seg_hist import _kernel_smem_bytes
 
 torch.set_num_threads(2)
 
@@ -109,11 +119,37 @@ def test_inactive_rows_and_out_of_range_bins_count_nowhere():
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    binned, node_q, gh = _fixture(1)
+    binned, node_q, gh = (torch.from_numpy(a) for a in _fixture(1))
     hist_cuda.reset_launches()
-    build_histograms(torch.from_numpy(binned), torch.from_numpy(node_q),
-                     torch.from_numpy(gh), 1, NBT)
+    got = build_histograms(binned, node_q, gh, 1, NBT)
     assert hist_cuda.launches == 0
+    assert torch.equal(got, build_histograms_plain(binned, node_q, gh, 1, NBT))
+
+
+@pytest.mark.parametrize("k_nodes", [1, 2, 3, 4, 8, 16, 32, 54])
+def test_hist_layout_fits_shared_memory(k_nodes):
+    group, rows, smem = hist_layout(k_nodes, NBT)
+    assert group >= 1 and rows >= hist_cuda.SEG_THREADS and rows % hist_cuda.SEG_THREADS == 0
+    assert smem == hist_cuda._seg_smem_bytes(k_nodes * NBT, group, rows) <= SMEM_BYTES
+    if k_nodes in hist_cuda.HIST_LAYOUTS:  # the fits' levels take the timed layout
+        assert (group, rows) == hist_cuda.HIST_LAYOUTS[k_nodes]
+
+
+@pytest.mark.parametrize("k_nodes", [55, 64])
+def test_hist_layout_refuses_beyond_its_limit(k_nodes):
+    # 54 nodes of 257 bins fit the kernel's 14,004 segments, 55 do not
+    assert 54 * NBT <= SEG_MAX_SEGMENTS < 55 * NBT
+    with pytest.raises(ValueError, match=str(SEG_MAX_SEGMENTS)):
+        hist_layout(k_nodes, NBT)
+
+
+def test_hist_layout_repeats_the_kernel_byte_sum():
+    # the launcher refuses a layout by its own sum, the wrapper picks one
+    # by this module's; the two must not drift apart at any level
+    c = _kernel_smem_bytes()
+    for k_nodes in range(1, 55):
+        group, rows, smem = hist_layout(k_nodes, NBT)
+        assert c["seg_smem_bytes"](k_nodes * NBT, group, rows) == smem, k_nodes
 
 
 @pytest.mark.cuda
@@ -130,3 +166,105 @@ def test_kernel_matches_plain_and_repeats_bit_for_bit_on_the_card():
         assert torch.equal(a, build_histograms_fixed(binned, node_q, gh, n_nodes, NBT))
         want = build_histograms_plain(binned, node_q, gh.double(), n_nodes, NBT)
         np.testing.assert_allclose(a.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+
+
+def _level(K, F, N, k_nodes, seed, inactive=0.3):
+    """bins [K, F, N] over all NBT bins, node ids [K, N] in [0, k_nodes]
+    (k_nodes = inactive, plus a share ``inactive`` forced inactive),
+    logistic-like gh [K, N, 2]: numpy arrays."""
+    rng = np.random.default_rng(seed)
+    binned = rng.integers(0, NBT, size=(K, F, N)).astype(np.int16)
+    node_q = rng.integers(0, k_nodes + 1, size=(K, N))
+    node_q[rng.random((K, N)) < inactive] = k_nodes
+    p, y = rng.random((K, N)), rng.random((K, N)) < 0.1
+    gh = np.stack([p - y, p * (1 - p)], axis=-1).astype(np.float32)
+    return binned, node_q.astype(np.int32), gh
+
+
+def _kernel_equals_fixed(binned, node_q, gh, k_nodes):
+    """K1 twice on the card: two launches counted, bit for bit equal to
+    each other and to ``build_histograms_fixed``, and within the JAX
+    package's bar of the float64 plain version on the finite folds;
+    returns the output."""
+    binned, node_q, gh = (torch.as_tensor(a).cuda() for a in (binned, node_q, gh))
+    hist_cuda.reset_launches()
+    a = build_histograms(binned, node_q, gh, k_nodes, NBT)
+    b = build_histograms(binned, node_q, gh, k_nodes, NBT)
+    assert hist_cuda.launches == 2
+
+    def bits(t):  # bit for bit, NaN included
+        return t.view(torch.int32)
+
+    assert torch.equal(bits(a), bits(b))
+    assert torch.equal(bits(a), bits(build_histograms_fixed(binned, node_q, gh, k_nodes, NBT)))
+    want = build_histograms_plain(binned, node_q, gh.double(), k_nodes, NBT)
+    folds = torch.isfinite(gh).flatten(1).all(dim=1)  # the others are NaN throughout
+    np.testing.assert_allclose(a[folds].cpu().numpy(), want[folds].cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [1, 17, 2443, 8143])
+def test_kernel_bit_for_bit_at_ragged_rows(n_rows):
+    # 8,143 rows: more than one tile and than 4,096 (a list entry keeps its
+    # tile row in 16 bits)
+    _cuda_or_skip()
+    F_ragged = 2 * hist_layout(4, NBT)[0] + 1  # the last group holds one feature
+    _kernel_equals_fixed(*_level(3, F_ragged, n_rows, 4, seed=n_rows), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_nodes", [1, 8, 16])
+def test_kernel_bit_for_bit_at_the_fits_width(k_nodes):
+    # F = 222: not a multiple of any G > 1, so the last group is ragged
+    _cuda_or_skip()
+    _kernel_equals_fixed(*_level(5, 222, 2444, k_nodes, seed=30 + k_nodes), k_nodes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_nodes", [1, 8])
+def test_kernel_skips_out_of_range_nodes_and_bins(k_nodes):
+    """K1's rule, which is not K3's: a node id outside [0, k_nodes) and a
+    bin outside [0, n_bins_tot) count nowhere, whatever node + bin gives."""
+    _cuda_or_skip()
+    binned, node_q, gh = _level(3, 9, 700, k_nodes, seed=40 + k_nodes, inactive=0.0)
+    node_q[:, 1::5] = -1
+    node_q[:, 2::7] = k_nodes + 1
+    node_q[0, 3::11] = np.iinfo(np.int32).min
+    node_q[1, 4::11] = np.iinfo(np.int32).max
+    binned[:, :, 5::6] = NBT  # would be node + 1's bin 0 under K3's rule
+    binned[:, 1, 6::9] = -1
+    binned[2, 2, 7::9] = np.iinfo(np.int16).max
+    got = _kernel_equals_fixed(binned, node_q, gh, k_nodes).cpu().numpy().astype(np.float64)
+    for k in range(3):
+        for f in range(9):
+            act = ((node_q[k] >= 0) & (node_q[k] < k_nodes)
+                   & (binned[k, f] >= 0) & (binned[k, f] < NBT))
+            np.testing.assert_allclose(got[k, f].sum(axis=(0, 1)), gh[k, act].sum(0),
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_nan_and_inf_folds_beside_finite_folds():
+    _cuda_or_skip()
+    binned, node_q, gh = _level(4, 7, 700, 2, seed=50)
+    gh[1, 3, 0] = np.nan
+    gh[2, 699, 1] = np.inf
+    got = _kernel_equals_fixed(binned, node_q, gh, 2)
+    assert torch.isnan(got[1]).all() and torch.isnan(got[2]).all()
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[3]).all()
+
+
+@pytest.mark.cuda
+def test_kernel_all_inactive_fold_is_zero():
+    _cuda_or_skip()
+    binned, node_q, gh = _level(3, 7, 700, 2, seed=60)
+    node_q[1] = 2
+    got = _kernel_equals_fixed(binned, node_q, gh, 2)
+    assert (got[1] == 0).all() and got[0].abs().sum() > 0
