@@ -7,22 +7,26 @@ Phases, each printing its wall time on its own line:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build: every CUDA source of the port, with plain ``nvcc``;
-3. kernel checks: the Cholesky-inverse kernel (K2, the blocked kernel for
-   T <= 320) against its plain PyTorch version (float32 and float64) at
-   B=2048, T=64/128/160/184/192/240/256/288/320 (256 is the wide server's
-   width), a ragged B=2047, T=72 and B=64, T=256/320, two launches bit for
-   bit equal, and its column loop (T > 320) at B=64, T=336/400, a non-SPD
-   matrix giving NaN in that matrix only (T=64/72/184/240/256/288/320/336/
-   400), no column-loop launch at T <= 320 and only column-loop launches
-   beyond, and times (kernel, plain, a two-call library yardstick, the
+3. kernel checks: the Cholesky-inverse kernel (K2) against its plain
+   PyTorch version (float32 and float64), two launches bit for bit equal:
+   the blocked kernel (T <= 320) at B=2048, T=64/128/160/184/192/240/256/
+   288/320 (256 is the wide server's width), a ragged B=2047, T=72 and
+   B=64, T=256/320; the cluster kernel (320 < T <= 784) at B=64,
+   T=336/400/512 and the widest width of each cluster size (432, 576,
+   784), at B=2048, T=400 (the XL server's width) and a ragged B=63,
+   T=344; the column loop beyond (B=8, T=800); a non-SPD matrix giving NaN
+   in that matrix only (T=64/72/184/240/256/288/320, 400/512/784 on the
+   cluster kernel, 800), each width on its own kernel alone (launch
+   counters), and times (kernel, plain, a two-call library yardstick, the
    roofline bound); one GP Adam step (``gp.batched_nll_grad``) at B=2048,
    T=64/160 split into the kernel matrix, K2, ``Linv^T Linv`` and the rest;
-   the factor-only Cholesky kernel (K6, the same blocked kernel without the
+   the factor-only Cholesky kernel (K6, the same kernels without the
    inverse) against its plain version at B=2048, T=64/160/192/240 and B=64,
-   T=256/320, and its column loop at B=64, T=400 (rtol / atol 2e-5, upper
-   triangle exactly 0, two launches bit for bit equal), a non-SPD matrix
-   giving NaN in that matrix only (T=64/320/400), the same dispatch by
-   width, and its times (library: ``cholesky_ex``);
+   T=256/320 (blocked), B=64, T=400/512 (cluster) and B=8, T=800 (column
+   loop) (rtol / atol 2e-5, upper triangle exactly 0, two launches bit for
+   bit equal), a non-SPD matrix giving NaN in that matrix only
+   (T=64/320/400/512/800), the same dispatch by width, and its times
+   (library: ``cholesky_ex``);
 4. serving: the 7,124-object test split of ``.bench_data_v2.npz`` through
    ``V92dServer`` at full v92d width (5 folds x 500 trees of depth 5 over
    222 columns, random weights from a fixed seed, bin edges fitted on the
@@ -76,7 +80,9 @@ Phases, each printing its wall time on its own line:
    (one server per chunk width), where every row must agree; then a
    server built for objects of up to 256 points (the blocked K2's
    384-thread instantiation, one launch per GP step) serves the first
-   request, held to the same gate;
+   request, held to the same gate; and a server built for objects of up
+   to 400 points (the cluster K2, 18 launches at T = 400) serves it too,
+   with its wall time and objects/s;
 10. the shipped Kaggle ensemble (``train_kaggle_ensemble``: the training
    phase's features and selection, the research family of both splits,
    adversarial weights, v92d, v34a and the leaf-wise v114d at 5 seeds x 5
@@ -175,6 +181,7 @@ ENSEMBLE_F1_GATE, V114D_F1_GATE = 0.637, 0.641
 # 0.093). Served in the training run's own GP chunks, every row must agree.
 SERVE_RTOL, SERVE_SHARE, SERVE_MAX_DP = 1e-4, 0.97, 0.15
 WIDE_T = 256  # the wide server's GP width (> 240: K2's 384-thread instantiation)
+XL_T = 400  # the XL server's GP width (> 320: K2's cluster kernel, 2 CTAs per matrix)
 # the factor-only Cholesky (K6): the bars of tests/test_chol_pallas.py:19
 CHOL_TOL = (2e-5, 2e-5)
 # the histogram modes run through the training path, in this order, and
@@ -256,8 +263,10 @@ def check_kernel(B: int, T: int, seed: int) -> dict:
                     device="cuda", dtype=torch.float32)
     Linv, ld = chol_cuda.chol_inv(K)
     Linv2, ld2 = chol_cuda.chol_inv(K)
+    Linv5, ld5 = chol_cuda.chol_inv(K[:5].contiguous())  # a matrix's result is B's alone
     torch.cuda.synchronize()
-    repeat_equal = bool(torch.equal(Linv, Linv2) and torch.equal(ld, ld2))
+    repeat_equal = bool(torch.equal(Linv, Linv2) and torch.equal(ld, ld2)
+                        and bits_equal(Linv5, Linv[:5]) and bits_equal(ld5, ld[:5]))
     Lp, ldp = chol_cuda.chol_inv_plain(K)
     L64, ld64 = chol_cuda.chol_inv_plain(K.double())
     Kinv = torch.matmul(Linv.transpose(1, 2), Linv)
@@ -276,7 +285,8 @@ def check_kernel(B: int, T: int, seed: int) -> dict:
         tol = TOL[name.split("_")[0]]
         log(f"  B={B} T={T} {name}: max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
             f"(rtol={tol[0]:g}, atol={tol[1]:g}) {'ok' if ok else 'FAIL'}")
-    log(f"  B={B} T={T} two launches bit for bit equal: {repeat_equal}")
+    log(f"  B={B} T={T} two launches bit for bit equal, and equal to a launch on the first 5 "
+        f"matrices alone: {repeat_equal}")
     bad = [n for n, (_, _, ok) in rows.items() if not ok]
     if bad or not repeat_equal:
         raise AssertionError(f"chol_inv B={B} T={T} outside tolerance {bad} or not "
@@ -289,7 +299,7 @@ def check_kernel(B: int, T: int, seed: int) -> dict:
         Li = torch.linalg.solve_triangular(L, eye, upper=False)
         return Li, 2.0 * torch.log(torch.diagonal(L, dim1=1, dim2=2)).sum(1)
 
-    ms = cuda_ms(lambda: chol_cuda.chol_inv(K), reps=20)
+    ms = cuda_ms(lambda: chol_cuda.chol_inv(K), reps=20 if T <= chol_cuda.MAX_T_CLUSTER else 5)
     plain_ms = cuda_ms(lambda: chol_cuda.chol_inv_plain(K), reps=2, warmup=1)
     library_ms = cuda_ms(library, reps=10)
     # K's lower triangle in (all the kernel reads), Linv and logdet out
@@ -382,7 +392,7 @@ def check_cholesky(B: int, T: int, seed: int) -> dict:
     if not (repeat_equal and upper_zero) or not all(ok for _, _, ok in rows.values()):
         raise AssertionError(f"K6 {tag} failed its checks")
 
-    ms = cuda_ms(lambda: chol_cuda.cholesky(K), reps=20 if T <= chol_cuda.MAX_T else 5)
+    ms = cuda_ms(lambda: chol_cuda.cholesky(K), reps=20 if T <= chol_cuda.MAX_T_CLUSTER else 5)
     plain_ms = cuda_ms(lambda: chol_cuda.cholesky_plain(K), reps=2, warmup=1)
     library_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps=10)
     # K's lower triangle in, L out; T^3/3 flops per matrix
@@ -1094,7 +1104,32 @@ def serve_trained(trained: dict, dev) -> dict:
     if (by_t_w.get(WIDE_T, 0) != want_wide or large or share_w < SERVE_SHARE
             or not np.isfinite(pw).all()):
         raise AssertionError("the wide server failed its checks")
-    return {"wide_launches": by_t_w[WIDE_T], "objects_per_s": n / wall}
+
+    # a server built for objects of up to XL_T points (the cluster K2), the
+    # same request packed to that width
+    xl = V92dServer(models, man["feature_names"], out.selection.selected,
+                    gp_steps=GP_STEPS, gp_t_compact=XL_T, gp_two_phase=gp_two_phase,
+                    device=dev)
+    raw = te_packed.map(lambda x: x[s:e])
+    sub = pad_time_axes(raw, raw.band_time.shape[-1], XL_T)
+    chol_cuda.reset_launches()
+    t0 = time.perf_counter()
+    px = xl(sub, zz[s:e], ebv[s:e]).cpu().numpy()
+    wall_x = time.perf_counter() - t0
+    cluster_x, blocked_x = dict(chol_cuda.cluster_launches_by_t), dict(chol_cuda.launches_by_t)
+    large = chol_cuda.large_launches
+    share_x = agreement(px, p[s:e])
+    log(f"XL server (GP width {XL_T}): {e - s} objects in {wall_x:.3f} s, "
+        f"{(e - s) / wall_x:.1f} objects/s")
+    log(f"  XL server: cluster K2 launches by width {cluster_x} (predicted {want_wide} at "
+        f"{XL_T}), blocked {blocked_x} (the coarse phase; none predicted at {XL_T}), column "
+        f"loop {large} (predicted 0); {share_x:.4f} of rows within rtol {SERVE_RTOL:g} of the "
+        f"width-{gp_tc} server's (needs {SERVE_SHARE})")
+    if (cluster_x.get(XL_T, 0) != want_wide or blocked_x.get(XL_T, 0) or large
+            or share_x < SERVE_SHARE or not np.isfinite(px).all()):
+        raise AssertionError("the XL server failed its checks")
+    return {"wide_launches": by_t_w[WIDE_T], "xl_launches": cluster_x[XL_T],
+            "objects_per_s": n / wall}
 
 
 def run_ensemble(trained: dict, dev) -> dict:
@@ -1175,8 +1210,9 @@ def main() -> int:
             check_non_spd(T)
         for T in (64, 160):
             time_gp_step(REQUEST, T, seed=7000 + T)
-        # K2 beyond 240: the blocked kernel up to MAX_T, never the column
-        # loop; the column loop beyond, never the blocked kernel
+        # K2 beyond 240: each width on its own kernel alone (launch counters):
+        # the blocked kernel up to MAX_T, the cluster kernel up to
+        # MAX_T_CLUSTER, the column loop beyond
         chol_cuda.reset_launches()
         wide_results = [check_kernel(B, T, seed=3000 + T)
                         for B, T in ((REQUEST, WIDE_T), (REQUEST, 288), (REQUEST, 320),
@@ -1184,20 +1220,39 @@ def main() -> int:
         for T in (256, 288, 320):
             check_non_spd(T)
         log(f"  T <= {chol_cuda.MAX_T}: blocked launches by width "
-            f"{dict(chol_cuda.launches_by_t)}, column loop {chol_cuda.large_launches}")
-        if chol_cuda.large_launches or not chol_cuda.launches:
-            raise AssertionError(f"T <= {chol_cuda.MAX_T} took the column loop")
-        # the column loop's launches in this phase are its row's count: no
-        # path of the port reaches T > MAX_T
+            f"{dict(chol_cuda.launches_by_t)}, cluster {chol_cuda.cluster_launches}, column "
+            f"loop {chol_cuda.large_launches}")
+        if chol_cuda.large_launches or chol_cuda.cluster_launches or not chol_cuda.launches:
+            raise AssertionError(f"T <= {chol_cuda.MAX_T} took another kernel than the blocked")
+        # the cluster kernel (MAX_T < T <= MAX_T_CLUSTER), never another
+        for T in (336, 432, 512, 576, 592, 784):
+            C = chol_cuda.cluster_size(T)
+            log(f"  T={T}: clusters of {C} CTAs, {chol_cuda.cluster_smem_bytes(T, C)} bytes of "
+                f"shared memory each; {chol_cuda.cluster_occupancy(T)} clusters resident")
         chol_cuda.reset_launches()
-        loop_results = [check_kernel(64, T, seed=3000 + T) for T in (336, 400)]
-        for T in (336, 400):
+        cluster_results = [check_kernel(B, T, seed=3000 + T)
+                           for B, T in ((64, 336), (64, 400), (64, 512), (64, 432), (64, 576),
+                                        (64, 784), (REQUEST, XL_T), (63, 344))]
+        for T in (400, 512, 784):
             check_non_spd(T)
+        by_c = dict(chol_cuda.cluster_launches_by_t)
+        log(f"  {chol_cuda.MAX_T} < T <= {chol_cuda.MAX_T_CLUSTER}: cluster launches by width "
+            f"{by_c}, blocked {chol_cuda.launches}, column loop {chol_cuda.large_launches}")
+        if (chol_cuda.launches or chol_cuda.large_launches
+                or set(by_c) != {r["T"] for r in cluster_results}):
+            raise AssertionError(f"{chol_cuda.MAX_T} < T <= {chol_cuda.MAX_T_CLUSTER} did not "
+                                 f"take the cluster kernel alone")
+        # the column loop beyond MAX_T_CLUSTER: its launches in this phase
+        # are its row's count (no path of the port reaches it)
+        chol_cuda.reset_launches()
+        loop_results = [check_kernel(8, 800, seed=3800)]
+        check_non_spd(800)
         k2_loop_launches = chol_cuda.large_launches
-        log(f"  T > {chol_cuda.MAX_T}: column loop {k2_loop_launches}, blocked "
-            f"{chol_cuda.launches}")
-        if chol_cuda.launches or not k2_loop_launches:
-            raise AssertionError(f"T > {chol_cuda.MAX_T} did not take the column loop alone")
+        log(f"  T > {chol_cuda.MAX_T_CLUSTER}: column loop {k2_loop_launches}, cluster "
+            f"{chol_cuda.cluster_launches}, blocked {chol_cuda.launches}")
+        if chol_cuda.launches or chol_cuda.cluster_launches or not k2_loop_launches:
+            raise AssertionError(f"T > {chol_cuda.MAX_T_CLUSTER} did not take the column loop "
+                                 f"alone")
         # K6: its launches in this phase (checks and timing) are its rows'
         # counts: no path of the port calls it
         chol_cuda.reset_launches()
@@ -1207,16 +1262,26 @@ def main() -> int:
         check_cholesky_non_spd(64)
         check_cholesky_non_spd(320)
         k6_launches = chol_cuda.chol_launches
-        if chol_cuda.chol_large_launches or not k6_launches:
-            raise AssertionError(f"K6 at T <= {chol_cuda.MAX_T} took the column loop")
+        if chol_cuda.chol_large_launches or chol_cuda.chol_cluster_launches or not k6_launches:
+            raise AssertionError(f"K6 at T <= {chol_cuda.MAX_T} took another kernel than the "
+                                 f"blocked")
         chol_cuda.reset_launches()
-        chol_loop = check_cholesky(64, 400, seed=5400)
-        check_cholesky_non_spd(400)
+        chol_cluster_results = [check_cholesky(64, T, seed=5000 + T) for T in (400, 512)]
+        for T in (400, 512):
+            check_cholesky_non_spd(T)
+        k6_cluster_launches = chol_cuda.chol_cluster_launches
+        if chol_cuda.chol_launches or chol_cuda.chol_large_launches or not k6_cluster_launches:
+            raise AssertionError("K6 at T = 400 / 512 did not take the cluster kernel alone")
+        chol_cuda.reset_launches()
+        chol_loop = check_cholesky(8, 800, seed=5800)
+        check_cholesky_non_spd(800)
         k6_loop_launches = chol_cuda.chol_large_launches
-        log(f"  K6 launches: blocked {k6_launches} (T <= {chol_cuda.MAX_T}), column loop "
-            f"{k6_loop_launches} (T = 400, blocked {chol_cuda.chol_launches})")
-        if chol_cuda.chol_launches or not k6_loop_launches:
-            raise AssertionError(f"K6 at T > {chol_cuda.MAX_T} did not take the column loop")
+        log(f"  K6 launches: blocked {k6_launches} (T <= {chol_cuda.MAX_T}), cluster "
+            f"{k6_cluster_launches} (T = 400 / 512), column loop {k6_loop_launches} (T = 800; "
+            f"blocked {chol_cuda.chol_launches}, cluster {chol_cuda.chol_cluster_launches})")
+        if chol_cuda.chol_launches or chol_cuda.chol_cluster_launches or not k6_loop_launches:
+            raise AssertionError(f"K6 at T > {chol_cuda.MAX_T_CLUSTER} did not take the column "
+                                 f"loop alone")
 
     with Phase("serving data + model"):
         packed, zz, ebv = load_test_split(dev)
@@ -1327,13 +1392,15 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [REQUEST, width, width],
         })
-    # K2 beyond 240: the blocked kernel at the wide server's width, with
-    # its launches, and the column loop (T > 320) with this phase's
+    # K2 beyond 240: the blocked kernel at the wide server's width and the
+    # cluster kernel at the XL server's, each with its server's launches,
+    # and the column loop (T > 784) with this phase's
     main_wide = next(r for r in wide_results if (r["B"], r["T"]) == (REQUEST, WIDE_T))
-    loop = next(r for r in loop_results if r["T"] == 400)
+    main_xl = next(r for r in cluster_results if (r["B"], r["T"]) == (REQUEST, XL_T))
     for name, source, r, n_launches in (
             ("chol_inv_wide_server", "chol_inv_blocked.cu", main_wide, served["wide_launches"]),
-            ("chol_inv_column_loop", "chol_inv.cu", loop, k2_loop_launches)):
+            ("chol_inv_cluster", "chol_inv_cluster.cu", main_xl, served["xl_launches"]),
+            ("chol_inv_column_loop", "chol_inv.cu", loop_results[0], k2_loop_launches)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mallorn_tpu_torch/csrc/{source}",
@@ -1391,10 +1458,12 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
         })
     # the factor-only Cholesky's rows: the blocked kernel at the GP's batch
-    # and T = 160, the column loop at B = 64, T = 400
+    # and T = 160, the cluster kernel at B = 64, T = 400, the column loop at
+    # B = 8, T = 800
     main_chol = next(r for r in chol_results if (r["B"], r["T"]) == (2048, 160))
     for name, source, r, n_launches in (
             ("chol", "chol_inv_blocked.cu", main_chol, k6_launches),
+            ("chol_cluster", "chol_inv_cluster.cu", chol_cluster_results[0], k6_cluster_launches),
             ("chol_column_loop", "chol_inv.cu", chol_loop, k6_loop_launches)):
         kernels.append({
             "name": name, "route": "cuda",

@@ -1,6 +1,7 @@
 // Batched Cholesky factorisation as a column loop in a global scratch: K2
-// and K6 for T > 320, wider than the blocked kernel of chol_inv_blocked.cu
-// can hold in shared memory (which serves T <= 320).
+// and K6 for T > 784, wider than the shared-memory kernels can hold (the
+// blocked kernel of chol_inv_blocked.cu serves T <= 320, the cluster kernel
+// of chol_inv_cluster.cu 320 < T <= 784).
 //
 // K2 replaces mallorn_tpu/ops/chol_pallas.py:_chol_inv_kernel (the Pallas
 // kernel behind cholesky_inverse_lanes). Contract, per matrix b of a
@@ -138,13 +139,13 @@ int launch(const float* K, float* out, float* logdet, float* scratch, int B, int
 
 }  // namespace
 
-// K2, T > 320; scratch: B * T(T+1)/2 floats
+// K2, T > 784; scratch: B * T(T+1)/2 floats
 extern "C" int mallorn_chol_inv_large(const float* K, float* Linv, float* logdet,
                                       float* scratch, int B, int T, void* stream) {
   return launch<true>(K, Linv, logdet, scratch, B, T, stream);
 }
 
-// K6, T > 320; scratch: B * T(T+1)/2 floats
+// K6, T > 784; scratch: B * T(T+1)/2 floats
 extern "C" int mallorn_chol_large(const float* K, float* L, float* scratch, int B, int T,
                                   void* stream) {
   return launch<false>(K, L, nullptr, scratch, B, T, stream);

@@ -12,27 +12,34 @@ there.
 
 - ``chol_inv`` launches a CUDA kernel for a CUDA tensor and runs
   ``chol_inv_plain`` for a CPU tensor. A CUDA tensor never falls back: a
-  kernel launches or the call raises. The width picks the kernel:
+  kernel launches or the call raises. The width picks the kernel, one
+  launch per call for the first two:
   T <= ``MAX_T`` takes the blocked kernel (``csrc/chol_inv_blocked.cu``:
-  one triangle of 16 x 16 tiles in shared memory, register-tiled updates,
-  the inverse formed in place), one launch per call; a wider batch goes to
-  the column loop ``chol_kernel`` (``csrc/chol_inv.cu``), which builds
-  Linv in the output and keeps the Schur complement in a global scratch
-  allocated here, one launch per chunk of ``wide_chunk`` matrices (one
-  per SM).
+  one triangle of 16 x 16 tiles in one CTA's shared memory,
+  register-tiled updates, the inverse formed in place);
+  ``MAX_T`` < T <= ``MAX_T_CLUSTER`` the cluster kernel
+  (``csrc/chol_inv_cluster.cu``: the same tiles and arithmetic, the
+  triangle spread over the shared memory of a thread-block cluster of
+  ``cluster_size(T)`` CTAs); a wider batch goes to the column loop
+  ``chol_kernel`` (``csrc/chol_inv.cu``), which builds Linv in the output
+  and keeps the Schur complement in a global scratch allocated here, one
+  launch per chunk of ``wide_chunk`` matrices (one per SM).
 - ``chol_inv_plain`` is the right-looking column loop in PyTorch, batched
   over B: the contract's plain version. The CPU tests use it, and
-  ``chip_smoke.py`` holds both kernels against it on the card.
-  ``chol_inv_blocked_plain`` is the blocked kernel's algorithm in its
-  order, held against the JAX package by the CPU tests; no path calls it.
-- ``launches`` and ``large_launches`` count K2's launches of the blocked
-  kernel and of the column loop, ``launches_by_t`` the blocked launches
-  per width T; ``chol_launches`` and ``chol_large_launches`` count K6's
-  the same way (plain calls do not count).
+  ``chip_smoke.py`` holds every kernel against it on the card.
+  ``chol_inv_blocked_plain`` is the blocked and the cluster kernel's
+  algorithm in their order, held against the JAX package by the CPU
+  tests; no path calls it.
+- Launch counts (plain calls do not count): ``launches`` (blocked, per
+  width in ``launches_by_t``), ``cluster_launches`` (per width in
+  ``cluster_launches_by_t``) and ``large_launches`` (the column loop) for
+  K2; ``chol_launches``, ``chol_cluster_launches`` and
+  ``chol_large_launches`` for K6.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -41,21 +48,89 @@ from mallorn_tpu_torch.utils import cuda_build
 
 # widest batch the blocked kernel takes, for K2 and K6 (one triangle of
 # 16 x 16 tiles in shared memory: 215,040 bytes at T = 320, and T = 336
-# would pass the 232,448 a block may take); a wider batch takes the column
-# loop
+# would pass the 232,448 a block may take); a wider batch takes the cluster
+# kernel up to MAX_T_CLUSTER, the column loop beyond
 MAX_T = 320
+MAX_T_CLUSTER = 784
+SMEM_BYTES = 232448  # shared memory one block may take on an H100
+CLUSTER_SIZES = (2, 4, 8)  # portable cluster sizes
 
 launches = 0
 launches_by_t: Dict[int, int] = {}
+cluster_launches = 0
+cluster_launches_by_t: Dict[int, int] = {}
 large_launches = 0
 chol_launches = 0
+chol_cluster_launches = 0
 chol_large_launches = 0
+# (device index, C, shared memory bytes, K2?) whose cluster was found to fit
+# the device (``_check_cluster_fits``)
+_cluster_fits: set = set()
 
 
 def reset_launches() -> None:
-    global launches, large_launches, chol_launches, chol_large_launches
-    launches = large_launches = chol_launches = chol_large_launches = 0
+    global launches, cluster_launches, large_launches
+    global chol_launches, chol_cluster_launches, chol_large_launches
+    launches = cluster_launches = large_launches = 0
+    chol_launches = chol_cluster_launches = chol_large_launches = 0
     launches_by_t.clear()
+    cluster_launches_by_t.clear()
+
+
+def _tile_index(I: int, J: int, C: int) -> int:
+    """Tile (I, J) in its owner's shared memory (``tile_index`` of
+    ``csrc/chol_inv_cluster.cu``): tile row I lives in rank I mod C."""
+    return (I // C) * (I % C + 1) + C * ((I // C) * (I // C - 1) // 2) + J
+
+
+def cluster_smem_bytes(T: int, C: int) -> int:
+    """Shared memory of one CTA of the cluster kernel at width T on C
+    ranks (``cluster_smem_bytes`` of the .cu): the largest rank's tile rows,
+    a staging area of nt tiles and a 16-byte logdet slot."""
+    nt = -(-T // 16)
+    most = max((_tile_index(r + ((nt - 1 - r) // C + 1) * C, 0, C) if r < nt else 0)
+               for r in range(C))
+    return (4 + (most + nt) * 256) * 4
+
+
+def cluster_size(T: int) -> int:
+    """CTAs per matrix of the cluster kernel at width T: the smallest of
+    ``CLUSTER_SIZES`` whose share fits one block's shared memory; 0 where
+    the cluster kernel does not serve T (T <= MAX_T or T > MAX_T_CLUSTER).
+    2 up to T = 432, 4 up to 576, 8 up to 784."""
+    if T <= MAX_T or T > MAX_T_CLUSTER:
+        return 0
+    return next(C for C in CLUSTER_SIZES if cluster_smem_bytes(T, C) <= SMEM_BYTES)
+
+
+def cluster_occupancy(T: int, inverse: bool = True, device=None) -> int:
+    """Clusters of ``cluster_size(T)`` CTAs that the device holds at once at
+    width T (``cudaOccupancyMaxActiveClusters``); 0 means a launch cannot
+    run."""
+    C = cluster_size(T)
+    if not C:
+        raise ValueError(f"the cluster kernel does not serve T = {T}")
+    lib = cuda_build.load()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        cuda_build.check(lib.mallorn_chol_cluster_occupancy(T, C, int(inverse),
+                                                            ctypes.byref(n)),
+                         "mallorn_chol_cluster_occupancy")
+    return n.value
+
+
+def _check_cluster_fits(device: torch.device, T: int, inverse: bool) -> int:
+    """C for T, after checking once per (device, C, shared memory, kernel)
+    that such a cluster can be resident; raises where it cannot."""
+    C = cluster_size(T)
+    key = (device.index, C, cluster_smem_bytes(T, C), inverse)
+    if key not in _cluster_fits:
+        n = cluster_occupancy(T, inverse, device)
+        if n == 0:
+            raise RuntimeError(f"a cluster of {C} CTAs with {key[2]} bytes of shared memory "
+                               f"each cannot be resident on {device} (T = {T})")
+        _cluster_fits.add(key)
+    return C
 
 
 def chol_inv_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -115,9 +190,11 @@ def _blocked_factor(K: torch.Tensor, nb: int, inverse: bool):
 
 
 def chol_inv_blocked_plain(K: torch.Tensor, nb: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The T <= MAX_T kernel's blocked algorithm in plain PyTorch: the same
-    (Linv, logdet) as ``chol_inv_plain``, in the kernel's order. No path
-    calls it; the CPU tests hold it against the JAX package.
+    """The blocked algorithm of the T <= MAX_T and the cluster kernels in
+    plain PyTorch: the same (Linv, logdet) as ``chol_inv_plain``, in the
+    kernels' order (the cluster kernel forms every W before the recurrence,
+    which changes no sum). No path calls it; the CPU tests hold it against
+    the JAX package.
 
     K's lower triangle is padded with identity to a multiple of ``nb`` and
     worked on in place, nb x nb tiles at a time:
@@ -151,7 +228,7 @@ def _check_cuda_batch(name: str, K: torch.Tensor) -> None:
 
 def chol_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Linv [B, T, T], logdet [B]) for a batch of SPD matrices."""
-    global launches
+    global launches, cluster_launches
     if K.device.type == "cpu":
         return chol_inv_plain(K)
     _check_cuda_batch("chol_inv", K)
@@ -160,30 +237,41 @@ def chol_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     logdet = torch.empty(B, dtype=torch.float32, device=K.device)
     if B == 0:
         return Linv, logdet
-    if T > MAX_T:
+    if T > MAX_T_CLUSTER:
         _chol_inv_large(K, Linv, logdet)
         return Linv, logdet
-    lib = cuda_build.load()
-    with torch.cuda.device(K.device):
-        stream = torch.cuda.current_stream(K.device).cuda_stream
-        rc = lib.mallorn_chol_inv(K.data_ptr(), Linv.data_ptr(),
-                                  logdet.data_ptr(), B, T, stream)
-    cuda_build.check(rc, "mallorn_chol_inv")
+    if T > MAX_T:
+        C = _check_cluster_fits(K.device, T, True)
+        _launch(K, "mallorn_chol_inv_cluster", K.data_ptr(), Linv.data_ptr(),
+                logdet.data_ptr(), B, T, C)
+        cluster_launches += 1
+        cluster_launches_by_t[T] = cluster_launches_by_t.get(T, 0) + 1
+        return Linv, logdet
+    _launch(K, "mallorn_chol_inv", K.data_ptr(), Linv.data_ptr(), logdet.data_ptr(), B, T)
     launches += 1
     launches_by_t[T] = launches_by_t.get(T, 0) + 1
     return Linv, logdet
 
 
+def _launch(K: torch.Tensor, name: str, *args) -> None:
+    """The library's entry point ``name`` on K's device and current stream
+    (the stream is its last argument); raises on a CUDA error."""
+    lib = cuda_build.load()
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        cuda_build.check(getattr(lib, name)(*args, stream), name)
+
+
 def wide_chunk(device: torch.device) -> int:
-    """Matrices per launch of the T > MAX_T column loop: one per SM. Each CTA
-    works on its matrix's triangle and Linv through L1/L2; with more CTAs
-    than SMs resident those working sets no longer fit in L2 and the
-    kernel waits on HBM (PERF.md, the column loop's row)."""
+    """Matrices per launch of the T > MAX_T_CLUSTER column loop: one per
+    SM. Each CTA works on its matrix's triangle and Linv through L1/L2;
+    with more CTAs than SMs resident those working sets no longer fit in
+    L2 and the kernel waits on HBM (PERF.md, the column loop's row)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _wide_launches(K: torch.Tensor, name: str, launch) -> int:
-    """The T > MAX_T kernel ``name`` over K in chunks of ``wide_chunk``
+    """The column loop ``name`` over K in chunks of ``wide_chunk``
     matrices: ``launch(lib, start, n, scratch, stream)`` returns its CUDA
     status; returns the launch count."""
     B, T, _ = K.shape
@@ -201,7 +289,7 @@ def _wide_launches(K: torch.Tensor, name: str, launch) -> int:
 
 
 def _chol_inv_large(K: torch.Tensor, Linv: torch.Tensor, logdet: torch.Tensor) -> None:
-    """The T > MAX_T kernel into ``Linv`` / ``logdet``, one launch per
+    """The column loop into ``Linv`` / ``logdet``, one launch per
     chunk of ``wide_chunk`` matrices."""
     global large_launches
     T = K.shape[1]
@@ -224,13 +312,14 @@ def cho_solve(Linv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 # Counterpart of ``mallorn_tpu/ops/chol_pallas.py:cholesky_lanes`` (Pallas
 # body ``_chol_kernel``): L = chol(K) [B, T, T], upper triangle exactly 0,
 # L[j, j] = pivot * rsqrt(pivot); a non-positive pivot gives NaN in that
-# matrix only. The kernels are K2's with the inverse switched off: the
-# blocked kernel (``csrc/chol_inv_blocked.cu``, ``kInverse = false``: L_kk
-# stays in the diagonal tiles, Linv_kk for the panel step in one extra
-# tile) for T <= MAX_T, counted in ``chol_launches``, and the column loop
-# in the chunked global scratch beyond, counted in
-# ``chol_large_launches``. ``cholesky_blocked_plain`` is the blocked
-# kernel's algorithm in its order; no path calls it.
+# matrix only. The kernels are K2's with the inverse switched off
+# (``kInverse = false``: L_kk stays in the diagonal tiles, Linv_kk for the
+# panel step in one more tile): the blocked kernel for T <= MAX_T, counted
+# in ``chol_launches``, the cluster kernel up to MAX_T_CLUSTER, counted in
+# ``chol_cluster_launches``, and the column loop in the chunked global
+# scratch beyond, counted in ``chol_large_launches``.
+# ``cholesky_blocked_plain`` is the blocked and the cluster kernel's
+# algorithm in their order; no path calls it.
 
 
 def cholesky_plain(K: torch.Tensor) -> torch.Tensor:
@@ -249,11 +338,12 @@ def cholesky_plain(K: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_blocked_plain(K: torch.Tensor, nb: int = 16) -> torch.Tensor:
-    """The T <= MAX_T kernel's K6 algorithm in plain PyTorch: the same L as
-    ``cholesky_plain``, in the kernel's panel order with identity padding
-    (``chol_inv_blocked_plain`` without the inverse and logdet; L_kk stays
-    in the diagonal tiles, Linv_kk serves the panel step). No path calls
-    it; the CPU tests hold it against the JAX package."""
+    """K6's algorithm in the blocked and the cluster kernel, in plain
+    PyTorch: the same L as ``cholesky_plain``, in the kernels' panel order
+    with identity padding (``chol_inv_blocked_plain`` without the inverse
+    and logdet; L_kk stays in the diagonal tiles, Linv_kk serves the panel
+    step). No path calls it; the CPU tests hold it against the JAX
+    package."""
     A, _ = _blocked_factor(K, nb, inverse=False)
     T = K.shape[1]
     return torch.tril(A)[:, :T, :T].contiguous()
@@ -261,7 +351,7 @@ def cholesky_blocked_plain(K: torch.Tensor, nb: int = 16) -> torch.Tensor:
 
 def cholesky(K: torch.Tensor) -> torch.Tensor:
     """L [B, T, T] with K = L L^T for a batch of SPD matrices."""
-    global chol_launches, chol_large_launches
+    global chol_launches, chol_cluster_launches, chol_large_launches
     if K.device.type == "cpu":
         return cholesky_plain(K)
     _check_cuda_batch("cholesky", K)
@@ -269,17 +359,17 @@ def cholesky(K: torch.Tensor) -> torch.Tensor:
     L = torch.empty_like(K)
     if B == 0:
         return L
-    if T > MAX_T:
+    if T > MAX_T_CLUSTER:
         def launch(lib, s, n, scratch, stream):
             return lib.mallorn_chol_large(K[s].data_ptr(), L[s].data_ptr(), scratch, n, T,
                                           stream)
 
         chol_large_launches += _wide_launches(K, "mallorn_chol_large", launch)
-        return L
-    lib = cuda_build.load()
-    with torch.cuda.device(K.device):
-        stream = torch.cuda.current_stream(K.device).cuda_stream
-        rc = lib.mallorn_chol(K.data_ptr(), L.data_ptr(), B, T, stream)
-    cuda_build.check(rc, "mallorn_chol")
-    chol_launches += 1
+    elif T > MAX_T:
+        C = _check_cluster_fits(K.device, T, False)
+        _launch(K, "mallorn_chol_cluster", K.data_ptr(), L.data_ptr(), B, T, C)
+        chol_cluster_launches += 1
+    else:
+        _launch(K, "mallorn_chol", K.data_ptr(), L.data_ptr(), B, T)
+        chol_launches += 1
     return L

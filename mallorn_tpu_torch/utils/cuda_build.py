@@ -128,6 +128,12 @@ def load() -> ctypes.CDLL:
             lib.mallorn_chol_inv.restype = ctypes.c_int
             lib.mallorn_chol_inv_large.argtypes = [p, p, p, p, i, i, p]
             lib.mallorn_chol_inv_large.restype = ctypes.c_int
+            lib.mallorn_chol_inv_cluster.argtypes = [p, p, p, i, i, i, p]
+            lib.mallorn_chol_inv_cluster.restype = ctypes.c_int
+            lib.mallorn_chol_cluster.argtypes = [p, p, i, i, i, p]
+            lib.mallorn_chol_cluster.restype = ctypes.c_int
+            lib.mallorn_chol_cluster_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+            lib.mallorn_chol_cluster_occupancy.restype = ctypes.c_int
             lib.mallorn_chol.argtypes = [p, p, i, i, p]
             lib.mallorn_chol.restype = ctypes.c_int
             lib.mallorn_chol_large.argtypes = [p, p, p, i, i, p]

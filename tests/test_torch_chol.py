@@ -136,21 +136,28 @@ def test_gp_features_of_objects_wider_than_the_shared_memory_kernel():
 
 @pytest.mark.cuda
 def test_wide_kernel_matches_plain_on_the_card():
-    """T > MAX_T takes the column loop (Schur complement in a global
-    scratch) at the bars above; a non-positive pivot gives NaN in that
-    matrix only."""
+    """MAX_T < T <= MAX_T_CLUSTER takes the cluster kernel (one launch, 2 or
+    4 CTAs per matrix), T > MAX_T_CLUSTER the column loop (Schur complement
+    in a global scratch), each alone, at the bars above; two launches bit
+    for bit equal; a non-positive pivot gives NaN in that matrix only."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    for t in (336, 400):
+    for t in (336, 344, 400, 512, 800):
         K = torch.from_numpy(_spd(6, t, seed=t, n_pad=t // 8)).cuda()
         K[2, 7, 7] = -1.0
         chol_cuda.reset_launches()
         Linv, ld = chol_inv(K)
+        Linv2, ld2 = chol_inv(K)
         torch.cuda.synchronize()
-        assert chol_cuda.large_launches >= 1 and chol_cuda.launches == 0
+        cluster = t <= chol_cuda.MAX_T_CLUSTER
+        assert chol_cuda.cluster_launches_by_t == ({t: 2} if cluster else {})
+        assert (chol_cuda.large_launches >= 2) != cluster and chol_cuda.launches == 0
+        assert torch.equal(torch.nan_to_num(Linv), torch.nan_to_num(Linv2))
+        assert torch.equal(torch.nan_to_num(ld), torch.nan_to_num(ld2))
         Lp, ldp = chol_inv_plain(K.double())
         ok = [0, 1, 3, 4, 5]
         assert torch.isnan(ld).tolist() == [i == 2 for i in range(6)]
+        assert torch.isnan(Linv).flatten(1).any(1).tolist() == [i == 2 for i in range(6)]
         np.testing.assert_allclose(Linv[ok].cpu().numpy(), Lp[ok].cpu().numpy(),
                                    rtol=5e-5, atol=5e-5)
         np.testing.assert_allclose(ld[ok].cpu().numpy(), ldp[ok].cpu().numpy(),
@@ -231,7 +238,7 @@ def test_blocked_kernel_matches_plain_on_the_card():
         Linv2, ld2 = chol_inv(K)
         torch.cuda.synchronize()
         assert chol_cuda.launches == 2 and chol_cuda.launches_by_t == {t: 2}
-        assert chol_cuda.large_launches == 0
+        assert chol_cuda.large_launches == 0 and chol_cuda.cluster_launches == 0
         assert torch.equal(torch.nan_to_num(Linv), torch.nan_to_num(Linv2))
         assert torch.equal(torch.isnan(ld), torch.isnan(ld2))
         assert torch.equal(torch.nan_to_num(ld), torch.nan_to_num(ld2))
@@ -315,13 +322,14 @@ def test_cholesky_blocked_plain_nan_stays_in_its_matrix():
 
 @pytest.mark.cuda
 def test_cholesky_kernel_matches_plain_on_the_card():
-    """T <= MAX_T (the blocked kernel, counted in ``chol_launches``) and
-    T > MAX_T (the column loop in a global scratch, counted in
-    ``chol_large_launches``) at the bars above; two launches bit for bit
-    equal; a non-positive pivot gives NaN in that matrix only."""
+    """T <= MAX_T (the blocked kernel, counted in ``chol_launches``),
+    MAX_T < T <= MAX_T_CLUSTER (the cluster kernel, ``chol_cluster_launches``)
+    and beyond (the column loop in a global scratch,
+    ``chol_large_launches``), each alone, at the bars above; two launches
+    bit for bit equal; a non-positive pivot gives NaN in that matrix only."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    for t in (24, 160, 256, 320, 400):
+    for t in (24, 160, 256, 320, 400, 512, 800):
         K = torch.from_numpy(_spd(6, t, seed=t, n_pad=t // 8)).cuda()
         K[4, 3, 3] = -1.0
         chol_cuda.reset_launches()
@@ -329,9 +337,12 @@ def test_cholesky_kernel_matches_plain_on_the_card():
         L2 = cholesky(K)
         torch.cuda.synchronize()
         blocked = t <= chol_cuda.MAX_T
+        cluster = chol_cuda.MAX_T < t <= chol_cuda.MAX_T_CLUSTER
         assert chol_cuda.chol_launches == (2 if blocked else 0)
-        assert (chol_cuda.chol_large_launches >= 2) != blocked
+        assert chol_cuda.chol_cluster_launches == (2 if cluster else 0)
+        assert (chol_cuda.chol_large_launches >= 2) != (blocked or cluster)
         assert chol_cuda.launches == 0 and chol_cuda.large_launches == 0
+        assert chol_cuda.cluster_launches == 0
         assert torch.equal(torch.isnan(L), torch.isnan(L2))
         assert torch.equal(torch.nan_to_num(L), torch.nan_to_num(L2))
         ok = [0, 1, 2, 3, 5]
