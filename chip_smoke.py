@@ -48,7 +48,10 @@ Phases, each printing its wall time on its own line:
    (kernel, plain, a one-call ``scatter_add_`` yardstick, the bound; K1's
    and K3's launch alone beside the wrapper); K3 also at its edges (1, 17, 2,443
    rows with a ragged last feature group, an all-inactive lane, NaN and
-   -inf lanes beside finite ones, the segment limit); then the histogram modes' kernels, K5 (int8
+   -inf lanes beside finite ones, the segment limit); K1 also at the
+   runners' fit shapes (the baseline's 5 folds x 127 columns at every node
+   count of depth 6, up to 16; the seed ensemble's 50 lanes x 222 columns
+   at 8 nodes); then the histogram modes' kernels, K5 (int8
    fixed-point digits) bit for bit equal to its plain version and K4 (bf16
    digits) bit for bit equal to its fixed-point twin and within rtol 1e-5 /
    atol 1e-4 of the float64 oracle, at every K1 shape, the ragged one and
@@ -60,7 +63,11 @@ Phases, each printing its wall time on its own line:
    and colsample 0.8, 20 rounds of depth 5) fitted with K1 twice and once
    with the kernel's fixed-point arithmetic in plain PyTorch, and the same
    fixture fitted leaf-wise (8 leaves) with K3 twice and once with its
-   fixed-point arithmetic: each set of forests bit for bit equal;
+   fixed-point arithmetic, then a depth-6 squarederror fit early-stopped
+   on rmse at base_score 0.5 (K1 twice, its fixed-point arithmetic once)
+   and a 31-leaf fit at the baseline's leaf-wise parameters (no L1 / L2,
+   min_child_weight 1e-3; K3 twice, its fixed-point arithmetic once): each
+   set of forests bit for bit equal;
 8. training: the 10,178-object v92d workload of ``.bench_data_v2.npz``
    (``train_v92d``: features of both splits, the top-120 selection CV,
    assembly, adversarial weights, the 5-fold v92d CV, the threshold sweep)
@@ -89,7 +96,22 @@ Phases, each printing its wall time on its own line:
    fixed folds, the blend and its threshold sweep) with the seconds of
    each stage; ensemble OOF F1 must reach 0.637 and v114d's 0.641, K3
    launches must equal 8 x v114d's rounds and K1 launches 5 x the depthwise
-   members' rounds + 3 x the adversarial rounds.
+   members' rounds + 3 x the adversarial rounds;
+11. the runners, each once on its reference's matrix, reusing the
+   training phase's features, selection, adversarial weights and winner
+   and the ensemble phase's research family: ``run_baseline`` (127
+   statistical columns, a depth-6 and a 31-leaf CV), ``run_v34a`` (224
+   columns), and on the 222-column v92d matrix with the adversarial
+   weights ``run_label_smoothing`` (eps 0.05), ``run_distillation`` (the
+   winner's OOF as teacher), ``run_soft_pseudo`` and ``run_pseudo_label``
+   (the winner's test probabilities), ``run_mixup`` (3 seeds),
+   ``run_seed_ensemble`` (10 seeds x 5 folds, 50 lanes in one fit),
+   ``run_easy_ensemble`` (10 models) and ``run_v115`` (+ 11 research
+   columns), then ``ensembles.stack_oof`` over their OOFs and the
+   winner's: each runner's seconds, rounds, OOF and test F1, its K1
+   launches equal to rounds x depth and K3 launches to 31 x the baseline's
+   leaf-wise rounds (0 elsewhere), every output finite; OOF F1 gates v34a
+   0.629 and the seed ensemble 0.633.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -121,9 +143,17 @@ from mallorn_tpu_torch.serving import (SHIFT_FEATURES, V92dServer,
                                        assemble_v34a_matrix, drop_shift_features,
                                        extract_bundle)
 from mallorn_tpu_torch.train.adversarial import ADV_PARAMS
-from mallorn_tpu_torch.train.pipelines import (KAGGLE_ENSEMBLE_WEIGHTS, V114D_PARAMS,
-                                               finite_or_nan, train_kaggle_ensemble,
-                                               train_v92d)
+from mallorn_tpu_torch.train.cv import f1_score, threshold_sweep
+from mallorn_tpu_torch.train.ensembles import stack_oof
+from mallorn_tpu_torch.train.pipelines import (BASELINE_LGBM_PARAMS, BASELINE_PARAMS,
+                                               KAGGLE_ENSEMBLE_WEIGHTS, SOFT_LABEL_PARAMS,
+                                               V114D_PARAMS, finite_or_nan, run_baseline,
+                                               run_distillation, run_easy_ensemble,
+                                               run_label_smoothing, run_mixup,
+                                               run_pseudo_label, run_seed_ensemble,
+                                               run_soft_pseudo, run_v34a, run_v115,
+                                               train_kaggle_ensemble, train_v92d)
+from mallorn_tpu_torch.trees import objectives
 from mallorn_tpu_torch.trees.binning import fit_bins
 from mallorn_tpu_torch.trees.gbdt import (V34A_PARAMS, GBDTParams, predict_margin_models,
                                           train_gbdt)
@@ -158,6 +188,12 @@ HIST_SHAPES = (("selection", 5, 307, 2444, (1, 1, 2, 4, 8)),
                ("adversarial", 5, 222, 8143, (1, 1, 2)),
                ("v92d", 5, 222, 2444, (1, 1, 2, 4, 8)),
                ("kaggle", 25, 224, 2444, (1, 1, 2, 4, 8)))
+# K1 at the runners' new fit shapes: the baseline's depth-6 CV on the 127
+# statistical columns (every node count a depth-6 level builds with
+# subtraction) and the seed ensemble's 10 seeds x 5 folds on the v92d
+# columns at its deepest level
+RUNNER_HIST_SHAPES = (("baseline", 5, 127, 2444, (1, 1, 2, 4, 8, 16)),
+                      ("seed_ensemble", 50, 222, 2444, (8,)))
 # the leaf-wise v114d member's K3 calls: 25 lanes, 222 + 6 columns, the
 # padded fold rows; (name, rows, nodes, share of rows inactive, share of
 # (row, feature) bins moved to the missing bin): the root, a pair of
@@ -174,6 +210,10 @@ F1_GATE = 0.633
 # (tools/probe_kaggle_scale.json: ensemble 0.6743, v114d 0.6781) less the
 # same fold-F1 std
 ENSEMBLE_F1_GATE, V114D_F1_GATE = 0.637, 0.641
+# the runners' gates: v34a, the reference's own v34a OOF F1 (0.6667,
+# BASELINE.md:20) less the same std; the seed ensemble, v92d's model
+# averaged over 10 fold seeds, takes v92d's gate
+V34A_F1_GATE, SEED_ENSEMBLE_F1_GATE = 0.629, F1_GATE
 # a served probability agrees with the training run's when within rtol
 # 1e-4 (atol 1e-4 of the largest); at least this share must (the GP
 # chunk-invariance gate of tests/test_torch_gp.py), and no row may differ
@@ -872,6 +912,53 @@ def check_training_kernel_vs_plain(device) -> None:
     if not (same_k3 and same_plain):
         raise AssertionError("leaf-wise training with K3 and with its plain version disagree")
 
+    # the runners' new fits: a depth-6 squarederror regression on soft
+    # targets early-stopped on rmse at base_score 0.5 (K1 up to 16 nodes),
+    # and a 31-leaf fit without L1 / L2 at min_child_weight 1e-3 (K3 at the
+    # baseline's leaf-wise parameters)
+    ys = np.where(y == 1, 0.95, 0.05).astype(np.float32)
+    ps = SOFT_LABEL_PARAMS._replace(n_rounds=20, learning_rate=0.1)
+
+    def fit_soft(hist_fn):
+        m = train_gbdt(X[:480], ys[:480], ps, objective=objectives.squarederror,
+                       X_val=X[480:], y_val=ys[480:], early_stopping_rounds=5,
+                       device=device, hist_fn=hist_fn)
+        return m.forest, m.best_iteration
+
+    soft = [fit_soft(hist_cuda.build_histograms) for _ in range(2)]
+    plain = fit_soft(hist_cuda.build_histograms_fixed)
+    same_k1 = forests_bits_equal(soft[0][0], soft[1][0]) and soft[0][1] == soft[1][1]
+    same_plain = forests_bits_equal(soft[0][0], plain[0]) and soft[0][1] == plain[1]
+    n_split = int((~soft[0][0].is_leaf & (soft[0][0].split_bin >= 0)).sum())
+    log(f"  squarederror / rmse, depth 6, base_score 0.5: {n_split} splits, best iteration "
+        f"{soft[0][1]}; K1 twice bit for bit equal: {same_k1}; K1 vs its arithmetic in plain "
+        f"PyTorch: forests bit for bit equal {same_plain}")
+    if not (same_k1 and same_plain):
+        raise AssertionError("the squarederror fit with K1 and with the plain histogram disagree")
+    pb = BASELINE_LGBM_PARAMS._replace(n_rounds=10)
+
+    def fit_lg31(seg_fn):
+        return train_gbdt(X, y, pb, scale_pos_weight=spw, device=device,
+                          seg_hist_fn=seg_fn).forest
+
+    k3 = [fit_lg31(hist_cuda.build_seg_histograms) for _ in range(2)]
+    plain = fit_lg31(hist_cuda.build_seg_histograms_fixed)
+    same_k3 = forests_bits_equal(k3[0], k3[1])
+    same_plain = forests_bits_equal(k3[0], plain)
+    n_split = int((~k3[0].is_leaf & (k3[0].split_bin >= 0)).sum())
+    log(f"  leaf-wise, 31 leaves, depth cap 6, reg_lambda 0, min_child_weight 1e-3: "
+        f"{n_split} splits; K3 twice bit for bit equal: {same_k3}; K3 vs its arithmetic in "
+        f"plain PyTorch: forests bit for bit equal {same_plain}")
+    if not (same_k3 and same_plain):
+        raise AssertionError("the 31-leaf fit with K3 and with its plain version disagree")
+
+
+def forests_bits_equal(a, b) -> bool:
+    """Two forests equal field by field, float fields bit for bit (NaN
+    included)."""
+    return all(bits_equal(u, v) if u.dtype == torch.float32 else torch.equal(u, v)
+               for u, v in zip(a, b))
+
 
 def load_split(tag: str, device):
     with np.load(DATA, allow_pickle=False) as z:
@@ -1174,7 +1261,137 @@ def run_ensemble(trained: dict, dev) -> dict:
         f"{V114D_F1_GATE} {'ok' if v114d >= V114D_F1_GATE else 'FAIL'}")
     if r.oof_f1 < ENSEMBLE_F1_GATE or v114d < V114D_F1_GATE:
         raise AssertionError("the ensemble's OOF F1 is below its gate")
-    return {"k1": k1, "k3": k3, "total_s": ens.timings["total"]}
+    return {"k1": k1, "k3": k3, "total_s": ens.timings["total"], "research": ens.research}
+
+
+def fit_rounds(models, lanes: int) -> list:
+    """Rounds each batched fit of ``lanes`` consecutive models ran."""
+    return [max(int(np.isfinite(m.eval_history).sum()) for m in models[i:i + lanes])
+            for i in range(0, len(models), lanes)]
+
+
+def run_runners(trained: dict, ensemble: dict, dev) -> dict:
+    """Every other binary runner once, on its reference's own matrix and
+    weights, reusing the training phase's features, selection, adversarial
+    weights and winner and the ensemble phase's research family: the
+    baseline (its 127 statistical columns), v34a (224 columns), and on the
+    v92d matrix (222 columns, the adversarial weights) v102, v108, v97,
+    v42, v106, v104 (50 lanes in one fit), v93 and v115; then stacking over
+    their OOFs and the winner's. Each runner's seconds, rounds, F1s and K1 /
+    K3 launches, held against rounds x depth (K1) and 31 x rounds (the
+    baseline's K3); gates on v34a's and v104's OOF F1."""
+    out = trained["out"]
+    tr_packed, tr_meta = trained["tr"]
+    te_packed, te_meta = trained["te"]
+    y, y_te = np.asarray(tr_meta.target), np.asarray(te_meta.target)
+    X224, names224 = assemble_v34a_matrix(out.bundles[0], out.selection.selected)
+    X224_te, _ = assemble_v34a_matrix(out.bundles[1], out.selection.selected)
+    X224, X224_te = X224.cpu().numpy(), X224_te.cpu().numpy()
+    keep = [i for i, n in enumerate(names224) if n not in SHIFT_FEATURES]
+    X, X_te = X224[:, keep], X224_te[:, keep]
+    if [names224[i] for i in keep] != out.feature_names:
+        raise AssertionError("the v92d matrix's columns differ from the training run's")
+    w, win = out.adversarial.sample_weights, out.winner
+    res_tr, res_te = ensemble["research"]
+    d5, d6 = V34A_PARAMS.max_depth, SOFT_LABEL_PARAMS.max_depth
+    L = BASELINE_LGBM_PARAMS.max_leaves
+
+    def cv_run(cv, depth, lanes=5):
+        """(OOF probabilities or margins, test ones, OOF F1, threshold, the
+        rounds of each batched fit of ``lanes`` lanes, the K1 and K3
+        predictions) of a CVResult."""
+        rounds = fit_rounds(cv.models, lanes)
+        return cv.oof_preds, cv.test_preds, cv.best_f1, cv.best_threshold, rounds, \
+            depth * sum(rounds), 0
+
+    def baseline():
+        r = run_baseline(tr_packed, tr_meta, te_packed, te_meta, device=dev)
+        rd, rl = r.cv.rounds_run, r.lgbm_cv.rounds_run
+        log(f"  baseline: {len(r.feature_names)} columns; depthwise OOF F1 {r.oof_f1:.4f}, "
+            f"leaf-wise OOF F1 {r.lgbm_cv.best_f1:.4f}; the TEST F1 below is the 50/50 "
+            f"blend's at 0.5; stages (s): "
+            + ", ".join(f"{k}={v:.3f}" for k, v in r.timings.items()))
+        return (r.cv.oof_preds, r.blend_test_preds, r.oof_f1, 0.5, [rd, rl],
+                BASELINE_PARAMS.max_depth * rd, L * rl)
+
+    def v104():
+        rr = {}
+        oof, test, f1s = run_seed_ensemble(X, y, X_te, sample_weight=w, device=dev, rounds=rr)
+        f1, thr = threshold_sweep(y, oof)
+        log("  v104 per seed OOF F1: " + ", ".join(f"{k}:{v:.4f}" for k, v in f1s.items()))
+        return oof, test, f1, thr, [rr["fit"]], d5 * rr["fit"], 0
+
+    def v115():
+        r = run_v115(X224, y, names224, res_tr, X224_te, res_te, adv=out.adversarial,
+                     device=dev)
+        return cv_run(r.winner, d5)
+
+    def v42():
+        cv = run_pseudo_label(X, y, X_te, win.test_preds, sample_weight=w, device=dev)
+        log(f"  v42: {len(cv.oof_preds) - len(y)} pseudo-labelled test rows joined training")
+        return (cv.oof_preds[:len(y)],) + cv_run(cv, d5)[1:]
+
+    runners = {
+        "baseline": baseline,
+        "v34a": lambda: cv_run(run_v34a(tr_packed, tr_meta, te_packed, te_meta,
+                                        bundles=out.bundles, selected=out.selection.selected,
+                                        device=dev).cv, d5),
+        "v102": lambda: cv_run(run_label_smoothing(X, y, X_te, epsilon=0.05, sample_weight=w,
+                                                   device=dev), d6),
+        "v108": lambda: cv_run(run_distillation(X, y, win.oof_preds, X_te, sample_weight=w,
+                                                device=dev), d6),
+        "v97": lambda: cv_run(run_soft_pseudo(X, y, X_te, win.test_preds, sample_weight=w,
+                                              device=dev), d6),
+        "v42": v42,
+        "v106": lambda: cv_run(run_mixup(X, y, X_te, sample_weight=w, device=dev), d6),
+        "v104": v104,
+        "v93": lambda: cv_run(run_easy_ensemble(X, y, X_te, sample_weight=w, device=dev), d5,
+                              lanes=10),
+        "v115": v115,
+    }
+    rows, k1_all, k3_all = {}, 0, 0
+    for name, fn in runners.items():
+        hist_cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        oof, test, f1, thr, rounds, want_k1, want_k3 = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1, k3 = hist_cuda.launches, hist_cuda.seg_launches
+        k1_all, k3_all = k1_all + k1, k3_all + k3
+        test_f1 = f1_score(y_te, np.asarray(test) > thr)
+        log(f"  {name}: {secs:.3f} s; rounds {rounds}; OOF F1 {f1:.4f} @ {thr:.3f}; TEST F1 "
+            f"{test_f1:.4f}; K1 launches {k1} (rounds x depth predicts {want_k1}); K3 "
+            f"launches {k3} (predicted {want_k3})")
+        if k1 != want_k1 or k3 != want_k3 or k1 == 0:
+            raise AssertionError(f"{name}: the histogram launch counts disagree with the "
+                                 f"prediction")
+        if (np.shape(oof) != (len(y),) or np.shape(test) != (len(y_te),)
+                or not (np.isfinite(oof).all() and np.isfinite(test).all())):
+            raise AssertionError(f"{name}: malformed or non-finite outputs")
+        rows[name] = {"s": secs, "rounds": rounds, "oof_f1": f1, "threshold": thr,
+                      "test_f1": test_f1, "k1": k1, "k3": k3, "oof": oof, "test": test}
+    # v93's sweep is in-sample (its "OOF" is the training rows' own
+    # prediction): it does not join the stack
+    stacked = [n for n in rows if n != "v93"]
+    st = stack_oof([win.oof_preds] + [rows[n]["oof"] for n in stacked], y,
+                   [win.test_preds] + [rows[n]["test"] for n in stacked])
+    st_test = f1_score(y_te, st["test_preds"] > st["threshold"])
+    log(f"  stacking (v119) over the v92d winner and {', '.join(stacked)}: OOF F1 "
+        f"{st['best_f1']:.4f} @ {st['threshold']:.3f}; TEST F1 {st_test:.4f}")
+    if not (np.isfinite(st["oof_preds"]).all() and np.isfinite(st["test_preds"]).all()):
+        raise AssertionError("stacking produced non-finite outputs")
+    gates = (("v34a", V34A_F1_GATE), ("v104", SEED_ENSEMBLE_F1_GATE))
+    log("OOF F1 gates: " + "; ".join(
+        f"{n} {rows[n]['oof_f1']:.4f} >= {g} {'ok' if rows[n]['oof_f1'] >= g else 'FAIL'}"
+        for n, g in gates))
+    if any(rows[n]["oof_f1"] < g for n, g in gates):
+        raise AssertionError("a runner's OOF F1 is below its gate")
+    log(f"runners: K1 launches {k1_all}, K3 launches {k3_all}; "
+        + ", ".join(f"{n}={r['s']:.3f}s" for n, r in rows.items()))
+    return {"k1": k1_all, "k3": k3_all,
+            "runners": {n: {k: v for k, v in r.items() if k not in ("oof", "test")}
+                        for n, r in rows.items()}}
 
 
 def main() -> int:
@@ -1351,6 +1568,9 @@ def main() -> int:
                         for i, (fit, K, F, N, nodes) in enumerate(HIST_SHAPES)
                         for k in sorted(set(nodes))]
         check_hist("ragged", 5, 222, 2443, 4, seed=2999, inactive=0.3)
+        runner_hist = [check_hist(fit, K, F, N, k, seed=2500 + 17 * i + k)
+                       for i, (fit, K, F, N, nodes) in enumerate(RUNNER_HIST_SHAPES)
+                       for k in sorted(set(nodes))]
         seg_results = [check_seg_hist(name, SEG_LANES, SEG_F, N, nodes, seed=4000 + i,
                                       inactive=inactive, missing=missing)
                        for i, (name, N, nodes, inactive, missing) in enumerate(SEG_SHAPES)]
@@ -1378,6 +1598,9 @@ def main() -> int:
 
     with Phase("kaggle ensemble"):
         ensemble = run_ensemble(trained, dev)
+
+    with Phase("runners"):
+        runners = run_runners(trained, ensemble, dev)
 
     # K2's rows: the server's GP width (phase 2 and the predict) and the
     # coarse phase's width, each with serving's launches at that width
@@ -1413,6 +1636,8 @@ def main() -> int:
     # the level histogram's rows: the deepest level of the v92d CV, with
     # training's launches, and of the ensemble's 25-lane members, with the
     # ensemble's
+    # (the v92d row also carries the runners phase's launches, and K1 at the
+    # runners' new shapes)
     for name, fit, n_launches in (("hist", "v92d", trained["launches"]),
                                   ("hist_ensemble", "kaggle", ensemble["k1"])):
         r = next(r for r in hist_results if (r["fit"], r["nodes"]) == (fit, 8))
@@ -1426,6 +1651,11 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
         })
+    kernels[-2]["runners_launches"] = runners["k1"]
+    kernels[-2]["runner_shapes"] = [
+        {k: r[k] for k in ("fit", "K", "F", "N", "nodes", "max_abs_err", "ms", "launch_ms",
+                           "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for r in runner_hist]
     # the segment histogram's row: a v114d split step's pair of children
     main_seg = next(r for r in seg_results if r["name"] == "pair")
     kernels.append({
@@ -1438,6 +1668,7 @@ def main() -> int:
         "plain_ms": main_seg["plain_ms"], "bound_ms": main_seg["bound_ms"],
         "bound_by": main_seg["bound_by"], "library_ms": main_seg["library_ms"],
         "shape": [main_seg["K"], main_seg["F"], main_seg["N"], main_seg["n_seg"]],
+        "runners_launches": runners["k3"],
     })
     # the histogram modes' rows: the v92d CV's deepest level, launches from
     # the mode's training run; max_abs_err and plain_ms against the plain

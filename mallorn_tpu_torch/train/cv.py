@@ -15,7 +15,7 @@ folds.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,30 +112,81 @@ def train_cv(X_train: np.ndarray, y: np.ndarray, X_test: Optional[np.ndarray] = 
              sigmoid_outputs: bool = False, n_folds: int = 5,
              early_stopping_rounds: int = 50, seed: int = 42,
              threshold_grid: Optional[np.ndarray] = None,
+             extra_train: Optional[Tuple] = None,
+             y_train_soft: Optional[np.ndarray] = None,
+             train_transform: Optional[Callable] = None,
              device: DeviceLike = None, verbose: bool = False) -> CVResult:
     """Stratified K-fold GBDT with OOF and fold-averaged test predictions.
 
     ``sigmoid_outputs``: a custom objective's raw margins take an explicit
     sigmoid (the built-in logistic objective always reports
     probabilities). The folds are row subsets of X_train, binned from one
-    shared sort and one device gather, and train as one batched fit."""
+    shared sort and one device gather, and train as one batched fit.
+
+    ``extra_train``: ``(X_ext, y_ext[, w_ext])``, rows appended to every
+    fold's training rows (weight 1 when not given) and never validated on;
+    they join the shared parent matrix with their own row indices.
+
+    ``y_train_soft``: float targets for the objective and for the
+    early-stopping metric (the validation rows' soft targets too); the
+    stratification, the fold and OOF F1s and the sweep stay on the hard
+    ``y``.
+
+    ``train_transform``: ``(X_f, y_f, w_f, fold_index) -> (X, y, w)`` on
+    each fold's primary training rows (before ``extra_train`` is
+    appended). A transformed fold carries its own matrices and bins on its
+    own; scale_pos_weight then counts the transformed targets rounded at
+    0.5."""
     dev = resolve_device(device)
     X_parent = np.asarray(X_train, np.float32)
     y = np.asarray(y)
+    y_soft = None if y_train_soft is None else np.asarray(y_train_soft, np.float32)
     splits = stratified_kfold(y, n_folds, seed)
+
+    X_ext = y_ext = w_ext = None
+    if extra_train is not None:
+        X_ext = np.asarray(extra_train[0], np.float32)
+        y_ext = np.asarray(extra_train[1])
+        w_ext = (np.asarray(extra_train[2], np.float32)
+                 if len(extra_train) > 2 and extra_train[2] is not None
+                 else np.ones(len(y_ext), np.float32))
+    n_ext = 0 if X_ext is None else len(X_ext)
+    X_all = X_parent if X_ext is None else np.vstack([X_parent, X_ext])
 
     def fold_spw(yf):
         if not use_scale_pos_weight:
             return 1.0
         return float((yf == 0).sum() / max((yf == 1).sum(), 1))
 
-    folds = [{"y": y[tr], "w": None if sample_weight is None else sample_weight[tr],
-              "y_val": y[va], "spw": fold_spw(y[tr]), "seed": params.seed,
-              "X_parent": X_parent, "tr_idx": tr, "va_idx": va}
-             for tr, va in splits]
+    def fold(k, tr, va):
+        """A fold's training rows (the objective's targets, soft when
+        given; the hard labels only count for scale_pos_weight)."""
+        Xf, yh = None, y[tr]
+        yf = yh if y_soft is None else y_soft[tr]
+        wf = None if sample_weight is None else sample_weight[tr]
+        if train_transform is not None:
+            Xf, yf, wf = train_transform(X_parent[tr], np.asarray(yf, np.float32), wf, k)
+            yh = (np.asarray(yf) >= 0.5).astype(y.dtype)
+        if X_ext is not None:
+            if Xf is not None:
+                Xf = np.vstack([np.asarray(Xf, np.float32), X_ext])
+            yf = np.concatenate([yf, y_ext])
+            yh = np.concatenate([yh, y_ext])
+            wf = np.concatenate([np.ones(len(tr), np.float32) if wf is None else wf, w_ext])
+        f = {"y": yf, "w": wf, "y_val": y[va] if y_soft is None else y_soft[va],
+             "spw": fold_spw(yh), "seed": params.seed}
+        if train_transform is not None:
+            f.update(X=Xf, X_val=X_parent[va])
+        else:
+            f.update(X_parent=X_all, va_idx=va,
+                     tr_idx=tr if X_ext is None else np.concatenate(
+                         [tr, len(y) + np.arange(n_ext)]))
+        return f
+
+    folds = [fold(k, tr, va) for k, (tr, va) in enumerate(splits)]
     models = train_gbdt_folds(
         folds, params, objective=objective, early_stopping_rounds=early_stopping_rounds,
-        pad_rows_to=max(len(tr) for tr, _ in splits),
+        pad_rows_to=max(len(f["y"]) for f in folds),
         pad_val_rows_to=max(len(va) for _, va in splits), device=dev)
 
     use_sigmoid = sigmoid_outputs or objective is None

@@ -86,7 +86,8 @@ class GBDTParams(NamedTuple):
     min_split_gain: float = 1e-6
     seed: int = 42
     base_score: float = 0.0
-    # validation metric for early stopping (the port computes "logloss")
+    # validation metric for early stopping: "logloss" (binary) or "rmse"
+    # (the squarederror runners); the port computes no other
     eval_metric: str = "logloss"
     # build left children only from level 1 on; right = parent - left
     hist_subtract: bool = True
@@ -490,6 +491,17 @@ def _val_logloss(margin_val, yv, vmask):
     return torch.where(vmask, ll, 0.0).sum(dim=1) / den
 
 
+def _val_rmse(margin_val, yv, vmask):
+    """[K] masked validation rmse of the raw margins."""
+    den = vmask.to(torch.float32).sum(dim=1)
+    d = margin_val - yv
+    return torch.sqrt(torch.where(vmask, d * d, 0.0).sum(dim=1) / den)
+
+
+# the validation metric of early stopping per GBDTParams.eval_metric
+VAL_METRICS = {"logloss": _val_logloss, "rmse": _val_rmse}
+
+
 def level_hist_fn(p: GBDTParams) -> HistFn:
     """The depthwise fit's level-histogram wrapper for ``p.hist_dtype``;
     an unknown mode raises."""
@@ -511,8 +523,10 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
     Returns (Forest or LGForest of [K, R, ...] buffers, gains [K, F],
     metrics [K, R] numpy, best-iteration validation margins [K, Nv] numpy
     (NaN when the fit did not early-stop))."""
-    if p.eval_metric != "logloss":
-        raise ValueError(f"eval_metric {p.eval_metric!r}: the port evaluates logloss only")
+    if p.eval_metric not in VAL_METRICS:
+        raise ValueError(f"eval_metric {p.eval_metric!r}: the port evaluates "
+                         f"{tuple(VAL_METRICS)}")
+    val_metric = VAL_METRICS[p.eval_metric]
     if p.grow_policy not in GROW_POLICIES:
         raise ValueError(f"grow_policy {p.grow_policy!r}: the port grows {GROW_POLICIES}")
     mode_fn = level_hist_fn(p)  # an unknown hist_dtype raises in every fit
@@ -589,7 +603,7 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
             new_mv = margin_val + _predict_tree_lossguide(tree, binned_val_T, p.n_bins, lg_steps)
         else:
             new_mv = margin_val + _predict_tree(tree, binned_val_T, p.n_bins, depth + 1)
-        metric = _val_logloss(new_mv, yv, vmask)
+        metric = val_metric(new_mv, yv, vmask)
         margin_val = torch.where(a1, new_mv, margin_val)
         metrics[:, r] = torch.where(active, metric, metrics[:, r])
         if early:

@@ -5,7 +5,8 @@ An objective is ``fn(margin, label, weight) -> (grad, hess)`` on raw
 margins (pre-sigmoid); ``weight`` already holds the per-sample weights
 (the adversarial weights of v92d) times ``scale_pos_weight``. The focal
 loss repeats the reference's custom XGBoost objective algebra term by
-term, so the trees agree.
+term, so the trees agree. ``squarederror`` is the soft-label runners'
+regression objective.
 """
 
 from __future__ import annotations
@@ -53,6 +54,14 @@ def make_focal(gamma: float, alpha: float):
 
     focal.__qualname__ = f"focal_g{gamma}_a{alpha}"
     return focal
+
+
+def squarederror(margin, label, weight):
+    """reg:squarederror: grad = w (margin - y), hess = w. The soft-label
+    runners (v102, v97, v108, v106) regress on float targets with it, at
+    ``GBDTParams(base_score=0.5, eval_metric="rmse")``; their predictions
+    are the raw margins."""
+    return weight * (margin - label), weight * torch.ones_like(margin)
 
 
 def logloss_metric(margin, label):

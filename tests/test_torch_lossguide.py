@@ -64,6 +64,12 @@ CASES = {
                       subsample=0.9, colsample_bytree=0.9, min_child_weight=1.0)),
     "deep_chain": (_chain, dict(n_rounds=8, max_depth=8, max_leaves=15, learning_rate=0.3,
                                 subsample=1.0, colsample_bytree=1.0, min_child_weight=1.0)),
+    # BASELINE_LGBM_PARAMS' regularisation: no L1 / L2 (empty nodes divide
+    # 0 by 0), min_child_weight 1e-3, 31 leaves under a depth cap of 6
+    "baseline_lgbm": (lambda: _make_data(600, 8, 5),
+                      dict(n_rounds=10, max_depth=6, max_leaves=31, learning_rate=0.05,
+                           subsample=0.8, colsample_bytree=0.8, min_child_weight=1e-3,
+                           reg_alpha=0.0, reg_lambda=0.0)),
 }
 
 
