@@ -51,7 +51,11 @@ Phases, each printing its wall time on its own line:
    -inf lanes beside finite ones, the segment limit); K1 also at the
    runners' fit shapes (the baseline's 5 folds x 127 columns at every node
    count of depth 6, up to 16; the seed ensemble's 50 lanes x 222 columns
-   at 8 nodes); then the histogram modes' kernels, K5 (int8
+   at 8 nodes) and at the policies' fit shapes (the symmetric v118 CV's 5
+   folds x 224 columns and the multiclass v62 head's 5 folds x 4 classes
+   = 20 lanes x 224 columns, 1-8 nodes), K3 also at the v110 CV's (5
+   lanes x 224 columns, a 15-leaf step's pair); then the histogram modes'
+   kernels, K5 (int8
    fixed-point digits) bit for bit equal to its plain version and K4 (bf16
    digits) bit for bit equal to its fixed-point twin and within rtol 1e-5 /
    atol 1e-4 of the float64 oracle, at every K1 shape, the ragged one and
@@ -66,8 +70,10 @@ Phases, each printing its wall time on its own line:
    fixed-point arithmetic, then a depth-6 squarederror fit early-stopped
    on rmse at base_score 0.5 (K1 twice, its fixed-point arithmetic once)
    and a 31-leaf fit at the baseline's leaf-wise parameters (no L1 / L2,
-   min_child_weight 1e-3; K3 twice, its fixed-point arithmetic once): each
-   set of forests bit for bit equal;
+   min_child_weight 1e-3; K3 twice, its fixed-point arithmetic once), then
+   a symmetric fit (K1), a leaf-wise DART fit (K3) and a 3-class fit
+   (K1, its classes as lanes), each twice with the kernel and once with
+   its fixed-point arithmetic: each set of forests bit for bit equal;
 8. training: the 10,178-object v92d workload of ``.bench_data_v2.npz``
    (``train_v92d``: features of both splits, the top-120 selection CV,
    assembly, adversarial weights, the 5-fold v92d CV, the threshold sweep)
@@ -111,7 +117,17 @@ Phases, each printing its wall time on its own line:
    winner's: each runner's seconds, rounds, OOF and test F1, its K1
    launches equal to rounds x depth and K3 launches to 31 x the baseline's
    leaf-wise rounds (0 elsewhere), every output finite; OOF F1 gates v34a
-   0.629 and the seed ensemble 0.633.
+   0.629 and the seed ensemble 0.633;
+12. the other tree policies and the multiclass head, on the runners'
+   224-column v34a matrix: the symmetric v118 CV, the leaf-wise v110 CV,
+   its DART twin v111 (all 600 rounds), the v119 stack over the runners'
+   v34a and v110 and v118 (``ensembles.stack_oof``), and v62: the train
+   split regenerated with the port's generator and held column for column
+   against ``.bench_data_v2.npz``, then ``run_v62`` on its spectral types
+   (the 4-class head's OOF accuracy and TDE F1, the final 230-column CV):
+   each run's seconds, rounds, OOF and test F1 (ungated), K1 launches equal
+   to rounds x depth (v118, both v62 CVs) and K3 launches to 15 x rounds
+   (v110, v111), every output finite.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -134,6 +150,7 @@ import torch
 
 from mallorn_tpu_torch.data.packing import (Metadata, pack_lightcurves, pad_time_axes,
                                             unify_time_padding)
+from mallorn_tpu_torch.data.synthetic import generate_dataset
 from mallorn_tpu_torch.features import multiband_gp
 from mallorn_tpu_torch.io.model_store import (GBDTModel, forest_from_numpy, load_cv_models,
                                               save_cv_models)
@@ -143,15 +160,17 @@ from mallorn_tpu_torch.serving import (SHIFT_FEATURES, V92dServer,
                                        assemble_v34a_matrix, drop_shift_features,
                                        extract_bundle)
 from mallorn_tpu_torch.train.adversarial import ADV_PARAMS
-from mallorn_tpu_torch.train.cv import f1_score, threshold_sweep
+from mallorn_tpu_torch.train.cv import f1_score, threshold_sweep, train_cv
 from mallorn_tpu_torch.train.ensembles import stack_oof
 from mallorn_tpu_torch.train.pipelines import (BASELINE_LGBM_PARAMS, BASELINE_PARAMS,
                                                KAGGLE_ENSEMBLE_WEIGHTS, SOFT_LABEL_PARAMS,
-                                               V114D_PARAMS, finite_or_nan, run_baseline,
-                                               run_distillation, run_easy_ensemble,
-                                               run_label_smoothing, run_mixup,
-                                               run_pseudo_label, run_seed_ensemble,
-                                               run_soft_pseudo, run_v34a, run_v115,
+                                               V62_MC_PARAMS, V110_PARAMS, V111_PARAMS,
+                                               V114D_PARAMS, V118_PARAMS, finite_or_nan,
+                                               run_baseline, run_distillation,
+                                               run_easy_ensemble, run_label_smoothing,
+                                               run_mixup, run_pseudo_label,
+                                               run_seed_ensemble, run_soft_pseudo, run_v34a,
+                                               run_v62, run_v115, simplify_spectype,
                                                train_kaggle_ensemble, train_v92d)
 from mallorn_tpu_torch.trees import objectives
 from mallorn_tpu_torch.trees.binning import fit_bins
@@ -194,6 +213,16 @@ HIST_SHAPES = (("selection", 5, 307, 2444, (1, 1, 2, 4, 8)),
 # columns at its deepest level
 RUNNER_HIST_SHAPES = (("baseline", 5, 127, 2444, (1, 1, 2, 4, 8, 16)),
                       ("seed_ensemble", 50, 222, 2444, (8,)))
+# K1 at the policies' fit shapes: the symmetric v118 CV (5 folds, the 224
+# v34a columns) and the multiclass v62 head (5 folds x 4 classes as 20
+# lanes), every node count a depth-5 level builds with subtraction; K3 at
+# the 15-leaf v110 / v111 CVs' pair of children (5 lanes, 224 columns)
+POLICY_HIST_SHAPES = (("symmetric", 5, 224, 2444, (1, 1, 2, 4, 8)),
+                      ("multiclass", 20, 224, 2444, (1, 1, 2, 4, 8)))
+POLICY_SEG_SHAPE = ("v110_pair", 5, 224, 2444, 2)
+# the bench split's generator call (bench.py): its train split regenerated
+# gives v62 the spectral types the npz does not store
+BENCH_SPLITS = dict(n_train=3054, seed=20260816, tde_frac=0.05)
 # the leaf-wise v114d member's K3 calls: 25 lanes, 222 + 6 columns, the
 # padded fold rows; (name, rows, nodes, share of rows inactive, share of
 # (row, feature) bins moved to the missing bin): the root, a pair of
@@ -952,6 +981,37 @@ def check_training_kernel_vs_plain(device) -> None:
     if not (same_k3 and same_plain):
         raise AssertionError("the 31-leaf fit with K3 and with its plain version disagree")
 
+    # the policies' new fits: a symmetric fit (K1, one split per level), a
+    # leaf-wise DART fit (K3; the scaled margins through one batched
+    # product per round) and a 3-class fit (K1 over 3 class lanes)
+    y3 = np.digitize(X[:, 3] - 0.5 * X[:, 11], [-0.5, 0.5]).astype(np.float32)
+    fixtures = (
+        ("symmetric, depth 5", p._replace(grow_policy="symmetric"), y, "hist_fn",
+         hist_cuda.build_histograms, hist_cuda.build_histograms_fixed),
+        ("leaf-wise DART, 8 leaves, drop rate 0.15",
+         p._replace(grow_policy="lossguide", max_leaves=8, dart_rate=0.15), y, "seg_hist_fn",
+         hist_cuda.build_seg_histograms, hist_cuda.build_seg_histograms_fixed),
+        ("3 classes, depth 5", p._replace(num_class=3), y3, "hist_fn",
+         hist_cuda.build_histograms, hist_cuda.build_histograms_fixed))
+    for tag, pp, yy, arg, kernel, plain_fn in fixtures:
+        def fit_p(fn):
+            m = train_gbdt(X[:480], yy[:480], pp, X_val=X[480:], y_val=yy[480:],
+                           early_stopping_rounds=5, device=device, **{arg: fn})
+            return m.forest, m.best_iteration
+
+        runs = [fit_p(kernel) for _ in range(2)]
+        plain = fit_p(plain_fn)
+        same_k = forests_bits_equal(runs[0][0], runs[1][0]) and runs[0][1] == runs[1][1]
+        same_plain = forests_bits_equal(runs[0][0], plain[0]) and runs[0][1] == plain[1]
+        f = runs[0][0]
+        n_split = int((~f.is_leaf & (f.split_bin >= 0)).sum())
+        log(f"  {tag}: forest {tuple(f.feature.shape)}, {n_split} splits, best iteration "
+            f"{runs[0][1]}; kernel twice bit for bit equal: {same_k}; kernel vs its "
+            f"arithmetic in plain PyTorch: forests bit for bit equal {same_plain}")
+        if not (same_k and same_plain):
+            raise AssertionError(f"the {tag} fit with the kernel and with its plain version "
+                                 f"disagree")
+
 
 def forests_bits_equal(a, b) -> bool:
     """Two forests equal field by field, float fields bit for bit (NaN
@@ -1391,7 +1451,124 @@ def run_runners(trained: dict, ensemble: dict, dev) -> dict:
         + ", ".join(f"{n}={r['s']:.3f}s" for n, r in rows.items()))
     return {"k1": k1_all, "k3": k3_all,
             "runners": {n: {k: v for k, v in r.items() if k not in ("oof", "test")}
-                        for n, r in rows.items()}}
+                        for n, r in rows.items()},
+            "v34a": rows["v34a"], "X224": (X224, X224_te, names224)}
+
+
+def regenerate_train_split(device):
+    """The bench split's train half from the port's generator, held column
+    for column (bit for bit) against ``.bench_data_v2.npz``; returns its
+    spectral types."""
+    t0 = time.perf_counter()
+    _, meta, cols = generate_dataset(BENCH_SPLITS["n_train"], seed=BENCH_SPLITS["seed"],
+                                     tde_frac=BENCH_SPLITS["tde_frac"], device=device)
+    got = dict(cols, object_ids=meta.object_ids, z=meta.z, ebv=meta.ebv, target=meta.target)
+    with np.load(DATA, allow_pickle=False) as z:
+        bad = [k for k in ("object_index", "time", "flux", "flux_err", "band", "object_ids",
+                           "z", "ebv", "target")
+               if got[k].shape != z[f"tr_{k}"].shape or not np.array_equal(got[k], z[f"tr_{k}"])]
+    kinds, counts = np.unique(meta.spec_type, return_counts=True)
+    log(f"  regenerated the train split in {time.perf_counter() - t0:.3f} s: "
+        f"{len(meta.z)} objects, {len(cols['time'])} observations; columns differing from "
+        f"the npz: {bad or 'none'}; spectral types "
+        + ", ".join(f"{k} {c}" for k, c in zip(kinds, counts)))
+    if bad:
+        raise AssertionError(f"the regenerated train split differs from the npz in {bad}")
+    return meta.spec_type
+
+
+def run_policies(trained: dict, runners: dict, dev) -> dict:
+    """The other tree policies and the multiclass head, each once on the
+    runners' 224-column v34a matrix: v118 (symmetric), v110 (leaf-wise),
+    v111 (leaf-wise DART, every round), the v119 stack over the runners'
+    v34a and these v110 and v118, and v62 on the regenerated spectral
+    types. Each run's seconds, rounds, F1s and K1 / K3 launches, held
+    against rounds x depth (K1) and 15 x rounds (K3)."""
+    tr_packed, tr_meta = trained["tr"]
+    te_packed, te_meta = trained["te"]
+    y, y_te = np.asarray(tr_meta.target), np.asarray(te_meta.target)
+    X, X_te, names = runners["X224"]
+    L = V110_PARAMS.max_leaves
+
+    def cv(params):
+        r = train_cv(X, y, X_te, params, device=dev)
+        return r.oof_preds, r.test_preds, r.best_f1, r.best_threshold, r
+
+    def v62():
+        spec = regenerate_train_split(dev)
+        r = run_v62(X, y, spec, names, X_te, device=dev)
+        cls_idx = {c: i for i, c in enumerate(r.mc_classes)}
+        y_mc = np.asarray([cls_idx[c] for c in simplify_spectype(spec)])
+        acc = float((r.mc_oof.argmax(axis=1) == y_mc).mean())
+        mc_rounds = fit_rounds(r.mc_models, 5)[0]
+        log(f"  v62: classes {', '.join(map(str, r.mc_classes))}; multiclass head "
+            f"{mc_rounds} rounds, OOF accuracy {acc:.4f}, TDE F1 {r.mc_tde_f1:.4f}; final "
+            f"CV on {len(r.feature_names)} columns")
+        if not (np.isfinite(r.mc_oof).all() and np.isfinite(r.mc_test).all()):
+            raise AssertionError("v62: non-finite class probabilities")
+        rounds = [mc_rounds, r.cv.rounds_run]
+        extra = {"mc_accuracy": acc, "mc_tde_f1": r.mc_tde_f1, "mc_rounds": mc_rounds}
+        return (r.cv.oof_preds, r.cv.test_preds, r.oof_f1, r.threshold, rounds,
+                V62_MC_PARAMS.max_depth * mc_rounds + V34A_PARAMS.max_depth * rounds[1], 0,
+                extra)
+
+    def with_rounds(res, k1_per_round, k3_per_round):
+        oof, test, f1, thr, r = res
+        rounds = r.rounds_run
+        best = [m.best_iteration for m in r.models]
+        q = np.quantile(oof, [0.5, 0.9, 0.99])
+        log(f"    best iterations {best}; OOF probabilities: median {q[0]:.4f}, 90th "
+            f"percentile {q[1]:.4f}, 99th {q[2]:.4f}, max {oof.max():.4f}")
+        return (oof, test, f1, thr, [rounds], k1_per_round * rounds, k3_per_round * rounds,
+                {"best_iterations": best})
+
+    runs = {
+        "v118": lambda: with_rounds(cv(V118_PARAMS), V118_PARAMS.max_depth, 0),
+        "v110": lambda: with_rounds(cv(V110_PARAMS), 0, L),
+        "v111": lambda: with_rounds(cv(V111_PARAMS), 0, L),
+        "v62": v62,
+    }
+    rows, k1_all, k3_all = {}, 0, 0
+    for name, fn in runs.items():
+        hist_cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        oof, test, f1, thr, rounds, want_k1, want_k3, extra = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1, k3 = hist_cuda.launches, hist_cuda.seg_launches
+        k1_all, k3_all = k1_all + k1, k3_all + k3
+        test_f1 = f1_score(y_te, np.asarray(test) > thr)
+        log(f"  {name}: {secs:.3f} s; rounds {rounds}; OOF F1 {f1:.4f} @ {thr:.3f}; TEST F1 "
+            f"{test_f1:.4f}; K1 launches {k1} (predicted {want_k1}); K3 launches {k3} "
+            f"(predicted {want_k3})")
+        if k1 != want_k1 or k3 != want_k3 or k1 + k3 == 0:
+            raise AssertionError(f"{name}: the histogram launch counts disagree with the "
+                                 f"prediction")
+        if (np.shape(oof) != (len(y),) or np.shape(test) != (len(y_te),)
+                or not (np.isfinite(oof).all() and np.isfinite(test).all())):
+            raise AssertionError(f"{name}: malformed or non-finite outputs")
+        rows[name] = {"s": secs, "rounds": rounds, "oof_f1": f1, "threshold": thr,
+                      "test_f1": test_f1, "k1": k1, "k3": k3, "oof": oof, "test": test,
+                      **extra}
+    if rows["v111"]["rounds"] != [V111_PARAMS.n_rounds]:
+        raise AssertionError("v111 (DART) did not run every round")
+    # v119: stacking over the v34a, v110 and v118 CVs (cli/main.py's bases)
+    v34a = runners["v34a"]
+    bases = [v34a, rows["v110"], rows["v118"]]
+    st = stack_oof([b["oof"] for b in bases], y, [b["test"] for b in bases])
+    st_test = f1_score(y_te, st["test_preds"] > st["threshold"])
+    log(f"  v119 stack over v34a ({v34a['oof_f1']:.4f}), v110 ({rows['v110']['oof_f1']:.4f}) "
+        f"and v118 ({rows['v118']['oof_f1']:.4f}): OOF F1 {st['best_f1']:.4f} @ "
+        f"{st['threshold']:.3f}; TEST F1 {st_test:.4f}")
+    if not (np.isfinite(st["oof_preds"]).all() and np.isfinite(st["test_preds"]).all()):
+        raise AssertionError("v119 stacking produced non-finite outputs")
+    rows["v119"] = {"oof_f1": st["best_f1"], "threshold": st["threshold"], "test_f1": st_test}
+    log(f"policies: K1 launches {k1_all}, K3 launches {k3_all}; "
+        + ", ".join(f"{n}={r['s']:.3f}s" for n, r in rows.items() if "s" in r))
+    return {"k1": k1_all, "k3": k3_all,
+            "runs": {n: {k: v for k, v in r.items() if k not in ("oof", "test")}
+                     for n, r in rows.items()}}
 
 
 def main() -> int:
@@ -1571,6 +1748,11 @@ def main() -> int:
         runner_hist = [check_hist(fit, K, F, N, k, seed=2500 + 17 * i + k)
                        for i, (fit, K, F, N, nodes) in enumerate(RUNNER_HIST_SHAPES)
                        for k in sorted(set(nodes))]
+        policy_hist = [check_hist(fit, K, F, N, k, seed=2700 + 17 * i + k)
+                       for i, (fit, K, F, N, nodes) in enumerate(POLICY_HIST_SHAPES)
+                       for k in sorted(set(nodes))]
+        name, K, F, N, nodes = POLICY_SEG_SHAPE
+        policy_seg = check_seg_hist(name, K, F, N, nodes, seed=4100, inactive=0.0, missing=0.0)
         seg_results = [check_seg_hist(name, SEG_LANES, SEG_F, N, nodes, seed=4000 + i,
                                       inactive=inactive, missing=missing)
                        for i, (name, N, nodes, inactive, missing) in enumerate(SEG_SHAPES)]
@@ -1601,6 +1783,9 @@ def main() -> int:
 
     with Phase("runners"):
         runners = run_runners(trained, ensemble, dev)
+
+    with Phase("policies"):
+        policies = run_policies(trained, runners, dev)
 
     # K2's rows: the server's GP width (phase 2 and the predict) and the
     # coarse phase's width, each with serving's launches at that width
@@ -1651,11 +1836,12 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
         })
+    shape_keys = ("fit", "K", "F", "N", "nodes", "max_abs_err", "ms", "launch_ms",
+                  "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels[-2]["runners_launches"] = runners["k1"]
-    kernels[-2]["runner_shapes"] = [
-        {k: r[k] for k in ("fit", "K", "F", "N", "nodes", "max_abs_err", "ms", "launch_ms",
-                           "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for r in runner_hist]
+    kernels[-2]["runner_shapes"] = [{k: r[k] for k in shape_keys} for r in runner_hist]
+    kernels[-2]["policies_launches"] = policies["k1"]
+    kernels[-2]["policy_shapes"] = [{k: r[k] for k in shape_keys} for r in policy_hist]
     # the segment histogram's row: a v114d split step's pair of children
     main_seg = next(r for r in seg_results if r["name"] == "pair")
     kernels.append({
@@ -1669,6 +1855,10 @@ def main() -> int:
         "bound_by": main_seg["bound_by"], "library_ms": main_seg["library_ms"],
         "shape": [main_seg["K"], main_seg["F"], main_seg["N"], main_seg["n_seg"]],
         "runners_launches": runners["k3"],
+        "policies_launches": policies["k3"],
+        "policy_shapes": [{k: policy_seg[k] for k in (
+            "name", "K", "F", "N", "n_seg", "max_abs_err", "ms", "launch_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}],
     })
     # the histogram modes' rows: the v92d CV's deepest level, launches from
     # the mode's training run; max_abs_err and plain_ms against the plain

@@ -62,6 +62,9 @@ def save_model(path, model: GBDTModel) -> Path:
     if isinstance(model.forest, LGForest):
         raise ValueError("the model format has no child pointers: a leaf-wise "
                          "(LGForest) model cannot be saved")
+    if model.params.num_class >= 2:
+        raise ValueError("the model format holds binary forests: a multiclass model "
+                         "cannot be saved")
     path = Path(path)
     if path.suffix != ".npz":
         path = path.with_suffix(".npz")

@@ -5,6 +5,8 @@ Stratified 5-fold with ``random_state=42``; all folds train as one
 batched fit (``train_gbdt_folds``); OOF margins come from the fit itself
 (the best-iteration validation margins), test margins from one batched
 forest pass; an F1-maximising threshold sweep runs on the OOF vector.
+``train_cv_multiclass`` is the K-class multi:softprob CV: OOF and
+fold-averaged test class probabilities.
 
 The machine with the card has no scikit-learn, so the fold assignment is
 a numpy copy of ``StratifiedKFold(shuffle=True)._make_test_folds``: the
@@ -103,6 +105,62 @@ class CVResult:
                 "fp": int(((pred == 1) & (y == 0)).sum()),
                 "fn": int(((pred == 0) & (y == 1)).sum()),
                 "tn": int(((pred == 0) & (y == 0)).sum())}
+
+
+def softmax(m: np.ndarray) -> np.ndarray:
+    """Softmax over the last axis (``exp(m - max) / sum``), in numpy."""
+    e = np.exp(m - m.max(axis=-1, keepdims=True))
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def train_cv_multiclass(X_train: np.ndarray, y_class: np.ndarray,
+                        X_test: Optional[np.ndarray] = None,
+                        params: GBDTParams = GBDTParams(), n_folds: int = 5,
+                        early_stopping_rounds: int = 50, seed: int = 42,
+                        device: DeviceLike = None, verbose: bool = False
+                        ) -> Tuple[np.ndarray, Optional[np.ndarray], List[GBDTModel]]:
+    """K-class multi:softprob CV: stratified K-fold on the class ids, all
+    folds (and their classes, as lanes) in one batched fit early-stopped
+    per fold on mlogloss; the OOF probabilities are the softmax of each
+    fold's best-iteration validation margins (or of an explicit predict),
+    the test probabilities the fold mean of the softmaxes.
+
+    ``params.num_class`` must be >= 2; ``y_class`` holds class ids
+    0..K-1. Returns (oof_probs [N, K], test_probs [N_test, K] or None,
+    models)."""
+    if params.num_class < 2:
+        raise ValueError("params.num_class must be >= 2")
+    dev = resolve_device(device)
+    y_class = np.asarray(y_class)
+    K = params.num_class
+    splits = stratified_kfold(y_class, n_folds, seed)
+    X_parent = np.asarray(X_train, np.float32)
+    folds = [{"y": y_class[tr].astype(np.float32), "w": None,
+              "y_val": y_class[va].astype(np.float32), "spw": 1.0, "seed": params.seed,
+              "X_parent": X_parent, "tr_idx": tr, "va_idx": va} for tr, va in splits]
+    models = train_gbdt_folds(
+        folds, params, early_stopping_rounds=early_stopping_rounds,
+        pad_rows_to=max(len(tr) for tr, _ in splits),
+        pad_val_rows_to=max(len(va) for _, va in splits), device=dev)
+
+    oof = np.zeros((len(y_class), K), np.float64)
+    for model, (_, va) in zip(models, splits):
+        if model.val_margin is not None:
+            m = np.asarray(model.val_margin).T[:len(va)]
+        else:
+            m = predict_margin_models(
+                [model], torch.as_tensor(X_parent[va], device=dev))[0].cpu().numpy()
+        oof[va] = softmax(m)
+    test_probs = None
+    if X_test is not None:
+        tm = predict_margin_models(
+            models, torch.as_tensor(np.asarray(X_test, np.float32), device=dev))
+        test_probs = softmax(tm.cpu().numpy()).mean(axis=0)  # [N_test, K]
+    if verbose:
+        acc = float((oof.argmax(-1) == y_class).mean())
+        print(f"   [mc] OOF accuracy={acc:.4f} "
+              f"best_iters={[m.best_iteration for m in models]}", flush=True)
+    return oof, test_probs, models
 
 
 def train_cv(X_train: np.ndarray, y: np.ndarray, X_test: Optional[np.ndarray] = None,

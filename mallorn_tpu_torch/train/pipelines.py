@@ -24,7 +24,14 @@
   ``run_distillation`` (v108) and ``run_soft_pseudo`` (v97),
   ``run_pseudo_label`` (v42), ``run_mixup`` (v106), ``run_seed_ensemble``
   (v104: 10 seeds x 5 folds as one batched fit), ``run_easy_ensemble``
-  (v93) and ``run_v115``.
+  (v93) and ``run_v115``;
+- the other tree policies' configurations: ``V110_PARAMS`` (leaf-wise,
+  heavily regularised), ``V111_PARAMS`` (its DART twin) and
+  ``V118_PARAMS`` (symmetric trees), which the v119 stack combines with
+  v34a (``train.ensembles.stack_oof``);
+- ``run_v62``: a 4-class multi:softprob head on the simplified spectral
+  type (``simplify_spectype``), whose class probabilities join the
+  features of a final binary CV.
 """
 
 from __future__ import annotations
@@ -46,12 +53,12 @@ from mallorn_tpu_torch.features.base import (FeatureSet, chunked_extract, featur
 from mallorn_tpu_torch.train.adversarial import (ADV_PARAMS, AdversarialResult,
                                                  adversarial_validation)
 from mallorn_tpu_torch.train.cv import (CVResult, f1_score, stratified_kfold,
-                                        threshold_sweep, train_cv)
+                                        threshold_sweep, train_cv, train_cv_multiclass)
 from mallorn_tpu_torch.train.feature_selection import (SelectionResult,
                                                        cached_select_features)
 from mallorn_tpu_torch.trees import objectives
-from mallorn_tpu_torch.trees.gbdt import (V34A_PARAMS, GBDTParams, predict_margin_models,
-                                          train_gbdt_folds)
+from mallorn_tpu_torch.trees.gbdt import (V34A_PARAMS, GBDTModel, GBDTParams,
+                                          predict_margin_models, train_gbdt_folds)
 from mallorn_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # v92d drops these as train/test-shift-prone
@@ -981,3 +988,106 @@ def run_v115(X_train: np.ndarray, y: np.ndarray, feature_names: Sequence[str],
     return run_v92(Xtr, y, names, Xte, params=params,
                    variants={"v92d_baseline_adv": {"gamma": 0.0, "use_scale_pos_weight": True}},
                    adv=adv, device=device, verbose=verbose)
+
+
+# ---------------------------------------------------------------------------
+# the other tree policies (v110, v111, v118) and the multiclass head (v62)
+# ---------------------------------------------------------------------------
+
+# v110 heavily-regularized LightGBM (reference:
+# scripts/train_v110_lgbm_regularized.py:118-139)
+V110_PARAMS = GBDTParams(
+    n_rounds=600, max_depth=4, learning_rate=0.02,
+    subsample=0.5, colsample_bytree=0.4,
+    min_child_weight=1e-3, reg_alpha=5.0, reg_lambda=10.0,
+    grow_policy="lossguide", max_leaves=15,
+)
+
+# v111 LightGBM DART (reference: scripts/train_v111_lgbm_dart.py:114-130:
+# boosting 'dart', drop_rate 0.15 on the v110 shape)
+V111_PARAMS = V110_PARAMS._replace(dart_rate=0.15)
+
+# v118 CatBoost-for-diversity (reference: scripts/train_v118_catboost.py:5-11):
+# symmetric (oblivious) trees, depth 5, l2_leaf_reg ~3, no per-tree column
+# sampling (rsm=1)
+V118_PARAMS = GBDTParams(
+    n_rounds=500, max_depth=5, learning_rate=0.03,
+    subsample=0.8, colsample_bytree=1.0,
+    min_child_weight=1e-3, reg_alpha=0.0, reg_lambda=3.0,
+    grow_policy="symmetric",
+)
+
+# v62 multiclass config (reference:
+# scripts/train_v62_multiclass_ensemble.py:171-186): multi:softprob, depth
+# 5, lr 0.03, mcw 3, alpha 0.3, lambda 1.5, 400 rounds, ES 50; run_v62 sets
+# num_class
+V62_MC_PARAMS = GBDTParams(
+    n_rounds=400, max_depth=5, learning_rate=0.03,
+    subsample=0.8, colsample_bytree=0.8,
+    min_child_weight=3.0, reg_alpha=0.3, reg_lambda=1.5,
+    eval_metric="mlogloss",
+)
+
+
+def simplify_spectype(spec_type: np.ndarray) -> np.ndarray:
+    """7 SpecType classes -> 4 (reference: train_v62:74-85): TDE, AGN,
+    SN_Ia (thermonuclear), SN_CC (II/IIn/Ibc/SLSN core-collapse bucket)."""
+    st = np.asarray(spec_type).astype(str)
+    out = np.full(len(st), "SN_CC", dtype=object)
+    out[st == "TDE"] = "TDE"
+    out[st == "AGN"] = "AGN"
+    out[st == "SN Ia"] = "SN_Ia"
+    return out.astype(str)
+
+
+@dataclasses.dataclass
+class V62Result:
+    cv: CVResult  # final binary classifier on the enhanced features
+    mc_oof: np.ndarray  # [N, K] multiclass OOF probabilities
+    mc_test: Optional[np.ndarray]
+    mc_classes: List[str]
+    mc_tde_f1: float  # TDE detection F1 from the multiclass head alone
+    feature_names: List[str]
+    oof_f1: float
+    threshold: float
+    mc_models: Optional[List[GBDTModel]] = None  # the multiclass head's fold models
+
+
+def run_v62(X_train: np.ndarray, y_binary: np.ndarray, spec_type: np.ndarray,
+            feature_names: Sequence[str], X_test: Optional[np.ndarray] = None,
+            mc_params: GBDTParams = V62_MC_PARAMS, params: GBDTParams = V34A_PARAMS,
+            verbose: bool = False, device: DeviceLike = None) -> V62Result:
+    """v62: a 4-class multi:softprob model over the simplified SpecType,
+    whose class probabilities join the features of a final binary CV
+    (reference: scripts/train_v62_multiclass_ensemble.py): P(TDE), P(AGN),
+    P(SN_Ia), P(SN_CC) and the TDE/AGN and TDE/SN_Ia probability ratios
+    (:245-268). The multiclass head's own TDE F1 sweeps
+    ``linspace(0.01, 0.5, 100)`` (:224-233)."""
+    y_mc_names = simplify_spectype(spec_type)
+    classes = sorted(set(y_mc_names))  # LabelEncoder order (sorted)
+    cls_idx = {c: i for i, c in enumerate(classes)}
+    y_mc = np.asarray([cls_idx[c] for c in y_mc_names], np.int32)
+
+    Xtr = _finite_or_nan(np.asarray(X_train, np.float32))
+    Xte = _finite_or_nan(np.asarray(X_test, np.float32)) if X_test is not None else None
+    mc_oof, mc_test, mc_models = train_cv_multiclass(
+        Xtr, y_mc, Xte, mc_params._replace(num_class=len(classes)), device=device,
+        verbose=verbose)
+
+    ti, ai, si, ci = (cls_idx[c] for c in ("TDE", "AGN", "SN_Ia", "SN_CC"))
+
+    def mc_cols(P):
+        return np.column_stack([P[:, ti], P[:, ai], P[:, si], P[:, ci],
+                                P[:, ti] / (P[:, ai] + 0.001),
+                                P[:, ti] / (P[:, si] + 0.001)]).astype(np.float32)
+
+    mc_f1, _ = threshold_sweep(y_binary, mc_oof[:, ti], np.linspace(0.01, 0.5, 100))
+    mc_names = ["mc_prob_tde", "mc_prob_agn", "mc_prob_sn_ia", "mc_prob_sn_cc",
+                "mc_ratio_tde_agn", "mc_ratio_tde_sn_ia"]
+    X_enh = np.column_stack([Xtr, mc_cols(mc_oof)])
+    X_enh_te = np.column_stack([Xte, mc_cols(mc_test)]) if Xte is not None else None
+    cv = train_cv(X_enh, y_binary, X_enh_te, params, use_scale_pos_weight=True,
+                  device=device, verbose=verbose)
+    return V62Result(cv=cv, mc_oof=mc_oof, mc_test=mc_test, mc_classes=classes,
+                     mc_tde_f1=mc_f1, feature_names=list(feature_names) + mc_names,
+                     oof_f1=cv.best_f1, threshold=cv.best_threshold, mc_models=mc_models)

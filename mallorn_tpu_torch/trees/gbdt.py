@@ -1,8 +1,10 @@
-"""Histogram GBDT (port of ``mallorn_tpu.trees.gbdt``): depthwise and
-leaf-wise training and prediction, every fold of a CV as one batched fit.
+"""Histogram GBDT (port of ``mallorn_tpu.trees.gbdt``): depthwise,
+symmetric and leaf-wise training, DART, multiclass, and prediction, every
+fold of a CV as one batched fit.
 
 A ``Forest`` stacks fixed-shape heap trees: R rounds, I = 2^D - 1
-internal slots, H = 2^(D+1) - 1 heap nodes. Routing follows
+internal slots, H = 2^(D+1) - 1 heap nodes (a multiclass forest holds one
+tree per class and round: [R, C, ...]). Routing follows
 ``_predict_tree``: the missing bin goes to ``default_left``, otherwise a
 row goes left when ``bin <= split_bin``; an early leaf (``is_leaf``) stops
 the row there. An ``LGForest`` (``grow_policy="lossguide"``) stacks
@@ -37,8 +39,23 @@ children's histograms through the Hopper kernel K3
 run as a Python loop over [K, M] state tensors, with no host sync inside
 a tree.
 
-The random bits (round keys, column permutations) are the JAX package's
-own, computed on the host (``utils.prng``) once per fit.
+Symmetric trees (``grow_policy="symmetric"``, CatBoost's oblivious
+trees) grow as depthwise ones, but every node of a level shares one split:
+the (feature, bin, default direction) whose positive gains, summed over
+the level's nodes, are largest.
+
+DART (``dart_rate > 0``, any policy) keeps every tree's contribution to
+every row ([K, R, N]) and a scale per tree; each round drops earlier trees
+at random, fits against the rest, and renormalises. It runs every round
+(no early stop); the final scales are folded into the stored leaves.
+
+Multiclass (``num_class = C >= 2``, XGBoost's multi:softprob, depthwise
+only) grows C trees per round on softmax gradients taken at the round's
+start, so a round's class trees are independent: they grow as extra lanes
+(lane = fold x C + class), one histogram launch per level for all of them.
+
+The random bits (round keys, column permutations, DART's drop draws) are
+the JAX package's own, computed on the host (``utils.prng``) once per fit.
 """
 
 from __future__ import annotations
@@ -61,7 +78,7 @@ Objective = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                      tuple]
 HistFn = Callable[..., torch.Tensor]
 SegHistFn = Callable[..., torch.Tensor]
-GROW_POLICIES = ("depthwise", "lossguide")
+GROW_POLICIES = ("depthwise", "lossguide", "symmetric")
 # the depthwise fit's level-histogram kernel per GBDTParams.hist_dtype
 HIST_DTYPE_FNS = {"i8full": hist_cuda.build_histograms,
                   "bf16": hist_cuda.build_histograms_bf16,
@@ -70,9 +87,8 @@ HIST_DTYPE_FNS = {"i8full": hist_cuda.build_histograms,
 
 
 class GBDTParams(NamedTuple):
-    """The JAX package's ``GBDTParams`` for depthwise and leaf-wise binary
-    training, without its TPU-only knobs (``use_pallas_hist``,
-    ``use_binlane_hist``, ``route``, ``stub_hist``)."""
+    """The JAX package's ``GBDTParams``, without its TPU-only knobs
+    (``use_pallas_hist``, ``use_binlane_hist``, ``route``, ``stub_hist``)."""
 
     n_rounds: int = 500
     max_depth: int = 5
@@ -86,13 +102,15 @@ class GBDTParams(NamedTuple):
     min_split_gain: float = 1e-6
     seed: int = 42
     base_score: float = 0.0
-    # validation metric for early stopping: "logloss" (binary) or "rmse"
-    # (the squarederror runners); the port computes no other
+    # validation metric for early stopping: "logloss" (binary), "rmse"
+    # (the squarederror runners) or "mlogloss" (a fit with num_class >= 2
+    # always uses it); the port computes no other
     eval_metric: str = "logloss"
     # build left children only from level 1 on; right = parent - left
     hist_subtract: bool = True
-    # "depthwise" (XGBoost) or "lossguide" (LightGBM leaf-wise: up to
-    # max_leaves leaves, max_depth the joint depth cap, <= 0 = no cap)
+    # "depthwise" (XGBoost), "lossguide" (LightGBM leaf-wise: up to
+    # max_leaves leaves, max_depth the joint depth cap, <= 0 = no cap) or
+    # "symmetric" (CatBoost oblivious trees: one split per level)
     grow_policy: str = "depthwise"
     max_leaves: int = 31
     # the depthwise level histogram's arithmetic (a leaf-wise fit ignores
@@ -100,6 +118,12 @@ class GBDTParams(NamedTuple):
     # digits (K4, one mode here; the JAX package's two differ only in how
     # the TPU streams the one-hot), "int8" 26-bit fixed-point digits (K5)
     hist_dtype: str = "i8full"
+    # DART: each round drops every earlier tree with this probability
+    # (LightGBM's drop_rate); 0 = plain boosting
+    dart_rate: float = 0.0
+    # C >= 2: multi:softprob over class ids 0..C-1, one tree per class and
+    # round; 0 = binary
+    num_class: int = 0
 
 
 # The v21/v34a/v92 shape (reference: scripts/train_v34a_bazin.py:134-148).
@@ -109,6 +133,7 @@ V34A_PARAMS = GBDTParams(n_rounds=500, max_depth=5, learning_rate=0.025,
 
 
 class Forest(NamedTuple):
+    # a multiclass forest has a class axis after R: [..., R, C, I]
     feature: torch.Tensor  # [..., R, I] int32
     split_bin: torch.Tensor  # [..., R, I] int32
     default_left: torch.Tensor  # [..., R, I] bool
@@ -137,6 +162,7 @@ class GBDTModel(NamedTuple):
     importance_gain: Optional[np.ndarray] = None  # [F] summed split gains
     eval_history: Optional[np.ndarray] = None  # [R] validation metric
     # validation margins at best_iteration, tracked inside an early-stopped fit
+    # ([C, Nv] for a multiclass fit)
     val_margin: Optional[np.ndarray] = None
 
     @property
@@ -201,14 +227,21 @@ def _row_subsample_mask(key: torch.Tensor, row_ids: torch.Tensor,
     return u < torch.tensor(rate, dtype=torch.float32, device=u.device)
 
 
-def _best_splits(hist: torch.Tensor, col_mask: torch.Tensor, p: GBDTParams):
+def _best_splits(hist: torch.Tensor, col_mask: torch.Tensor, p: GBDTParams,
+                 symmetric: bool = False):
     """Best split per (fold, node) from [K, F, C, B+1, 2] histograms.
 
     Returns (gain, feature, bin, default_left, the node's leaf weight,
     g_tot, h_tot), each [K, C]. The node totals are the sums over features
     and bins times 1/F: the JAX package's fit compiles its division by F to
     that product, and fuses the product into the node's denominator h_tot +
-    lambda (``xla_cpu.mul_add``)."""
+    lambda (``xla_cpu.mul_add``).
+
+    ``symmetric``: one split for the whole level, the (feature, bin,
+    default direction) whose positive node gains sum highest (a node's -inf
+    or non-positive gain adds 0; first index on ties), replicated over the
+    nodes with the gain divided by C (so that the nodes' gains sum to the
+    level's total)."""
     K, n_f, n_nodes = hist.shape[:3]
     missing_id = p.n_bins
     dev = hist.device
@@ -238,6 +271,19 @@ def _best_splits(hist: torch.Tensor, col_mask: torch.Tensor, p: GBDTParams):
 
     gain_right = split_gain(cg, ch)  # missing goes right
     gain_left = split_gain(cg + g_miss, ch + h_miss)
+    if symmetric:
+        tot_r = xla_cpu.level_sum(torch.where(gain_right > 0, gain_right, 0.0))  # [K, F, B]
+        tot_l = xla_cpu.level_sum(torch.where(gain_left > 0, gain_left, 0.0))
+        flat = torch.maximum(tot_r, tot_l).reshape(K, -1)
+        idx = torch.argmax(flat, dim=1)  # first index on ties
+        bg = torch.gather(flat, 1, idx[:, None])[:, 0] / n_nodes
+        bdl = torch.gather((tot_l > tot_r).reshape(K, -1), 1, idx[:, None])[:, 0]
+
+        def rep(x):
+            return x[:, None].expand(K, n_nodes)
+
+        bf = torch.div(idx, missing_id, rounding_mode="floor")
+        return rep(bg), rep(bf), rep(idx % missing_id), rep(bdl), leaf, g_tot, h_tot
     gain_fb = torch.maximum(gain_right, gain_left)
     flat = gain_fb.transpose(1, 2).reshape(K, n_nodes, -1)  # [K, C, F*B]
     best_idx = torch.argmax(flat, dim=-1)  # first index on ties
@@ -250,8 +296,9 @@ def _best_splits(hist: torch.Tensor, col_mask: torch.Tensor, p: GBDTParams):
 
 
 def _train_tree(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: torch.Tensor,
-                p: GBDTParams, hist_fn: HistFn):
-    """Grow one depthwise tree per fold.
+                p: GBDTParams, hist_fn: HistFn, symmetric: bool = False):
+    """Grow one depthwise tree per fold (``symmetric``: one oblivious tree,
+    every node of a level on the level's shared split).
 
     binned_T [K, F, N] int16, gh [K, N, 2] float32, col_mask [K, F] bool.
     Returns ((feature, split_bin, default_left, is_leaf, leaf_value), each
@@ -294,9 +341,14 @@ def _train_tree(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: torch.Tensor
         if subtract:
             right = torch.where(prev_split[:, None, :, None, None], prev_hist - hist, 0.0)
             hist = torch.stack([hist, right], dim=3).reshape(K, n_f, n_nodes, n_bins_tot, 2)
-        best_gain, best_f, best_b, best_dl, node_leaf, _, _ = _best_splits(hist, col_mask, p)
+        best_gain, best_f, best_b, best_dl, node_leaf, _, _ = _best_splits(
+            hist, col_mask, p, symmetric)
 
-        make_leaf = best_gain <= p.min_split_gain  # covers -inf / empty nodes
+        if symmetric:
+            # the level's undivided total against min_split_gain
+            make_leaf = best_gain * n_nodes <= p.min_split_gain
+        else:
+            make_leaf = best_gain <= p.min_split_gain  # covers -inf / empty nodes
         if p.hist_subtract and d + 1 < depth:
             prev_hist, prev_split = hist, ~make_leaf
         ids = slice(level_start, level_start + n_nodes)
@@ -475,10 +527,22 @@ def _predict_tree_lossguide(tree, binned_T: torch.Tensor, missing_id: int,
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=16)
-def _round_randomness(seed: int, n_rounds: int, n_features: int, colsample: float):
-    """(k_sub [R, 2] int64, column masks [R, F] bool) of a fit, on the host."""
-    k_sub, k_col = prng.round_subkeys(prng.round_keys(seed, n_rounds))
-    return k_sub.astype(np.int64), prng.column_masks(k_col, n_features, colsample)
+def _round_randomness(seed: int, n_rounds: int, n_features: int, colsample: float,
+                      n_class: int = 0, dart_rate: float = 0.0):
+    """(k_sub [R, 2] int64, column masks [R, F] bool ([R, C, F] with
+    n_class >= 2), DART's drop candidates [R, R] bool or None) of a fit, on
+    the host. A DART round key splits three ways (k_drop, k_sub, k_col), a
+    plain one two; tree t is a drop candidate in round r when
+    ``uniform(k_drop[r], (R,))[t] < dart_rate``."""
+    keys = prng.round_keys(seed, n_rounds)
+    if dart_rate > 0.0:
+        k_drop, k_sub, k_col = prng.round_subkeys(keys, 3)
+        rate = np.float32(dart_rate)
+        drop = np.stack([prng.uniform(k, (n_rounds,)) < rate for k in k_drop])
+    else:
+        (k_sub, k_col), drop = prng.round_subkeys(keys), None
+    return (k_sub.astype(np.int64), prng.column_masks(k_col, n_features, colsample, n_class),
+            drop)
 
 
 def _val_logloss(margin_val, yv, vmask):
@@ -498,8 +562,33 @@ def _val_rmse(margin_val, yv, vmask):
     return torch.sqrt(torch.where(vmask, d * d, 0.0).sum(dim=1) / den)
 
 
+def _val_mlogloss(margin_val, yv, vmask):
+    """[K] masked validation multiclass logloss, -log softmax(margin)[y], of
+    margins [K, C, Nv] and class ids yv [K, Nv]."""
+    den = vmask.to(torch.float32).sum(dim=1)
+    logp = torch.log_softmax(margin_val, dim=1)
+    yk = yv.long()[:, None, :] == torch.arange(margin_val.shape[1], device=yv.device)[:, None]
+    ll = -torch.where(yk, logp, 0.0).sum(dim=1)
+    return torch.where(vmask, ll, 0.0).sum(dim=1) / den
+
+
 # the validation metric of early stopping per GBDTParams.eval_metric
-VAL_METRICS = {"logloss": _val_logloss, "rmse": _val_rmse}
+VAL_METRICS = {"logloss": _val_logloss, "rmse": _val_rmse, "mlogloss": _val_mlogloss}
+
+
+def _softmax_grad_hess(margin, y, w):
+    """multi:softprob's (grad, hess) [K, C, N] of margins [K, C, N], class
+    ids y [K, N] and weights w [K, N]: p = softmax over classes (``exp(m -
+    max) / sum``, the sum in class order), grad = w (p - 1{y = c}), hess =
+    w max(2 p (1 - p), 1e-16)."""
+    e = xla_cpu.exp(margin - margin.max(dim=1, keepdim=True).values)
+    tot = e[:, 0]
+    for c in range(1, e.shape[1]):
+        tot = tot + e[:, c]
+    p = e / tot[:, None]
+    yk = y.long()[:, None, :] == torch.arange(e.shape[1], device=y.device)[:, None]
+    wc = w[:, None]
+    return wc * (p - yk.to(torch.float32)), wc * torch.clamp(2.0 * p * (1.0 - p), min=1e-16)
 
 
 def level_hist_fn(p: GBDTParams) -> HistFn:
@@ -511,62 +600,106 @@ def level_hist_fn(p: GBDTParams) -> HistFn:
     return HIST_DTYPE_FNS[p.hist_dtype]
 
 
-def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[int],
-              p: GBDTParams, objective, early_stop: int, hist_fn: Optional[HistFn],
-              seg_hist_fn: SegHistFn):
-    """K batched fits. binned_T [K, F, N] int16; y, w [K, N] f32; row_ids
-    [K, N]; validation binned_val_T [K, F, Nv], yv [K, Nv], vmask [K, Nv]
-    bool (None without a validation set); seeds [K]. ``hist_fn`` builds a
-    depthwise fit's level histograms (None: ``p.hist_dtype``'s kernel),
-    ``seg_hist_fn`` a leaf-wise fit's.
-
-    Returns (Forest or LGForest of [K, R, ...] buffers, gains [K, F],
-    metrics [K, R] numpy, best-iteration validation margins [K, Nv] numpy
-    (NaN when the fit did not early-stop))."""
+def _check_params(p: GBDTParams) -> None:
+    """Raise on a metric or policy the port does not know, and on the
+    combinations the JAX package refuses."""
     if p.eval_metric not in VAL_METRICS:
         raise ValueError(f"eval_metric {p.eval_metric!r}: the port evaluates "
                          f"{tuple(VAL_METRICS)}")
-    val_metric = VAL_METRICS[p.eval_metric]
     if p.grow_policy not in GROW_POLICIES:
         raise ValueError(f"grow_policy {p.grow_policy!r}: the port grows {GROW_POLICIES}")
-    mode_fn = level_hist_fn(p)  # an unknown hist_dtype raises in every fit
-    hist_fn = hist_fn or mode_fn
-    lossguide = p.grow_policy == "lossguide"
+    if p.num_class >= 2 and (p.grow_policy != "depthwise" or p.dart_rate > 0.0):
+        raise ValueError("num_class >= 2 requires depthwise growth without DART "
+                         "(XGBoost multi:softprob semantics)")
+    if p.eval_metric == "mlogloss" and p.num_class < 2:
+        raise ValueError("eval_metric 'mlogloss' requires num_class >= 2")
+    level_hist_fn(p)  # an unknown hist_dtype raises in every fit
+
+
+def _tree_fns(p: GBDTParams, hist_fn: HistFn, seg_hist_fn: SegHistFn):
+    """(grow, predict, buffers) of ``p.grow_policy``: ``grow(binned_T, gh,
+    col_mask)`` -> (tree, gains [L, F], node [L, N]) over L lanes,
+    ``predict(tree, binned_val_T)`` -> [L, Nv], ``buffers(L, R, dev)`` the
+    empty [L, R, ...] forest of the fit."""
+    if p.grow_policy == "lossguide":
+        M, steps = 2 * p.max_leaves - 1, lossguide_steps(p)
+
+        def buffers(L, R, dev):
+            i32 = dict(dtype=torch.int32, device=dev)
+            return [torch.zeros(L, R, M, **i32), torch.full((L, R, M), -1, **i32),
+                    torch.zeros(L, R, M, dtype=torch.bool, device=dev),
+                    torch.ones(L, R, M, dtype=torch.bool, device=dev),
+                    torch.zeros(L, R, M, **i32), torch.zeros(L, R, M, **i32),
+                    torch.zeros(L, R, M, dtype=torch.float32, device=dev)]
+
+        return (lambda b, gh, cm: _train_tree_lossguide(b, gh, cm, p, seg_hist_fn),
+                lambda t, bv: _predict_tree_lossguide(t, bv, p.n_bins, steps), buffers)
+    symmetric = p.grow_policy == "symmetric"
+    n_int, n_heap = 2 ** p.max_depth - 1, 2 ** (p.max_depth + 1) - 1
+
+    def buffers(L, R, dev):
+        return [torch.zeros(L, R, n_int, dtype=torch.int32, device=dev),
+                torch.full((L, R, n_int), -1, dtype=torch.int32, device=dev),
+                torch.zeros(L, R, n_int, dtype=torch.bool, device=dev),
+                torch.zeros(L, R, n_int, dtype=torch.bool, device=dev),
+                torch.zeros(L, R, n_heap, dtype=torch.float32, device=dev)]
+
+    return (lambda b, gh, cm: _train_tree(b, gh, cm, p, hist_fn, symmetric),
+            lambda t, bv: _predict_tree(t, bv, p.n_bins, p.max_depth + 1), buffers)
+
+
+def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[int],
+              p: GBDTParams, objective, early_stop: int, hist_fn: Optional[HistFn],
+              seg_hist_fn: SegHistFn):
+    """K batched fits. binned_T [K, F, N] int16; y, w [K, N] f32 (class ids
+    in y with num_class >= 2); row_ids [K, N]; validation binned_val_T [K,
+    F, Nv], yv [K, Nv], vmask [K, Nv] bool (None without a validation set);
+    seeds [K]. ``hist_fn`` builds a depthwise or symmetric fit's level
+    histograms (None: ``p.hist_dtype``'s kernel), ``seg_hist_fn`` a
+    leaf-wise fit's.
+
+    Returns (Forest or LGForest of [K, R, ...] buffers ([K, R, C, ...] with
+    C = num_class >= 2), gains [K, F], metrics [K, R] numpy, best-iteration
+    validation margins [K, Nv] ([K, C, Nv]) numpy (NaN when the fit did not
+    early-stop))."""
+    _check_params(p)
+    grow, predict, buffers = _tree_fns(p, hist_fn or level_hist_fn(p), seg_hist_fn)
     K, n_f, n = binned_T.shape
     dev = binned_T.device
-    R, depth = p.n_rounds, p.max_depth
+    R = p.n_rounds
+    C = p.num_class if p.num_class >= 2 else 1
     has_val = binned_val_T is not None
     nv = binned_val_T.shape[2] if has_val else 1
 
-    rand = [_round_randomness(int(s), R, n_f, float(p.colsample_bytree)) for s in seeds]
+    rand = [_round_randomness(int(s), R, n_f, float(p.colsample_bytree), int(p.num_class),
+                              float(p.dart_rate)) for s in seeds]
     k_sub = torch.from_numpy(np.stack([r[0] for r in rand])).to(dev)  # [K, R, 2]
-    col_masks = torch.from_numpy(np.stack([r[1] for r in rand])).to(dev)  # [K, R, F]
+    # [K x C lanes, R, F]: a multiclass lane is (fold, class)
+    col_masks = torch.from_numpy(np.stack([
+        r[1] if C == 1 else r[1].transpose(1, 0, 2) for r in rand]).reshape(K * C, R, n_f)
+    ).to(dev)
+    if p.dart_rate > 0.0:
+        drop = torch.from_numpy(np.stack([r[2] for r in rand])).to(dev)  # [K, R, R]
+        return _fit_dart(binned_T, y, w, row_ids, binned_val_T, yv, vmask, p, objective,
+                         k_sub, col_masks, drop, grow, predict, buffers)
+    if C > 1:
+        # one copy per fit of each fold's bins for its class lanes
+        binned_T = binned_T.repeat_interleave(C, dim=0)
+        if has_val:
+            binned_val_T = binned_val_T.repeat_interleave(C, dim=0)
+    L = K * C
+    val_metric = VAL_METRICS["mlogloss" if C > 1 else p.eval_metric]
 
-    if lossguide:
-        M = 2 * p.max_leaves - 1
-        lg_steps = lossguide_steps(p)
-        i32 = dict(dtype=torch.int32, device=dev)
-        bufs = [torch.zeros(K, R, M, **i32), torch.full((K, R, M), -1, **i32),
-                torch.zeros(K, R, M, dtype=torch.bool, device=dev),
-                torch.ones(K, R, M, dtype=torch.bool, device=dev),
-                torch.zeros(K, R, M, **i32), torch.zeros(K, R, M, **i32),
-                torch.zeros(K, R, M, dtype=torch.float32, device=dev)]
-    else:
-        n_int, n_heap = 2 ** depth - 1, 2 ** (depth + 1) - 1
-        bufs = [torch.zeros(K, R, n_int, dtype=torch.int32, device=dev),
-                torch.full((K, R, n_int), -1, dtype=torch.int32, device=dev),
-                torch.zeros(K, R, n_int, dtype=torch.bool, device=dev),
-                torch.zeros(K, R, n_int, dtype=torch.bool, device=dev),
-                torch.zeros(K, R, n_heap, dtype=torch.float32, device=dev)]
+    bufs = buffers(L, R, dev)
     metrics = torch.full((K, R), torch.inf if has_val else torch.nan, device=dev)
     gain_sum = torch.zeros(K, n_f, dtype=torch.float32, device=dev)
-    margin = torch.full((K, n), p.base_score, dtype=torch.float32, device=dev)
-    margin_val = torch.full((K, nv), p.base_score, dtype=torch.float32, device=dev)
+    margin = torch.full((L, n), p.base_score, dtype=torch.float32, device=dev)
+    margin_val = torch.full((L, nv), p.base_score, dtype=torch.float32, device=dev)
     early = has_val and early_stop > 0
     i = torch.zeros(K, dtype=torch.long, device=dev)
     best_i = torch.zeros(K, dtype=torch.long, device=dev)
     best_m = torch.full((K,), torch.inf, device=dev)
-    best_mv = torch.zeros(K, nv, dtype=torch.float32, device=dev)
+    best_mv = torch.zeros(L, nv, dtype=torch.float32, device=dev)
     stopped = torch.zeros(K, dtype=torch.bool, device=dev)
 
     for r in range(R):
@@ -579,31 +712,32 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
         else:
             active = torch.ones(K, dtype=torch.bool, device=dev)
 
-        grad, hess = objective(margin, y, w)
+        if C > 1:
+            grad, hess = _softmax_grad_hess(margin.view(K, C, n), y, w)
+        else:
+            grad, hess = objective(margin, y, w)
         if p.subsample < 1.0:
+            # one row sample per fold, shared by its class trees
             m = _row_subsample_mask(k_sub[:, r], row_ids, p.subsample)
+            m = m[:, None] if C > 1 else m
             grad = torch.where(m, grad, 0.0)
             hess = torch.where(m, hess, 0.0)
-        gh = torch.stack([grad, hess], dim=-1).contiguous()
-        if lossguide:
-            tree, gains, node = _train_tree_lossguide(binned_T, gh, col_masks[:, r], p,
-                                                      seg_hist_fn)
-        else:
-            tree, gains, node = _train_tree(binned_T, gh, col_masks[:, r], p, hist_fn)
+        gh = torch.stack([grad, hess], dim=-1).reshape(L, n, 2)
+        tree, gains, node = grow(binned_T, gh, col_masks[:, r])
         new_margin = margin + torch.gather(tree[-1], 1, node)
 
-        a1 = active[:, None]
+        a1 = active.repeat_interleave(C)[:, None]
         margin = torch.where(a1, new_margin, margin)
         for buf, t in zip(bufs, tree):
             buf[:, r] = torch.where(a1, t, buf[:, r])
-        gain_sum = torch.where(a1, gain_sum + gains, gain_sum)
+        if C > 1:  # the class trees' gains, added in class order
+            gains = gains.view(K, C, n_f)
+            gains = functools.reduce(torch.add, gains.unbind(1))
+        gain_sum = torch.where(active[:, None], gain_sum + gains, gain_sum)
         if not has_val:
             continue
-        if lossguide:
-            new_mv = margin_val + _predict_tree_lossguide(tree, binned_val_T, p.n_bins, lg_steps)
-        else:
-            new_mv = margin_val + _predict_tree(tree, binned_val_T, p.n_bins, depth + 1)
-        metric = val_metric(new_mv, yv, vmask)
+        new_mv = margin_val + predict(tree, binned_val_T)
+        metric = val_metric(new_mv.view(K, C, nv) if C > 1 else new_mv, yv, vmask)
         margin_val = torch.where(a1, new_mv, margin_val)
         metrics[:, r] = torch.where(active, metric, metrics[:, r])
         if early:
@@ -613,13 +747,67 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
                                   stopped)
             best_m = torch.where(better, metric, best_m)
             best_i = torch.where(better, i, best_i)
-            best_mv = torch.where(better[:, None], new_mv, best_mv)
+            best_mv = torch.where(better.repeat_interleave(C)[:, None], new_mv, best_mv)
             i = torch.where(active, i + 1, i)
 
     if not early:
         best_mv = torch.full_like(best_mv, torch.nan)
-    forest = LGForest(*bufs) if lossguide else Forest(*bufs)
+    if C > 1:  # lanes back to [K, R, C, ...] (and [K, C, Nv])
+        bufs = [b.view(K, C, *b.shape[1:]).transpose(1, 2).contiguous() for b in bufs]
+        best_mv = best_mv.view(K, C, nv)
+    forest = LGForest(*bufs) if p.grow_policy == "lossguide" else Forest(*bufs)
     return forest, gain_sum, metrics.cpu().numpy(), best_mv.cpu().numpy()
+
+
+def _fit_dart(binned_T, y, w, row_ids, binned_val_T, yv, vmask, p: GBDTParams, objective,
+              k_sub, col_masks, drop_cand, grow, predict, buffers):
+    """DART over K lanes (the JAX package's ``_fit_dart``): per-tree
+    contributions c_train [K, R, N] and c_val [K, R, Nv] and a scale per
+    tree [K, R]. Round r drops each earlier tree that ``drop_cand`` [K, R,
+    R] marks, fits against ``keep_scale . c_train + base_score``, then
+    scales the k dropped trees by k / (k + 1) and gives the new tree 1 / (k
+    + 1). Every round runs; the metric is the validation logloss of the
+    full scaled sum; the final scales are folded into the leaves. Returns
+    what ``_fit_impl`` returns, with NaN validation margins."""
+    K, n_f, n = binned_T.shape
+    dev = binned_T.device
+    R = p.n_rounds
+    has_val = binned_val_T is not None
+    nv = binned_val_T.shape[2] if has_val else 1
+    bufs = buffers(K, R, dev)
+    c_train = torch.zeros(K, R, n, dtype=torch.float32, device=dev)
+    c_val = torch.zeros(K, R, nv, dtype=torch.float32, device=dev)
+    scale = torch.zeros(K, R, dtype=torch.float32, device=dev)
+    metrics = torch.full((K, R), torch.nan, device=dev)
+    gain_sum = torch.zeros(K, n_f, dtype=torch.float32, device=dev)
+    for r in range(R):
+        # only trees < r can drop, and only they contribute
+        drop = drop_cand[:, r, :r]
+        k = drop.sum(dim=1).to(torch.float32)[:, None]
+        keep_scale = torch.where(drop, 0.0, scale[:, :r])
+        margin = xla_cpu.scaled_sum(keep_scale, c_train[:, :r]) + p.base_score
+        grad, hess = objective(margin, y, w)
+        if p.subsample < 1.0:
+            m = _row_subsample_mask(k_sub[:, r], row_ids, p.subsample)
+            grad = torch.where(m, grad, 0.0)
+            hess = torch.where(m, hess, 0.0)
+        gh = torch.stack([grad, hess], dim=-1).contiguous()
+        tree, gains, node = grow(binned_T, gh, col_masks[:, r])
+
+        scale[:, :r] = torch.where(drop, scale[:, :r] * k / (k + 1.0), scale[:, :r])
+        scale[:, r] = 1.0 / (k[:, 0] + 1.0)
+        c_train[:, r] = torch.gather(tree[-1], 1, node)
+        for buf, t in zip(bufs, tree):
+            buf[:, r] = t
+        gain_sum = gain_sum + gains
+        if has_val:
+            c_val[:, r] = predict(tree, binned_val_T)
+            full_val = xla_cpu.scaled_sum(scale[:, :r + 1], c_val[:, :r + 1]) + p.base_score
+            metrics[:, r] = _val_logloss(full_val, yv, vmask)
+    bufs[-1] = bufs[-1] * scale[:, :, None]
+    forest = LGForest(*bufs) if p.grow_policy == "lossguide" else Forest(*bufs)
+    best_mv = np.full((K, nv), np.nan, np.float32)
+    return forest, gain_sum, metrics.cpu().numpy(), best_mv
 
 
 def _best_iteration(h: np.ndarray, early_stopping_rounds: Optional[int]) -> int:
@@ -807,7 +995,18 @@ def predict_margin_folds(forest, binned: torch.Tensor,
     ``best_iteration + 1`` truncation). Every tree of every fold routes at
     once, one level at a time, over a [K, N, R] node tensor: ``depth`` + 1
     heap levels of a ``Forest`` (depth = max_depth), ``depth``
-    pointer-chasing steps of an ``LGForest`` (depth = ``lossguide_steps``)."""
+    pointer-chasing steps of an ``LGForest`` (depth = ``lossguide_steps``).
+
+    A multiclass forest ([K, R, C, ...]) routes its classes as lanes and
+    returns [K, N, C]."""
+    if forest.feature.dim() == 4:
+        K, R, C = forest.feature.shape[:3]
+        lanes = type(forest)(*[a.transpose(1, 2).reshape(K * C, R, *a.shape[3:])
+                               for a in forest])
+        b = binned if binned.dim() == 2 else binned.repeat_interleave(C, dim=0)
+        m = predict_margin_folds(lanes, b, n_trees.repeat_interleave(C), missing_id, depth,
+                                 base_score)
+        return m.view(K, C, -1).transpose(1, 2)
     K, R, n_internal = forest.feature.shape
     N = binned.shape[-2]
     dev = binned.device
@@ -843,10 +1042,10 @@ PREDICT_CHUNK = 2048
 
 
 def predict_margin_models(models: Sequence[GBDTModel], X) -> torch.Tensor:
-    """Margins [K, N] of K same-config fold models (depthwise or leaf-wise)
-    on one float matrix [N, F], or on one matrix per fold (a sequence of
-    [N_k, F], padded to the longest with NaN rows), each fold binning with
-    its own edges, in row chunks."""
+    """Margins [K, N] ([K, N, C] for multiclass models) of K same-config
+    fold models on one float matrix [N, F], or on one matrix per fold (a
+    sequence of [N_k, F], padded to the longest with NaN rows), each fold
+    binning with its own edges, in row chunks."""
     p = models[0].params
     forest = stack_forests([m.forest for m in models])
     n_trees = torch.tensor([m.n_trees for m in models])
@@ -863,3 +1062,17 @@ def predict_margin_models(models: Sequence[GBDTModel], X) -> torch.Tensor:
         out.append(predict_margin_folds(forest, binned, n_trees, p.n_bins, depth,
                                         p.base_score))
     return torch.cat(out, dim=1)
+
+
+def predict_proba(model: GBDTModel, X, n_trees: Optional[int] = None) -> torch.Tensor:
+    """[N] sigmoid probabilities, or [N, C] softmax ones for a multiclass
+    model, on a float matrix [N, F]; ``n_trees`` overrides the model's
+    best-iteration truncation."""
+    if n_trees is not None:
+        model = model._replace(best_iteration=n_trees - 1)
+    if not torch.is_tensor(X):
+        X = torch.as_tensor(np.asarray(X, np.float32), device=model.bin_spec.edges.device)
+    m = predict_margin_models([model], X)[0]
+    if model.params.num_class >= 2:
+        return torch.softmax(m, dim=-1)
+    return torch.sigmoid(m)

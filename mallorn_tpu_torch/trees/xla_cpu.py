@@ -22,6 +22,11 @@ so there it adds in XLA:CPU's order and takes XLA:CPU's exp:
   second. Held bit-exact up to 600 rows by tests/test_torch_gbdt_train.py;
   above 768 rows the product's blocking was not pinned down and this order
   is only close;
+- ``level_sum`` (a symmetric level's gains summed over its nodes):
+  sequential over the node axis;
+- ``scaled_sum`` (a DART margin, the scale vector times the per-tree
+  contributions, a [R] . [R, N] product in the JAX package): sequential
+  over trees, each step a fused multiply-add;
 - ``mul_add`` (a * b + c where the JAX package's compiled fit fuses the
   product into the sum: a node's h_tot + lambda, h_tot being the bin sum
   times 1/F): one rounding, as the fused multiply-add that XLA:CPU emits,
@@ -98,6 +103,27 @@ def row_sums(x: torch.Tensor) -> torch.Tensor:
     parts = np.stack([np.cumsum(a[:, s:s + half], axis=1, dtype=np.float32)[:, -1]
                       for s in range(0, n, half)], axis=1)
     return torch.from_numpy(np.cumsum(parts, axis=1, dtype=np.float32)[:, -1])
+
+
+def level_sum(x: torch.Tensor) -> torch.Tensor:
+    """[K, F, C, B] -> [K, F, B]: the sum over nodes."""
+    if x.device.type != "cpu":
+        return x.sum(dim=2)
+    out = x[:, :, 0].clone()
+    for c in range(1, x.shape[2]):
+        out += x[:, :, c]
+    return out
+
+
+def scaled_sum(s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """[K, R] x [K, R, N] -> [K, N]: sum over r of s[:, r] * c[:, r]."""
+    if s.device.type != "cpu":
+        return torch.bmm(s[:, None, :], c)[:, 0]
+    a, b = s.double().numpy(), c.double().numpy()
+    out = np.zeros((c.shape[0], c.shape[2]), np.float32)
+    for r in range(c.shape[1]):
+        out = (a[:, r, None] * b[:, r] + out).astype(np.float32)
+    return torch.from_numpy(out)
 
 
 def mul_add(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:

@@ -17,7 +17,9 @@ the package runs on):
   same way and XORs the two words;
 - ``permutation(key, n)`` is ``_shuffle``: ``ceil(3 ln n / ln(2^32 - 1))``
   rounds of ``key, sub = split(key)`` and a stable sort of the values by
-  ``random_bits(sub, n)``.
+  ``random_bits(sub, n)``;
+- ``uniform(key, shape)`` (float32 on [0, 1)) puts the top 23 of the 32
+  random bits into the mantissa of a float in [1, 2) and subtracts 1.
 
 Everything here runs once per fit on the host; the results go to the
 device as tensors.
@@ -91,21 +93,35 @@ def permutation(key: np.ndarray, n: int) -> np.ndarray:
     return x
 
 
+def uniform(key: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.uniform(key, shape)`` (float32, [0, 1))."""
+    bits = (random_bits(key, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return bits.view(np.float32) - np.float32(1.0)
+
+
 def round_keys(seed: int, n_rounds: int) -> np.ndarray:
     """The fit's per-round keys, ``split(PRNGKey(seed), n_rounds)`` -> [R, 2]."""
     return split(PRNGKey(seed), n_rounds)
 
 
-def round_subkeys(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """``k_sub, k_col = split(rkey)`` for every round key [R, 2] -> two [R, 2]."""
-    pairs = np.stack([split(k) for k in keys])  # [R, 2, 2]
-    return pairs[:, 0], pairs[:, 1]
+def round_subkeys(keys: np.ndarray, num: int = 2) -> Tuple[np.ndarray, ...]:
+    """``split(rkey, num)`` for every round key [R, 2] -> ``num`` [R, 2]
+    arrays: ``k_sub, k_col`` of a boosted fit (``num=2``), ``k_drop, k_sub,
+    k_col`` of a DART fit (``num=3``)."""
+    parts = np.stack([split(k, num) for k in keys])  # [R, num, 2]
+    return tuple(parts[:, i] for i in range(num))
 
 
-def column_masks(k_col: np.ndarray, n_features: int, colsample: float) -> np.ndarray:
+def column_masks(k_col: np.ndarray, n_features: int, colsample: float,
+                 n_class: int = 0) -> np.ndarray:
     """[R, F] bool per-round column samples: the first
     ``max(1, round(colsample * F))`` entries of ``permutation(k_col[r], F)``
-    (all True when ``colsample >= 1``)."""
+    (all True when ``colsample >= 1``). With ``n_class >= 2``, one sample
+    per class tree from ``split(k_col[r], n_class)``: [R, n_class, F]."""
+    if n_class >= 2:
+        per_class = np.stack([split(k, n_class) for k in k_col], axis=1)  # [C, R, 2]
+        return np.stack([column_masks(kc, n_features, colsample) for kc in per_class],
+                        axis=1)
     R = len(k_col)
     if colsample >= 1.0:
         return np.ones((R, n_features), bool)

@@ -164,4 +164,7 @@ def test_leaf_budget_and_kernel_counts():
 def test_unknown_grow_policy_raises():
     X, y = _make_data(64, 8)
     with pytest.raises(ValueError, match="grow_policy"):
-        T.train_gbdt(X, y, T.GBDTParams(n_rounds=2, grow_policy="symmetric"), device="cpu")
+        T.train_gbdt(X, y, T.GBDTParams(n_rounds=2, grow_policy="leafwise"), device="cpu")
+    with pytest.raises(ValueError, match="num_class"):  # multiclass grows depthwise only
+        T.train_gbdt(X, y, T.GBDTParams(n_rounds=2, grow_policy="lossguide", num_class=2),
+                     device="cpu")

@@ -93,14 +93,19 @@ def test_squarederror_rmse_fit_matches_jax(case):
 
 
 @pytest.mark.parametrize("bad", [dict(eval_metric="auc"), dict(eval_metric="mlogloss"),
-                                 dict(grow_policy="symmetric")])
+                                 dict(grow_policy="oblivious")])
 def test_unsupported_metric_and_policies_raise(bad):
+    """An unknown metric or policy raises, as does mlogloss on a binary
+    fit; so does multiclass with a leaf-wise, symmetric or DART fit."""
     X, y = _binary_data(60, 4, seed=2)
     with pytest.raises(ValueError):
         TG.train_gbdt(X, y, TG.GBDTParams(n_rounds=2, max_depth=2, **bad), X_val=X, y_val=y,
                       device="cpu")
-    with pytest.raises(TypeError):  # the port has no DART field
-        TG.GBDTParams(dart_rate=0.15)
+    for mc in (dict(grow_policy="lossguide"), dict(grow_policy="symmetric"),
+               dict(dart_rate=0.15)):
+        with pytest.raises(ValueError, match="num_class"):
+            TG.train_gbdt(X, y, TG.GBDTParams(n_rounds=2, max_depth=2, num_class=2, **mc),
+                          device="cpu")
 
 
 def _hook(name, X, y, Xte):
