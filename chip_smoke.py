@@ -14,18 +14,20 @@ Phases, each printing its wall time on its own line:
    B=64, T=256/320; the cluster kernel (320 < T <= 784) at B=64,
    T=336/400/512 and the widest width of each cluster size (432, 576,
    784), at B=2048, T=400 (the XL server's width) and a ragged B=63,
-   T=344; the column loop beyond (B=8, T=800); a non-SPD matrix giving NaN
-   in that matrix only (T=64/72/184/240/256/288/320, 400/512/784 on the
-   cluster kernel, 800), each width on its own kernel alone (launch
+   T=344; the tiled kernel beyond (T > 784) at B=8, T=800, B=64 and 512,
+   T=1024 (the XXL server's width and batch) and a ragged B=63, T=1000,
+   with its launches per call; a non-SPD matrix giving NaN in that matrix
+   only (T=64/72/184/240/256/288/320, 400/512/784 on the cluster kernel,
+   800/1024 on the tiled one), each width on its own kernel alone (launch
    counters), and times (kernel, plain, a two-call library yardstick, the
    roofline bound); one GP Adam step (``gp.batched_nll_grad``) at B=2048,
    T=64/160 split into the kernel matrix, K2, ``Linv^T Linv`` and the rest;
    the factor-only Cholesky kernel (K6, the same kernels without the
    inverse) against its plain version at B=2048, T=64/160/192/240 and B=64,
-   T=256/320 (blocked), B=64, T=400/512 (cluster) and B=8, T=800 (column
-   loop) (rtol / atol 2e-5, upper triangle exactly 0, two launches bit for
-   bit equal), a non-SPD matrix giving NaN in that matrix only
-   (T=64/320/400/512/800), the same dispatch by width, and its times
+   T=256/320 (blocked), B=64, T=400/512 (cluster) and B=8, T=800 and B=64,
+   T=1024 (tiled) (rtol / atol 2e-5, upper triangle exactly 0, two
+   launches bit for bit equal), a non-SPD matrix giving NaN in that matrix
+   only (T=64/320/400/512/800), the same dispatch by width, and its times
    (library: ``cholesky_ex``);
 4. serving: the 7,124-object test split of ``.bench_data_v2.npz`` through
    ``V92dServer`` at full v92d width (5 folds x 500 trees of depth 5 over
@@ -95,7 +97,9 @@ Phases, each printing its wall time on its own line:
    384-thread instantiation, one launch per GP step) serves the first
    request, held to the same gate; and a server built for objects of up
    to 400 points (the cluster K2, 18 launches at T = 400) serves it too,
-   with its wall time and objects/s;
+   with its wall time and objects/s, and a server built for objects of up
+   to 1,024 points (the tiled K2, 18 calls at T = 1024) serves the
+   request's first 512 objects, held to the same gate;
 10. the shipped Kaggle ensemble (``train_kaggle_ensemble``: the training
    phase's features and selection, the research family of both splits,
    adversarial weights, v92d, v34a and the leaf-wise v114d at 5 seeds x 5
@@ -251,6 +255,9 @@ V34A_F1_GATE, SEED_ENSEMBLE_F1_GATE = 0.629, F1_GATE
 SERVE_RTOL, SERVE_SHARE, SERVE_MAX_DP = 1e-4, 0.97, 0.15
 WIDE_T = 256  # the wide server's GP width (> 240: K2's 384-thread instantiation)
 XL_T = 400  # the XL server's GP width (> 320: K2's cluster kernel, 2 CTAs per matrix)
+# the XXL server's GP width (> 784: K2's tiled kernel) and the objects it
+# serves (one [512, 1024, 1024] float32 tensor is 2 GiB)
+XXL_T, XXL_OBJECTS = 1024, 512
 # the factor-only Cholesky (K6): the bars of tests/test_chol_pallas.py:19
 CHOL_TOL = (2e-5, 2e-5)
 # the histogram modes run through the training path, in this order, and
@@ -368,7 +375,7 @@ def check_kernel(B: int, T: int, seed: int) -> dict:
         Li = torch.linalg.solve_triangular(L, eye, upper=False)
         return Li, 2.0 * torch.log(torch.diagonal(L, dim1=1, dim2=2)).sum(1)
 
-    ms = cuda_ms(lambda: chol_cuda.chol_inv(K), reps=20 if T <= chol_cuda.MAX_T_CLUSTER else 5)
+    ms = cuda_ms(lambda: chol_cuda.chol_inv(K), reps=20)
     plain_ms = cuda_ms(lambda: chol_cuda.chol_inv_plain(K), reps=2, warmup=1)
     library_ms = cuda_ms(library, reps=10)
     # K's lower triangle in (all the kernel reads), Linv and logdet out
@@ -461,7 +468,7 @@ def check_cholesky(B: int, T: int, seed: int) -> dict:
     if not (repeat_equal and upper_zero) or not all(ok for _, _, ok in rows.values()):
         raise AssertionError(f"K6 {tag} failed its checks")
 
-    ms = cuda_ms(lambda: chol_cuda.cholesky(K), reps=20 if T <= chol_cuda.MAX_T_CLUSTER else 5)
+    ms = cuda_ms(lambda: chol_cuda.cholesky(K), reps=20)
     plain_ms = cuda_ms(lambda: chol_cuda.cholesky_plain(K), reps=2, warmup=1)
     library_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(K), reps=10)
     # K's lower triangle in, L out; T^3/3 flops per matrix
@@ -1246,7 +1253,7 @@ def serve_trained(trained: dict, dev) -> dict:
     share_w = agreement(pw, p[s:e])
     log(f"wide server (GP width {WIDE_T}): {e - s} objects in {wall_w:.3f} s; chol_inv "
         f"launches by width {by_t_w} (predicted {want_wide} at {WIDE_T}, the rest the "
-        f"coarse phase), column loop {large} (predicted 0); {share_w:.4f} of rows within "
+        f"coarse phase), tiled {large} (predicted 0); {share_w:.4f} of rows within "
         f"rtol {SERVE_RTOL:g} of the width-{gp_tc} server's (needs {SERVE_SHARE})")
     if (by_t_w.get(WIDE_T, 0) != want_wide or large or share_w < SERVE_SHARE
             or not np.isfinite(pw).all()):
@@ -1269,14 +1276,41 @@ def serve_trained(trained: dict, dev) -> dict:
     log(f"XL server (GP width {XL_T}): {e - s} objects in {wall_x:.3f} s, "
         f"{(e - s) / wall_x:.1f} objects/s")
     log(f"  XL server: cluster K2 launches by width {cluster_x} (predicted {want_wide} at "
-        f"{XL_T}), blocked {blocked_x} (the coarse phase; none predicted at {XL_T}), column "
-        f"loop {large} (predicted 0); {share_x:.4f} of rows within rtol {SERVE_RTOL:g} of the "
+        f"{XL_T}), blocked {blocked_x} (the coarse phase; none predicted at {XL_T}), tiled "
+        f"{large} (predicted 0); {share_x:.4f} of rows within rtol {SERVE_RTOL:g} of the "
         f"width-{gp_tc} server's (needs {SERVE_SHARE})")
     if (cluster_x.get(XL_T, 0) != want_wide or blocked_x.get(XL_T, 0) or large
             or share_x < SERVE_SHARE or not np.isfinite(px).all()):
         raise AssertionError("the XL server failed its checks")
+
+    # a server built for objects of up to XXL_T points (the tiled K2), the
+    # request's first XXL_OBJECTS objects packed to that width
+    xxl = V92dServer(models, man["feature_names"], out.selection.selected,
+                     gp_steps=GP_STEPS, gp_t_compact=XXL_T, gp_two_phase=gp_two_phase,
+                     device=dev)
+    e = s + XXL_OBJECTS
+    raw = te_packed.map(lambda x: x[s:e])
+    sub = pad_time_axes(raw, raw.band_time.shape[-1], XXL_T)
+    chol_cuda.reset_launches()
+    t0 = time.perf_counter()
+    pxx = xxl(sub, zz[s:e], ebv[s:e]).cpu().numpy()
+    wall_xx = time.perf_counter() - t0
+    tiled_xx = dict(chol_cuda.large_launches_by_t)
+    other_xx = (chol_cuda.launches_by_t.get(XXL_T, 0)
+                + chol_cuda.cluster_launches_by_t.get(XXL_T, 0))
+    share_xx = agreement(pxx, p[s:e])
+    log(f"XXL server (GP width {XXL_T}): {e - s} objects in {wall_xx:.3f} s, "
+        f"{(e - s) / wall_xx:.1f} objects/s")
+    log(f"  XXL server: tiled K2 calls by width {tiled_xx} (predicted {want_wide} at {XXL_T}, "
+        f"{chol_cuda.tiled_plan(XXL_T)[2]} kernel launches each), blocked or cluster launches "
+        f"at {XXL_T}: {other_xx} (predicted 0; blocked {dict(chol_cuda.launches_by_t)} is the "
+        f"coarse phase); {share_xx:.4f} of rows within rtol {SERVE_RTOL:g} of the "
+        f"width-{gp_tc} server's (needs {SERVE_SHARE})")
+    if (tiled_xx != {XXL_T: want_wide} or other_xx or share_xx < SERVE_SHARE
+            or not np.isfinite(pxx).all()):
+        raise AssertionError("the XXL server failed its checks")
     return {"wide_launches": by_t_w[WIDE_T], "xl_launches": cluster_x[XL_T],
-            "objects_per_s": n / wall}
+            "xxl_launches": tiled_xx[XXL_T], "objects_per_s": n / wall}
 
 
 def run_ensemble(trained: dict, dev) -> dict:
@@ -1614,8 +1648,8 @@ def main() -> int:
         for T in (256, 288, 320):
             check_non_spd(T)
         log(f"  T <= {chol_cuda.MAX_T}: blocked launches by width "
-            f"{dict(chol_cuda.launches_by_t)}, cluster {chol_cuda.cluster_launches}, column "
-            f"loop {chol_cuda.large_launches}")
+            f"{dict(chol_cuda.launches_by_t)}, cluster {chol_cuda.cluster_launches}, tiled "
+            f"{chol_cuda.large_launches}")
         if chol_cuda.large_launches or chol_cuda.cluster_launches or not chol_cuda.launches:
             raise AssertionError(f"T <= {chol_cuda.MAX_T} took another kernel than the blocked")
         # the cluster kernel (MAX_T < T <= MAX_T_CLUSTER), never another
@@ -1631,21 +1665,29 @@ def main() -> int:
             check_non_spd(T)
         by_c = dict(chol_cuda.cluster_launches_by_t)
         log(f"  {chol_cuda.MAX_T} < T <= {chol_cuda.MAX_T_CLUSTER}: cluster launches by width "
-            f"{by_c}, blocked {chol_cuda.launches}, column loop {chol_cuda.large_launches}")
+            f"{by_c}, blocked {chol_cuda.launches}, tiled {chol_cuda.large_launches}")
         if (chol_cuda.launches or chol_cuda.large_launches
                 or set(by_c) != {r["T"] for r in cluster_results}):
             raise AssertionError(f"{chol_cuda.MAX_T} < T <= {chol_cuda.MAX_T_CLUSTER} did not "
                                  f"take the cluster kernel alone")
-        # the column loop beyond MAX_T_CLUSTER: its launches in this phase
-        # are its row's count (no path of the port reaches it)
+        # the tiled kernel beyond MAX_T_CLUSTER, never another: B = 8,
+        # T = 800 (the column loop's row before it), the XXL server's width
+        # at two batches (its own, 512) and a width not a multiple of 64
         chol_cuda.reset_launches()
-        loop_results = [check_kernel(8, 800, seed=3800)]
-        check_non_spd(800)
-        k2_loop_launches = chol_cuda.large_launches
-        log(f"  T > {chol_cuda.MAX_T_CLUSTER}: column loop {k2_loop_launches}, cluster "
-            f"{chol_cuda.cluster_launches}, blocked {chol_cuda.launches}")
-        if chol_cuda.launches or chol_cuda.cluster_launches or not k2_loop_launches:
-            raise AssertionError(f"T > {chol_cuda.MAX_T_CLUSTER} did not take the column loop "
+        torch.cuda.reset_peak_memory_stats()
+        tiled_results = [check_kernel(B, T, seed=seed) for B, T, seed in (
+            (8, 800, 3800), (64, XXL_T, 4088), (XXL_OBJECTS, XXL_T, 4536), (63, 1000, 4063))]
+        for T in (800, XXL_T):
+            check_non_spd(T)
+        by_l = dict(chol_cuda.large_launches_by_t)
+        log(f"  T > {chol_cuda.MAX_T_CLUSTER}: tiled calls by width {by_l} ("
+            + ", ".join(f"{chol_cuda.tiled_plan(T)[2]} kernel launches per call at T = {T}"
+                        for T in sorted(by_l))
+            + f"), cluster {chol_cuda.cluster_launches}, blocked {chol_cuda.launches}; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if (chol_cuda.launches or chol_cuda.cluster_launches
+                or set(by_l) != {r["T"] for r in tiled_results}):
+            raise AssertionError(f"T > {chol_cuda.MAX_T_CLUSTER} did not take the tiled kernel "
                                  f"alone")
         # K6: its launches in this phase (checks and timing) are its rows'
         # counts: no path of the port calls it
@@ -1667,15 +1709,18 @@ def main() -> int:
         if chol_cuda.chol_launches or chol_cuda.chol_large_launches or not k6_cluster_launches:
             raise AssertionError("K6 at T = 400 / 512 did not take the cluster kernel alone")
         chol_cuda.reset_launches()
-        chol_loop = check_cholesky(8, 800, seed=5800)
+        chol_tiled_results = [check_cholesky(B, T, seed=seed)
+                              for B, T, seed in ((8, 800, 5800), (64, XXL_T, 6088))]
         check_cholesky_non_spd(800)
-        k6_loop_launches = chol_cuda.chol_large_launches
+        k6_tiled_calls = chol_cuda.chol_large_launches
         log(f"  K6 launches: blocked {k6_launches} (T <= {chol_cuda.MAX_T}), cluster "
-            f"{k6_cluster_launches} (T = 400 / 512), column loop {k6_loop_launches} (T = 800; "
-            f"blocked {chol_cuda.chol_launches}, cluster {chol_cuda.chol_cluster_launches})")
-        if chol_cuda.chol_launches or chol_cuda.chol_cluster_launches or not k6_loop_launches:
-            raise AssertionError(f"K6 at T > {chol_cuda.MAX_T_CLUSTER} did not take the column "
-                                 f"loop alone")
+            f"{k6_cluster_launches} (T = 400 / 512), tiled {k6_tiled_calls} calls (T = 800 / "
+            f"{XXL_T}; {chol_cuda.tiled_plan(800, False)[2]} / "
+            f"{chol_cuda.tiled_plan(XXL_T, False)[2]} kernel launches per call; blocked "
+            f"{chol_cuda.chol_launches}, cluster {chol_cuda.chol_cluster_launches})")
+        if chol_cuda.chol_launches or chol_cuda.chol_cluster_launches or not k6_tiled_calls:
+            raise AssertionError(f"K6 at T > {chol_cuda.MAX_T_CLUSTER} did not take the tiled "
+                                 f"kernel alone")
 
     with Phase("serving data + model"):
         packed, zz, ebv = load_test_split(dev)
@@ -1800,15 +1845,17 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [REQUEST, width, width],
         })
-    # K2 beyond 240: the blocked kernel at the wide server's width and the
-    # cluster kernel at the XL server's, each with its server's launches,
-    # and the column loop (T > 784) with this phase's
+    # K2 beyond 240: the blocked kernel at the wide server's width, the
+    # cluster kernel at the XL server's and the tiled kernel at the XXL
+    # server's, each with its server's launches (the tiled kernel's count
+    # calls, each of tiled_plan(T)[2] kernel launches)
     main_wide = next(r for r in wide_results if (r["B"], r["T"]) == (REQUEST, WIDE_T))
     main_xl = next(r for r in cluster_results if (r["B"], r["T"]) == (REQUEST, XL_T))
+    main_xxl = next(r for r in tiled_results if (r["B"], r["T"]) == (XXL_OBJECTS, XXL_T))
     for name, source, r, n_launches in (
             ("chol_inv_wide_server", "chol_inv_blocked.cu", main_wide, served["wide_launches"]),
             ("chol_inv_cluster", "chol_inv_cluster.cu", main_xl, served["xl_launches"]),
-            ("chol_inv_column_loop", "chol_inv.cu", loop_results[0], k2_loop_launches)):
+            ("chol_inv_tiled", "chol_tiled.cu", main_xxl, served["xxl_launches"])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mallorn_tpu_torch/csrc/{source}",
@@ -1818,6 +1865,14 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["B"], r["T"], r["T"]],
         })
+    # the tiled kernel's other shapes, and its kernel launches per call
+    tiled_keys = ("B", "T", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")
+    kernels[-1]["kernel_launches_per_call"] = chol_cuda.tiled_plan(XXL_T)[2]
+    kernels[-1]["kernel_phase_calls"] = by_l
+    kernels[-1]["shapes"] = [dict({k: r[k] for k in tiled_keys},
+                                  kernel_launches_per_call=chol_cuda.tiled_plan(r["T"])[2])
+                             for r in tiled_results]
     # the level histogram's rows: the deepest level of the v92d CV, with
     # training's launches, and of the ensemble's 25-lane members, with the
     # ensemble's
@@ -1879,13 +1934,13 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
         })
     # the factor-only Cholesky's rows: the blocked kernel at the GP's batch
-    # and T = 160, the cluster kernel at B = 64, T = 400, the column loop at
-    # B = 8, T = 800
+    # and T = 160, the cluster kernel at B = 64, T = 400, the tiled kernel at
+    # B = 64, T = 1024
     main_chol = next(r for r in chol_results if (r["B"], r["T"]) == (2048, 160))
     for name, source, r, n_launches in (
             ("chol", "chol_inv_blocked.cu", main_chol, k6_launches),
             ("chol_cluster", "chol_inv_cluster.cu", chol_cluster_results[0], k6_cluster_launches),
-            ("chol_column_loop", "chol_inv.cu", chol_loop, k6_loop_launches)):
+            ("chol_tiled", "chol_tiled.cu", chol_tiled_results[1], k6_tiled_calls)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mallorn_tpu_torch/csrc/{source}",
@@ -1895,6 +1950,10 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["B"], r["T"], r["T"]],
         })
+    kernels[-1]["kernel_launches_per_call"] = chol_cuda.tiled_plan(XXL_T, False)[2]
+    kernels[-1]["shapes"] = [dict({k: r[k] for k in tiled_keys},
+                                  kernel_launches_per_call=chol_cuda.tiled_plan(r["T"], False)[2])
+                             for r in chol_tiled_results]
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(f"card: {smi}")  # every time above was taken on this card, at this limit
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -52,7 +52,7 @@
 //       Linv[I, J] = -sum_{M=J+1..I} Linv[I, M] W[M, J], each thread's 4 x 4
 //       block held in registers across a barrier before it overwrites W.
 // That is 2 barriers per panel and 2 per inverse block column (39 at
-// T = 160, against 2T = 320 in the column loop of chol_inv.cu), so the
+// T = 160, against 2T = 320 in the column loop it replaced), so the
 // barrier chain no longer bounds the kernel, and with one triangle instead
 // of two twice as many CTAs fit in an SM's shared memory. K's triangle comes
 // in by cp.async, every load of a thread in flight at once. Tiles store

@@ -55,7 +55,7 @@
 //       the blocked kernel sums it;
 //       cluster barrier.
 //   That is 2 cluster barriers per panel, against 2T block barriers per
-//   matrix in the column loop (chol_inv.cu).
+//   matrix in the column loop it replaced.
 //   Inverse (K2 only). W = L[J+1:, J] Linv_JJ depends only on L and
 //   Linv_JJ, so every rank forms W for all its tiles at once (Linv_JJ of
 //   every J staged), one cluster barrier; then block columns J from the

@@ -1,7 +1,8 @@
-// Tile machinery shared by the two shared-memory Cholesky kernels: the
-// blocked kernel (chol_inv_blocked.cu, one CTA per matrix, T <= 320) and
-// the cluster kernel (chol_inv_cluster.cu, one thread-block cluster per
-// matrix, 320 < T <= 784).
+// Tile machinery shared by the Cholesky kernels: the blocked kernel
+// (chol_inv_blocked.cu, one CTA per matrix, T <= 320), the cluster kernel
+// (chol_inv_cluster.cu, one thread-block cluster per matrix,
+// 320 < T <= 784) and the tiled kernel's diagonal step (chol_tiled.cu,
+// T > 784, one 64 x 64 tile per matrix).
 //
 // A tile is nb x nb = 16 x 16 floats, row-major, its float4 chunks swizzled
 // by row (chunk_off), so the rows a quarter warp reads at once fall in

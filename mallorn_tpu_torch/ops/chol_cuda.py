@@ -12,29 +12,30 @@ there.
 
 - ``chol_inv`` launches a CUDA kernel for a CUDA tensor and runs
   ``chol_inv_plain`` for a CPU tensor. A CUDA tensor never falls back: a
-  kernel launches or the call raises. The width picks the kernel, one
-  launch per call for the first two:
+  kernel launches or the call raises. The width picks the kernel:
   T <= ``MAX_T`` takes the blocked kernel (``csrc/chol_inv_blocked.cu``:
   one triangle of 16 x 16 tiles in one CTA's shared memory,
   register-tiled updates, the inverse formed in place);
   ``MAX_T`` < T <= ``MAX_T_CLUSTER`` the cluster kernel
   (``csrc/chol_inv_cluster.cu``: the same tiles and arithmetic, the
   triangle spread over the shared memory of a thread-block cluster of
-  ``cluster_size(T)`` CTAs); a wider batch goes to the column loop
-  ``chol_kernel`` (``csrc/chol_inv.cu``), which builds Linv in the output
-  and keeps the Schur complement in a global scratch allocated here, one
-  launch per chunk of ``wide_chunk`` matrices (one per SM).
+  ``cluster_size(T)`` CTAs), each one launch per call; a wider batch the
+  tiled kernel (``csrc/chol_tiled.cu``: 64 x 64 tiles in a global scratch
+  allocated here, a grid of (tile, matrix) CTAs per step, one C call of
+  ``tiled_plan(T)[2]`` launches per call; any width that memory holds).
 - ``chol_inv_plain`` is the right-looking column loop in PyTorch, batched
   over B: the contract's plain version. The CPU tests use it, and
   ``chip_smoke.py`` holds every kernel against it on the card.
-  ``chol_inv_blocked_plain`` is the blocked and the cluster kernel's
-  algorithm in their order, held against the JAX package by the CPU
-  tests; no path calls it.
-- Launch counts (plain calls do not count): ``launches`` (blocked, per
-  width in ``launches_by_t``), ``cluster_launches`` (per width in
-  ``cluster_launches_by_t``) and ``large_launches`` (the column loop) for
-  K2; ``chol_launches``, ``chol_cluster_launches`` and
-  ``chol_large_launches`` for K6.
+  ``chol_inv_blocked_plain`` is the kernels' algorithm in their order
+  (nb = 16 for the blocked and the cluster kernel, nb = 64 for the tiled
+  one, whose diagonal tiles are factored at nb = 16 inside), held against
+  the JAX package and float64 by the CPU tests; no path calls it.
+- Counts of kernel calls (plain calls do not count): ``launches``
+  (blocked, per width in ``launches_by_t``), ``cluster_launches`` (per
+  width in ``cluster_launches_by_t``) and ``large_launches`` (the tiled
+  kernel, per width in ``large_launches_by_t``; one per call, whatever
+  the launches inside it) for K2; ``chol_launches``,
+  ``chol_cluster_launches`` and ``chol_large_launches`` for K6.
 """
 
 from __future__ import annotations
@@ -49,17 +50,19 @@ from mallorn_tpu_torch.utils import cuda_build
 # widest batch the blocked kernel takes, for K2 and K6 (one triangle of
 # 16 x 16 tiles in shared memory: 215,040 bytes at T = 320, and T = 336
 # would pass the 232,448 a block may take); a wider batch takes the cluster
-# kernel up to MAX_T_CLUSTER, the column loop beyond
+# kernel up to MAX_T_CLUSTER, the tiled kernel beyond
 MAX_T = 320
 MAX_T_CLUSTER = 784
 SMEM_BYTES = 232448  # shared memory one block may take on an H100
 CLUSTER_SIZES = (2, 4, 8)  # portable cluster sizes
+TILED_NB = 64  # the tiled kernel's tile side (kPanel of csrc/chol_tiled.cu)
 
 launches = 0
 launches_by_t: Dict[int, int] = {}
 cluster_launches = 0
 cluster_launches_by_t: Dict[int, int] = {}
 large_launches = 0
+large_launches_by_t: Dict[int, int] = {}
 chol_launches = 0
 chol_cluster_launches = 0
 chol_large_launches = 0
@@ -75,6 +78,7 @@ def reset_launches() -> None:
     chol_launches = chol_cluster_launches = chol_large_launches = 0
     launches_by_t.clear()
     cluster_launches_by_t.clear()
+    large_launches_by_t.clear()
 
 
 def _tile_index(I: int, J: int, C: int) -> int:
@@ -131,6 +135,26 @@ def _check_cluster_fits(device: torch.device, T: int, inverse: bool) -> int:
                                f"each cannot be resident on {device} (T = {T})")
         _cluster_fits.add(key)
     return C
+
+
+def tiled_plan(T: int, inverse: bool = True) -> Tuple[int, int, int]:
+    """(nb, nt, kernel launches per call) of the tiled kernel at width T
+    (``launch_tiled`` of ``csrc/chol_tiled.cu``): nt panels of nb = 64
+    columns; a pack and an unpack launch, per panel a diagonal launch and,
+    but for the last, a panel and a trailing-update launch, and for K2
+    (``inverse``) two launches per block column but the last: 63 at
+    T = 800 and 78 at T = 1024 (K6: 39, 48)."""
+    nt = -(-T // TILED_NB)
+    return TILED_NB, nt, 2 + nt + 2 * (nt - 1) + (2 * (nt - 1) if inverse else 0)
+
+
+def tiled_scratch_floats(B: int, T: int) -> int:
+    """Floats of the tiled kernel's global scratch: B [Tp, Tp] identity-padded
+    triangles (Tp = nb nt) and B [Tp, nb] rows for the inverse's W (K2) or
+    Linv_kk (K6)."""
+    nb, nt, _ = tiled_plan(T)
+    Tp = nb * nt
+    return B * Tp * (Tp + nb)
 
 
 def chol_inv_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -190,11 +214,13 @@ def _blocked_factor(K: torch.Tensor, nb: int, inverse: bool):
 
 
 def chol_inv_blocked_plain(K: torch.Tensor, nb: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The blocked algorithm of the T <= MAX_T and the cluster kernels in
-    plain PyTorch: the same (Linv, logdet) as ``chol_inv_plain``, in the
-    kernels' order (the cluster kernel forms every W before the recurrence,
-    which changes no sum). No path calls it; the CPU tests hold it against
-    the JAX package.
+    """The blocked algorithm of the kernels in plain PyTorch: the same
+    (Linv, logdet) as ``chol_inv_plain``, in the kernels' order. nb = 16 is
+    the blocked and the cluster kernel's (the cluster kernel forms every W
+    before the recurrence, which changes no sum); nb = 64 the tiled
+    kernel's, but for the order inside a diagonal tile, which the kernel
+    factors at nb = 16. No path calls it; the CPU tests hold it against the
+    JAX package and float64.
 
     K's lower triangle is padded with identity to a multiple of ``nb`` and
     worked on in place, nb x nb tiles at a time:
@@ -228,7 +254,7 @@ def _check_cuda_batch(name: str, K: torch.Tensor) -> None:
 
 def chol_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Linv [B, T, T], logdet [B]) for a batch of SPD matrices."""
-    global launches, cluster_launches
+    global launches, cluster_launches, large_launches
     if K.device.type == "cpu":
         return chol_inv_plain(K)
     _check_cuda_batch("chol_inv", K)
@@ -238,7 +264,9 @@ def chol_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if B == 0:
         return Linv, logdet
     if T > MAX_T_CLUSTER:
-        _chol_inv_large(K, Linv, logdet)
+        _launch_tiled(K, True, Linv.data_ptr(), logdet.data_ptr())
+        large_launches += 1
+        large_launches_by_t[T] = large_launches_by_t.get(T, 0) + 1
         return Linv, logdet
     if T > MAX_T:
         C = _check_cluster_fits(K.device, T, True)
@@ -262,42 +290,19 @@ def _launch(K: torch.Tensor, name: str, *args) -> None:
         cuda_build.check(getattr(lib, name)(*args, stream), name)
 
 
-def wide_chunk(device: torch.device) -> int:
-    """Matrices per launch of the T > MAX_T_CLUSTER column loop: one per
-    SM. Each CTA works on its matrix's triangle and Linv through L1/L2;
-    with more CTAs than SMs resident those working sets no longer fit in
-    L2 and the kernel waits on HBM (PERF.md, the column loop's row)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _wide_launches(K: torch.Tensor, name: str, launch) -> int:
-    """The column loop ``name`` over K in chunks of ``wide_chunk``
-    matrices: ``launch(lib, start, n, scratch, stream)`` returns its CUDA
-    status; returns the launch count."""
+def _launch_tiled(K: torch.Tensor, inverse: bool, *outs: int) -> None:
+    """The tiled kernel, K2 (``inverse``) or K6, from K into the outputs at
+    ``outs`` (data pointers), with its scratch, on K's device and current
+    stream; raises on a CUDA error or when the launches it made are not
+    ``tiled_plan``'s."""
     B, T, _ = K.shape
-    chunk = min(B, wide_chunk(K.device))
-    scratch = torch.empty(chunk * (T * (T + 1) // 2), dtype=torch.float32, device=K.device)
-    lib = cuda_build.load()
-    n_launches = 0
-    with torch.cuda.device(K.device):
-        stream = torch.cuda.current_stream(K.device).cuda_stream
-        for s in range(0, B, chunk):
-            cuda_build.check(launch(lib, s, min(chunk, B - s), scratch.data_ptr(), stream),
-                             name)
-            n_launches += 1
-    return n_launches
-
-
-def _chol_inv_large(K: torch.Tensor, Linv: torch.Tensor, logdet: torch.Tensor) -> None:
-    """The column loop into ``Linv`` / ``logdet``, one launch per
-    chunk of ``wide_chunk`` matrices."""
-    global large_launches
-    T = K.shape[1]
-    def launch(lib, s, n, scratch, stream):
-        return lib.mallorn_chol_inv_large(K[s].data_ptr(), Linv[s].data_ptr(),
-                                          logdet[s:].data_ptr(), scratch, n, T, stream)
-
-    large_launches += _wide_launches(K, "mallorn_chol_inv_large", launch)
+    name = "mallorn_chol_inv_tiled" if inverse else "mallorn_chol_tiled"
+    want = tiled_plan(T, inverse)[2]
+    scratch = torch.empty(tiled_scratch_floats(B, T), dtype=torch.float32, device=K.device)
+    n = ctypes.c_int(0)
+    _launch(K, name, K.data_ptr(), *outs, scratch.data_ptr(), B, T, ctypes.byref(n))
+    if n.value != want:
+        raise RuntimeError(f"{name}: {n.value} kernel launches at T = {T}, planned {want}")
 
 
 def cho_solve(Linv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -316,10 +321,10 @@ def cho_solve(Linv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 # (``kInverse = false``: L_kk stays in the diagonal tiles, Linv_kk for the
 # panel step in one more tile): the blocked kernel for T <= MAX_T, counted
 # in ``chol_launches``, the cluster kernel up to MAX_T_CLUSTER, counted in
-# ``chol_cluster_launches``, and the column loop in the chunked global
-# scratch beyond, counted in ``chol_large_launches``.
-# ``cholesky_blocked_plain`` is the blocked and the cluster kernel's
-# algorithm in their order; no path calls it.
+# ``chol_cluster_launches``, and the tiled kernel beyond, one call counted
+# in ``chol_large_launches``. ``cholesky_blocked_plain`` is the kernels'
+# algorithm in their order (nb = 64 for the tiled kernel); no path calls
+# it.
 
 
 def cholesky_plain(K: torch.Tensor) -> torch.Tensor:
@@ -338,12 +343,12 @@ def cholesky_plain(K: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_blocked_plain(K: torch.Tensor, nb: int = 16) -> torch.Tensor:
-    """K6's algorithm in the blocked and the cluster kernel, in plain
-    PyTorch: the same L as ``cholesky_plain``, in the kernels' panel order
-    with identity padding (``chol_inv_blocked_plain`` without the inverse
-    and logdet; L_kk stays in the diagonal tiles, Linv_kk serves the panel
-    step). No path calls it; the CPU tests hold it against the JAX
-    package."""
+    """K6's algorithm in the kernels, in plain PyTorch: the same L as
+    ``cholesky_plain``, in the kernels' panel order with identity padding
+    (``chol_inv_blocked_plain`` without the inverse and logdet; L_kk stays
+    in the diagonal tiles, Linv_kk serves the panel step); nb = 16 for the
+    blocked and the cluster kernel, 64 for the tiled one. No path calls it;
+    the CPU tests hold it against the JAX package and float64."""
     A, _ = _blocked_factor(K, nb, inverse=False)
     T = K.shape[1]
     return torch.tril(A)[:, :T, :T].contiguous()
@@ -360,11 +365,8 @@ def cholesky(K: torch.Tensor) -> torch.Tensor:
     if B == 0:
         return L
     if T > MAX_T_CLUSTER:
-        def launch(lib, s, n, scratch, stream):
-            return lib.mallorn_chol_large(K[s].data_ptr(), L[s].data_ptr(), scratch, n, T,
-                                          stream)
-
-        chol_large_launches += _wide_launches(K, "mallorn_chol_large", launch)
+        _launch_tiled(K, False, L.data_ptr())
+        chol_large_launches += 1
     elif T > MAX_T:
         C = _check_cluster_fits(K.device, T, False)
         _launch(K, "mallorn_chol_cluster", K.data_ptr(), L.data_ptr(), B, T, C)

@@ -126,8 +126,8 @@ def load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.mallorn_chol_inv.argtypes = [p, p, p, i, i, p]
             lib.mallorn_chol_inv.restype = ctypes.c_int
-            lib.mallorn_chol_inv_large.argtypes = [p, p, p, p, i, i, p]
-            lib.mallorn_chol_inv_large.restype = ctypes.c_int
+            lib.mallorn_chol_inv_tiled.argtypes = [p, p, p, p, i, i, ctypes.POINTER(i), p]
+            lib.mallorn_chol_inv_tiled.restype = ctypes.c_int
             lib.mallorn_chol_inv_cluster.argtypes = [p, p, p, i, i, i, p]
             lib.mallorn_chol_inv_cluster.restype = ctypes.c_int
             lib.mallorn_chol_cluster.argtypes = [p, p, i, i, i, p]
@@ -136,8 +136,8 @@ def load() -> ctypes.CDLL:
             lib.mallorn_chol_cluster_occupancy.restype = ctypes.c_int
             lib.mallorn_chol.argtypes = [p, p, i, i, p]
             lib.mallorn_chol.restype = ctypes.c_int
-            lib.mallorn_chol_large.argtypes = [p, p, p, i, i, p]
-            lib.mallorn_chol_large.restype = ctypes.c_int
+            lib.mallorn_chol_tiled.argtypes = [p, p, p, i, i, ctypes.POINTER(i), p]
+            lib.mallorn_chol_tiled.restype = ctypes.c_int
             lib.mallorn_hist.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
             lib.mallorn_hist.restype = ctypes.c_int
             lib.mallorn_seg_hist.argtypes = [p, p, p, p, i, i, i, i, i, i, p]

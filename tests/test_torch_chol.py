@@ -137,12 +137,13 @@ def test_gp_features_of_objects_wider_than_the_shared_memory_kernel():
 @pytest.mark.cuda
 def test_wide_kernel_matches_plain_on_the_card():
     """MAX_T < T <= MAX_T_CLUSTER takes the cluster kernel (one launch, 2 or
-    4 CTAs per matrix), T > MAX_T_CLUSTER the column loop (Schur complement
-    in a global scratch), each alone, at the bars above; two launches bit
-    for bit equal; a non-positive pivot gives NaN in that matrix only."""
+    4 CTAs per matrix), T > MAX_T_CLUSTER the tiled kernel (64 x 64 tiles
+    in a global scratch, one call counted per call), each alone, at the
+    bars above, T = 1000 not a multiple of the tile; two launches bit for
+    bit equal; a non-positive pivot gives NaN in that matrix only."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    for t in (336, 344, 400, 512, 800):
+    for t in (336, 344, 400, 512, 800, 1000, 1024):
         K = torch.from_numpy(_spd(6, t, seed=t, n_pad=t // 8)).cuda()
         K[2, 7, 7] = -1.0
         chol_cuda.reset_launches()
@@ -151,7 +152,8 @@ def test_wide_kernel_matches_plain_on_the_card():
         torch.cuda.synchronize()
         cluster = t <= chol_cuda.MAX_T_CLUSTER
         assert chol_cuda.cluster_launches_by_t == ({t: 2} if cluster else {})
-        assert (chol_cuda.large_launches >= 2) != cluster and chol_cuda.launches == 0
+        assert chol_cuda.large_launches_by_t == ({} if cluster else {t: 2})
+        assert chol_cuda.large_launches == (0 if cluster else 2) and chol_cuda.launches == 0
         assert torch.equal(torch.nan_to_num(Linv), torch.nan_to_num(Linv2))
         assert torch.equal(torch.nan_to_num(ld), torch.nan_to_num(ld2))
         Lp, ldp = chol_inv_plain(K.double())
@@ -324,12 +326,13 @@ def test_cholesky_blocked_plain_nan_stays_in_its_matrix():
 def test_cholesky_kernel_matches_plain_on_the_card():
     """T <= MAX_T (the blocked kernel, counted in ``chol_launches``),
     MAX_T < T <= MAX_T_CLUSTER (the cluster kernel, ``chol_cluster_launches``)
-    and beyond (the column loop in a global scratch,
-    ``chol_large_launches``), each alone, at the bars above; two launches
-    bit for bit equal; a non-positive pivot gives NaN in that matrix only."""
+    and beyond (the tiled kernel in a global scratch, one call counted in
+    ``chol_large_launches`` per call), each alone, at the bars above; two
+    launches bit for bit equal; a non-positive pivot gives NaN in that
+    matrix only."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    for t in (24, 160, 256, 320, 400, 512, 800):
+    for t in (24, 160, 256, 320, 400, 512, 800, 1000, 1024):
         K = torch.from_numpy(_spd(6, t, seed=t, n_pad=t // 8)).cuda()
         K[4, 3, 3] = -1.0
         chol_cuda.reset_launches()
@@ -340,7 +343,7 @@ def test_cholesky_kernel_matches_plain_on_the_card():
         cluster = chol_cuda.MAX_T < t <= chol_cuda.MAX_T_CLUSTER
         assert chol_cuda.chol_launches == (2 if blocked else 0)
         assert chol_cuda.chol_cluster_launches == (2 if cluster else 0)
-        assert (chol_cuda.chol_large_launches >= 2) != (blocked or cluster)
+        assert chol_cuda.chol_large_launches == (0 if blocked or cluster else 2)
         assert chol_cuda.launches == 0 and chol_cuda.large_launches == 0
         assert chol_cuda.cluster_launches == 0
         assert torch.equal(torch.isnan(L), torch.isnan(L2))

@@ -11,30 +11,28 @@ given, so ``.scratch_parent . . .scratch_parent`` times two commits in
 turns. Every process builds its checkout's CUDA sources and takes the same
 seeded inputs (``chip_smoke.py``'s ``spd_batch``: A A^T / T + I with the
 last 0..T/4 rows and columns identity-padded). By CUDA events over 20
-calls (5 for the column loop), each process times the wrapper and, for
-the one-launch kernels (blocked and cluster), the launch alone (its
-entry point on prepared outputs, ``launch_ms``, held bit for bit to the
-wrapper's output):
+calls (2 for a column loop, in a checkout that still has one), each
+process times the wrapper and, for the one-launch kernels (blocked and
+cluster), the launch alone (its entry point on prepared outputs,
+``launch_ms``, held bit for bit to the wrapper's output):
 
 - the wrapper at the shapes of ``NARROW`` (T <= 320, where the blocked
-  kernel serves K2 and K6), with a digest of each output: two checkouts
-  must agree bit for bit there;
+  kernel serves K2 and K6), with a digest of each output;
 - the wrapper at the shapes of ``WIDE`` (T > 320), whichever kernel the
-  checkout dispatches there (the cluster kernel, or the column loop
-  before it), the kernel named by the checkout's launch counters, the
-  largest difference from the float64 plain version, and whether the
-  checkouts' outputs there are bit for bit equal (reported, not held:
-  two kernels may sum in different orders);
-- the column loop itself at ``LOOP`` shapes through its chunked entry
-  point (``chol_cuda._chol_inv_large`` / ``_wide_launches`` with
-  ``mallorn_chol_large``), which every checkout has;
+  checkout dispatches there (the cluster kernel up to T = 784; beyond, the
+  tiled kernel, or the column loop before it), the kernel named by the
+  checkout's launch counters, the largest difference from the float64
+  plain version, and a digest of each output;
 - the library yardstick at every wide shape: ``cholesky_ex`` +
   ``solve_triangular`` against I (K2) or ``cholesky_ex`` (K6), and the
   bound (max of bytes / 3.35 TB/s and flops / 67 TFLOP/s).
 
+Two checkouts must agree bit for bit at every shape of ``NARROW`` and at
+every shape of ``WIDE`` up to T = 784 (``SAME_UP_TO``); beyond, their
+kernels may sum in different orders, and whether they agree is reported.
 Prints one line per run and shape, the card's name and power limit, and
 last one JSON object of every run. Exits non-zero with no CUDA device or
-when two checkouts' outputs differ at a narrow shape.
+when two checkouts' outputs differ where they must agree.
 """
 
 from __future__ import annotations
@@ -52,8 +50,10 @@ NARROW = (("K2", 2048, 64), ("K2", 2048, 160), ("K2", 2048, 256), ("K2", 2048, 3
           ("K6", 2048, 160), ("K6", 64, 320))
 WIDE = (("K2", 64, 336), ("K2", 63, 344), ("K2", 64, 400), ("K2", 2048, 400),
         ("K2", 64, 432), ("K2", 64, 512), ("K2", 64, 576), ("K2", 64, 784),
-        ("K6", 64, 400), ("K6", 64, 512))
-LOOP = (("K2", 64, 400), ("K2", 2048, 400), ("K6", 64, 400), ("K2", 8, 800))
+        ("K6", 64, 400), ("K6", 64, 512),
+        ("K2", 8, 800), ("K2", 64, 1024), ("K2", 512, 1024), ("K2", 63, 1000),
+        ("K6", 8, 800), ("K6", 64, 1024), ("K6", 512, 1024))
+SAME_UP_TO = 784  # the blocked and cluster kernels' widest
 
 
 def spd_batch(torch, B: int, T: int, seed: int):
@@ -100,7 +100,7 @@ def time_checkout() -> dict:
     def launch_alone(kernel, K, out, counts):
         """The entry point of the kernel the wrapper's call counted, on
         prepared outputs, checked against the wrapper's output ``out``; None
-        for the column loop (chunked, timed by the wrapper)."""
+        beyond T = 784 (a call of several launches, timed by the wrapper)."""
         B, T, _ = K.shape
         L = torch.empty_like(K)
         ld = torch.empty(B, device="cuda")
@@ -160,27 +160,16 @@ def time_checkout() -> dict:
             if kernel == "K2":
                 torch.linalg.solve_triangular(L, eye, upper=False)
 
+        # a column loop (a checkout before the tiled kernel) takes seconds a
+        # call at the widest shapes
+        loop = (counts.get("large_launches") or counts.get("chol_large_launches")) and \
+            not hasattr(chol_cuda, "tiled_plan")
         res[f"{kernel} B={B} T={T}"] = {
-            "ms": ms(lambda: fn(K), reps=5 if counts.get("large_launches")
-                     or counts.get("chol_large_launches") else 20),
+            "ms": ms(lambda: fn(K), reps=2 if loop else 20, warmup=1 if loop else 2),
             "launch_ms": ms(launch) if launch else None,
             "counters": counts, "max_abs_err_f64": err,
             "sha256": hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest(),
             "library_ms": ms(library, reps=5), "bound_ms": bound_ms(kernel, B, T)}
-    for kernel, B, T in LOOP:
-        K = spd_batch(torch, B, T, 3000 + T)
-        out = torch.empty_like(K)
-        logdet = torch.empty(B, device="cuda")
-        if kernel == "K2":
-            def loop():
-                chol_cuda._chol_inv_large(K, out, logdet)
-        else:
-            def loop():
-                chol_cuda._wide_launches(K, "mallorn_chol_large", lambda lib_, s, n, scratch, st:
-                                         lib.mallorn_chol_large(K[s].data_ptr(), out[s].data_ptr(),
-                                                                scratch, n, T, st))
-        res[f"column loop {kernel} B={B} T={T}"] = {
-            "ms": ms(loop, reps=5, warmup=1), "bound_ms": bound_ms(kernel, B, T)}
     return res
 
 
@@ -208,17 +197,18 @@ def main(argv) -> int:
             if "counters" in r:
                 extra += f" max_abs_err_f64={r['max_abs_err_f64']:.3e} counters={r['counters']}"
             print(f"{d} {name}: ms={r['ms']:.4f}{extra}", flush=True)
-    for kernel, B, T in NARROW:
+    for kernel, B, T in NARROW + tuple(w for w in WIDE if w[2] <= SAME_UP_TO):
         name = f"{kernel} B={B} T={T}"
         if len({r["shapes"][name]["sha256"] for r in runs}) != 1:
             print(f"time_chol: the checkouts' outputs differ at {name}", file=sys.stderr)
             return 1
     if len(runs) > 1:
-        print("outputs bit for bit equal across the checkouts at every T <= 320 shape")
-        same = [f"{k} B={B} T={T}" for k, B, T in WIDE
-                if len({r["shapes"][f"{k} B={B} T={T}"]["sha256"] for r in runs}) == 1]
-        print(f"T > 320 shapes whose outputs are bit for bit equal across the checkouts: "
-              f"{same}")
+        print(f"outputs bit for bit equal across the checkouts at every T <= {SAME_UP_TO} "
+              f"shape")
+        same = [f"{k} B={B} T={T}" for k, B, T in WIDE if T > SAME_UP_TO
+                and len({r["shapes"][f"{k} B={B} T={T}"]["sha256"] for r in runs}) == 1]
+        print(f"T > {SAME_UP_TO} shapes whose outputs are bit for bit equal across the "
+              f"checkouts: {same}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip())
