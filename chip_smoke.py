@@ -131,7 +131,27 @@ Phases, each printing its wall time on its own line:
    (the 4-class head's OOF accuracy and TDE F1, the final 230-column CV):
    each run's seconds, rounds, OOF and test F1 (ungated), K1 launches equal
    to rounds x depth (v118, both v62 CVs) and K3 launches to 15 x rounds
-   (v110, v111), every output finite.
+   (v110, v111), every output finite;
+13. the families and the training tools, reusing the training phase's
+   splits, features, selection, adversarial weights and winner, the
+   ensemble's blend and the runners' v34a: the four Levenberg-Marquardt
+   families (powerlaw, tde_models' hybrid model, blackbody,
+   advanced_physics) extracted on both splits (seconds, columns, finite
+   share) and held against the CPU on the first 128 test objects (NaN
+   lanes identical, the closed-form columns at features_v4's gate, the
+   fits by Bazin's bar on their cost); the command line's backbone-plus-
+   family experiments v55, v64, v30, v57 (dereddened twins), v45
+   (categorical bins) and v105 (the top 30 interactions) on the 224-column
+   v34a matrix, K1 launches = rounds x depth; an 8-trial TPE search on the
+   v92d matrix (each trial's seconds, rounds and K1 launches), then depth
+   8 with and without subtraction (K1 at 64 and 128 nodes, rounds x depth
+   launches; the forests' differing split slots counted) and depth-8
+   single fits bit for bit K1's fixed-point twin; Platt and isotonic
+   calibration (test Brier score), threshold variants, the error analysis
+   and the prediction agreement of v92d, v34a and the ensemble; SMOTE and
+   ADASYN at ratio 0.5, every synthetic row on a minority segment. The
+   kernel phase also checks K1 at depth 8's 64 and 128 nodes (two and
+   three chunks of nodes on the grid's z axis).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -155,21 +175,28 @@ import torch
 from mallorn_tpu_torch.data.packing import (Metadata, pack_lightcurves, pad_time_axes,
                                             unify_time_padding)
 from mallorn_tpu_torch.data.synthetic import generate_dataset
-from mallorn_tpu_torch.features import multiband_gp
+from mallorn_tpu_torch.features import (advanced_physics, blackbody, multiband_gp, powerlaw,
+                                         tde_models)
+from mallorn_tpu_torch.features.categorical import add_categorical_features
+from mallorn_tpu_torch.features.extinction import dered_matrix
+from mallorn_tpu_torch.features.interactions import (create_physics_interactions,
+                                                     select_top_interactions)
 from mallorn_tpu_torch.io.model_store import (GBDTModel, forest_from_numpy, load_cv_models,
                                               save_cv_models)
 from mallorn_tpu_torch.ops import chol_cuda, gp, hist_cuda
-from mallorn_tpu_torch.features.base import merge
+from mallorn_tpu_torch.features.base import chunked_extract, feature_matrix, merge
 from mallorn_tpu_torch.serving import (SHIFT_FEATURES, V92dServer,
                                        assemble_v34a_matrix, drop_shift_features,
                                        extract_bundle)
+from mallorn_tpu_torch.train import analysis, calibration, hpo, oversample
 from mallorn_tpu_torch.train.adversarial import ADV_PARAMS
 from mallorn_tpu_torch.train.cv import f1_score, threshold_sweep, train_cv
 from mallorn_tpu_torch.train.ensembles import stack_oof
 from mallorn_tpu_torch.train.pipelines import (BASELINE_LGBM_PARAMS, BASELINE_PARAMS,
                                                KAGGLE_ENSEMBLE_WEIGHTS, SOFT_LABEL_PARAMS,
                                                V62_MC_PARAMS, V110_PARAMS, V111_PARAMS,
-                                               V114D_PARAMS, V118_PARAMS, finite_or_nan,
+                                               V114D_PARAMS, V118_PARAMS, _finite_or_nan,
+                                               finite_or_nan,
                                                run_baseline, run_distillation,
                                                run_easy_ensemble, run_label_smoothing,
                                                run_mixup, run_pseudo_label,
@@ -224,6 +251,10 @@ RUNNER_HIST_SHAPES = (("baseline", 5, 127, 2444, (1, 1, 2, 4, 8, 16)),
 POLICY_HIST_SHAPES = (("symmetric", 5, 224, 2444, (1, 1, 2, 4, 8)),
                       ("multiclass", 20, 224, 2444, (1, 1, 2, 4, 8)))
 POLICY_SEG_SHAPE = ("v110_pair", 5, 224, 2444, 2)
+# K1 at depth 8, the top of HPO's space, on the v92d matrix: the last
+# level's 64 nodes (subtraction) and 128 (none), two and three chunks of
+# nodes on the grid's z axis
+FAMILY_HIST_SHAPES = (("depth8", 5, 222, 2444, (64, 128)),)
 # the bench split's generator call (bench.py): its train split regenerated
 # gives v62 the spectral types the npz does not store
 BENCH_SPLITS = dict(n_train=3054, seed=20260816, tde_frac=0.05)
@@ -669,7 +700,7 @@ def check_hist(fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
     if not (repeat_equal and fixed_equal) or not all(ok for _, _, ok in rows.values()):
         raise AssertionError(f"K1 {tag} failed its checks")
     # the launch alone, beside the wrapper's time (hist_times)
-    group, tile_rows, _ = hist_cuda.hist_layout(k_nodes, N_BINS_TOT)
+    chunk, n_chunks, group, tile_rows, _ = hist_cuda.hist_plan(k_nodes, N_BINS_TOT)
     out = torch.empty_like(a)
     launch_ms = cuda_ms(lambda: hist_cuda.launch_hist_kernel(binned, node_q, gh, out, k_nodes,
                                                              N_BINS_TOT), reps=50)
@@ -677,10 +708,10 @@ def check_hist(fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
     if not bits_equal(out, a):
         raise AssertionError(f"K1 {tag}: the launch alone disagrees with the wrapper")
     log(f"  {tag} launch_ms={launch_ms:.4f} (the launch alone; G={group}, "
-        f"{tile_rows}-row tiles)")
+        f"{tile_rows}-row tiles, {n_chunks} chunk(s) of {chunk} nodes)")
     return {"fit": fit, "K": K, "F": F, "N": N, "nodes": k_nodes,
             "max_abs_err": rows["vs_plain"][0], "launch_ms": launch_ms,
-            "features_per_cta": group, "tile_rows": tile_rows,
+            "features_per_cta": group, "tile_rows": tile_rows, "node_chunks": n_chunks,
             **hist_times(tag, hist_cuda.build_histograms, hist_cuda.build_histograms_plain,
                          binned, node_q, gh, k_nodes)}
 
@@ -1355,7 +1386,8 @@ def run_ensemble(trained: dict, dev) -> dict:
         f"{V114D_F1_GATE} {'ok' if v114d >= V114D_F1_GATE else 'FAIL'}")
     if r.oof_f1 < ENSEMBLE_F1_GATE or v114d < V114D_F1_GATE:
         raise AssertionError("the ensemble's OOF F1 is below its gate")
-    return {"k1": k1, "k3": k3, "total_s": ens.timings["total"], "research": ens.research}
+    return {"k1": k1, "k3": k3, "total_s": ens.timings["total"], "research": ens.research,
+            "test": r.ensemble_test}
 
 
 def fit_rounds(models, lanes: int) -> list:
@@ -1605,6 +1637,347 @@ def run_policies(trained: dict, runners: dict, dev) -> dict:
                      for n, r in rows.items()}}
 
 
+# ---------------------------------------------------------------------------
+# The families phase: the LM feature families, the command line's
+# backbone-plus-family experiments, HPO and the training tools
+
+# (name, extract) of the families fitted by batched Levenberg-Marquardt
+LM_FAMILIES = (("powerlaw", powerlaw.extract), ("tde_models", tde_models.extract),
+               ("blackbody", blackbody.extract), ("advanced_physics", advanced_physics.extract))
+# objects per extraction chunk: tde_models' Jacobian is [6 x chunk, 3, T, 6]
+FAMILY_CHUNK = 2048
+# the fit columns' cost (reduced chi^2; powerlaw's R^2 becomes its residual
+# sum of squares) and the columns that do not come out of a fit, which the
+# CPU holds at the closed-form families' gate (GATES["features_v4"])
+FIT_COST_COLUMNS = {"tde_models": [f"{b}_tde_fit_chi2" for b in LSST_BANDS],
+                    "blackbody": [f"T_chi2_{e}" for e in blackbody.EPOCH_NAMES],
+                    "advanced_physics": [f"temp_chi2_epoch_{int(e)}d"
+                                         for e in advanced_physics.TEMP_EPOCHS]}
+# HPO: TPE over DEFAULT_SPACE on the v92d matrix, then depth 8
+HPO_TRIALS, HPO_STARTUP, HPO_ROUNDS, HPO_SEED = 8, 4, 200, 19
+DEPTH8_ROUNDS = 10  # the depth-8 single fits held against K1's fixed-point twin
+
+
+def not_fitted(family: str, name: str) -> bool:
+    if family == "blackbody":
+        return name.startswith("L_proxy_")
+    if family == "advanced_physics":
+        return not name.startswith(("temp_", "cooling_rate_", "sed_quality_"))
+    return False
+
+
+def powerlaw_ss_tot(packed) -> torch.Tensor:
+    """[N, 3] ss_tot of the post-peak g/r/i fluxes, as the family takes it
+    (float64, on the CPU)."""
+    t = packed.band_time[:, 1:4].cpu().double()
+    f = packed.band_flux[:, 1:4].cpu().double()
+    m = packed.band_mask[:, 1:4].cpu()
+    pt = torch.gather(t, -1, torch.where(m, f, -1e30).argmax(dim=-1, keepdim=True))
+    post = m & (t > pt)
+    mu = torch.where(post, f, 0.0).sum(-1) / post.sum(-1).clamp(min=1)
+    return torch.where(post, (f - mu[..., None]) ** 2, 0.0).sum(-1)
+
+
+def family_costs(family: str, feats: dict, packed) -> torch.Tensor:
+    """[N, lanes] float64 fit costs of a family's output (NaN where no fit)."""
+    if family == "powerlaw":
+        ss = powerlaw_ss_tot(packed)
+        cols = [(1.0 - feats[f"{b}_{m}_r2"].cpu().double()) * ss[:, bi]
+                for bi, b in enumerate("gri") for m in powerlaw.MODEL_NAMES]
+        return torch.stack(cols, 1)
+    return torch.stack([feats[k].cpu().double() for k in FIT_COST_COLUMNS[family]], 1)
+
+
+def check_family_reference(family: str, fn, packed, m: int = 128) -> dict:
+    """The first ``m`` objects of ``packed`` through the family on the card
+    and on the CPU (the same port code): names and NaN lanes identical,
+    the columns that do not come out of a fit at the closed-form families'
+    gate, and the fits by Bazin's bar: on >= 98% of the lanes the CPU
+    fitted, the card's cost <= 1.05 x the CPU's + 0.5, the median ratio
+    over the fits that leave a residual within [0.99, 1.01]."""
+    sub = packed.map(lambda x: x[:m])
+    got = fn(sub)
+    want = fn(sub.to("cpu"))
+    if list(got) != list(want):
+        raise AssertionError(f"{family}: the card's columns differ from the CPU's")
+    nan_diff = [k for k in want if not torch.equal(torch.isnan(got[k].cpu()), torch.isnan(want[k]))]
+    rtol, col_need, mean_need = GATES["features_v4"]
+    plain = {k: want[k] for k in want if not_fitted(family, k)}
+    fracs = column_agreement({k: got[k] for k in plain}, plain, rtol)
+    a = family_costs(family, want, sub.to("cpu"))
+    b = family_costs(family, got, sub.to("cpu"))
+    fit = torch.isfinite(a)
+    share = (b[fit] <= a[fit] * 1.05 + 0.5).double().mean().item()
+    res = fit & (a >= 1e-6)
+    med = (b[res] / a[res]).median().item() if bool(res.any()) else 1.0
+    worst = min(fracs.values()) if fracs else 1.0
+    mean = float(np.mean(list(fracs.values()))) if fracs else 1.0
+    log(f"  {family} on the card vs the CPU, {m} objects: {len(want)} columns, NaN lanes "
+        f"differ in {nan_diff or 'none'}; {len(fracs)} closed-form columns, mean {mean:.4f} "
+        f"of cells within rtol {rtol:g} (worst {worst:.4f}; needs {col_need:g} / "
+        f"{mean_need:g}); {int(fit.sum())} fitted lanes, {share:.4f} with the card's cost <= "
+        f"1.05 x the CPU's + 0.5 (needs 0.98), median ratio {med:.5f} over "
+        f"{int(res.sum())} fits with a residual (needs 0.99..1.01)")
+    if nan_diff or worst < col_need or mean < mean_need or share < 0.98 \
+            or not 0.99 <= med <= 1.01:
+        raise AssertionError(f"{family} on the card disagrees with the CPU")
+    return {"fit_share": share, "median_ratio": med, "nan_lanes_equal": True}
+
+
+def on_minority_segments(X_new: np.ndarray, Xm: np.ndarray, nn: np.ndarray,
+                         device) -> np.ndarray:
+    """[M] whether each synthetic row is Xm[i] + lam (Xm[j] - Xm[i]) for a
+    minority row i, one of its k nearest minority neighbours j and
+    0 <= lam <= 1 (NaN where either end is NaN)."""
+    Xn = torch.as_tensor(X_new, dtype=torch.float64, device=device)
+    A = torch.as_tensor(Xm, dtype=torch.float64, device=device)
+    ok = torch.zeros(len(Xn), dtype=torch.bool, device=device)
+    for i in range(len(A)):
+        D = A[nn[i]] - A[i]  # [k, F]
+        R = Xn - A[i]  # [M, F]
+        nan_ok = (torch.isnan(R)[:, None, :] == torch.isnan(D)[None, :, :]).all(-1)
+        Dz, Rz = torch.nan_to_num(D), torch.nan_to_num(R)
+        lam = (Rz @ Dz.T) / (Dz * Dz).sum(-1).clamp(min=1e-300)  # [M, k]
+        err = (Rz[:, None, :] - lam[..., None] * Dz[None]).abs().amax(-1)
+        scale = 1e-6 * (1.0 + Dz.abs().amax(-1))[None, :]
+        ok |= (nan_ok & (err <= scale) & (lam >= -1e-9) & (lam <= 1 + 1e-9)).any(-1)
+    return ok.cpu().numpy()
+
+
+def run_families(trained: dict, ensemble: dict, runners: dict, dev) -> dict:
+    """The families phase, on the training run's packed splits, bundles,
+    selection, adversarial weights and winner and the runners' v34a OOF:
+
+    - powerlaw, tde_models (hybrid), blackbody and advanced_physics
+      extracted on both splits on the card (seconds, columns, finite
+      share), the first 128 test objects held against the CPU;
+    - v55, v64, v30 (+ those families), v57 (+ dereddened twins), v45
+      (+ categorical bins) and v105 (+ the top 30 interactions, chosen on
+      train), each a ``train_cv`` at V34A_PARAMS on the 224-column v34a
+      matrix plus its columns; K1 launches = rounds x depth;
+    - an 8-trial TPE search on the v92d matrix with the adversarial
+      weights, then depth 8 (K1 at 64 nodes with subtraction, 128
+      without), and depth-8 single fits bit for bit K1's fixed-point twin;
+    - calibration, error analysis, prediction agreement, SMOTE and ADASYN.
+    """
+    out = trained["out"]
+    tr_packed, tr_meta = trained["tr"]
+    te_packed, te_meta = trained["te"]
+    y, y_te = np.asarray(tr_meta.target), np.asarray(te_meta.target)
+    X224, X224_te, names224 = runners["X224"]
+    keep = [i for i, n in enumerate(names224) if n not in SHIFT_FEATURES]
+    X, X_te = X224[:, keep], X224_te[:, keep]
+    w, win = out.adversarial.sample_weights, out.winner
+    rows, k1_all = {}, 0
+
+    # ---- the LM families on both splits ----
+    fams = {}
+    for fam, fn in LM_FAMILIES:
+        mats = []
+        for tag, packed in (("train", tr_packed), ("test", te_packed)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = chunked_extract(fn, packed, chunk_size=FAMILY_CHUNK)
+            mat, fam_names = feature_matrix(feats)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            mats.append(mat.cpu().numpy())
+            log(f"  {fam} {tag}: {packed.n_objects} objects, {secs:.3f} s, {len(fam_names)} "
+                f"columns, finite share {float(np.isfinite(mats[-1]).mean()):.4f}")
+        ref = check_family_reference(fam, fn, te_packed)
+        fams[fam] = (mats[0], mats[1], fam_names, ref)
+
+    # ---- the backbone-plus-family experiments (cli/main.py v55 ... v105) ----
+    def with_cols(extra_tr, extra_te):
+        return (_finite_or_nan(np.concatenate([X224, extra_tr], axis=1)),
+                _finite_or_nan(np.concatenate([X224_te, extra_te], axis=1)))
+
+    def columns(d: dict, keys, n: int) -> np.ndarray:
+        return (np.stack([d[k] for k in keys], axis=1).astype(np.float32) if keys
+                else np.zeros((n, 0), np.float32))
+
+    def cats(Xm):
+        c, c_names = add_categorical_features(dict(zip(names224, Xm.astype(np.float64).T)))
+        return columns(c, c_names, len(Xm)), c_names
+
+    inter_tr = create_physics_interactions(dict(zip(names224, X224.astype(np.float64).T)))
+    inter_te = create_physics_interactions(dict(zip(names224, X224_te.astype(np.float64).T)))
+    top = select_top_interactions(inter_tr, y, top_k=30)
+    log(f"  v105: {len(inter_tr)} interactions, the top {len(top)} chosen on train")
+    d_tr, d_names = dered_matrix(X224, names224, np.asarray(tr_meta.ebv))
+    d_te, _ = dered_matrix(X224_te, names224, np.asarray(te_meta.ebv))
+    c_tr, c_names = cats(X224)
+    c_te, _ = cats(X224_te)
+    experiments = {
+        "v55": fams["powerlaw"][:2], "v64": fams["blackbody"][:2],
+        "v30": fams["advanced_physics"][:2], "v57": (d_tr, d_te), "v45": (c_tr, c_te),
+        "v105": (columns(inter_tr, top, len(y)), columns(inter_te, top, len(y_te))),
+    }
+    log(f"  v57: {len(d_names)} dereddened twins; v45: {len(c_names)} categorical columns")
+    for name, (e_tr, e_te) in experiments.items():
+        Xtr2, Xte2 = with_cols(e_tr, e_te)
+        hist_cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cv = train_cv(Xtr2, y, Xte2, V34A_PARAMS, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1, want_k1 = hist_cuda.launches, V34A_PARAMS.max_depth * cv.rounds_run
+        k1_all += k1
+        test_f1 = f1_score(y_te, cv.test_preds > cv.best_threshold)
+        log(f"  {name}: {Xtr2.shape[1]} columns, {secs:.3f} s; rounds {cv.rounds_run}; OOF F1 "
+            f"{cv.best_f1:.4f} @ {cv.best_threshold:.3f}; TEST F1 {test_f1:.4f}; K1 launches "
+            f"{k1} (rounds x depth predicts {want_k1})")
+        if k1 != want_k1 or k1 == 0:
+            raise AssertionError(f"{name}: K1 launches disagree with rounds x depth")
+        if not (np.isfinite(cv.oof_preds).all() and np.isfinite(cv.test_preds).all()):
+            raise AssertionError(f"{name}: non-finite outputs")
+        rows[name] = {"s": secs, "columns": Xtr2.shape[1], "rounds": cv.rounds_run,
+                      "oof_f1": cv.best_f1, "threshold": cv.best_threshold,
+                      "test_f1": test_f1, "k1": k1}
+
+    # ---- HPO: TPE on the v92d matrix, each trial timed ----
+    trials_log = []
+
+    def timed_cv(*args, **kwargs):
+        hist_cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cv = train_cv(*args, **kwargs)
+        torch.cuda.synchronize()
+        trials_log.append((time.perf_counter() - t0, args[3], cv, hist_cuda.launches,
+                           dict(hist_cuda.launches_by_nodes)))
+        return cv
+
+    hpo.train_cv = timed_cv
+    try:
+        t0 = time.perf_counter()
+        trials = hpo.tpe_search(X, y, n_trials=HPO_TRIALS, n_startup=HPO_STARTUP,
+                                sample_weight=w, seed=HPO_SEED, n_rounds=HPO_ROUNDS,
+                                base=V34A_PARAMS, device=dev)
+        hpo_s = time.perf_counter() - t0
+    finally:
+        hpo.train_cv = train_cv
+    for i, (secs, p, cv, k1, by_nodes) in enumerate(trials_log):
+        want_k1 = cv.rounds_run * p.max_depth
+        log(f"  trial {i + 1}{' (tpe)' if i >= HPO_STARTUP else ''}: "
+            + ", ".join(f"{k}={getattr(p, k):.4g}" for k in hpo.DEFAULT_SPACE)
+            + f"; {secs:.3f} s, rounds {cv.rounds_run}; OOF F1 {cv.best_f1:.4f} @ "
+            f"{cv.best_threshold:.3f}; K1 launches {k1} (rounds x depth predicts {want_k1}) "
+            f"by level width {by_nodes}")
+        if k1 != want_k1:
+            raise AssertionError(f"HPO trial {i + 1}: K1 launches disagree with rounds x depth")
+        k1_all += k1
+    log(f"  TPE: {len(trials)} trials in {hpo_s:.3f} s; best OOF F1 {trials[0].oof_f1:.4f} "
+        f"at max_depth {trials[0].params.max_depth}")
+    rows["hpo"] = {"s": hpo_s, "trials": len(trials), "best_oof_f1": trials[0].oof_f1,
+                   "best": {k: getattr(trials[0].params, k) for k in hpo.DEFAULT_SPACE},
+                   "depths": [p.max_depth for _, p, _, _, _ in trials_log]}
+
+    # ---- depth 8: the top of DEFAULT_SPACE, with and without subtraction ----
+    p8 = V34A_PARAMS._replace(n_rounds=HPO_ROUNDS, max_depth=8)
+    forests = {}
+    for sub, width in ((True, 64), (False, 128)):
+        hist_cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cv = train_cv(X, y, X_te, p8._replace(hist_subtract=sub), sample_weight=w, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        by_nodes = dict(hist_cuda.launches_by_nodes)
+        k1_all += hist_cuda.launches
+        log(f"  depth 8, hist_subtract={sub}: {secs:.3f} s; rounds {cv.rounds_run}; OOF F1 "
+            f"{cv.best_f1:.4f} @ {cv.best_threshold:.3f}; K1 launches {hist_cuda.launches} by "
+            f"level width {by_nodes} (rounds x depth predicts {8 * cv.rounds_run}; "
+            f"{cv.rounds_run} at {width} nodes)")
+        if (hist_cuda.launches != 8 * cv.rounds_run or by_nodes.get(width) != cv.rounds_run
+                or max(by_nodes) != width):
+            raise AssertionError(f"depth 8 (hist_subtract={sub}): K1 launches disagree")
+        forests[sub] = [m.forest for m in cv.models]
+        split = torch.stack([~f.is_leaf & (f.split_bin >= 0) for f in forests[sub]])
+        deepest = max((d for d in range(8) if bool(split[..., 2 ** d - 1:2 ** (d + 1) - 1].any())),
+                      default=-1)
+        log(f"    its deepest split level: {deepest} (0 = the root)")
+        rows[f"depth8_{'subtract' if sub else 'direct'}"] = {
+            "s": secs, "rounds": cv.rounds_run, "oof_f1": cv.best_f1, "k1": hist_cuda.launches,
+            f"k1_at_{width}_nodes": by_nodes[width]}
+    # the two fits differ where float32 subtraction (parent - left) rounds
+    # a right child's sums otherwise than its direct sum and that decides a
+    # near tie: counted, not held (their splits agree in most slots)
+    slots = sum(int(((a.feature != b.feature) | (a.split_bin != b.split_bin)).sum())
+                for a, b in zip(forests[True], forests[False])
+                if a.feature.shape == b.feature.shape)
+    total = sum(a.feature.numel() for a in forests[True])
+    log(f"  depth 8: subtracted and direct forests differ in {slots} of {total} split slots "
+        f"(float32 parent - left rounds otherwise than the direct sum)")
+    # the same two settings as single fits, K1 against its fixed-point twin;
+    # min_child_weight 1e-3 lets the trees reach the 64 / 128-node level
+    fit_rows = int(0.8 * len(y))
+    for sub in (True, False):
+        p = p8._replace(n_rounds=DEPTH8_ROUNDS, hist_subtract=sub, min_child_weight=1e-3)
+        fs = [train_gbdt(X[:fit_rows], y[:fit_rows], p, sample_weight=w[:fit_rows],
+                         device=dev, hist_fn=fn).forest
+              for fn in (hist_cuda.build_histograms, hist_cuda.build_histograms_fixed)]
+        same = forests_bits_equal(*fs)
+        deep = int((~fs[0].is_leaf[..., 2 ** 7 - 1:] & (fs[0].split_bin[..., 2 ** 7 - 1:] >= 0))
+                   .sum())
+        log(f"  depth 8 single fit, {fit_rows} rows, {DEPTH8_ROUNDS} rounds, hist_subtract="
+            f"{sub}: {deep} splits on the last level; K1 vs its fixed-point twin: forests bit "
+            f"for bit equal {same}")
+        if not same or deep == 0:
+            raise AssertionError(f"depth 8 (hist_subtract={sub}): K1 and its fixed-point twin "
+                                 f"disagree")
+
+    # ---- calibration and analysis on the winner's OOF / test ----
+    oof, test = win.oof_preds, win.test_preds
+    brier = {"raw": float(np.mean((test - y_te) ** 2))}
+    platt, ab = calibration.platt_scale(oof, y, test)
+    brier["platt"] = float(np.mean((platt - y_te) ** 2))
+    brier["isotonic"] = float(np.mean((calibration.isotonic_calibrate(oof, y, test) - y_te) ** 2))
+    variants = {t: int(v.sum()) for t, v in
+                calibration.threshold_variants(test, [0.3, 0.5, 0.7]).items()}
+    log(f"  calibration (test Brier score): raw {brier['raw']:.5f}, Platt (a={ab[0]:.4f}, "
+        f"b={ab[1]:.4f}) {brier['platt']:.5f}, isotonic {brier['isotonic']:.5f}; positives "
+        f"at 0.3 / 0.5 / 0.7: {variants}")
+    if not all(np.isfinite(v) for v in brier.values()):
+        raise AssertionError("calibration produced non-finite probabilities")
+    rep = analysis.error_analysis(y, oof, win.best_threshold, X=X,
+                                  feature_names=out.feature_names,
+                                  importance_gain=win.importance_gain,
+                                  object_ids=tr_meta.object_ids, z=tr_meta.z,
+                                  other_models={"v34a": runners["v34a"]["oof"]})
+    analysis.print_error_analysis(rep)
+    c = rep["confusion"]
+    if c != win.confusion(y):
+        raise AssertionError("error_analysis' confusion disagrees with the CV's")
+    agree = analysis.prediction_agreement({"v92d": test, "v34a": runners["v34a"]["test"],
+                                           "ensemble": ensemble["test"]},
+                                          threshold=win.best_threshold)
+    pairs = [(i, a, b) for i, a in enumerate(agree) for b in list(agree)[i + 1:]]
+    log(f"  prediction agreement on the test split at {win.best_threshold:.3f}: " + "; ".join(
+        f"{a} / {b} {agree[b][i]:.4f}" for i, a, b in pairs))
+    rows["calibration"] = {"brier": brier, "positives": variants, "confusion": c}
+
+    # ---- oversampling on the v92d training matrix ----
+    for name, fn in (("smote", oversample.smote), ("adasyn", oversample.adasyn)):
+        t0 = time.perf_counter()
+        Xo, yo = fn(X, y, ratio=0.5, seed=SEED)
+        secs = time.perf_counter() - t0
+        pos = np.where(y == 1)[0]
+        X_new = Xo[len(y):]
+        on_seg = on_minority_segments(X_new, X[pos], oversample._knn_minority(X[pos], 5), dev)
+        log(f"  {name} (ratio 0.5): {len(y)} -> {len(yo)} rows ({len(X_new)} synthetic, "
+            f"{int(yo.sum())} positives), {secs:.3f} s; on a segment between a minority row "
+            f"and one of its 5 nearest minority neighbours: {int(on_seg.sum())} of "
+            f"{len(X_new)}")
+        if len(X_new) == 0 or not on_seg.all() or not (yo[len(y):] == 1).all():
+            raise AssertionError(f"{name}: a synthetic row is off its minority segment")
+        rows[name] = {"s": secs, "rows": len(yo), "synthetic": len(X_new)}
+    log(f"families: K1 launches {k1_all}")
+    return {"k1": k1_all, "rows": rows,
+            "families": {f: {"columns": len(v[2]), **v[3]} for f, v in fams.items()}}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -1640,7 +2013,7 @@ def main() -> int:
             time_gp_step(REQUEST, T, seed=7000 + T)
         # K2 beyond 240: each width on its own kernel alone (launch counters):
         # the blocked kernel up to MAX_T, the cluster kernel up to
-        # MAX_T_CLUSTER, the column loop beyond
+        # MAX_T_CLUSTER, the tiled kernel beyond
         chol_cuda.reset_launches()
         wide_results = [check_kernel(B, T, seed=3000 + T)
                         for B, T in ((REQUEST, WIDE_T), (REQUEST, 288), (REQUEST, 320),
@@ -1796,6 +2169,9 @@ def main() -> int:
         policy_hist = [check_hist(fit, K, F, N, k, seed=2700 + 17 * i + k)
                        for i, (fit, K, F, N, nodes) in enumerate(POLICY_HIST_SHAPES)
                        for k in sorted(set(nodes))]
+        family_hist = [check_hist(fit, K, F, N, k, seed=2900 + 17 * i + k)
+                       for i, (fit, K, F, N, nodes) in enumerate(FAMILY_HIST_SHAPES)
+                       for k in sorted(set(nodes))]
         name, K, F, N, nodes = POLICY_SEG_SHAPE
         policy_seg = check_seg_hist(name, K, F, N, nodes, seed=4100, inactive=0.0, missing=0.0)
         seg_results = [check_seg_hist(name, SEG_LANES, SEG_F, N, nodes, seed=4000 + i,
@@ -1831,6 +2207,9 @@ def main() -> int:
 
     with Phase("policies"):
         policies = run_policies(trained, runners, dev)
+
+    with Phase("families"):
+        families = run_families(trained, ensemble, runners, dev)
 
     # K2's rows: the server's GP width (phase 2 and the predict) and the
     # coarse phase's width, each with serving's launches at that width
@@ -1897,6 +2276,9 @@ def main() -> int:
     kernels[-2]["runner_shapes"] = [{k: r[k] for k in shape_keys} for r in runner_hist]
     kernels[-2]["policies_launches"] = policies["k1"]
     kernels[-2]["policy_shapes"] = [{k: r[k] for k in shape_keys} for r in policy_hist]
+    kernels[-2]["families_launches"] = families["k1"]
+    kernels[-2]["family_shapes"] = [dict({k: r[k] for k in shape_keys},
+                                         node_chunks=r["node_chunks"]) for r in family_hist]
     # the segment histogram's row: a v114d split step's pair of children
     main_seg = next(r for r in seg_results if r["name"] == "pair")
     kernels.append({

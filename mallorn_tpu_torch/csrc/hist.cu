@@ -1,10 +1,10 @@
 // (grad, hess) histograms of the GBDT, batched over folds or lanes: the
 // depthwise level histogram (K1) and the leaf-wise segment histogram (K3),
-// one kernel template (group_hist_kernel<kLevel>), and the depthwise fit's
+// one kernel template (group_hist_kernel<kLevel, kChunked>), and the depthwise fit's
 // two histogram modes (K4 / K5, mode_hist_kernel, further down), all
 // shared-memory integer histograms.
 //
-// K1 (group_hist_kernel<true>) replaces mallorn_tpu/ops/hist_pallas.py:
+// K1 (group_hist_kernel<true, .>) replaces mallorn_tpu/ops/hist_pallas.py:
 // _fullhot_kernel (the Pallas kernel behind build_histograms_fullhot), with
 // a leading fold axis. Contract, for fold k, feature f, node c < k_nodes
 // and bin b < n_bins_tot:
@@ -17,7 +17,7 @@
 // inactive row. The TPU kernel scatters through the MXU: an int8 full-bin
 // one-hot times bf16x3 digits of (g, h). None of that carries over.
 //
-// K3 (group_hist_kernel<false>) replaces mallorn_tpu/ops/hist_pallas.py:
+// K3 (group_hist_kernel<false, false>) replaces mallorn_tpu/ops/hist_pallas.py:
 // _hist_kernel (the Pallas kernel behind build_histograms_pallas), with a
 // leading lane axis. Contract, for lane k, feature f and segment s < n_seg:
 //   out[k, f, s, :] = sum_r [seg_base[k, r] + binned[k, f, r] == s] gh[k, r, :]
@@ -68,6 +68,14 @@
 //   K1, by level; hist_cuda.seg_hist_layout for K3), so that deep levels
 //   take a smaller G than the root and a small grid a smaller G than a
 //   large one;
+// - K1's level of more nodes than one CTA's histograms hold (54 at 257
+//   bins) is split into equal chunks of at most that many nodes on the
+//   grid's z axis (hist_cuda.hist_plan), as K4 / K5 split theirs: a CTA
+//   counts the rows whose node lies in its chunk and writes the chunk's
+//   [F, chunk, n_bins, 2] slice. Integer sums, so a chunked launch gives
+//   the bits of an unchunked one; a level that fits is one chunk, the
+//   grid's z extent 1, and runs the unchunked instantiation (kChunked
+//   false: no chunk offsets in its row walk);
 // - the fold's scale found in the kernel: the CTA reads the fold's (g, h)
 //   once, keeps max |g|, max |h| (exact in any order) and a flag for any
 //   non-finite value (fmaxf drops NaN; an infinity must give NaN too);
@@ -190,7 +198,7 @@ __device__ __forceinline__ float from_fixed(unsigned long long a, double inv) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K3 (group_hist_kernel<kLevel>; the design is in the header above)
+// K1 and K3 (group_hist_kernel<kLevel, kChunked>; the design is in the header above)
 
 constexpr int kSegThreads = 256;
 constexpr int kSegWarps = kSegThreads / 32;
@@ -275,23 +283,35 @@ __device__ __forceinline__ void add_fixed(unsigned* words, int plane, int c, lon
   if (hh) atomicAdd(words + 3 * plane + c, hh);
 }
 
-// One CTA per (fold k, features f0 .. f0 + group - 1) = (blockIdx.y,
-// blockIdx.x); tile_rows a multiple of kSegThreads. A row is active for an
-// id in [0, id_limit). ids are K1's node ids (kLevel: id_limit = k_nodes,
-// a row's base is node * n_bins and a bin counts in [0, n_bins)) or K3's
-// segment bases (id_limit = n_seg, a bin counts in [0, n_seg - base);
-// n_bins unused).
-template <bool kLevel>
+// One CTA per (fold k, features f0 .. f0 + group - 1, chunk of ids) =
+// (blockIdx.y, blockIdx.x, blockIdx.z); tile_rows a multiple of
+// kSegThreads. ids are K1's node ids (kLevel: a row is active for a node
+// in this CTA's chunk [id0, id0 + z_ids) of [0, id_limit = k_nodes), its
+// base is (node - id0) * n_bins and a bin counts in [0, n_bins); the CTA
+// writes the chunk's [chunk nodes, n_bins, 2] slice of the k_nodes n_bins
+// = n_seg segments) or K3's segment bases (one chunk: z_ids = id_limit =
+// n_seg, a row is active for a base in [0, n_seg), a bin counts in
+// [0, n_seg - base); n_bins unused). kChunked false: one chunk, id0 = 0
+// and n_seg = n_seg_out at compile time.
+template <bool kLevel, bool kChunked>
 __global__ void __launch_bounds__(kSegThreads)
 group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ ids,
                   const float2* __restrict__ gh, float* __restrict__ out, int F, int N,
-                  int n_seg, int id_limit, int n_bins, int group, int tile_rows, int log2n) {
+                  int n_seg_out, int id_limit, int z_ids, int n_bins, int group, int tile_rows,
+                  int log2n) {
+  static_assert(kLevel || !kChunked, "K3 runs one chunk");
   extern __shared__ uint4 smem[];
   const int k = blockIdx.y;
   const int f0 = blockIdx.x * group;
   const int n_f = min(group, F - f0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R = tile_rows;
+  // this CTA's ids, [id0, id0 + n_ids), and its segments, [seg0, seg0 + n_seg)
+  // of the n_seg_out in out: all of them where the grid has one chunk
+  const int id0 = kChunked ? blockIdx.z * z_ids : 0;
+  const int n_ids = kChunked ? min(z_ids, id_limit - id0) : id_limit;
+  const int n_seg = kChunked ? n_ids * n_bins : n_seg_out;
+  const size_t seg0 = kChunked ? static_cast<size_t>(id0) * n_bins : 0;
 
   // the carve-up of seg_smem_bytes
   const int plane = group * n_seg;  // words per plane; feature g's at g * n_seg
@@ -389,8 +409,12 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
       int cnt = 0;
       for (int j = 0; j < per_warp; j += 32) {
         const int i = w0 + j + lane;
-        const int id = i < rows ? t_ids[i] : -1;
-        const bool act = static_cast<unsigned>(id) < static_cast<unsigned>(id_limit);
+        // the id relative to the chunk (K3: id0 = 0); the unsigned compare
+        // also drops ids below it
+        const int id = i < rows ? static_cast<int>(static_cast<unsigned>(t_ids[i]) -
+                                                   static_cast<unsigned>(id0))
+                                : -1;
+        const bool act = static_cast<unsigned>(id) < static_cast<unsigned>(n_ids);
         const unsigned mask = __ballot_sync(0xffffffffu, act);
         if (act) {
           const int pos = cnt + __popc(mask & ((1u << lane) - 1u));
@@ -437,7 +461,7 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
   };
   for (int g = 0; g < n_f; ++g) {
     const int c0 = g * n_seg;
-    float* o = out + (static_cast<size_t>(k) * F + f0 + g) * n_seg * 2;
+    float* o = out + ((static_cast<size_t>(k) * F + f0 + g) * n_seg_out + seg0) * 2;
     const int head = (reinterpret_cast<uintptr_t>(o) & 15) ? 1 : 0;  // o is 8-byte aligned
     const int n_pairs = (n_seg - head) >> 1;
     for (int p = tid; p < n_pairs; p += kSegThreads) {
@@ -459,23 +483,31 @@ int ceil_log2(int n) {
 
 constexpr int kMaxDevices = 64;
 
-// K1's and K3's launch at a layout the wrapper picked (hist_cuda.hist_layout
-// or seg_hist_layout); refuses one that does not fit. The kernel's dynamic
+// K1's and K3's launch at a layout the wrapper picked (hist_cuda.hist_plan
+// or seg_hist_layout); refuses one that does not fit. n_seg is the
+// segments per (fold, feature) of out, cta_seg those of one CTA: K1's
+// z_ids nodes of n_bins (grid z = ceil(id_limit / z_ids) chunks of nodes,
+// kChunked where there is more than one), K3's n_seg (z_ids = id_limit,
+// one chunk). The kernel's dynamic
 // shared-memory limit is raised only when this launch needs more than the
 // instantiation was last given on the current device (a driver call per
 // launch otherwise): limits only grow, under a lock, so every launch runs
 // under a limit at least its own.
-template <bool kLevel>
+template <bool kLevel, bool kChunked>
 int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, float* out, int K,
-                 int F, int N, int n_seg, int id_limit, int n_bins, int group, int tile_rows,
-                 void* stream) {
+                 int F, int N, int n_seg, int id_limit, int z_ids, int n_bins, int group,
+                 int tile_rows, void* stream) {
   static std::mutex lock;
   static size_t granted[kMaxDevices] = {};
   if (K <= 0 || F <= 0 || n_seg <= 0) return 0;
-  if (N < 0 || K > 65535 || n_seg > 65535 || group < 1 ||
-      tile_rows < kSegThreads || tile_rows % kSegThreads || tile_rows > kSegMaxTileRows)
+  if (z_ids < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long cta_seg = kChunked ? static_cast<long long>(z_ids) * n_bins : n_seg;
+  const int n_chunks = (id_limit + z_ids - 1) / z_ids;
+  if (N < 0 || K > 65535 || cta_seg > 65535 || n_chunks > 65535 || (n_chunks > 1) != kChunked ||
+      group < 1 || tile_rows < kSegThreads || tile_rows % kSegThreads ||
+      tile_rows > kSegMaxTileRows)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = seg_smem_bytes(n_seg, group, tile_rows);
+  const size_t smem = seg_smem_bytes(static_cast<int>(cta_seg), group, tile_rows);
   if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -483,17 +515,17 @@ int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, flo
   {
     std::lock_guard<std::mutex> hold(lock);
     if (dev >= kMaxDevices || smem > granted[dev]) {
-      err = cudaFuncSetAttribute(group_hist_kernel<kLevel>,
+      err = cudaFuncSetAttribute(group_hist_kernel<kLevel, kChunked>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
       if (dev < kMaxDevices) granted[dev] = smem;
     }
   }
-  group_hist_kernel<kLevel><<<dim3((F + group - 1) / group, K), kSegThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      binned, ids, reinterpret_cast<const float2*>(gh), out, F, N, n_seg, id_limit, n_bins,
-      group, tile_rows, ceil_log2(N));
+  group_hist_kernel<kLevel, kChunked><<<dim3((F + group - 1) / group, K, n_chunks),
+                                        kSegThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      binned, ids, reinterpret_cast<const float2*>(gh), out, F, N, n_seg, id_limit, z_ids,
+      n_bins, group, tile_rows, ceil_log2(N));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -687,20 +719,23 @@ int launch_mode(const int16_t* binned, const int32_t* nodes, const void* digits,
 extern "C" int mallorn_seg_hist(const int16_t* binned, const int32_t* seg_base,
                                 const float* gh, float* out, int K, int F, int N, int n_seg,
                                 int group, int tile_rows, void* stream) {
-  return launch_group<false>(binned, seg_base, gh, out, K, F, N, n_seg, n_seg, 0, group,
-                             tile_rows, stream);
+  return launch_group<false, false>(binned, seg_base, gh, out, K, F, N, n_seg, n_seg, n_seg, 0,
+                                    group, tile_rows, stream);
 }
 
-// K1: group features per CTA and tile_rows rows per staged tile
-// (hist_cuda.hist_layout); refuses a layout that does not fit
+// K1: group features per CTA, tile_rows rows per staged tile and
+// chunk_nodes nodes per CTA (hist_cuda.hist_plan; chunk_nodes = k_nodes is
+// one chunk); refuses a layout that does not fit, or more chunks than the
+// grid's z axis takes (65,535)
 extern "C" int mallorn_hist(const int16_t* binned, const int32_t* node_q, const float* gh,
                             float* out, int K, int F, int N, int k_nodes, int n_bins_tot,
-                            int group, int tile_rows, void* stream) {
+                            int group, int tile_rows, int chunk_nodes, void* stream) {
   if (k_nodes <= 0 || n_bins_tot <= 0) return 0;
   const long long n_seg = static_cast<long long>(k_nodes) * n_bins_tot;
-  if (n_seg > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_group<true>(binned, node_q, gh, out, K, F, N, static_cast<int>(n_seg), k_nodes,
-                            n_bins_tot, group, tile_rows, stream);
+  if (n_seg > 0x7fffffffLL || chunk_nodes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = chunk_nodes < k_nodes ? launch_group<true, true> : launch_group<true, false>;
+  return launch(binned, node_q, gh, out, K, F, N, static_cast<int>(n_seg), k_nodes,
+                chunk_nodes, n_bins_tot, group, tile_rows, stream);
 }
 
 // K4: digits [K, N, 6] bf16, maxabs [K, 6] float32 (max |digit| per channel)

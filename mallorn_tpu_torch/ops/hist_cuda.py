@@ -36,7 +36,8 @@ skipped like an inactive row.
   bit for bit, so a fit through it must build the kernel's forest
   (``build_seg_histograms_fixed`` and ``build_histograms_bf16_fixed`` are
   K3's and K4's; K5's plain version is its kernel's arithmetic already).
-- ``launches`` counts K1's launches, ``seg_launches`` K3's,
+- ``launches`` counts K1's launches (``launches_by_nodes`` per level
+  width), ``seg_launches`` K3's,
   ``bf16_launches`` K4's and ``i8_launches`` K5's (plain calls do not
   count).
 
@@ -49,6 +50,8 @@ non-finite flag), stages the rows in tiles with asynchronous copies,
 compacts each tile's active rows once, computes q once per row and adds it
 into its G histograms as pairs of 32-bit atomics. G and the tile come from
 the shape: ``hist_layout`` (K1, by level) and ``seg_hist_layout`` (K3).
+A K1 level wider than one CTA's histograms hold (54 nodes at 257 bins) is
+split into chunks of nodes over the grid's z axis (``hist_plan``).
 The wrappers allocate ``out`` and launch, nothing else; ``launch_hist_kernel``
 and ``launch_seg_kernel`` are the launches alone.
 """
@@ -61,11 +64,13 @@ from mallorn_tpu_torch.utils import cuda_build
 
 # the shared memory a CTA may take on an H100. K1 and K3 hold their group's
 # histograms, staged row tiles and active list in it (``_group_layout``:
-# at most SEG_MAX_SEGMENTS = 14,004 segments, 54 nodes at 257 bins), K4 /
-# K5 one (fold, feature, <= 8 nodes) histogram
+# at most SEG_MAX_SEGMENTS = 14,004 segments, 54 nodes at 257 bins; K1
+# splits a wider level into chunks of nodes, ``hist_plan``), K4 / K5 one
+# (fold, feature, <= 8 nodes) histogram
 SMEM_BYTES = 232448
 
 launches = 0
+launches_by_nodes: dict = {}  # K1's launches per k_nodes
 seg_launches = 0
 bf16_launches = 0
 i8_launches = 0
@@ -74,6 +79,7 @@ i8_launches = 0
 def reset_launches() -> None:
     global launches, seg_launches, bf16_launches, i8_launches
     launches = seg_launches = bf16_launches = i8_launches = 0
+    launches_by_nodes.clear()
 
 
 def _check_shapes(binned, node_q, gh):
@@ -221,14 +227,40 @@ def _group_layout(name: str, n_seg: int, group: int, rows: int):
 
 
 def hist_layout(k_nodes: int, n_bins_tot: int):
-    """(features per CTA G, rows per tile, shared-memory bytes) of K1 at
-    ``k_nodes`` x ``n_bins_tot`` segments: HIST_LAYOUTS' entry for the
-    level, shrunk as ``_group_layout`` does until the CTA fits. Raises
-    beyond SEG_MAX_SEGMENTS segments (54 nodes at 257 bins)."""
+    """(features per CTA G, rows per tile, shared-memory bytes) of a K1 CTA
+    that holds ``k_nodes`` x ``n_bins_tot`` segments: HIST_LAYOUTS' entry
+    for the level, shrunk as ``_group_layout`` does until the CTA fits.
+    Raises beyond SEG_MAX_SEGMENTS segments (54 nodes at 257 bins); a
+    wider level is split into chunks of nodes (``hist_plan``)."""
     levels = sorted(HIST_LAYOUTS)
     level = next((c for c in levels if c >= k_nodes), levels[-1])
     return _group_layout(f"build_histograms ({k_nodes} nodes x {n_bins_tot} bins)",
                          k_nodes * n_bins_tot, *HIST_LAYOUTS[level])
+
+
+GRID_Z_MAX = 65535  # CUDA's limit on a grid's z extent
+
+
+def hist_plan(k_nodes: int, n_bins_tot: int):
+    """(nodes per CTA, chunks, G, rows per tile, shared-memory bytes) of a
+    K1 launch: a level that one CTA holds (at most SEG_MAX_SEGMENTS //
+    n_bins_tot nodes, 54 at 257 bins) is one chunk at ``hist_layout``;
+    a wider one is split into the fewest equal chunks of at most that many
+    nodes (the last may be smaller) on the grid's z axis, each CTA at the
+    chunk's ``hist_layout``. Raises where one node's bins exceed a CTA or
+    the chunks exceed the grid's z axis."""
+    name = f"build_histograms ({k_nodes} nodes x {n_bins_tot} bins)"
+    per_cta = SEG_MAX_SEGMENTS // max(int(n_bins_tot), 1)
+    if k_nodes < 1 or n_bins_tot < 1 or per_cta < 1:
+        raise ValueError(f"{name}: the kernel takes 1 to {SEG_MAX_SEGMENTS} bins a node "
+                         f"and at least one node")
+    n_chunks = -(-k_nodes // per_cta)
+    if n_chunks > GRID_Z_MAX:
+        raise ValueError(f"{name}: {n_chunks} chunks of {per_cta} nodes exceed the grid's "
+                         f"z axis ({GRID_Z_MAX}); the kernel takes at most "
+                         f"{GRID_Z_MAX * per_cta} nodes at {n_bins_tot} bins")
+    chunk = -(-k_nodes // n_chunks)
+    return (chunk, -(-k_nodes // chunk)) + hist_layout(chunk, n_bins_tot)
 
 
 def seg_hist_layout(n_seg: int):
@@ -246,16 +278,16 @@ def seg_hist_layout(n_seg: int):
 def launch_hist_kernel(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                        out: torch.Tensor, k_nodes: int, n_bins_tot: int) -> None:
     """One launch of K1 on inputs the wrapper checked, at
-    ``hist_layout(k_nodes, n_bins_tot)``; writes ``out`` [K, F, k_nodes,
+    ``hist_plan(k_nodes, n_bins_tot)``; writes ``out`` [K, F, k_nodes,
     n_bins_tot, 2] float32. Counts nothing."""
     K, F, N = binned.shape
-    group, rows, _ = hist_layout(k_nodes, n_bins_tot)
+    chunk, _, group, rows, _ = hist_plan(k_nodes, n_bins_tot)
     lib = cuda_build.load()
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.mallorn_hist(binned.data_ptr(), node_q.data_ptr(), gh.data_ptr(),
                               out.data_ptr(), K, F, N, k_nodes, n_bins_tot, group, rows,
-                              stream)
+                              chunk, stream)
     cuda_build.check(rc, "mallorn_hist")
 
 
@@ -267,13 +299,14 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
     if binned.device.type == "cpu":
         return build_histograms_plain(binned, node_q, gh, k_nodes, n_bins_tot)
     _check_cuda_inputs("build_histograms", binned, node_q, gh)
-    hist_layout(k_nodes, n_bins_tot)  # refuses a level beyond the kernel's shared memory
+    hist_plan(k_nodes, n_bins_tot)  # refuses a level beyond the grid's z axis
     K, F, _ = binned.shape
     out = torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.float32, device=binned.device)
     if K == 0 or F == 0:
         return out
     launch_hist_kernel(binned, node_q, gh, out, k_nodes, n_bins_tot)
     launches += 1
+    launches_by_nodes[k_nodes] = launches_by_nodes.get(k_nodes, 0) + 1
     return out
 
 

@@ -15,6 +15,8 @@ Every (lane, start) pair is one element of a batch:
 
 The model supplies its own Jacobian (``model_fn(t, theta, with_jac=True)``
 returns the value and d value / d theta); the port needs no autodiff here.
+``d_max`` / ``d_min`` / ``d_clip`` are the clamps' derivatives as the JAX
+package's ``jax.jacfwd`` takes them (1/2 at a tie), for the models to use.
 """
 
 from __future__ import annotations
@@ -24,6 +26,22 @@ from typing import Callable, NamedTuple
 import torch
 
 FTOL, STALL = 1e-9, 3
+
+
+def d_max(x, lo):
+    """d max(x, lo) / d x as JAX's JVP gives it: 1 above ``lo``, 0 below,
+    1/2 at a tie (``jnp.maximum``, and ``jnp.clip``, which is built of it)."""
+    return torch.where(x > lo, 1.0, torch.where(x == lo, 0.5, 0.0)).to(x.dtype)
+
+
+def d_min(x, hi):
+    """d min(x, hi) / d x: 1 below ``hi``, 0 above, 1/2 at a tie."""
+    return torch.where(x < hi, 1.0, torch.where(x == hi, 0.5, 0.0)).to(x.dtype)
+
+
+def d_clip(x, lo, hi):
+    """d clip(x, lo, hi) / d x of ``jnp.clip`` = min(max(x, lo), hi)."""
+    return d_max(x, lo) * d_min(torch.clamp(x, min=lo), hi)
 
 
 class LMResult(NamedTuple):

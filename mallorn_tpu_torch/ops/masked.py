@@ -72,6 +72,11 @@ def argmax(x, mask):
     return torch.argmax(torch.where(mask, x, -_BIG), dim=-1)
 
 
+def argmin(x, mask):
+    """Index of the min valid element (first on ties)."""
+    return torch.argmin(torch.where(mask, x, _BIG), dim=-1)
+
+
 def quantile(x, mask, q: float):
     """``np.percentile(x[mask], q*100)`` with linear interpolation."""
     xs = torch.sort(torch.where(mask, x, _BIG), dim=-1).values

@@ -7,15 +7,21 @@ fold, and against a float64 numpy oracle, at the JAX package's bar for
 its histogram kernels (tests/test_hist_pallas.py): rtol 1e-5, atol 1e-4.
 The fixture is that of ``test_fullhot_matches_binlane_interpret`` (F=37,
 N=500, 257 bins, 1/2/8 nodes, inactive rows), with a fold axis of 3. Also
-on the CPU: the kernel's layout rule (``hist_layout``: it fits the shared
-memory at 1 to 54 nodes of 257 bins and refuses more, and its byte sum is
+on the CPU: the kernel's layout rule (``hist_layout``: one CTA fits the
+shared memory at 1 to 54 nodes of 257 bins and refuses more, and its byte sum is
 the kernel source's ``seg_smem_bytes``), and CPU tensors taking the plain
 version with no launch counted. The CUDA kernel itself is held against
 the plain version on the card (the ``cuda`` cases below: bit for bit
 ``build_histograms_fixed`` and two launches equal and counted, at 1, 17,
 2,443 and 8,143 rows, F = 222 with a ragged last feature group, 1, 8 and
-16 nodes, K1's rule for node ids and bins out of range, NaN and inf folds
-beside finite ones, an all-inactive fold; and ``chip_smoke.py``). The
+16 nodes, and 64 and 128 nodes in chunks of nodes on the grid's z axis; a
+chunked launch bit for bit the one-chunk launch; K1's rule for node ids
+and bins out of range, NaN and inf folds beside finite ones, an
+all-inactive fold; and ``chip_smoke.py``). On the CPU also the chunking
+rule (``hist_plan``: a level of at most 54 nodes is the parent's one
+chunk, a wider one the fewest chunks that fit, refused beyond the grid's
+z axis) and its arithmetic (the fixed-point histogram of a level is its
+chunks' side by side). The
 machine with the card has no JAX, so this file imports the JAX package
 inside the test that uses it and runs there as
 ``pytest --noconftest -m cuda tests/test_torch_hist.py``.
@@ -143,6 +149,52 @@ def test_hist_layout_refuses_beyond_its_limit(k_nodes):
         hist_layout(k_nodes, NBT)
 
 
+@pytest.mark.parametrize("k_nodes", [1, 8, 16, 54])
+def test_hist_plan_takes_a_level_that_fits_as_one_chunk(k_nodes):
+    # the parent's launch: one chunk of every node, the grid's z extent 1
+    assert hist_cuda.hist_plan(k_nodes, NBT) == (k_nodes, 1) + hist_layout(k_nodes, NBT)
+
+
+@pytest.mark.parametrize("k_nodes", [55, 64, 128, 1000])
+def test_hist_plan_splits_a_wider_level_into_chunks(k_nodes):
+    c = _kernel_smem_bytes()
+    chunk, n_chunks, group, rows, smem = hist_cuda.hist_plan(k_nodes, NBT)
+    assert chunk <= 54 and (n_chunks - 1) * chunk < k_nodes <= n_chunks * chunk
+    assert n_chunks == -(-k_nodes // 54)  # the fewest chunks that fit
+    assert (group, rows, smem) == hist_layout(chunk, NBT)
+    assert c["seg_smem_bytes"](chunk * NBT, group, rows) == smem <= SMEM_BYTES
+
+
+def test_hist_plan_refuses_beyond_the_grid_z_axis():
+    top = hist_cuda.GRID_Z_MAX * 54
+    assert hist_cuda.hist_plan(top, NBT)[1] == hist_cuda.GRID_Z_MAX
+    with pytest.raises(ValueError, match="z axis"):
+        hist_cuda.hist_plan(top + 1, NBT)
+    with pytest.raises(ValueError, match=str(SEG_MAX_SEGMENTS)):
+        hist_cuda.hist_plan(1, SEG_MAX_SEGMENTS + 1)
+
+
+@pytest.mark.parametrize("k_nodes", [64, 128])
+def test_fixed_point_histogram_is_its_chunks_side_by_side(k_nodes):
+    """What a chunked launch computes: each chunk of nodes counts the rows
+    whose node lies in it (ids shifted to the chunk, the rest inactive);
+    the chunks side by side are the whole level's fixed-point histogram
+    bit for bit (the scale depends on (g, h) alone)."""
+    rng = np.random.default_rng(70 + k_nodes)
+    binned = torch.from_numpy(rng.integers(0, NBT, size=(2, 11, 900)).astype(np.int16))
+    node_q = torch.from_numpy(rng.integers(0, k_nodes + 1, size=(2, 900)).astype(np.int32))
+    gh = torch.from_numpy(rng.normal(size=(2, 900, 2)).astype(np.float32))
+    chunk, n_chunks = hist_cuda.hist_plan(k_nodes, NBT)[:2]
+    assert n_chunks > 1
+    parts = []
+    for n0 in range(0, k_nodes, chunk):
+        c = min(chunk, k_nodes - n0)
+        ids = torch.where((node_q >= n0) & (node_q < n0 + c), node_q - n0, c)
+        parts.append(build_histograms_fixed(binned, ids.to(torch.int32), gh, c, NBT))
+    whole = build_histograms_fixed(binned, node_q, gh, k_nodes, NBT)
+    assert torch.equal(torch.cat(parts, dim=2).view(torch.int32), whole.view(torch.int32))
+
+
 def test_hist_layout_repeats_the_kernel_byte_sum():
     # the launcher refuses a layout by its own sum, the wrapper picks one
     # by this module's; the two must not drift apart at any level
@@ -225,6 +277,35 @@ def test_kernel_bit_for_bit_at_the_fits_width(k_nodes):
     # F = 222: not a multiple of any G > 1, so the last group is ragged
     _cuda_or_skip()
     _kernel_equals_fixed(*_level(5, 222, 2444, k_nodes, seed=30 + k_nodes), k_nodes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_nodes", [64, 128])
+def test_kernel_bit_for_bit_wider_than_one_cta(k_nodes):
+    # depth 8's last level with subtraction (64 nodes) and without (128):
+    # two and three chunks of nodes on the grid's z axis
+    _cuda_or_skip()
+    _kernel_equals_fixed(*_level(5, 222, 2444, k_nodes, seed=80 + k_nodes), k_nodes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 5, 16])
+def test_kernel_chunked_launch_equals_one_chunk(chunk):
+    """A 16-node level launched in chunks of ``chunk`` nodes gives the bits
+    of the one-chunk launch (which is the wrapper's)."""
+    _cuda_or_skip()
+    from mallorn_tpu_torch.utils import cuda_build
+
+    binned, node_q, gh = (torch.as_tensor(a).cuda() for a in _level(3, 37, 2443, 16, seed=90))
+    want = build_histograms(binned, node_q, gh, 16, NBT)
+    out = torch.full_like(want, float("nan"))
+    group, rows, _ = hist_layout(chunk, NBT)
+    lib = cuda_build.load()
+    cuda_build.check(lib.mallorn_hist(binned.data_ptr(), node_q.data_ptr(), gh.data_ptr(),
+                                      out.data_ptr(), 3, 37, 2443, 16, NBT, group, rows, chunk,
+                                      torch.cuda.current_stream().cuda_stream), "mallorn_hist")
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda

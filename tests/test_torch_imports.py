@@ -1,5 +1,6 @@
 """The port stands alone: its import closure holds no JAX, pandas,
-scikit-learn or JAX package, and its entry points default to the card.
+scikit-learn, matplotlib (the figures import it when they draw) or JAX
+package, and its entry points default to the card.
 
 The machine with the card has torch, numpy and scipy but no JAX, pandas
 or scikit-learn, so a stray import would stop the port there. The check
@@ -25,7 +26,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke  # its imports, without running it
 banned = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "pandas", "sklearn", "mallorn_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "pandas", "sklearn", "matplotlib",
+                                       "mallorn_tpu"))
 print("MODULES", len(mods))
 print("NAMES", ",".join(mods))
 print("BANNED", ",".join(banned))
@@ -44,7 +46,11 @@ def test_import_closure_has_no_jax_pandas_sklearn_or_jax_package():
     walked = set(lines["NAMES"].split(","))
     for m in ("utils.prng", "trees.objectives", "trees.xla_cpu", "ops.hist_cuda",
               "train.cv", "train.adversarial", "train.feature_selection",
-              "train.pipelines", "io.submission", "io.model_store", "features.research"):
+              "train.pipelines", "io.submission", "io.model_store", "features.research",
+              "train.calibration", "train.oversample", "train.hpo", "train.analysis",
+              "train.visualize", "features.extinction", "features.categorical",
+              "features.interactions", "features.powerlaw", "features.tde_models",
+              "features.blackbody", "features.advanced_physics"):
         assert f"mallorn_tpu_torch.{m}" in walked, m
     assert lines["BANNED"].strip() == "", f"the port pulled in: {lines['BANNED']}"
 

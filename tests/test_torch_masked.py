@@ -33,6 +33,8 @@ def _inputs():
     x[5, 1] = 3.0
     x[5, 2] = 3.0  # tie for argmax
     mask[5, 1:3] = True
+    x[8, 4] = x[8, 6] = -5.0  # tie for argmin
+    mask[8, 4:7] = True
     target = rng.uniform(-10, 110, size=n).astype(np.float32)
     target[6] = np.nan
     target[7] = t[7][np.argmax(mask[7])]  # exactly the first valid time
@@ -51,6 +53,7 @@ CASES = {
     "mmin": lambda M, x, t, m, tg: M.mmin(x, m),
     "mmax": lambda M, x, t, m, tg: M.mmax(x, m),
     "argmax": lambda M, x, t, m, tg: M.argmax(x, m),
+    "argmin": lambda M, x, t, m, tg: M.argmin(x, m),
     "quantile_10": lambda M, x, t, m, tg: M.quantile(x, m, 0.1),
     "quantile_90": lambda M, x, t, m, tg: M.quantile(x, m, 0.9),
     "median": lambda M, x, t, m, tg: M.median(x, m),

@@ -140,11 +140,14 @@ def sweep(torch, hist_cuda, cuda_build, stream, ms) -> dict:
                     if hist_cuda._seg_smem_bytes(n_seg, group, rows) > hist_cuda.SMEM_BYTES:
                         continue
 
+                    # a checkout with hist_plan takes nodes per CTA (here all)
+                    chunk = (k_nodes,) if hasattr(hist_cuda, "hist_plan") else ()
+
                     def launch():
                         cuda_build.check(lib.mallorn_hist(
                             binned.data_ptr(), node_q.data_ptr(), gh.data_ptr(),
                             out.data_ptr(), K, F, N, k_nodes, N_BINS_TOT, group, rows,
-                            stream), "mallorn_hist")
+                            *chunk, stream), "mallorn_hist")
                     out.fill_(float("nan"))
                     launch()
                     torch.cuda.synchronize()
