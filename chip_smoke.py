@@ -151,7 +151,25 @@ Phases, each printing its wall time on its own line:
    and the prediction agreement of v92d, v34a and the ensemble; SMOTE and
    ADASYN at ratio 0.5, every synthetic row on a minority segment. The
    kernel phase also checks K1 at depth 8's 64 and 128 nodes (two and
-   three chunks of nodes on the grid's z axis).
+   three chunks of nodes on the grid's z axis);
+14. families 2, reusing the training phase's splits and the runners' v34a
+   matrix: the twelve remaining families (gp1d, whose 150 Adam steps and
+   final NLL run K2 at the band view's width, dtw against templates built
+   once from the train split, advanced, cesium, high_snr, fourier, fwhm,
+   temp_fwhm, peak_ordering, powerlaw_ratio, enhanced_colors,
+   time_to_decline) extracted on both splits in chunks of 2,048 objects
+   (seconds, columns, finite share), gp1d's K2 launches equal to chunks x
+   151 at each split's width, the first 128 test objects held against the
+   CPU (names and NaN lanes identical, the closed-form columns and DTW's
+   distances at features_v4's gate, DTW's warp fractions equal on >= 98%
+   of lanes, gp1d at multiband_gp's gate); the command line's experiments
+   v9, v20, v35, v40, v47, v48, v56, v58, v59b, v65 and v66 (the family's
+   columns on the 224-column v34a matrix, ``train_cv`` at V34A_PARAMS; K1
+   launches = rounds x depth); ``augment_dataset`` over one copy of the
+   train split on the card and on the CPU (masks equal, times, fluxes and
+   errors within rtol 1e-5) and the transforms' invariants on the card.
+   The kernel phase also checks K2 at gp1d's shapes (B = 12,288 and
+   12,287 at T = 40, B = 12,288 at T = 48).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -175,8 +193,11 @@ import torch
 from mallorn_tpu_torch.data.packing import (Metadata, pack_lightcurves, pad_time_axes,
                                             unify_time_padding)
 from mallorn_tpu_torch.data.synthetic import generate_dataset
-from mallorn_tpu_torch.features import (advanced_physics, blackbody, multiband_gp, powerlaw,
-                                         tde_models)
+from mallorn_tpu_torch.data import augmentation
+from mallorn_tpu_torch.features import (advanced, advanced_physics, blackbody, cesium, dtw,
+                                         enhanced_colors, fourier, fwhm, gp1d, high_snr,
+                                         multiband_gp, peak_ordering, powerlaw, powerlaw_ratio,
+                                         tde_models, temp_fwhm, time_to_decline)
 from mallorn_tpu_torch.features.categorical import add_categorical_features
 from mallorn_tpu_torch.features.extinction import dered_matrix
 from mallorn_tpu_torch.features.interactions import (create_physics_interactions,
@@ -207,7 +228,7 @@ from mallorn_tpu_torch.trees import objectives
 from mallorn_tpu_torch.trees.binning import fit_bins
 from mallorn_tpu_torch.trees.gbdt import (V34A_PARAMS, GBDTParams, predict_margin_models,
                                           train_gbdt)
-from mallorn_tpu_torch.utils import cuda_build
+from mallorn_tpu_torch.utils import cuda_build, prng
 from mallorn_tpu_torch.utils.constants import LSST_BANDS, WAVELENGTHS_A
 
 ROOT = Path(__file__).resolve().parent
@@ -1978,6 +1999,204 @@ def run_families(trained: dict, ensemble: dict, runners: dict, dev) -> dict:
             "families": {f: {"columns": len(v[2]), **v[3]} for f, v in fams.items()}}
 
 
+# The families 2 phase: the twelve remaining feature families, the command
+# line's experiments on them, and augmentation
+
+GP1D_STEPS = 150  # the command line's default (its --gp-steps)
+# (name, extract(packed, meta, templates)) in the order they are ported
+FAMILIES2 = (
+    ("gp1d", lambda p, m, tpl: gp1d.extract(p, n_steps=GP1D_STEPS)),
+    ("dtw", lambda p, m, tpl: dtw.extract(p, tpl)),
+    ("advanced", lambda p, m, tpl: advanced.extract(p, m)),
+    ("cesium", lambda p, m, tpl: cesium.extract(p)),
+    ("high_snr", lambda p, m, tpl: high_snr.extract(p)),
+    ("fourier", lambda p, m, tpl: fourier.extract(p)),
+    ("fwhm", lambda p, m, tpl: fwhm.extract(p)),
+    ("temp_fwhm", lambda p, m, tpl: temp_fwhm.extract(p)),
+    ("peak_ordering", lambda p, m, tpl: peak_ordering.extract(p)),
+    ("powerlaw_ratio", lambda p, m, tpl: powerlaw_ratio.extract(p)),
+    ("enhanced_colors", lambda p, m, tpl: enhanced_colors.extract(p)),
+    ("time_to_decline", lambda p, m, tpl: time_to_decline.extract(p)),
+)
+# the command line's backbone-plus-family experiments on them
+FAMILY2_EXPERIMENTS = (("v9", "dtw"), ("v20", "advanced"), ("v35", "cesium"),
+                       ("v40", "fourier"), ("v47", "enhanced_colors"),
+                       ("v48", "time_to_decline"), ("v56", "peak_ordering"),
+                       ("v58", "fwhm"), ("v59b", "temp_fwhm"), ("v65", "powerlaw_ratio"),
+                       ("v66", "high_snr"))
+# gp1d's K2 shapes: a 2,048-object chunk is 12,288 lanes; the test split's
+# band view is 40 wide, the train split's 48
+GP1D_K2_SHAPES = ((12288, 40), (12287, 40), (12288, 48))
+WARP_SHARE = 0.98  # DTW's warp fractions equal on at least this share of lanes
+AUG_KEY = 20  # augment_dataset's key: prng.PRNGKey(AUG_KEY)
+AUG_RTOL = 1e-5
+
+
+def check_family2_reference(family: str, fn, packed, meta, templates, m: int = 128) -> dict:
+    """The first ``m`` objects through the family on the card and on the
+    CPU (the same port code): names and NaN lanes identical; gp1d at
+    multiband_gp's gate, DTW's warp fractions equal on >= WARP_SHARE of
+    lanes, every other column at features_v4's gate."""
+    sub = packed.map(lambda x: x[:m])
+    sub_meta = Metadata(*[None if x is None else x[:m] for x in
+                          (meta.object_ids, meta.z, meta.ebv, meta.target, meta.spec_type)])
+    got = fn(sub, sub_meta, templates)
+    want = fn(sub.to("cpu"), sub_meta, templates.cpu())
+    if list(got) != list(want):
+        raise AssertionError(f"{family}: the card's columns differ from the CPU's")
+    nan_diff = [k for k in want if not torch.equal(torch.isnan(got[k].cpu()), torch.isnan(want[k]))]
+    warp = [k for k in want if family == "dtw" and "warp" in k]
+    rtol, col_need, mean_need = GATES["multiband_gp" if family == "gp1d" else "features_v4"]
+    held = [k for k in want if k not in warp]
+    fracs = column_agreement({k: got[k] for k in held}, {k: want[k] for k in held}, rtol)
+    worst = min(fracs.values())
+    mean = float(np.mean(list(fracs.values())))
+    warp_share = (float(np.mean([((got[k].cpu() == want[k])
+                                  | (torch.isnan(got[k].cpu()) & torch.isnan(want[k])))
+                                 .double().mean().item() for k in warp])) if warp else 1.0)
+    log(f"  {family} on the card vs the CPU, {m} objects: {len(want)} columns, NaN lanes "
+        f"differ in {nan_diff or 'none'}; {len(fracs)} columns at rtol {rtol:g}, mean "
+        f"{mean:.4f} of cells (worst {worst:.4f}; needs {col_need:g} / {mean_need:g})"
+        + (f"; warp fractions equal on {warp_share:.4f} of lanes (needs {WARP_SHARE:g})"
+           if warp else ""))
+    if nan_diff or worst < col_need or mean < mean_need or warp_share < WARP_SHARE:
+        raise AssertionError(f"{family} on the card disagrees with the CPU")
+    return {"mean_share": mean, "worst_share": worst, "warp_share": warp_share}
+
+
+def check_augmentation(tr_packed, tr_meta) -> dict:
+    """``augment_dataset`` over one copy of the train split with a fixed key
+    on the card and on the CPU (masks equal, times, fluxes and errors within
+    rtol AUG_RTOL), then the transforms' invariants on the card's results."""
+    key = prng.PRNGKey(AUG_KEY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, got_meta = augmentation.augment_dataset(tr_packed, tr_meta, key, n_copies=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want, _ = augmentation.augment_dataset(tr_packed.to("cpu"), tr_meta, key, n_copies=1)
+    n = tr_packed.n_objects
+    masks_equal = all(torch.equal(getattr(got, f).cpu(), getattr(want, f))
+                      for f in ("band_mask", "all_mask", "all_band"))
+    worst = {}
+    for f in ("band_time", "band_flux", "band_err", "all_time", "all_flux", "all_err"):
+        a, b = getattr(got, f).cpu().double(), getattr(want, f).double()
+        d = (a - b).abs() / b.abs().clamp(min=1e-30)
+        worst[f] = d[(a != b)].max().item() if bool((a != b).any()) else 0.0
+    log(f"  augment_dataset: {n} -> {got.n_objects} objects on the card in {secs:.3f} s; "
+        f"masks equal to the CPU's {masks_equal}; largest relative difference "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f" (needs <= {AUG_RTOL:g})")
+    if (not masks_equal or max(worst.values()) > AUG_RTOL or got.n_objects != 2 * n
+            or len(got_meta.object_ids) != 2 * n):
+        raise AssertionError("augment_dataset on the card disagrees with the CPU")
+    m = tr_packed.band_mask
+    kept = got.band_mask[n:].sum(-1)
+    had = m.sum(-1)
+    # the invariants of tests/test_augmentation.py, on the card
+    shifted = augmentation.time_shift(tr_packed, prng.PRNGKey(AUG_KEY + 1))
+    dt_old = torch.where(m[..., 1:] & m[..., :-1], torch.diff(tr_packed.band_time), 0.0)
+    dt_new = torch.where(m[..., 1:] & m[..., :-1], torch.diff(shifted.band_time), 0.0)
+    cadence = bool(torch.allclose(dt_new, dt_old, rtol=1e-5, atol=1e-3))
+    min_kept = bool((kept[had >= 5] >= 5).all()) and int(kept.sum()) < int(had.sum())
+    degraded = augmentation.snr_degradation(tr_packed, prng.PRNGKey(AUG_KEY + 2))
+    inflated = bool((degraded.band_err[m] >= tr_packed.band_err[m] - 1e-6).all())
+    mixed = augmentation.tde_mixup(tr_packed, tr_meta, prng.PRNGKey(AUG_KEY + 3))
+    non = torch.as_tensor(np.asarray(tr_meta.target) == 0, device=m.device)
+    tde = ~non
+    only_tdes = (bool(torch.equal(mixed.band_flux[non], tr_packed.band_flux[non]))
+                 and not bool(torch.equal(mixed.band_flux[tde], tr_packed.band_flux[tde])))
+    log(f"  invariants on the card: time_shift keeps the cadence {cadence}; dropout keeps >= 5 "
+        f"points in every band that had them {min_kept} ({int(kept.sum())} of {int(had.sum())} "
+        f"points kept); snr_degradation inflates the errors {inflated}; tde_mixup changes the "
+        f"TDEs' fluxes alone {only_tdes}")
+    if not (cadence and min_kept and inflated and only_tdes):
+        raise AssertionError("an augmentation invariant fails on the card")
+    return {"s": secs, "worst_rel": worst}
+
+
+def run_families2(trained: dict, runners: dict, dev) -> dict:
+    """The families 2 phase, on the training run's packed splits and the
+    runners' 224-column v34a matrix:
+
+    - the twelve families extracted on both splits on the card in chunks
+      of FAMILY_CHUNK objects (DTW's templates built once from the train
+      split), gp1d's K2 launches = chunks x (GP1D_STEPS + 1) at each
+      split's band width, the first 128 test objects held against the CPU;
+    - v9 ... v66, each a ``train_cv`` at V34A_PARAMS on the v34a matrix
+      plus the family's columns; K1 launches = rounds x depth;
+    - ``augment_dataset`` on the card against the CPU, and the invariants.
+    """
+    tr_packed, tr_meta = trained["tr"]
+    te_packed, te_meta = trained["te"]
+    y, y_te = np.asarray(tr_meta.target), np.asarray(te_meta.target)
+    X224, X224_te, _ = runners["X224"]
+    rows, k1_all = {}, 0
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    templates = dtw.build_templates(tr_packed, tr_meta.target)
+    torch.cuda.synchronize()
+    log(f"  dtw templates {tuple(templates.shape)} from the train split's labels in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    mats, refs, gp1d_k2 = {}, {}, {}
+    for fam, fn in FAMILIES2:
+        mats[fam] = []
+        for tag, packed, meta in (("train", tr_packed, tr_meta), ("test", te_packed, te_meta)):
+            chol_cuda.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = chunked_extract(fn, packed, meta, templates, chunk_size=FAMILY_CHUNK)
+            mat, fam_names = feature_matrix(feats)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            mats[fam].append(mat.cpu().numpy())
+            log(f"  {fam} {tag}: {packed.n_objects} objects, {secs:.3f} s, {len(fam_names)} "
+                f"columns, finite share {float(np.isfinite(mats[fam][-1]).mean()):.4f}")
+            by_t = dict(chol_cuda.launches_by_t)
+            if fam == "gp1d":
+                T = packed.band_time.shape[-1]
+                want = -(-packed.n_objects // FAMILY_CHUNK) * (GP1D_STEPS + 1)
+                log(f"  gp1d {tag}: K2 launches by width {by_t} (chunks x {GP1D_STEPS + 1} "
+                    f"predicts {want} at T = {T}); cluster {chol_cuda.cluster_launches}, "
+                    f"tiled {chol_cuda.large_launches}")
+                if by_t != {T: want} or chol_cuda.cluster_launches or chol_cuda.large_launches:
+                    raise AssertionError("gp1d's K2 launches disagree with the prediction")
+                gp1d_k2[T] = gp1d_k2.get(T, 0) + want
+            elif by_t:
+                raise AssertionError(f"{fam} launched K2 ({by_t})")
+        mats[fam].append(fam_names)
+        refs[fam] = check_family2_reference(fam, fn, te_packed, te_meta, templates)
+
+    for name, fam in FAMILY2_EXPERIMENTS:
+        Xtr2 = _finite_or_nan(np.concatenate([X224, mats[fam][0]], axis=1))
+        Xte2 = _finite_or_nan(np.concatenate([X224_te, mats[fam][1]], axis=1))
+        hist_cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cv = train_cv(Xtr2, y, Xte2, V34A_PARAMS, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1, want_k1 = hist_cuda.launches, V34A_PARAMS.max_depth * cv.rounds_run
+        k1_all += k1
+        test_f1 = f1_score(y_te, cv.test_preds > cv.best_threshold)
+        log(f"  {name} (+ {fam}): {Xtr2.shape[1]} columns, {secs:.3f} s; rounds "
+            f"{cv.rounds_run}; OOF F1 {cv.best_f1:.4f} @ {cv.best_threshold:.3f}; TEST F1 "
+            f"{test_f1:.4f}; K1 launches {k1} (rounds x depth predicts {want_k1})")
+        if k1 != want_k1 or k1 == 0:
+            raise AssertionError(f"{name}: K1 launches disagree with rounds x depth")
+        if not (np.isfinite(cv.oof_preds).all() and np.isfinite(cv.test_preds).all()):
+            raise AssertionError(f"{name}: non-finite outputs")
+        rows[name] = {"family": fam, "s": secs, "columns": Xtr2.shape[1],
+                      "rounds": cv.rounds_run, "oof_f1": cv.best_f1,
+                      "threshold": cv.best_threshold, "test_f1": test_f1, "k1": k1}
+
+    rows["augmentation"] = check_augmentation(tr_packed, tr_meta)
+    log(f"families 2: K1 launches {k1_all}; gp1d's K2 launches by width {gp1d_k2}")
+    return {"k1": k1_all, "gp1d_k2": gp1d_k2, "rows": rows,
+            "families": {f: {"columns": len(mats[f][2]), **refs[f]} for f in mats}}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -2011,6 +2230,10 @@ def main() -> int:
             check_non_spd(T)
         for T in (64, 160):
             time_gp_step(REQUEST, T, seed=7000 + T)
+        # gp1d's shapes: a chunk's 12,288 lanes (and one fewer) at the band
+        # view's widths
+        gp1d_results = [check_kernel(B, T, seed=8000 + B % 7 + T)
+                        for B, T in GP1D_K2_SHAPES]
         # K2 beyond 240: each width on its own kernel alone (launch counters):
         # the blocked kernel up to MAX_T, the cluster kernel up to
         # MAX_T_CLUSTER, the tiled kernel beyond
@@ -2211,6 +2434,9 @@ def main() -> int:
     with Phase("families"):
         families = run_families(trained, ensemble, runners, dev)
 
+    with Phase("families 2"):
+        families2 = run_families2(trained, runners, dev)
+
     # K2's rows: the server's GP width (phase 2 and the predict) and the
     # coarse phase's width, each with serving's launches at that width
     for name, width in (("chol_inv", gp_tc), ("chol_inv_coarse", multiband_gp._T_COARSE)):
@@ -2224,6 +2450,21 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [REQUEST, width, width],
         })
+    # K2 at gp1d's shapes, with the families 2 phase's launches at T = 40
+    # (the test split) and all its launches by width
+    r = gp1d_results[0]
+    kernels.append({
+        "name": "chol_inv_gp1d", "route": "cuda",
+        "source": "mallorn_tpu_torch/csrc/chol_inv_blocked.cu",
+        "replaces": "mallorn_tpu/ops/chol_pallas.py:60",
+        "launches": families2["gp1d_k2"].get(r["T"], 0),
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "shape": [r["B"], r["T"], r["T"]],
+        "launches_by_t": families2["gp1d_k2"],
+        "shapes": [{k: q[k] for k in ("B", "T", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")} for q in gp1d_results],
+    })
     # K2 beyond 240: the blocked kernel at the wide server's width, the
     # cluster kernel at the XL server's and the tiled kernel at the XXL
     # server's, each with its server's launches (the tiled kernel's count
@@ -2277,6 +2518,7 @@ def main() -> int:
     kernels[-2]["policies_launches"] = policies["k1"]
     kernels[-2]["policy_shapes"] = [{k: r[k] for k in shape_keys} for r in policy_hist]
     kernels[-2]["families_launches"] = families["k1"]
+    kernels[-2]["families2_launches"] = families2["k1"]
     kernels[-2]["family_shapes"] = [dict({k: r[k] for k in shape_keys},
                                          node_chunks=r["node_chunks"]) for r in family_hist]
     # the segment histogram's row: a v114d split step's pair of children

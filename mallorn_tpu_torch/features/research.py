@@ -53,9 +53,11 @@ def _mean_over(x, keep, n):
     return torch.where(keep, x, 0.0).sum(dim=-1) / n.clamp(min=1)
 
 
-def _np_interp(grid, times, values, mask):
+def _np_interp(grid, times, values, mask, fused: bool = False):
     """``np.interp`` of each row's masked, time-sorted series at ``grid``
-    [N, G]: clamped at both ends."""
+    [N, G]: clamped at both ends. ``fused`` rounds f1 + w (f2 - f1) once,
+    as XLA:CPU fuses it into a multiply-add (float64 holds the float32
+    product exactly), for callers that need the JAX package's bits."""
     t = torch.where(mask, times, _BIG).contiguous()
     idx = torch.searchsorted(t, grid.contiguous(), right=True) - 1
     top = (mask.sum(dim=-1) - 1).clamp(min=0)[:, None]
@@ -64,8 +66,10 @@ def _np_interp(grid, times, values, mask):
     t1, t2 = torch.gather(t, 1, lo), torch.gather(t, 1, hi)
     f1, f2 = torch.gather(values, 1, lo), torch.gather(values, 1, hi)
     dt = t2 - t1
-    w = torch.where(dt > 0, (grid - t1) / torch.where(dt > 0, dt, 1.0), 0.0)
-    return f1 + w.clamp(0.0, 1.0) * (f2 - f1)
+    w = torch.where(dt > 0, (grid - t1) / torch.where(dt > 0, dt, 1.0), 0.0).clamp(0.0, 1.0)
+    if fused:
+        return (f1.double() + w.double() * (f2 - f1).double()).to(values.dtype)
+    return f1 + w * (f2 - f1)
 
 
 def _powerlaw_block(t, f, e, mask, nb):

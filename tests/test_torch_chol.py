@@ -255,6 +255,56 @@ def test_blocked_kernel_matches_plain_on_the_card():
         assert float(torch.triu(Linv[ok], 1).abs().max()) == 0.0
 
 
+@pytest.mark.cuda
+def test_blocked_kernel_at_the_gp1d_shapes_on_the_card():
+    """gp1d's chunks: 12,288 lanes (and a ragged 12,287) at the band view's
+    width T = 40, the blocked kernel within the bars above of the plain
+    version (float64), two launches bit for bit equal, one launch counted
+    per call at T = 40."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    for b in (12288, 12287):
+        K = torch.from_numpy(_spd(b, 40, seed=b, n_pad=5)).cuda()
+        chol_cuda.reset_launches()
+        Linv, ld = chol_inv(K)
+        Linv2, ld2 = chol_inv(K)
+        torch.cuda.synchronize()
+        assert chol_cuda.launches_by_t == {40: 2} and chol_cuda.cluster_launches == 0
+        assert torch.equal(Linv, Linv2) and torch.equal(ld, ld2)
+        Lp, ldp = chol_inv_plain(K.double())
+        np.testing.assert_allclose(Linv.cpu().numpy(), Lp.cpu().numpy(), rtol=5e-5, atol=5e-5)
+        np.testing.assert_allclose(ld.cpu().numpy(), ldp.cpu().numpy(), rtol=1e-5, atol=1e-4)
+        assert float(torch.triu(Linv, 1).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_gp1d_on_the_card_counts_its_launches():
+    """gp1d's fit: n_steps + 1 K2 launches at the band view's width, and
+    the CPU's features at the multiband_gp gate (tests/test_torch_gp.py:
+    per column >= 90% of lanes within rtol 2e-3, mean >= 97%; NaNs
+    identical)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    from mallorn_tpu_torch.data.synthetic import generate_dataset
+    from mallorn_tpu_torch.features import gp1d
+
+    packed = generate_dataset(40, seed=5, device="cpu")[0]
+    chol_cuda.reset_launches()
+    got = gp1d.extract(packed.to("cuda"), n_steps=20)
+    torch.cuda.synchronize()
+    assert chol_cuda.launches_by_t == {packed.band_time.shape[-1]: 21}
+    assert chol_cuda.cluster_launches == 0 and chol_cuda.large_launches == 0
+    want = gp1d.extract(packed, n_steps=20)
+    fracs = []
+    for k in want:
+        a, b = want[k].double().numpy(), got[k].cpu().double().numpy()
+        np.testing.assert_array_equal(np.isnan(b), np.isnan(a), err_msg=k)
+        close = np.isclose(b, a, rtol=2e-3, atol=2e-3 * np.nanmax(np.abs(a), initial=0.0))
+        fracs.append((close | np.isnan(a)).mean())
+        assert fracs[-1] >= 0.90, (k, fracs[-1])
+    assert np.mean(fracs) >= 0.97
+
+
 # K6: ``cholesky_plain`` (what ``cholesky`` runs on a CPU tensor) against
 # ``cholesky_lanes`` in Pallas interpret mode at the bars of
 # tests/test_chol_pallas.py:19 (rtol / atol 2e-5, upper triangle exactly 0).

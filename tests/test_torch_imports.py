@@ -50,7 +50,12 @@ def test_import_closure_has_no_jax_pandas_sklearn_or_jax_package():
               "train.calibration", "train.oversample", "train.hpo", "train.analysis",
               "train.visualize", "features.extinction", "features.categorical",
               "features.interactions", "features.powerlaw", "features.tde_models",
-              "features.blackbody", "features.advanced_physics"):
+              "features.blackbody", "features.advanced_physics", "features.gp1d",
+              "features.dtw", "features.advanced", "features.cesium", "features.high_snr",
+              "features.fourier", "features.fwhm", "features.temp_fwhm",
+              "features.peak_ordering", "features.powerlaw_ratio",
+              "features.enhanced_colors", "features.time_to_decline",
+              "data.augmentation"):
         assert f"mallorn_tpu_torch.{m}" in walked, m
     assert lines["BANNED"].strip() == "", f"the port pulled in: {lines['BANNED']}"
 

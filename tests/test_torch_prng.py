@@ -1,9 +1,14 @@
-"""Port vs JAX package: the threefry key schedule of the GBDT fit.
+"""Port vs JAX package: the threefry key schedule of the GBDT fit, and the
+draws of the augmentation transforms.
 
-Every bit must agree (``np.testing.assert_array_equal``): one wrong bit
-changes a column or row mask and the forests diverge from the first tree.
-JAX runs with ``jax_threefry_partitionable`` on (its default), and the
-port reproduces that mode.
+Every bit of the key schedule must agree (``np.testing.assert_array_equal``):
+one wrong bit changes a column or row mask and the forests diverge from
+the first tree. JAX runs with ``jax_threefry_partitionable`` on (its
+default), and the port reproduces that mode. ``uniform`` with a range is
+bit for bit too; ``normal`` (XLA's erf_inv polynomial over numpy's
+log1p) is held at rtol 1e-6 and ``beta`` (two Marsaglia-Tsang loggamma
+loops) at rtol 1e-5 on every element: their log1p / log / exp round their
+last bit otherwise than XLA's.
 """
 
 import jax
@@ -76,3 +81,59 @@ def test_row_subsample_mask():
                      for k in keys])
     np.testing.assert_array_equal(got, want)
     assert 0.75 < got.mean() < 0.85
+
+
+@pytest.mark.parametrize("lo,hi", [(0.8, 1.2), (-20.0, 20.0), (-0.05, 0.1), (1.2, 2.0)])
+def test_uniform_with_a_range(lo, hi):
+    for seed in (0, 5, 77):
+        key = jax.random.PRNGKey(seed)
+        np.testing.assert_array_equal(
+            prng.uniform(np.asarray(key), (3, 257), lo, hi),
+            np.asarray(jax.random.uniform(key, (3, 257), minval=lo, maxval=hi)))
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+def test_normal(seed):
+    key = jax.random.split(jax.random.PRNGKey(seed))[1]
+    want = np.asarray(jax.random.normal(key, (24, 6, 40)))
+    got = prng.normal(np.asarray(key), (24, 6, 40))
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_erfinv_edges():
+    x = np.array([-1.0, -0.999, -0.5, 0.0, 1e-7, 0.5, 0.999, 1.0], np.float32)
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(x)))
+    np.testing.assert_allclose(prng.erfinv(x), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("a,b", [(0.3, 0.3), (2.0, 2.0), (0.5, 3.0)])
+def test_beta(a, b):
+    """Every element within rtol 1e-5 (none flips an accept / reject step
+    on these keys), and the sample's moments."""
+    for seed in (0, 1, 2):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(jax.random.beta(key, a, b, (2000,)))
+        got = prng.beta(np.asarray(key), a, b, (2000,))
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-30)
+        assert abs(got.mean() - a / (a + b)) < 0.03
+        var = a * b / ((a + b) ** 2 * (a + b + 1))
+        assert abs(got.var() - var) < 0.2 * var
+
+
+def test_loggamma_boost_and_shape():
+    key = jax.random.PRNGKey(9)
+    alpha = np.array([[0.2, 0.9, 1.0], [1.5, 4.0, 0.05]], np.float32)
+    want = np.asarray(jax.random.loggamma(key, jnp.asarray(alpha), (2, 3)))
+    np.testing.assert_allclose(prng.loggamma(np.asarray(key), alpha, (2, 3)), want,
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_permutation_of_an_index_array():
+    """``jax.random.permutation(key, x)`` of an index array is ``x`` indexed
+    by ``permutation(key, len(x))``."""
+    key = jax.random.PRNGKey(4)
+    x = np.array([3, 9, 14, 0, 0, 0, 0], np.int32)
+    np.testing.assert_array_equal(x[prng.permutation(np.asarray(key), len(x))],
+                                  np.asarray(jax.random.permutation(key, jnp.asarray(x))))
