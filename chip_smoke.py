@@ -169,7 +169,24 @@ Phases, each printing its wall time on its own line:
    train split on the card and on the CPU (masks equal, times, fluxes and
    errors within rtol 1e-5) and the transforms' invariants on the card.
    The kernel phase also checks K2 at gp1d's shapes (B = 12,288 and
-   12,287 at T = 40, B = 12,288 at T = 48).
+   12,287 at T = 40, B = 12,288 at T = 48);
+15. the DL models, reusing the training phase's splits and the runners'
+   v34a matrix: the sequence models v10 (LSTM), v13 (transformer), v22
+   (ATAT, its tabular tower on the standardised 224 columns) and v27
+   (band-parallel GRU) at their default widths for the command line's 100
+   epochs on the train split's stratified 80/20 holdout, then a forward of
+   the test split (each model's seconds, ms per epoch, first and last
+   loss, validation F1 and threshold, test F1 and peak memory; losses
+   finite and falling, probabilities finite); v14's 5-fold residual MLP
+   (150 AdamW steps a fold) on the 224 columns; astromer's 146 columns of
+   both splits (4 bands x 10,178 objects through the pretrained encoder,
+   one batched forward per split), the first 128 test objects held
+   against the CPU (names and NaN lanes identical, columns at
+   features_v4's gate), then v26 (the columns on the 224-column matrix,
+   ``train_cv`` at V34A_PARAMS; K1 launches = rounds x depth); and
+   masked-reconstruction pretraining at the artifact's configuration
+   (d 48, 2 layers, batch 256) on the train split's bands, whose loss must
+   fall.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -194,7 +211,8 @@ from mallorn_tpu_torch.data.packing import (Metadata, pack_lightcurves, pad_time
                                             unify_time_padding)
 from mallorn_tpu_torch.data.synthetic import generate_dataset
 from mallorn_tpu_torch.data import augmentation
-from mallorn_tpu_torch.features import (advanced, advanced_physics, blackbody, cesium, dtw,
+from mallorn_tpu_torch.features import (advanced, advanced_physics, astromer, blackbody,
+                                         cesium, dtw,
                                          enhanced_colors, fourier, fwhm, gp1d, high_snr,
                                          multiband_gp, peak_ordering, powerlaw, powerlaw_ratio,
                                          tde_models, temp_fwhm, time_to_decline)
@@ -202,6 +220,7 @@ from mallorn_tpu_torch.features.categorical import add_categorical_features
 from mallorn_tpu_torch.features.extinction import dered_matrix
 from mallorn_tpu_torch.features.interactions import (create_physics_interactions,
                                                      select_top_interactions)
+from mallorn_tpu_torch.models.astromer import BandSequences, normalize_band, pretrain
 from mallorn_tpu_torch.io.model_store import (GBDTModel, forest_from_numpy, load_cv_models,
                                               save_cv_models)
 from mallorn_tpu_torch.ops import chol_cuda, gp, hist_cuda
@@ -216,13 +235,14 @@ from mallorn_tpu_torch.train.ensembles import stack_oof
 from mallorn_tpu_torch.train.pipelines import (BASELINE_LGBM_PARAMS, BASELINE_PARAMS,
                                                KAGGLE_ENSEMBLE_WEIGHTS, SOFT_LABEL_PARAMS,
                                                V62_MC_PARAMS, V110_PARAMS, V111_PARAMS,
-                                               V114D_PARAMS, V118_PARAMS, _finite_or_nan,
-                                               finite_or_nan,
-                                               run_baseline, run_distillation,
+                                               V114D_PARAMS, V118_PARAMS, DL_CONFIGS,
+                                               _finite_or_nan, finite_or_nan,
+                                               run_baseline, run_distillation, run_dl_model,
                                                run_easy_ensemble, run_label_smoothing,
                                                run_mixup, run_pseudo_label,
                                                run_seed_ensemble, run_soft_pseudo, run_v34a,
-                                               run_v62, run_v115, simplify_spectype,
+                                               run_v14, run_v26, run_v62, run_v115,
+                                               simplify_spectype,
                                                train_kaggle_ensemble, train_v92d)
 from mallorn_tpu_torch.trees import objectives
 from mallorn_tpu_torch.trees.binning import fit_bins
@@ -2197,6 +2217,122 @@ def run_families2(trained: dict, runners: dict, dev) -> dict:
             "families": {f: {"columns": len(mats[f][2]), **refs[f]} for f in mats}}
 
 
+DL_EPOCHS = 100  # the command line's default for v10 / v13 / v22 / v27
+V14_STEPS = 150  # the command line's default for v14
+PRETRAIN_STEPS = 300
+PRETRAIN_BATCH = 256
+ASTROMER_MIN_POINTS = 5  # pretraining's corpus: bands with >= 5 valid points
+
+
+def run_dl(trained: dict, runners: dict, dev) -> dict:
+    """The DL models phase, on the training run's packed splits and the
+    runners' 224-column v34a matrix: v10 / v13 / v22 / v27 (DL_EPOCHS
+    epochs each), v14, astromer's columns against the CPU, v26 (K1 =
+    rounds x depth) and pretraining."""
+    tr_packed, tr_meta = trained["tr"]
+    te_packed, te_meta = trained["te"]
+    y, y_te = np.asarray(tr_meta.target), np.asarray(te_meta.target)
+    X224, X224_te, names224 = runners["X224"]
+    rows = {}
+    log(f"  views: train all-band {tuple(tr_packed.all_time.shape)}, band "
+        f"{tuple(tr_packed.band_time.shape)}; test all-band {tuple(te_packed.all_time.shape)}, "
+        f"band {tuple(te_packed.band_time.shape)}; tabular {X224.shape[1]} columns")
+
+    for config in DL_CONFIGS:
+        timings = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run_dl_model(config, tr_packed, tr_meta, te_packed, te_meta, X_tab=X224,
+                           X_tab_test=X224_te, n_epochs=DL_EPOCHS, timings=timings, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = res.losses
+        test_f1 = f1_score(y_te, res.test_preds > res.threshold)
+        ms_epoch = 1e3 * timings["train"] / DL_EPOCHS
+        log(f"  {config} ({type(res.model).__name__}): {res.n_train} / {res.n_val} objects, "
+            f"{secs:.3f} s (" + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+            + f"); {ms_epoch:.2f} ms per epoch incl. the validation sweep; loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}; val F1 {res.val_f1:.4f} @ "
+            f"{res.threshold:.3f}; TEST F1 {test_f1:.4f}; peak memory {peak:.2f} GiB")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+                and np.isfinite(res.val_probs).all() and np.isfinite(res.test_preds).all()
+                and res.test_preds.shape == (te_packed.n_objects,)):
+            raise AssertionError(f"{config}: non-finite or non-falling training")
+        rows[config] = {"model": type(res.model).__name__, "s": secs, "ms_per_epoch": ms_epoch,
+                        "epochs": DL_EPOCHS, "loss_first": float(losses[0]),
+                        "loss_last": float(losses[-1]), "val_f1": res.val_f1,
+                        "threshold": res.threshold, "test_f1": test_f1, "peak_gib": peak,
+                        **{f"{k}_s": v for k, v in timings.items()}}
+        del res
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_v14(X224, y, X224_te, n_epochs=V14_STEPS, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    test_f1 = f1_score(y_te, out["test_preds"] > out["threshold"])
+    log(f"  v14 (residual MLP, 5 folds x {V14_STEPS} steps): {secs:.3f} s; OOF F1 "
+        f"{out['best_f1']:.4f} @ {out['threshold']:.3f}; TEST F1 {test_f1:.4f}")
+    if not (np.isfinite(out["oof"]).all() and np.isfinite(out["test_preds"]).all()):
+        raise AssertionError("v14: non-finite outputs")
+    rows["v14"] = {"s": secs, "oof_f1": out["best_f1"], "threshold": out["threshold"],
+                   "test_f1": test_f1}
+
+    # the family takes no templates: an empty stand-in
+    ref = check_family2_reference("astromer", lambda p, m, t: astromer.extract(p), te_packed,
+                                  te_meta, torch.empty(0))
+    timings = {}
+    hist_cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v26 = run_v26(X224, y, names224, tr_packed, X224_te, te_packed, params=V34A_PARAMS,
+                  timings=timings, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cv = v26.cv
+    k1, want_k1 = hist_cuda.launches, V34A_PARAMS.max_depth * cv.rounds_run
+    n_seq = 4 * (tr_packed.n_objects + te_packed.n_objects)
+    finite = float(np.isfinite(v26.astromer_test).mean())
+    test_f1 = f1_score(y_te, cv.test_preds > cv.best_threshold)
+    log(f"  astromer: {n_seq} single-band sequences of both splits encoded in "
+        f"{timings['astromer']:.3f} s; 146 columns, finite share (test) {finite:.4f}")
+    log(f"  v26 (+ astromer): {len(v26.feature_names)} columns, {secs:.3f} s; rounds "
+        f"{cv.rounds_run}; OOF F1 {cv.best_f1:.4f} @ {cv.best_threshold:.3f}; TEST F1 "
+        f"{test_f1:.4f}; K1 launches {k1} (rounds x depth predicts {want_k1})")
+    if k1 != want_k1 or k1 == 0:
+        raise AssertionError("v26: K1 launches disagree with rounds x depth")
+    if not (np.isfinite(cv.oof_preds).all() and np.isfinite(cv.test_preds).all()):
+        raise AssertionError("v26: non-finite outputs")
+    rows["v26"] = {"s": secs, "astromer_s": timings["astromer"], "sequences": n_seq,
+                   "columns": len(v26.feature_names), "rounds": cv.rounds_run,
+                   "oof_f1": cv.best_f1, "threshold": cv.best_threshold, "test_f1": test_f1,
+                   "k1": k1, "reference": ref}
+
+    n_b = tr_packed.n_objects * 6
+    seqs = normalize_band(*(getattr(tr_packed, a).reshape(n_b, -1)
+                            for a in ("band_time", "band_flux", "band_err", "band_mask")))
+    keep = seqs.n_valid >= ASTROMER_MIN_POINTS
+    seqs = BandSequences(*(a[keep] for a in seqs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, hist = pretrain(seqs, d_model=48, n_layers=2, n_heads=4, n_steps=PRETRAIN_STEPS,
+                          batch_size=PRETRAIN_BATCH, eval_every=50, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  pretraining: {seqs.times.shape[0]} band sequences of {seqs.times.shape[1]} points, "
+        f"{PRETRAIN_STEPS} steps of {PRETRAIN_BATCH} in {secs:.3f} s "
+        f"({1e3 * secs / PRETRAIN_STEPS:.2f} ms per step); masked-reconstruction loss "
+        + ", ".join(f"{i}: {v:.4f}" for i, v in hist))
+    if not (np.isfinite([v for _, v in hist]).all() and hist[-1][1] < hist[0][1]):
+        raise AssertionError("pretraining's loss did not fall")
+    rows["pretrain"] = {"s": secs, "sequences": int(seqs.times.shape[0]),
+                        "loss": [list(h) for h in hist]}
+    log(f"DL models: K1 launches {k1}")
+    return {"k1": k1, "rows": rows}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -2437,6 +2573,9 @@ def main() -> int:
     with Phase("families 2"):
         families2 = run_families2(trained, runners, dev)
 
+    with Phase("DL models"):
+        dl = run_dl(trained, runners, dev)
+
     # K2's rows: the server's GP width (phase 2 and the predict) and the
     # coarse phase's width, each with serving's launches at that width
     for name, width in (("chol_inv", gp_tc), ("chol_inv_coarse", multiband_gp._T_COARSE)):
@@ -2519,6 +2658,7 @@ def main() -> int:
     kernels[-2]["policy_shapes"] = [{k: r[k] for k in shape_keys} for r in policy_hist]
     kernels[-2]["families_launches"] = families["k1"]
     kernels[-2]["families2_launches"] = families2["k1"]
+    kernels[-2]["dl_launches"] = dl["k1"]
     kernels[-2]["family_shapes"] = [dict({k: r[k] for k in shape_keys},
                                          node_chunks=r["node_chunks"]) for r in family_hist]
     # the segment histogram's row: a v114d split step's pair of children

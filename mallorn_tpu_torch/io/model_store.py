@@ -4,8 +4,11 @@ The JAX package's own format, read and written with numpy: one
 ``fold_<i>.npz`` per fold (forest arrays, bin edges, params as JSON,
 importance, metric history, best iteration) and a ``manifest.json``
 (fold count, threshold, feature names), written last. A model trained by
-either package loads in the other. The format holds heap forests only:
-it has no child pointers, so a leaf-wise ``LGForest`` cannot be saved.
+either package loads in the other. The format holds heap forests, the
+forest arrays as they are: depthwise and symmetric trees, DART (its
+leaves already at the final scales) and multiclass ([R, C, ...], one tree
+per class and round). It has no child pointers, so a leaf-wise
+``LGForest`` cannot be saved.
 """
 
 from __future__ import annotations
@@ -38,14 +41,7 @@ def forest_from_numpy(feature, split_bin, default_left, is_leaf, leaf_value,
 def params_from_dict(d: dict) -> GBDTParams:
     """The port's params from a model file, ``hist_dtype`` (the histogram
     mode it was trained in) included; the TPU-only knobs
-    (``use_pallas_hist``, ``use_binlane_hist``, ...) are dropped. The
-    format's heap forests are depthwise binary trees: any other model
-    (leaf-wise or symmetric trees, DART, multiclass) raises."""
-    if (d.get("grow_policy", "depthwise") != "depthwise" or d.get("dart_rate", 0.0) > 0
-            or d.get("num_class", 0) >= 2):
-        raise ValueError("a model file holds a depthwise binary forest; "
-                         f"this one has grow_policy={d.get('grow_policy')!r}, "
-                         f"dart_rate={d.get('dart_rate')}, num_class={d.get('num_class')}")
+    (``use_pallas_hist``, ``use_binlane_hist``, ...) are dropped."""
     return GBDTParams(**{k: d[k] for k in GBDTParams._fields if k in d})
 
 
@@ -62,9 +58,6 @@ def save_model(path, model: GBDTModel) -> Path:
     if isinstance(model.forest, LGForest):
         raise ValueError("the model format has no child pointers: a leaf-wise "
                          "(LGForest) model cannot be saved")
-    if model.params.num_class >= 2:
-        raise ValueError("the model format holds binary forests: a multiclass model "
-                         "cannot be saved")
     path = Path(path)
     if path.suffix != ".npz":
         path = path.with_suffix(".npz")

@@ -31,7 +31,11 @@
   v34a (``train.ensembles.stack_oof``);
 - ``run_v62``: a 4-class multi:softprob head on the simplified spectral
   type (``simplify_spectype``), whose class probabilities join the
-  features of a final binary CV.
+  features of a final binary CV;
+- the DL runners: ``run_dl_model`` (the sequence models v10, v13, v22 and
+  v27 on the stratified 80/20 holdout ``dl_holdout``), ``run_v14`` (the
+  residual MLP's CV) and ``run_v26`` (the pretrained astromer columns on
+  the v34a backbone).
 """
 
 from __future__ import annotations
@@ -46,10 +50,16 @@ import numpy as np
 import torch
 
 from mallorn_tpu_torch.data.packing import Metadata, PackedLightcurves, unify_time_padding
-from mallorn_tpu_torch.features import (bazin, colors, multiband_gp, physics, research,
-                                        shape, statistical, tde)
+from mallorn_tpu_torch.features import (astromer, bazin, colors, multiband_gp, physics,
+                                        research, shape, statistical, tde)
 from mallorn_tpu_torch.features.base import (FeatureSet, chunked_extract, feature_matrix,
                                              merge)
+from mallorn_tpu_torch.models import (ATAT, GRUClassifier, LSTMClassifier,
+                                      TransformerClassifier, make_band_batch,
+                                      make_sequence_batch)
+from mallorn_tpu_torch.models.data import take
+from mallorn_tpu_torch.models.mlp import train_mlp_cv
+from mallorn_tpu_torch.models.train_dl import train_model
 from mallorn_tpu_torch.train.adversarial import (ADV_PARAMS, AdversarialResult,
                                                  adversarial_validation)
 from mallorn_tpu_torch.train.cv import (CVResult, f1_score, stratified_kfold,
@@ -1091,3 +1101,147 @@ def run_v62(X_train: np.ndarray, y_binary: np.ndarray, spec_type: np.ndarray,
     return V62Result(cv=cv, mc_oof=mc_oof, mc_test=mc_test, mc_classes=classes,
                      mc_tde_f1=mc_f1, feature_names=list(feature_names) + mc_names,
                      oof_f1=cv.best_f1, threshold=cv.best_threshold, mc_models=mc_models)
+
+
+# ---------------------------------------------------------------------------
+# the DL models and astromer's family (the command line's v10 / v13 / v22 /
+# v27, v14 and v26 branches)
+# ---------------------------------------------------------------------------
+
+DL_CONFIGS = ("v10", "v13", "v22", "v27")
+
+
+def dl_holdout(label: np.ndarray, seed: int = 42) -> Tuple[np.ndarray, np.ndarray]:
+    """The sequence models' stratified 80/20 holdout: (train, validation)
+    indices, the validation set the first fifth (at least one) of each
+    class after ``np.random.default_rng(seed)`` shuffles the positives,
+    then the negatives."""
+    label = np.asarray(label)
+    rng = np.random.default_rng(seed)
+    pos = np.flatnonzero(label == 1)
+    neg = np.flatnonzero(label == 0)
+    rng.shuffle(pos), rng.shuffle(neg)
+    val_ix = np.concatenate([pos[: max(len(pos) // 5, 1)], neg[: max(len(neg) // 5, 1)]])
+    return np.setdiff1d(np.arange(len(label)), val_ix), val_ix
+
+
+def standardise_tabular(X: np.ndarray, X_test: Optional[np.ndarray] = None):
+    """ATAT's tabular input: non-finite -> 0, then standardised by the
+    train matrix's float64 mean and std (std 0 -> 1), as float32; the
+    test matrix with the train statistics."""
+    Z = np.nan_to_num(np.asarray(X, np.float64), nan=0.0, posinf=0.0, neginf=0.0)
+    mu, sd = Z.mean(0), Z.std(0)
+    sd = np.where(sd > 0, sd, 1.0)
+
+    def S(A):
+        A = np.nan_to_num(np.asarray(A, np.float64), nan=0.0, posinf=0.0, neginf=0.0)
+        return ((A - mu) / sd).astype(np.float32)
+
+    return S(X), (None if X_test is None else S(X_test))
+
+
+@dataclasses.dataclass
+class DLRunResult:
+    val_f1: float
+    threshold: float
+    losses: np.ndarray  # [epochs] training loss before each step
+    val_probs: np.ndarray
+    test_preds: Optional[np.ndarray]
+    model: torch.nn.Module  # trained, in eval mode
+    n_train: int
+    n_val: int
+
+
+def run_dl_model(config: str, tr_packed: PackedLightcurves, tr_meta: Metadata,
+                 te_packed: Optional[PackedLightcurves] = None,
+                 te_meta: Optional[Metadata] = None, X_tab: Optional[np.ndarray] = None,
+                 X_tab_test: Optional[np.ndarray] = None, n_epochs: int = 100,
+                 timings: Optional[Dict[str, float]] = None,
+                 device: DeviceLike = None) -> DLRunResult:
+    """A sequence model at its default width (v10 LSTM, v13 transformer,
+    v22 ATAT, v27 band-parallel GRU; reference: the documented DL
+    baselines, BENCHMARKS.md:32-60), initialised and dropped out from seed
+    0: focal loss, full-batch Adam at lr 1e-3 for ``n_epochs`` on the
+    stratified 80/20 holdout (``dl_holdout``), the validation sweep, and
+    test probabilities when a test split is given.
+    v22's tabular tower reads ``standardise_tabular(X_tab)`` (required),
+    the others none. The packed splits must be on ``device``. ``timings``
+    gets the seconds of the batches, the training (with the validation
+    sweep) and the test forward."""
+    if config not in DL_CONFIGS:
+        raise ValueError(f"unknown DL config {config!r}; expected one of {DL_CONFIGS}")
+    dev = resolve_device(device)
+    make_batch = make_band_batch if config == "v27" else make_sequence_batch
+    with stage(timings, "batches", dev):
+        batch = make_batch(tr_packed, tr_meta)
+    tr_ix, val_ix = dl_holdout(tr_meta.target)
+    tab = tab_te = None
+    kw = {}
+    if config == "v22":
+        if X_tab is None:
+            raise ValueError("v22 (ATAT) needs the tabular matrix X_tab")
+        Z, Z_te = standardise_tabular(X_tab, X_tab_test)
+        tab = torch.as_tensor(Z, device=dev)
+        tab_te = None if Z_te is None else torch.as_tensor(Z_te, device=dev)
+        kw["n_tabular"] = Z.shape[1]
+    model = {"v10": LSTMClassifier, "v13": TransformerClassifier, "v22": ATAT,
+             "v27": GRUClassifier}[config](device=dev, **kw)
+
+    def rows(t, ix):
+        return None if t is None else t[torch.as_tensor(ix, device=dev)]
+
+    with stage(timings, "train", dev):
+        res = train_model(model, take(batch, tr_ix), val_batch=take(batch, val_ix),
+                          tabular=rows(tab, tr_ix), val_tabular=rows(tab, val_ix),
+                          n_epochs=n_epochs, lr=1e-3)
+    test_preds = None
+    if te_packed is not None:
+        with stage(timings, "test", dev), torch.no_grad():
+            te_batch = make_batch(te_packed, te_meta)
+            logits = (model(te_batch) if tab_te is None else model(te_batch, tab_te))
+            test_preds = torch.sigmoid(logits).cpu().numpy()
+    return DLRunResult(val_f1=res.val_f1, threshold=res.threshold, losses=res.losses,
+                       val_probs=res.val_probs, test_preds=test_preds, model=model,
+                       n_train=len(tr_ix), n_val=len(val_ix))
+
+
+def run_v14(X_train: np.ndarray, y: np.ndarray, X_test: Optional[np.ndarray] = None,
+            n_epochs: int = 150, device: DeviceLike = None) -> dict:
+    """v14: the residual MLP's 5-fold CV on the selected engineered columns
+    (reference: scripts/train_v14_nn_features.py), ``n_epochs`` full-batch
+    AdamW steps per fold; ``models.mlp.train_mlp_cv``'s dict."""
+    Xte = None if X_test is None else _finite_or_nan(np.asarray(X_test, np.float32))
+    return train_mlp_cv(_finite_or_nan(np.asarray(X_train, np.float32)), y, Xte,
+                        n_epochs=n_epochs, device=device)
+
+
+@dataclasses.dataclass
+class V26Result:
+    cv: CVResult
+    feature_names: List[str]  # the backbone's, then the 146 astromer columns
+    astromer_train: np.ndarray  # [N, 146]
+    astromer_test: Optional[np.ndarray]
+
+
+def run_v26(X_train: np.ndarray, y: np.ndarray, feature_names: Sequence[str],
+            tr_packed: PackedLightcurves, X_test: Optional[np.ndarray] = None,
+            te_packed: Optional[PackedLightcurves] = None, params: GBDTParams = V34A_PARAMS,
+            timings: Optional[Dict[str, float]] = None, verbose: bool = False,
+            device: DeviceLike = None) -> V26Result:
+    """v26: the pretrained astromer columns of each split appended to the
+    backbone (the v34a matrix; reference: scripts/train_v26_astromer.py),
+    then ``train_cv`` at ``params``. ``timings`` gets the extraction's and
+    the CV's seconds."""
+    dev = resolve_device(device)
+    with stage(timings, "astromer", dev):
+        a_tr, names = feature_matrix(astromer.extract(tr_packed))
+        a_te = None if te_packed is None else feature_matrix(astromer.extract(te_packed))[0]
+        a_tr = a_tr.cpu().numpy()
+        a_te = None if a_te is None else a_te.cpu().numpy()
+    Xtr = _finite_or_nan(np.concatenate([np.asarray(X_train, np.float32), a_tr], axis=1))
+    Xte = None if X_test is None else _finite_or_nan(
+        np.concatenate([np.asarray(X_test, np.float32), a_te], axis=1))
+    with stage(timings, "cv", dev):
+        cv = train_cv(Xtr, y, Xte, params, device=dev, verbose=verbose)
+    return V26Result(cv=cv, feature_names=list(feature_names) + names, astromer_train=a_tr,
+                     astromer_test=a_te)

@@ -18,6 +18,10 @@ the package runs on):
 - ``permutation(key, n)`` is ``_shuffle``: ``ceil(3 ln n / ln(2^32 - 1))``
   rounds of ``key, sub = split(key)`` and a stable sort of the values by
   ``random_bits(sub, n)``;
+- ``randint(key, shape, minval, maxval)`` (int32) draws two words per
+  element, ``random_bits`` of ``split(key)``'s two keys, and folds them
+  into the span in uint32 arithmetic: ``(hi mod s) (2^32 mod s) + lo mod
+  s``, mod s, as ``jax.random.randint`` does;
 - ``uniform(key, shape)`` (float32 on [0, 1)) puts the top 23 of the 32
   random bits into the mantissa of a float in [1, 2) and subtracts 1;
   with ``minval`` / ``maxval`` it is ``max(minval, u (maxval - minval) +
@@ -106,6 +110,19 @@ def permutation(key: np.ndarray, n: int) -> np.ndarray:
         key, sub = split(key)
         x = x[np.argsort(random_bits(sub, n), kind="stable")]
     return x
+
+
+def randint(key: np.ndarray, shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32; both bounds
+    within int32): ``minval`` everywhere when ``maxval <= minval``."""
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32(1 if maxval <= minval else maxval - minval)
+    with np.errstate(over="ignore"):
+        mult = np.uint32(2 ** 16) % span
+        mult = (mult * mult) % span
+        offset = ((higher % span) * mult + lower % span) % span
+    return (np.int64(minval) + offset.astype(np.int64)).astype(np.int32)
 
 
 def _fma(a, b, c) -> np.ndarray:

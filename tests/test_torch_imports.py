@@ -1,6 +1,6 @@
-"""The port stands alone: its import closure holds no JAX, pandas,
-scikit-learn, matplotlib (the figures import it when they draw) or JAX
-package, and its entry points default to the card.
+"""The port stands alone: its import closure holds no JAX, flax, optax,
+orbax, pandas, scikit-learn, matplotlib (the figures import it when they
+draw) or JAX package, and its entry points default to the card.
 
 The machine with the card has torch, numpy and scipy but no JAX, pandas
 or scikit-learn, so a stray import would stop the port there. The check
@@ -26,8 +26,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke  # its imports, without running it
 banned = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "pandas", "sklearn", "matplotlib",
-                                       "mallorn_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
+                                       "sklearn", "matplotlib", "mallorn_tpu"))
 print("MODULES", len(mods))
 print("NAMES", ",".join(mods))
 print("BANNED", ",".join(banned))
@@ -55,7 +55,9 @@ def test_import_closure_has_no_jax_pandas_sklearn_or_jax_package():
               "features.fourier", "features.fwhm", "features.temp_fwhm",
               "features.peak_ordering", "features.powerlaw_ratio",
               "features.enhanced_colors", "features.time_to_decline",
-              "data.augmentation"):
+              "data.augmentation", "models.layers", "models.data", "models.train_dl",
+              "models.transformer", "models.lstm", "models.gru", "models.atat",
+              "models.mlp", "models.astromer", "features.astromer"):
         assert f"mallorn_tpu_torch.{m}" in walked, m
     assert lines["BANNED"].strip() == "", f"the port pulled in: {lines['BANNED']}"
 
@@ -90,7 +92,17 @@ def test_entry_points_default_to_the_card():
 
     y = np.arange(16) % 2
     small = GBDTParams(n_rounds=2, max_depth=2)
+    from mallorn_tpu_torch.models import (ATAT, GRUClassifier, LSTMClassifier,
+                                          TransformerClassifier)
+    from mallorn_tpu_torch.models.astromer import SingleBandEncoder, load_pretrained
+    from mallorn_tpu_torch.models.mlp import ResidualMLP, train_mlp_cv
+
     calls = [lambda **kw: pack_lightcurves(*cols, **kw),
+             lambda **kw: LSTMClassifier(**kw), lambda **kw: TransformerClassifier(**kw),
+             lambda **kw: GRUClassifier(**kw), lambda **kw: ATAT(**kw),
+             lambda **kw: ResidualMLP(3, **kw), lambda **kw: SingleBandEncoder(**kw),
+             lambda **kw: load_pretrained(**kw),
+             lambda **kw: train_mlp_cv(X, y, n_folds=2, n_epochs=1, **kw),
              lambda **kw: fit_bins(X, n_bins=8, **kw),
              lambda **kw: forest_from_numpy(*trees, **kw),
              lambda **kw: train_gbdt(X, y, small, **kw),
@@ -106,3 +118,5 @@ def test_entry_points_default_to_the_card():
     assert fit_bins(X, n_bins=8, device="cpu").edges.device.type == "cpu"
     assert forest_from_numpy(*trees, device="cpu").feature.device.type == "cpu"
     assert train_gbdt(X, y, small, device="cpu").forest.feature.device.type == "cpu"
+    assert LSTMClassifier(device="cpu").Dense_0.kernel.device.type == "cpu"
+    assert load_pretrained(device="cpu")[1].Dense_0.kernel.device.type == "cpu"

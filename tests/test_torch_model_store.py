@@ -1,12 +1,15 @@
-"""Port -> JAX package: model files written by the port.
+"""Port <-> JAX package: model files.
 
 A depthwise CV trained by the port (``train_cv``) is saved with the
 port's ``save_cv_models``; the JAX package's ``load_cv_models`` reads it
 and its ``predict_proba_folds`` gives the port's fold probabilities to
-1e-6. The port reads its own files back to the same tensors. The format
-has no child pointers, so a leaf-wise model refuses to be saved. (The
-other direction, a JAX-trained model served by the port, is
-tests/test_torch_serving.py.)
+1e-6. The port reads its own files back to the same tensors. A
+symmetric, a DART and a 3-class forest (early-stopped) round-trip port
+-> port (tensors and predictions equal), JAX -> port and port -> JAX
+(params and best iteration equal, ``predict_proba`` within 1e-6 of the
+writer's). The format has no child pointers, so a leaf-wise model
+refuses to be saved. (A JAX-trained depthwise model served by the port
+is tests/test_torch_serving.py.)
 """
 
 import json
@@ -99,3 +102,84 @@ def test_model_files_keep_the_histogram_mode(tmp_path):
     for name in ("feature", "split_bin", "default_left", "is_leaf", "leaf_value"):
         np.testing.assert_array_equal(np.asarray(getattr(back.forest, name)),
                                       getattr(tm.forest, name).numpy(), err_msg=name)
+
+
+# symmetric, DART and 3-class forests: the fixture, each config's params,
+# and its predictions through either package's predict_proba
+HEAP_CONFIGS = {
+    "symmetric": dict(grow_policy="symmetric"),
+    "dart": dict(dart_rate=0.3),
+    "multiclass": dict(num_class=3, eval_metric="mlogloss"),
+}
+
+
+def _heap_fixture(config):
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(240, 6)).astype(np.float32)
+    if config == "multiclass":
+        y = np.argmax(X[:, :3] + 0.5 * rng.normal(size=(240, 3)), axis=1).astype(np.float32)
+    else:
+        y = (X[:, 0] - 0.6 * X[:, 3] + 0.5 * rng.normal(size=240) > 0.2).astype(np.float32)
+    X[rng.random(X.shape) < 0.08] = np.nan
+    return X[:180], y[:180], X[180:], y[180:]
+
+
+def _heap_kw(config):
+    return dict(n_rounds=8, max_depth=3, learning_rate=0.3, **HEAP_CONFIGS[config])
+
+
+@pytest.fixture(scope="module", params=sorted(HEAP_CONFIGS))
+def heap_models(request):
+    """(config, X, port-trained model, JAX-trained model) on one fixture,
+    both fits early-stopped on a validation set."""
+    from mallorn_tpu.trees import gbdt as J
+
+    config = request.param
+    X, y, Xv, yv = _heap_fixture(config)
+    kw = _heap_kw(config)
+    tm = train_gbdt(X, y, GBDTParams(**kw), X_val=Xv, y_val=yv, device="cpu")
+    jm = J.train_gbdt(X, y, J.GBDTParams(**kw), X_val=Xv, y_val=yv)
+    return config, np.concatenate([X, Xv]), tm, jm
+
+
+def _port_proba(model, X):
+    from mallorn_tpu_torch.trees.gbdt import predict_proba
+
+    return predict_proba(model, torch.from_numpy(X)).numpy()
+
+
+def test_heap_forests_round_trip_port_to_port(heap_models, tmp_path):
+    config, X, tm, _ = heap_models
+    path = tstore.save_model(tmp_path / "m.npz", tm)
+    back = tstore.load_model(path, device="cpu")
+    assert back.params == tm.params and back.best_iteration == tm.best_iteration
+    for a, b in zip(back.forest, tm.forest):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(_port_proba(back, X), _port_proba(tm, X))
+
+
+def test_heap_forests_round_trip_jax_to_port(heap_models, tmp_path):
+    from mallorn_tpu.trees import gbdt as J
+
+    config, X, _, jm = heap_models
+    jstore.save_cv_models(tmp_path, [jm], 0.5, [f"c{i}" for i in range(X.shape[1])])
+    (got,), _ = tstore.load_cv_models(tmp_path, device="cpu")
+    assert got.params == GBDTParams(**_heap_kw(config))
+    assert got.best_iteration == jm.best_iteration
+    want = np.asarray(J.predict_proba(jm, X))
+    np.testing.assert_allclose(_port_proba(got, X), want, rtol=0, atol=1e-6)
+
+
+def test_heap_forests_round_trip_port_to_jax(heap_models, tmp_path):
+    from mallorn_tpu.trees import gbdt as J
+
+    config, X, tm, _ = heap_models
+    tstore.save_cv_models(tmp_path, [tm], 0.5, [f"c{i}" for i in range(X.shape[1])])
+    (back,), _ = jstore.load_cv_models(tmp_path)
+    assert back.params == J.GBDTParams(**_heap_kw(config))
+    assert back.best_iteration == tm.best_iteration
+    for name in ("feature", "split_bin", "default_left", "is_leaf", "leaf_value"):
+        np.testing.assert_array_equal(np.asarray(getattr(back.forest, name)),
+                                      getattr(tm.forest, name).numpy(), err_msg=name)
+    np.testing.assert_allclose(np.asarray(J.predict_proba(back, X)), _port_proba(tm, X),
+                               rtol=0, atol=1e-6)
