@@ -186,7 +186,21 @@ Phases, each printing its wall time on its own line:
    ``train_cv`` at V34A_PARAMS; K1 launches = rounds x depth); and
    masked-reconstruction pretraining at the artifact's configuration
    (d 48, 2 layers, batch 256) on the train split's bands, whose loss must
-   fall.
+   fall;
+16. the command line (``mallorn_tpu_torch.cli.main``, in-process, on a
+   temporary workspace): the bench split written in the reference's CSV
+   layout (20 shards per split) and read back through the native parser,
+   its packed tensors and metadata bit for bit ``load_split``'s (write and
+   read seconds, rows per second); ``extract`` of the v92d families at 100
+   GP steps (K2 launches = the GP schedule's prediction); ``train --config
+   v92`` (the selection CV, adversarial weights, all four variants; v92a-c
+   F1s printed ungated, v92d's gated at 0.633) and ``train --config v34a``
+   (the cached selection; gate 0.629), K1 launches = rounds x depth of
+   every fit; ``predict`` from the saved v92d models, its submission equal
+   to train's on every row farther than 1e-4 from the threshold, then once
+   more under ``utils.profiling.device_trace`` (one Chrome trace holding
+   CUDA kernels, the same probabilities; kernel time printed); each
+   command's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -2333,6 +2347,219 @@ def run_dl(trained: dict, runners: dict, dev) -> dict:
     return {"k1": k1, "rows": rows}
 
 
+# The command line phase: the port's user surface from CSV files in the
+# reference's layout to a submission, run in-process on a temporary
+# workspace at the full bench split.
+CLI_SHARDS = 20  # the reference's split_01..split_20
+CLI_FAMILIES = "features_v4,tde_physics,multiband_gp,bazin"
+CLI_MARGIN = 1e-4  # predict's rows this close to the threshold may flip
+
+
+class FitLog:
+    """Records (depth, rounds run) of every batched fit ``train_cv`` runs,
+    from the fold models it returns, while installed (the K1 prediction of
+    a command's fits: rounds x depth each)."""
+
+    def __init__(self):
+        self.fits = []
+        self._orig = None
+
+    def __enter__(self):
+        from mallorn_tpu_torch.train import cv as cv_module
+
+        self._module, self._orig = cv_module, cv_module.train_gbdt_folds
+
+        def recorded(folds, params, *args, **kwargs):
+            models = self._orig(folds, params, *args, **kwargs)
+            rounds = max(int(np.isfinite(m.eval_history).sum()) for m in models)
+            self.fits.append((params.max_depth, rounds))
+            return models
+
+        cv_module.train_gbdt_folds = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._module.train_gbdt_folds = self._orig
+
+    def k1(self) -> int:
+        return sum(d * r for d, r in self.fits)
+
+
+def run_cli(trained: dict, dev) -> dict:
+    """The command line phase: the bench split written in the reference's
+    CSV layout and read back through the native parser (bit for bit
+    ``load_split``'s tensors), then ``extract`` (K2 launches = the GP
+    schedule's prediction), ``train --config v92`` (all four variants; K1 =
+    rounds x depth; v92d's gate), ``train --config v34a`` (the selection
+    from the cache; its gate) and ``predict`` from the saved v92d models
+    (agreeing with train's submission away from the threshold), each
+    command's seconds; predict once more under ``device_trace``."""
+    import shutil
+    import tempfile
+
+    from mallorn_tpu_torch.cli.main import main as cli_main
+    from mallorn_tpu_torch.data.loader import load_all_data
+    from mallorn_tpu_torch.data.synthetic import write_reference_layout
+    from mallorn_tpu_torch.io import native
+    from mallorn_tpu_torch.train import pipelines
+    from mallorn_tpu_torch.utils.profiling import device_trace
+
+    work = Path(tempfile.mkdtemp(prefix="mallorn_cli_"))
+    data, cache, out = work / "data", work / "cache", work / "artifacts"
+    secs = {}
+    try:
+        t0 = time.perf_counter()
+        n_rows = 0
+        with np.load(DATA, allow_pickle=False) as z:
+            for tag, split in (("tr", "train"), ("te", "test")):
+                cols = {k: z[f"{tag}_{k}"]
+                        for k in ("object_index", "time", "flux", "flux_err", "band")}
+                meta = Metadata(object_ids=z[f"{tag}_object_ids"], z=z[f"{tag}_z"],
+                                ebv=z[f"{tag}_ebv"], target=z[f"{tag}_target"])
+                write_reference_layout(data, cols, meta, n_splits=CLI_SHARDS, split=split)
+                n_rows += len(cols["time"])
+        secs["write"] = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in data.rglob("*.csv"))
+        t0 = time.perf_counter()
+        native.build()
+        secs["parser build"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_all_data(data, device=dev)
+        torch.cuda.synchronize()
+        secs["read"] = time.perf_counter() - t0
+        log(f"  layout: {n_rows:,} rows in {CLI_SHARDS} shards per split, {size / 1e6:.1f} MB; "
+            f"write {secs['write']:.3f} s ({n_rows / secs['write']:,.0f} rows/s), parser "
+            f"build {secs['parser build']:.3f} s, read + pack {secs['read']:.3f} s "
+            f"({n_rows / secs['read']:,.0f} rows/s)")
+        want = unify_time_padding(trained["tr"][0], trained["te"][0])
+        for split, w, (_, w_meta) in zip(("train", "test"), want, (trained["tr"], trained["te"])):
+            got, meta = loaded[f"{split}_packed"], loaded[f"{split}_meta"]
+            same = (got.time_offset == w.time_offset and all(
+                bits_equal(a, b) if a.dtype == torch.float32 else torch.equal(a, b)
+                for a, b in zip(got.tensors(), w.tensors())))
+            same_meta = (np.array_equal(meta.object_ids, w_meta.object_ids)
+                         and np.array_equal(meta.z.view(np.uint32), w_meta.z.view(np.uint32))
+                         and np.array_equal(meta.ebv.view(np.uint32),
+                                            w_meta.ebv.view(np.uint32))
+                         and (np.array_equal(meta.target, w_meta.target) if split == "train"
+                              else meta.target is None))
+            log(f"  {split}: packed {tuple(got.band_time.shape)} / {tuple(got.all_time.shape)} "
+                f"bit for bit load_split's: {same}; metadata equal: {same_meta}")
+            if not (same and same_meta):
+                raise AssertionError(f"the {split} split read from CSV differs from load_split's")
+        del loaded
+
+        def timed(name, argv):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cli_main(argv)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+            log(f"  {name}: {secs[name]:.3f} s")
+
+        chol_cuda.reset_launches()
+        hist_cuda.reset_launches()
+        timed("extract", ["extract", "--data", str(data), "--cache", str(cache),
+                          "--families", CLI_FAMILIES, "--gp-steps", str(GP_STEPS)])
+        want_chol = expected_training_chol(trained["tr"][0], trained["te"][0], GP_STEPS)
+        log(f"  extract: K2 launches {chol_cuda.launches} (GP schedule predicts {want_chol}); "
+            f"by width {dict(chol_cuda.launches_by_t)}; cluster {chol_cuda.cluster_launches}, "
+            f"tiled {chol_cuda.large_launches}")
+        if chol_cuda.launches != want_chol:
+            raise AssertionError("extract's K2 launches disagree with the GP schedule")
+        k2, k2_by_t = chol_cuda.launches, dict(chol_cuda.launches_by_t)
+
+        k1 = {}
+        v92_runs = []
+        run_v92 = pipelines.run_v92
+
+        def keep_v92(*args, **kwargs):
+            v92_runs.append(run_v92(*args, **kwargs))
+            return v92_runs[-1]
+
+        results = {}
+        for config in ("v92", "v34a"):
+            hist_cuda.reset_launches()
+            pipelines.run_v92 = keep_v92
+            try:
+                with FitLog() as fits:
+                    timed(f"train {config}", ["train", "--data", str(data), "--cache",
+                                              str(cache), "--config", config, "--out",
+                                              str(out)])
+            finally:
+                pipelines.run_v92 = run_v92
+            k1[config] = hist_cuda.launches
+            results[config] = json.loads((out / f"result_{config}.json").read_text())
+            log(f"  train {config}: fits (depth, rounds) {fits.fits}; K1 launches {k1[config]} "
+                f"(rounds x depth predicts {fits.k1()})")
+            if k1[config] != fits.k1() or k1[config] == 0:
+                raise AssertionError(f"train {config}: K1 launches disagree with rounds x depth")
+        v92 = v92_runs[0]
+        for name, cv in v92.variants.items():
+            log(f"  v92 {name}: OOF F1 {cv.best_f1:.4f} @ {cv.best_threshold:.3f}, rounds "
+                f"{cv.rounds_run}")
+        f1_92, f1_34 = results["v92"]["oof_f1"], results["v34a"]["oof_f1"]
+        log(f"  v92d OOF F1 {f1_92:.4f} (gate {F1_GATE}; the training phase's "
+            f"{trained['oof_f1']:.4f}, equal: {f1_92 == trained['oof_f1']}); v34a OOF F1 "
+            f"{f1_34:.4f} (gate {V34A_F1_GATE}); adversarial AUC {results['v92']['adv_auc']:.4f}")
+        if f1_92 < F1_GATE or f1_34 < V34A_F1_GATE:
+            raise AssertionError("the command line's OOF F1 is below its gate")
+
+        timed("predict", ["predict", "--data", str(data), "--cache", str(cache), "--model",
+                          str(out / "models_v92"), "--out", str(work / "pred")])
+        probs = np.load(work / "pred" / "probs_test.npy")
+        thr = results["v92"]["threshold"]
+
+        def labels(path):
+            return np.array([int(line.rsplit(",", 1)[1])
+                             for line in path.read_text().splitlines()[1:]])
+
+        sub_pred = labels(work / "pred" / "submission_test.csv")
+        sub_train = labels(out / "submission_v92.csv")
+        far = np.abs(probs - thr) > CLI_MARGIN
+        diff = float(np.abs(probs - v92.winner.test_preds).max())
+        log(f"  predict: {len(probs)} probabilities, finite {bool(np.isfinite(probs).all())}; "
+            f"max |predict - train| {diff:.3g}; {int((sub_pred != sub_train).sum())} labels "
+            f"differ from train's submission, {int((far & (sub_pred != sub_train)).sum())} of "
+            f"them farther than {CLI_MARGIN:g} from the threshold {thr:.4f}; "
+            f"{int(sub_pred.sum())} TDEs")
+        if (probs.shape != (len(sub_train),) or not np.isfinite(probs).all()
+                or (far & (sub_pred != sub_train)).any()):
+            raise AssertionError("predict's submission disagrees with train's")
+
+        with device_trace(str(work / "trace")) as prof:
+            t = time.perf_counter()
+            cli_main(["predict", "--data", str(data), "--cache", str(cache), "--model",
+                      str(out / "models_v92"), "--out", str(work / "pred_traced")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        traces = list((work / "trace").glob("trace_*.json"))
+        events = json.loads(traces[0].read_text())["traceEvents"] if traces else []
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        busy = sum(e.get("dur", 0) for e in kern) / 1e6
+        traced = np.load(work / "pred_traced" / "probs_test.npy")
+        log(f"  predict traced (torch.profiler, CPU + CUDA): {wall:.3f} s, {len(traces)} trace "
+            f"file(s), {len(events)} events, {len(kern)} CUDA kernels, {1e3 * busy:.3f} ms of "
+            f"kernel time (at most {busy / wall:.4f} of the traced wall time); probabilities "
+            f"equal to the untraced run's: {np.array_equal(traced, probs)}")
+        if len(traces) != 1 or not kern or not np.array_equal(traced, probs):
+            raise AssertionError("the traced predict wrote no trace of CUDA kernels, or "
+                                 "its probabilities differ from the untraced run's")
+
+        def dev_us(a):  # the profiler's name for device time changed across versions
+            us = getattr(a, "self_device_time_total", None)
+            return getattr(a, "self_cuda_time_total", 0) if us is None else us
+
+        for a in sorted(prof.key_averages(), key=lambda a: -dev_us(a))[:5]:
+            log(f"    {a.key[:60]}: {a.count} calls, {dev_us(a) / 1e3:.3f} ms on the card")
+        log("  command seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+        return {"k1": sum(k1.values()), "k2": k2, "k2_by_t": k2_by_t, "secs": secs,
+                "v92_f1s": {k: v.best_f1 for k, v in v92.variants.items()}}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -2576,6 +2803,9 @@ def main() -> int:
     with Phase("DL models"):
         dl = run_dl(trained, runners, dev)
 
+    with Phase("command line"):
+        cli = run_cli(trained, dev)
+
     # K2's rows: the server's GP width (phase 2 and the predict) and the
     # coarse phase's width, each with serving's launches at that width
     for name, width in (("chol_inv", gp_tc), ("chol_inv_coarse", multiband_gp._T_COARSE)):
@@ -2589,6 +2819,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [REQUEST, width, width],
         })
+    kernels[-2]["cli_launches_by_t"] = cli["k2_by_t"]
     # K2 at gp1d's shapes, with the families 2 phase's launches at T = 40
     # (the test split) and all its launches by width
     r = gp1d_results[0]
@@ -2659,6 +2890,7 @@ def main() -> int:
     kernels[-2]["families_launches"] = families["k1"]
     kernels[-2]["families2_launches"] = families2["k1"]
     kernels[-2]["dl_launches"] = dl["k1"]
+    kernels[-2]["cli_launches"] = cli["k1"]
     kernels[-2]["family_shapes"] = [dict({k: r[k] for k in shape_keys},
                                          node_chunks=r["node_chunks"]) for r in family_hist]
     # the segment histogram's row: a v114d split step's pair of children

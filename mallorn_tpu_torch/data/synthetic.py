@@ -20,12 +20,14 @@ recovers as ``Metadata.spec_type``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import csv
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from mallorn_tpu_torch.data.packing import Metadata, PackedLightcurves, pack_lightcurves
-from mallorn_tpu_torch.utils.constants import N_BANDS, WAVELENGTHS_NM
+from mallorn_tpu_torch.utils.constants import LSST_BANDS, N_BANDS, WAVELENGTHS_NM
 from mallorn_tpu_torch.utils.device import DeviceLike
 
 SPEC_TYPES = ("TDE", "SN Ia", "SN II", "SN IIn", "SN Ib/c", "SLSN", "AGN")
@@ -312,3 +314,60 @@ def generate_competition_splits(
     test = generate_dataset(n_test, seed=seed + 1, tde_frac=tde_frac, device=device,
                             **test_kwargs)
     return train, test
+
+
+def csv_text(col) -> List[str]:
+    """A column's CSV fields as pandas' ``to_csv`` writes them: float64 at
+    Python's shortest round-trip ``repr``, float32 at float32's shortest
+    repr, NaN as an empty field, anything else through ``str``. Either
+    package's reader gets the column's values back bit for bit."""
+    a = np.asarray(col)
+    if a.dtype == np.float32:
+        return ["" if v != v else str(v) for v in a]
+    if a.dtype.kind == "f":
+        return ["" if v != v else repr(v) for v in a.astype(np.float64).tolist()]
+    return [str(v) for v in a.tolist()]
+
+
+def _write_csv(path: Path, header: Sequence[str], columns: Sequence[List[str]]) -> None:
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        w.writerows(zip(*columns))
+
+
+def write_reference_layout(path, packed_cols: Dict[str, np.ndarray], meta: Metadata,
+                           n_splits: int = 4, split: str = "train") -> None:
+    """Write a dataset in the reference's on-disk CSV layout (numpy, no
+    pandas; the text of the JAX package's pandas writer).
+
+    ``{split}_log.csv`` at the root (object_id, Z, EBV[, SpecType][, target];
+    target for the train split only) and
+    ``split_XX/{split}_full_lightcurves.csv`` (object_id, Time (MJD), Flux,
+    Flux_err, Filter), objects sharded by ``object_index % n_splits`` with
+    every row kept in its order (reference: src/utils/data_loader.py:20-62).
+    """
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    ids = np.asarray(meta.object_ids)
+    header, cols = ["object_id", "Z", "EBV"], [csv_text(ids), csv_text(meta.z),
+                                               csv_text(meta.ebv)]
+    if meta.spec_type is not None:
+        header.append("SpecType")
+        cols.append(csv_text(meta.spec_type))
+    if meta.target is not None and split == "train":
+        header.append("target")
+        cols.append(csv_text(meta.target))
+    _write_csv(path / f"{split}_log.csv", header, cols)
+
+    obj = np.asarray(packed_cols["object_index"])
+    rows = {"object_id": ids[obj], "Time (MJD)": packed_cols["time"],
+            "Flux": packed_cols["flux"], "Flux_err": packed_cols["flux_err"],
+            "Filter": np.array(LSST_BANDS)[np.asarray(packed_cols["band"])]}
+    shard = obj % n_splits
+    for s in range(n_splits):
+        d = path / f"split_{s + 1:02d}"
+        d.mkdir(exist_ok=True)
+        sel = shard == s
+        _write_csv(d / f"{split}_full_lightcurves.csv", list(rows),
+                   [csv_text(np.asarray(v)[sel]) for v in rows.values()])

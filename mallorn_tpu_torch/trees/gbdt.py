@@ -1076,3 +1076,13 @@ def predict_proba(model: GBDTModel, X, n_trees: Optional[int] = None) -> torch.T
     if model.params.num_class >= 2:
         return torch.softmax(m, dim=-1)
     return torch.sigmoid(m)
+
+
+def predict_proba_folds(models: Sequence[GBDTModel], X) -> np.ndarray:
+    """[K, N] sigmoid probabilities of K same-config binary fold models on
+    one float matrix [N, F] (numpy, or a tensor on the models' device),
+    as a host array."""
+    if not torch.is_tensor(X):
+        X = torch.as_tensor(np.asarray(X, np.float32),
+                            device=models[0].bin_spec.edges.device)
+    return torch.sigmoid(predict_margin_models(models, X)).cpu().numpy()

@@ -78,15 +78,11 @@ def bin_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Cumulative sum over the last axis (256 bins on the CPU path)."""
     if x.device.type != "cpu" or x.shape[-1] != 256:
         return torch.cumsum(x, dim=-1)
-    blocks = x.reshape(*x.shape[:-1], 16, 16)
-    inner = torch.empty_like(blocks)
-    inner[..., 0] = blocks[..., 0]
-    for j in range(1, 16):
-        inner[..., j] = inner[..., j - 1] + blocks[..., j]
-    prefix = torch.zeros_like(inner[..., 0])  # [..., 16] block offsets
-    for b in range(1, 16):
-        prefix[..., b] = prefix[..., b - 1] + inner[..., b - 1, 15]
-    return (inner + prefix[..., None]).reshape(x.shape)
+    blocks = x.numpy().reshape(*x.shape[:-1], 16, 16)
+    inner = np.cumsum(blocks, axis=-1, dtype=blocks.dtype)  # sequential within a block
+    prefix = np.zeros(inner.shape[:-1], blocks.dtype)  # [..., 16] block offsets
+    prefix[..., 1:] = np.cumsum(inner[..., :-1, 15], axis=-1, dtype=blocks.dtype)
+    return torch.from_numpy((inner + prefix[..., None]).reshape(x.shape))
 
 
 def row_sums(x: torch.Tensor) -> torch.Tensor:

@@ -57,7 +57,8 @@ def test_import_closure_has_no_jax_pandas_sklearn_or_jax_package():
               "features.enhanced_colors", "features.time_to_decline",
               "data.augmentation", "models.layers", "models.data", "models.train_dl",
               "models.transformer", "models.lstm", "models.gru", "models.atat",
-              "models.mlp", "models.astromer", "features.astromer"):
+              "models.mlp", "models.astromer", "features.astromer", "cli.main",
+              "data.loader", "io.native", "io.cache", "utils.profiling"):
         assert f"mallorn_tpu_torch.{m}" in walked, m
     assert lines["BANNED"].strip() == "", f"the port pulled in: {lines['BANNED']}"
 
@@ -76,7 +77,9 @@ def test_smoke_script_fails_without_a_card_or_the_package(tmp_path):
     assert out.returncode != 0 and '"ok"' not in out.stdout
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
+    from mallorn_tpu_torch.cli.main import main as cli_main
+    from mallorn_tpu_torch.data.loader import load_all_data
     from mallorn_tpu_torch.data.packing import pack_lightcurves
     from mallorn_tpu_torch.io.model_store import forest_from_numpy
     from mallorn_tpu_torch.trees.binning import fit_bins
@@ -106,7 +109,9 @@ def test_entry_points_default_to_the_card():
              lambda **kw: fit_bins(X, n_bins=8, **kw),
              lambda **kw: forest_from_numpy(*trees, **kw),
              lambda **kw: train_gbdt(X, y, small, **kw),
-             lambda **kw: train_cv(X, y, None, small, n_folds=2, **kw)]
+             lambda **kw: train_cv(X, y, None, small, n_folds=2, **kw),
+             lambda **kw: load_all_data(tmp_path, **kw),
+             lambda **kw: cli_main(["synth", "--out", str(tmp_path / "synth")], **kw)]
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
@@ -120,3 +125,9 @@ def test_entry_points_default_to_the_card():
     assert train_gbdt(X, y, small, device="cpu").forest.feature.device.type == "cpu"
     assert LSTMClassifier(device="cpu").Dense_0.kernel.device.type == "cpu"
     assert load_pretrained(device="cpu")[1].Dense_0.kernel.device.type == "cpu"
+    from mallorn_tpu_torch.data.synthetic import generate_dataset, write_reference_layout
+
+    _, meta, flat = generate_dataset(4, seed=1, device="cpu")
+    write_reference_layout(tmp_path / "data", flat, meta)
+    data = load_all_data(tmp_path / "data", device="cpu")
+    assert data["train_packed"].band_time.device.type == "cpu"
