@@ -64,7 +64,13 @@ Phases, each printing its wall time on its own line:
    17 nodes,
    two launches of each bit for bit equal, with the same times, the
    launch alone on prepared digits (``kernel_only_ms``) and the distance
-   from the float64 oracle (``max_abs_err_f64``);
+   from the float64 oracle (``max_abs_err_f64``); then K1's and K3's
+   external-scale int64 entries (the mesh's histograms) at the v92d CV's
+   shape (1, 2, 4, 8 and 64 nodes) and the v114d pair, the rows in two
+   halves at one global scale: each half bit for bit its int64 twin, the
+   halves adding up to the whole, the converted total bit for bit the
+   float32 entry's, a NaN lane zeros, with the same times (the library
+   yardstick an int64 ``scatter_add_``);
 7. kernel against plain in training: a 600 x 30 fixture (NaNs, subsample
    and colsample 0.8, 20 rounds of depth 5) fitted with K1 twice and once
    with the kernel's fixed-point arithmetic in plain PyTorch, and the same
@@ -164,8 +170,8 @@ Phases, each printing its wall time on its own line:
    distances at features_v4's gate, DTW's warp fractions equal on >= 98%
    of lanes, gp1d at multiband_gp's gate); the command line's experiments
    v9, v20, v35, v40, v47, v48, v56, v58, v59b, v65 and v66 (the family's
-   columns on the 224-column v34a matrix, ``train_cv`` at V34A_PARAMS; K1
-   launches = rounds x depth); ``augment_dataset`` over one copy of the
+   columns on the 224-column v34a matrix, ``train_cv`` at V34A_PARAMS cut
+   to 250 rounds; K1 launches = rounds x depth); ``augment_dataset`` over one copy of the
    train split on the card and on the CPU (masks equal, times, fluxes and
    errors within rtol 1e-5) and the transforms' invariants on the card.
    The kernel phase also checks K2 at gp1d's shapes (B = 12,288 and
@@ -200,7 +206,24 @@ Phases, each printing its wall time on its own line:
    to train's on every row farther than 1e-4 from the threshold, then once
    more under ``utils.profiling.device_trace`` (one Chrome trace holding
    CUDA kernels, the same probabilities; kernel time printed); each
-   command's seconds.
+   command's seconds;
+17. the mesh (``mallorn_tpu_torch.parallel``), reusing the training
+   phase's bundles, selection and adversarial weights and the command
+   line phase's workspace: (a) ``run_v92`` on a world-size-1 NCCL mesh in
+   this process, its v92d forests bit for bit the training phase's, K1's
+   external-scale entry launched rounds x depth times and the float32
+   entry never; (b) two gloo ranks both on this card (collectives through
+   pinned host memory): the v92d CV at 50 rounds and a v114d leaf-wise CV
+   at 10 against their single-device fits (features and split bins equal,
+   leaf values within rtol 2e-4 / atol 2e-5, eval history within rtol
+   1e-4, best iterations equal; whether every forest is also bit for bit
+   printed), each rank's K1 / K3 launches (rounds x depth, 8 x rounds) and
+   int64 bytes all-reduced per round; (c) the train split's v34a families
+   extracted with the objects split over the two ranks, against the
+   training phase's bundle (rtol 2e-4 / atol 1e-5, Bazin >= 85% of lanes),
+   K2 launches per rank; (d) ``train --config v34a --mesh 1`` (one NCCL
+   rank) in the command line's workspace, its result JSON equal to that
+   phase's, and ``--mesh`` beyond the card count refused.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -213,8 +236,10 @@ from __future__ import annotations
 import faulthandler
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -980,6 +1005,88 @@ def check_seg_hist_edges() -> None:
                              dtype=torch.int32)
     seg_hist_holds(f"seg edge n_seg={lim} (layout {hist_cuda.seg_hist_layout(lim)})",
                    binned, seg_base, gh, lim)
+
+
+# K1's and K3's external-scale int64 entries (the mesh's histograms): K1 at
+# the v92d CV's shape and every node count of its levels plus one level of
+# 64 nodes (two chunks of nodes), K3 at the v114d member's pair
+I64_SHAPES = (("K1", "v92d", 5, 222, 2444, (1, 2, 4, 8, 64)),
+              ("K3", "v114d_pair", SEG_LANES, SEG_F, 2444, (2,)))
+
+
+def check_hist_i64(kernel: str, fit: str, K: int, F: int, N: int, nodes: int,
+                   seed: int) -> dict:
+    """The external-scale entry of K1 (``build_histograms_i64``) or K3
+    (``build_seg_histograms_i64``) at one shape, with the rows split in two
+    halves that share one global scale: each half's launch bit for bit its
+    int64 twin, the halves' sums adding up to the whole's launch, and the
+    total converted once bit for bit the float32 entry's output on every
+    row; a lane with a NaN g is zeros. Times: the wrapper, the launch alone,
+    the plain twin, one int64 ``scatter_add_`` yardstick and the bound."""
+    binned, node_q, gh = hist_inputs(K, F, N, nodes, seed)
+    gh[K - 1, N // 3, 0] = float("nan")
+    if kernel == "K1":
+        ids, size, n_seg = node_q, (nodes, N_BINS_TOT), nodes * N_BINS_TOT
+        entry, twin, f32 = (hist_cuda.build_histograms_i64, hist_cuda.build_histograms_i64_fixed,
+                            hist_cuda.build_histograms)
+    else:
+        ids, size, n_seg = (node_q * N_BINS_TOT).contiguous(), (nodes * N_BINS_TOT,), nodes * N_BINS_TOT
+        entry, twin, f32 = (hist_cuda.build_seg_histograms_i64,
+                            hist_cuda.build_seg_histograms_i64_fixed,
+                            hist_cuda.build_seg_histograms)
+    halves = [slice(0, N // 2), slice(N // 2, N)]
+    part = [(binned[:, :, h].contiguous(), ids[:, h].contiguous(), gh[:, h].contiguous())
+            for h in halves]
+    m = torch.maximum(*[hist_cuda.lane_maxabs(g) for _, _, g in part]).contiguous()
+    sums = [entry(b, i, g, *size, m, N) for b, i, g in part]
+    twins = [twin(b, i, g, *size, m, N) for b, i, g in part]
+    whole = entry(binned, ids, gh, *size, m, N)
+    torch.cuda.synchronize()
+    twin_equal = all(torch.equal(a, b) for a, b in zip(sums, twins))
+    adds_up = torch.equal(sums[0] + sums[1], whole)
+    conv = hist_cuda.from_fixed_sums(sums[0] + sums[1], m, N)
+    f32_equal = bits_equal(conv, f32(binned, ids, gh, *size))
+    nan_lane = bool((whole[K - 1] == 0).all()) and bool(torch.isnan(conv[K - 1]).all())
+    tag = f"{kernel} external scale {fit} K={K} F={F} N={N} " + (
+        f"nodes={nodes}" if kernel == "K1" else f"n_seg={n_seg}")
+    log(f"  {tag}: each half bit for bit its int64 twin {twin_equal}; the halves add up to "
+        f"the whole {adds_up}; converted, bit for bit the float32 entry {f32_equal}; NaN "
+        f"lane zeros {nan_lane}")
+    if not (twin_equal and adds_up and f32_equal and nan_lane):
+        raise AssertionError(f"{tag} failed its checks")
+    out = torch.empty_like(whole)
+    log2n = hist_cuda._log2_ceil(N)
+    launcher = hist_cuda.launch_hist_kernel if kernel == "K1" else hist_cuda.launch_seg_kernel
+    launch_ms = cuda_ms(lambda: launcher(binned, ids, gh, out, *size, m, log2n), reps=50)
+    if not torch.equal(out, whole):
+        raise AssertionError(f"{tag}: the launch alone disagrees with the wrapper")
+    ms = cuda_ms(lambda: entry(binned, ids, gh, *size, m, N), reps=50)
+    plain_ms = cuda_ms(lambda: twin(binned, ids, gh, *size, m, N), reps=3, warmup=1)
+    # the yardstick: one int64 scatter_add_ of the rows' q into every (lane,
+    # feature, segment) cell (q and the segment ids are set-up, untimed)
+    q, _, _ = hist_cuda._fixed_point(gh, m, N)
+    base = ids.long() * (N_BINS_TOT if kernel == "K1" else 1)
+    active = base < n_seg
+    seg = base[:, None, :] + binned.long()
+    act = active[:, None, :] & (seg < n_seg)
+    kf = torch.arange(K * F, device="cuda").view(K, F, 1) * n_seg
+    idx = torch.where(act, kf + seg, K * F * n_seg).reshape(-1, 1).expand(-1, 2)
+    vals = q[:, None, :, :].expand(K, F, N, 2).reshape(-1, 2)
+    sink = torch.zeros(K * F * n_seg + 1, 2, dtype=torch.int64, device="cuda")
+    library_ms = cuda_ms(lambda: sink.scatter_add_(0, idx, vals), reps=20)
+    # bins, ids, (g, h) and the maxima in, the int64 sums out; two adds per
+    # active (row, feature)
+    n_bytes = K * F * N * 2 + K * N * 4 + K * N * 8 + K * 8 + K * F * n_seg * 2 * 8
+    n_ops = 2.0 * F * float(active.sum())
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
+    res = {"kernel": kernel, "fit": fit, "K": K, "F": F, "N": N, "nodes": nodes,
+           "max_abs_err": 0.0, "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(f"  {tag} times: kernel_ms={ms:.4f} launch_ms={launch_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"library_ms={library_ms:.4f} (one int64 scatter_add_, a yardstick the port never "
+        f"calls) bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: {n_bytes / 1e6:.2f} MB)")
+    return res
 
 
 def check_training_kernel_vs_plain(device) -> None:
@@ -2062,6 +2169,9 @@ FAMILY2_EXPERIMENTS = (("v9", "dtw"), ("v20", "advanced"), ("v35", "cesium"),
 # band view is 40 wide, the train split's 48
 GP1D_K2_SHAPES = ((12288, 40), (12287, 40), (12288, 48))
 WARP_SHARE = 0.98  # DTW's warp fractions equal on at least this share of lanes
+# rounds of each families 2 experiment (V34A_PARAMS' 500 cut to pay for the
+# mesh phase)
+FAMILY2_ROUNDS = 250
 AUG_KEY = 20  # augment_dataset's key: prng.PRNGKey(AUG_KEY)
 AUG_RTOL = 1e-5
 
@@ -2156,8 +2266,9 @@ def run_families2(trained: dict, runners: dict, dev) -> dict:
       of FAMILY_CHUNK objects (DTW's templates built once from the train
       split), gp1d's K2 launches = chunks x (GP1D_STEPS + 1) at each
       split's band width, the first 128 test objects held against the CPU;
-    - v9 ... v66, each a ``train_cv`` at V34A_PARAMS on the v34a matrix
-      plus the family's columns; K1 launches = rounds x depth;
+    - v9 ... v66, each a ``train_cv`` at V34A_PARAMS cut to FAMILY2_ROUNDS
+      on the v34a matrix plus the family's columns; K1 launches = rounds x
+      depth;
     - ``augment_dataset`` on the card against the CPU, and the invariants.
     """
     tr_packed, tr_meta = trained["tr"]
@@ -2208,7 +2319,8 @@ def run_families2(trained: dict, runners: dict, dev) -> dict:
         hist_cuda.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cv = train_cv(Xtr2, y, Xte2, V34A_PARAMS, device=dev)
+        cv = train_cv(Xtr2, y, Xte2, V34A_PARAMS._replace(n_rounds=FAMILY2_ROUNDS),
+                      device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         k1, want_k1 = hist_cuda.launches, V34A_PARAMS.max_depth * cv.rounds_run
@@ -2385,7 +2497,7 @@ class FitLog:
         return sum(d * r for d, r in self.fits)
 
 
-def run_cli(trained: dict, dev) -> dict:
+def run_cli(trained: dict, dev, work: Path) -> dict:
     """The command line phase: the bench split written in the reference's
     CSV layout and read back through the native parser (bit for bit
     ``load_split``'s tensors), then ``extract`` (K2 launches = the GP
@@ -2393,10 +2505,8 @@ def run_cli(trained: dict, dev) -> dict:
     rounds x depth; v92d's gate), ``train --config v34a`` (the selection
     from the cache; its gate) and ``predict`` from the saved v92d models
     (agreeing with train's submission away from the threshold), each
-    command's seconds; predict once more under ``device_trace``."""
-    import shutil
-    import tempfile
-
+    command's seconds; predict once more under ``device_trace``. ``work``
+    holds the workspace (the mesh phase trains in it again)."""
     from mallorn_tpu_torch.cli.main import main as cli_main
     from mallorn_tpu_torch.data.loader import load_all_data
     from mallorn_tpu_torch.data.synthetic import write_reference_layout
@@ -2404,160 +2514,362 @@ def run_cli(trained: dict, dev) -> dict:
     from mallorn_tpu_torch.train import pipelines
     from mallorn_tpu_torch.utils.profiling import device_trace
 
-    work = Path(tempfile.mkdtemp(prefix="mallorn_cli_"))
     data, cache, out = work / "data", work / "cache", work / "artifacts"
     secs = {}
-    try:
-        t0 = time.perf_counter()
-        n_rows = 0
-        with np.load(DATA, allow_pickle=False) as z:
-            for tag, split in (("tr", "train"), ("te", "test")):
-                cols = {k: z[f"{tag}_{k}"]
-                        for k in ("object_index", "time", "flux", "flux_err", "band")}
-                meta = Metadata(object_ids=z[f"{tag}_object_ids"], z=z[f"{tag}_z"],
-                                ebv=z[f"{tag}_ebv"], target=z[f"{tag}_target"])
-                write_reference_layout(data, cols, meta, n_splits=CLI_SHARDS, split=split)
-                n_rows += len(cols["time"])
-        secs["write"] = time.perf_counter() - t0
-        size = sum(f.stat().st_size for f in data.rglob("*.csv"))
-        t0 = time.perf_counter()
-        native.build()
-        secs["parser build"] = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loaded = load_all_data(data, device=dev)
-        torch.cuda.synchronize()
-        secs["read"] = time.perf_counter() - t0
-        log(f"  layout: {n_rows:,} rows in {CLI_SHARDS} shards per split, {size / 1e6:.1f} MB; "
-            f"write {secs['write']:.3f} s ({n_rows / secs['write']:,.0f} rows/s), parser "
-            f"build {secs['parser build']:.3f} s, read + pack {secs['read']:.3f} s "
-            f"({n_rows / secs['read']:,.0f} rows/s)")
-        want = unify_time_padding(trained["tr"][0], trained["te"][0])
-        for split, w, (_, w_meta) in zip(("train", "test"), want, (trained["tr"], trained["te"])):
-            got, meta = loaded[f"{split}_packed"], loaded[f"{split}_meta"]
-            same = (got.time_offset == w.time_offset and all(
-                bits_equal(a, b) if a.dtype == torch.float32 else torch.equal(a, b)
-                for a, b in zip(got.tensors(), w.tensors())))
-            same_meta = (np.array_equal(meta.object_ids, w_meta.object_ids)
-                         and np.array_equal(meta.z.view(np.uint32), w_meta.z.view(np.uint32))
-                         and np.array_equal(meta.ebv.view(np.uint32),
-                                            w_meta.ebv.view(np.uint32))
-                         and (np.array_equal(meta.target, w_meta.target) if split == "train"
-                              else meta.target is None))
-            log(f"  {split}: packed {tuple(got.band_time.shape)} / {tuple(got.all_time.shape)} "
-                f"bit for bit load_split's: {same}; metadata equal: {same_meta}")
-            if not (same and same_meta):
-                raise AssertionError(f"the {split} split read from CSV differs from load_split's")
-        del loaded
+    t0 = time.perf_counter()
+    n_rows = 0
+    with np.load(DATA, allow_pickle=False) as z:
+        for tag, split in (("tr", "train"), ("te", "test")):
+            cols = {k: z[f"{tag}_{k}"]
+                    for k in ("object_index", "time", "flux", "flux_err", "band")}
+            meta = Metadata(object_ids=z[f"{tag}_object_ids"], z=z[f"{tag}_z"],
+                            ebv=z[f"{tag}_ebv"], target=z[f"{tag}_target"])
+            write_reference_layout(data, cols, meta, n_splits=CLI_SHARDS, split=split)
+            n_rows += len(cols["time"])
+    secs["write"] = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in data.rglob("*.csv"))
+    t0 = time.perf_counter()
+    native.build()
+    secs["parser build"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_all_data(data, device=dev)
+    torch.cuda.synchronize()
+    secs["read"] = time.perf_counter() - t0
+    log(f"  layout: {n_rows:,} rows in {CLI_SHARDS} shards per split, {size / 1e6:.1f} MB; "
+        f"write {secs['write']:.3f} s ({n_rows / secs['write']:,.0f} rows/s), parser "
+        f"build {secs['parser build']:.3f} s, read + pack {secs['read']:.3f} s "
+        f"({n_rows / secs['read']:,.0f} rows/s)")
+    want = unify_time_padding(trained["tr"][0], trained["te"][0])
+    for split, w, (_, w_meta) in zip(("train", "test"), want, (trained["tr"], trained["te"])):
+        got, meta = loaded[f"{split}_packed"], loaded[f"{split}_meta"]
+        same = (got.time_offset == w.time_offset and all(
+            bits_equal(a, b) if a.dtype == torch.float32 else torch.equal(a, b)
+            for a, b in zip(got.tensors(), w.tensors())))
+        same_meta = (np.array_equal(meta.object_ids, w_meta.object_ids)
+                     and np.array_equal(meta.z.view(np.uint32), w_meta.z.view(np.uint32))
+                     and np.array_equal(meta.ebv.view(np.uint32),
+                                        w_meta.ebv.view(np.uint32))
+                     and (np.array_equal(meta.target, w_meta.target) if split == "train"
+                          else meta.target is None))
+        log(f"  {split}: packed {tuple(got.band_time.shape)} / {tuple(got.all_time.shape)} "
+            f"bit for bit load_split's: {same}; metadata equal: {same_meta}")
+        if not (same and same_meta):
+            raise AssertionError(f"the {split} split read from CSV differs from load_split's")
+    del loaded
 
-        def timed(name, argv):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            cli_main(argv)
-            torch.cuda.synchronize()
-            secs[name] = time.perf_counter() - t
-            log(f"  {name}: {secs[name]:.3f} s")
+    def timed(name, argv):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cli_main(argv)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        log(f"  {name}: {secs[name]:.3f} s")
 
-        chol_cuda.reset_launches()
+    chol_cuda.reset_launches()
+    hist_cuda.reset_launches()
+    timed("extract", ["extract", "--data", str(data), "--cache", str(cache),
+                      "--families", CLI_FAMILIES, "--gp-steps", str(GP_STEPS)])
+    want_chol = expected_training_chol(trained["tr"][0], trained["te"][0], GP_STEPS)
+    log(f"  extract: K2 launches {chol_cuda.launches} (GP schedule predicts {want_chol}); "
+        f"by width {dict(chol_cuda.launches_by_t)}; cluster {chol_cuda.cluster_launches}, "
+        f"tiled {chol_cuda.large_launches}")
+    if chol_cuda.launches != want_chol:
+        raise AssertionError("extract's K2 launches disagree with the GP schedule")
+    k2, k2_by_t = chol_cuda.launches, dict(chol_cuda.launches_by_t)
+
+    k1 = {}
+    v92_runs = []
+    run_v92 = pipelines.run_v92
+
+    def keep_v92(*args, **kwargs):
+        v92_runs.append(run_v92(*args, **kwargs))
+        return v92_runs[-1]
+
+    results = {}
+    for config in ("v92", "v34a"):
         hist_cuda.reset_launches()
-        timed("extract", ["extract", "--data", str(data), "--cache", str(cache),
-                          "--families", CLI_FAMILIES, "--gp-steps", str(GP_STEPS)])
-        want_chol = expected_training_chol(trained["tr"][0], trained["te"][0], GP_STEPS)
-        log(f"  extract: K2 launches {chol_cuda.launches} (GP schedule predicts {want_chol}); "
-            f"by width {dict(chol_cuda.launches_by_t)}; cluster {chol_cuda.cluster_launches}, "
-            f"tiled {chol_cuda.large_launches}")
-        if chol_cuda.launches != want_chol:
-            raise AssertionError("extract's K2 launches disagree with the GP schedule")
-        k2, k2_by_t = chol_cuda.launches, dict(chol_cuda.launches_by_t)
+        pipelines.run_v92 = keep_v92
+        try:
+            with FitLog() as fits:
+                timed(f"train {config}", ["train", "--data", str(data), "--cache",
+                                          str(cache), "--config", config, "--out",
+                                          str(out)])
+        finally:
+            pipelines.run_v92 = run_v92
+        k1[config] = hist_cuda.launches
+        results[config] = json.loads((out / f"result_{config}.json").read_text())
+        log(f"  train {config}: fits (depth, rounds) {fits.fits}; K1 launches {k1[config]} "
+            f"(rounds x depth predicts {fits.k1()})")
+        if k1[config] != fits.k1() or k1[config] == 0:
+            raise AssertionError(f"train {config}: K1 launches disagree with rounds x depth")
+    v92 = v92_runs[0]
+    for name, cv in v92.variants.items():
+        log(f"  v92 {name}: OOF F1 {cv.best_f1:.4f} @ {cv.best_threshold:.3f}, rounds "
+            f"{cv.rounds_run}")
+    f1_92, f1_34 = results["v92"]["oof_f1"], results["v34a"]["oof_f1"]
+    log(f"  v92d OOF F1 {f1_92:.4f} (gate {F1_GATE}; the training phase's "
+        f"{trained['oof_f1']:.4f}, equal: {f1_92 == trained['oof_f1']}); v34a OOF F1 "
+        f"{f1_34:.4f} (gate {V34A_F1_GATE}); adversarial AUC {results['v92']['adv_auc']:.4f}")
+    if f1_92 < F1_GATE or f1_34 < V34A_F1_GATE:
+        raise AssertionError("the command line's OOF F1 is below its gate")
 
-        k1 = {}
-        v92_runs = []
-        run_v92 = pipelines.run_v92
+    timed("predict", ["predict", "--data", str(data), "--cache", str(cache), "--model",
+                      str(out / "models_v92"), "--out", str(work / "pred")])
+    probs = np.load(work / "pred" / "probs_test.npy")
+    thr = results["v92"]["threshold"]
 
-        def keep_v92(*args, **kwargs):
-            v92_runs.append(run_v92(*args, **kwargs))
-            return v92_runs[-1]
+    def labels(path):
+        return np.array([int(line.rsplit(",", 1)[1])
+                         for line in path.read_text().splitlines()[1:]])
 
-        results = {}
-        for config in ("v92", "v34a"):
-            hist_cuda.reset_launches()
-            pipelines.run_v92 = keep_v92
-            try:
-                with FitLog() as fits:
-                    timed(f"train {config}", ["train", "--data", str(data), "--cache",
-                                              str(cache), "--config", config, "--out",
-                                              str(out)])
-            finally:
-                pipelines.run_v92 = run_v92
-            k1[config] = hist_cuda.launches
-            results[config] = json.loads((out / f"result_{config}.json").read_text())
-            log(f"  train {config}: fits (depth, rounds) {fits.fits}; K1 launches {k1[config]} "
-                f"(rounds x depth predicts {fits.k1()})")
-            if k1[config] != fits.k1() or k1[config] == 0:
-                raise AssertionError(f"train {config}: K1 launches disagree with rounds x depth")
-        v92 = v92_runs[0]
-        for name, cv in v92.variants.items():
-            log(f"  v92 {name}: OOF F1 {cv.best_f1:.4f} @ {cv.best_threshold:.3f}, rounds "
-                f"{cv.rounds_run}")
-        f1_92, f1_34 = results["v92"]["oof_f1"], results["v34a"]["oof_f1"]
-        log(f"  v92d OOF F1 {f1_92:.4f} (gate {F1_GATE}; the training phase's "
-            f"{trained['oof_f1']:.4f}, equal: {f1_92 == trained['oof_f1']}); v34a OOF F1 "
-            f"{f1_34:.4f} (gate {V34A_F1_GATE}); adversarial AUC {results['v92']['adv_auc']:.4f}")
-        if f1_92 < F1_GATE or f1_34 < V34A_F1_GATE:
-            raise AssertionError("the command line's OOF F1 is below its gate")
+    sub_pred = labels(work / "pred" / "submission_test.csv")
+    sub_train = labels(out / "submission_v92.csv")
+    far = np.abs(probs - thr) > CLI_MARGIN
+    diff = float(np.abs(probs - v92.winner.test_preds).max())
+    log(f"  predict: {len(probs)} probabilities, finite {bool(np.isfinite(probs).all())}; "
+        f"max |predict - train| {diff:.3g}; {int((sub_pred != sub_train).sum())} labels "
+        f"differ from train's submission, {int((far & (sub_pred != sub_train)).sum())} of "
+        f"them farther than {CLI_MARGIN:g} from the threshold {thr:.4f}; "
+        f"{int(sub_pred.sum())} TDEs")
+    if (probs.shape != (len(sub_train),) or not np.isfinite(probs).all()
+            or (far & (sub_pred != sub_train)).any()):
+        raise AssertionError("predict's submission disagrees with train's")
 
-        timed("predict", ["predict", "--data", str(data), "--cache", str(cache), "--model",
-                          str(out / "models_v92"), "--out", str(work / "pred")])
-        probs = np.load(work / "pred" / "probs_test.npy")
-        thr = results["v92"]["threshold"]
+    with device_trace(str(work / "trace")) as prof:
+        t = time.perf_counter()
+        cli_main(["predict", "--data", str(data), "--cache", str(cache), "--model",
+                  str(out / "models_v92"), "--out", str(work / "pred_traced")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    traces = list((work / "trace").glob("trace_*.json"))
+    events = json.loads(traces[0].read_text())["traceEvents"] if traces else []
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e.get("dur", 0) for e in kern) / 1e6
+    traced = np.load(work / "pred_traced" / "probs_test.npy")
+    log(f"  predict traced (torch.profiler, CPU + CUDA): {wall:.3f} s, {len(traces)} trace "
+        f"file(s), {len(events)} events, {len(kern)} CUDA kernels, {1e3 * busy:.3f} ms of "
+        f"kernel time (at most {busy / wall:.4f} of the traced wall time); probabilities "
+        f"equal to the untraced run's: {np.array_equal(traced, probs)}")
+    if len(traces) != 1 or not kern or not np.array_equal(traced, probs):
+        raise AssertionError("the traced predict wrote no trace of CUDA kernels, or "
+                             "its probabilities differ from the untraced run's")
 
-        def labels(path):
-            return np.array([int(line.rsplit(",", 1)[1])
-                             for line in path.read_text().splitlines()[1:]])
+    def dev_us(a):  # the profiler's name for device time changed across versions
+        us = getattr(a, "self_device_time_total", None)
+        return getattr(a, "self_cuda_time_total", 0) if us is None else us
 
-        sub_pred = labels(work / "pred" / "submission_test.csv")
-        sub_train = labels(out / "submission_v92.csv")
-        far = np.abs(probs - thr) > CLI_MARGIN
-        diff = float(np.abs(probs - v92.winner.test_preds).max())
-        log(f"  predict: {len(probs)} probabilities, finite {bool(np.isfinite(probs).all())}; "
-            f"max |predict - train| {diff:.3g}; {int((sub_pred != sub_train).sum())} labels "
-            f"differ from train's submission, {int((far & (sub_pred != sub_train)).sum())} of "
-            f"them farther than {CLI_MARGIN:g} from the threshold {thr:.4f}; "
-            f"{int(sub_pred.sum())} TDEs")
-        if (probs.shape != (len(sub_train),) or not np.isfinite(probs).all()
-                or (far & (sub_pred != sub_train)).any()):
-            raise AssertionError("predict's submission disagrees with train's")
+    for a in sorted(prof.key_averages(), key=lambda a: -dev_us(a))[:5]:
+        log(f"    {a.key[:60]}: {a.count} calls, {dev_us(a) / 1e3:.3f} ms on the card")
+    log("  command seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    return {"k1": sum(k1.values()), "k2": k2, "k2_by_t": k2_by_t, "secs": secs,
+            "v92_f1s": {k: v.best_f1 for k, v in v92.variants.items()}}
 
-        with device_trace(str(work / "trace")) as prof:
-            t = time.perf_counter()
-            cli_main(["predict", "--data", str(data), "--cache", str(cache), "--model",
-                      str(out / "models_v92"), "--out", str(work / "pred_traced")])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        traces = list((work / "trace").glob("trace_*.json"))
-        events = json.loads(traces[0].read_text())["traceEvents"] if traces else []
-        kern = [e for e in events if e.get("cat") == "kernel"]
-        busy = sum(e.get("dur", 0) for e in kern) / 1e6
-        traced = np.load(work / "pred_traced" / "probs_test.npy")
-        log(f"  predict traced (torch.profiler, CPU + CUDA): {wall:.3f} s, {len(traces)} trace "
-            f"file(s), {len(events)} events, {len(kern)} CUDA kernels, {1e3 * busy:.3f} ms of "
-            f"kernel time (at most {busy / wall:.4f} of the traced wall time); probabilities "
-            f"equal to the untraced run's: {np.array_equal(traced, probs)}")
-        if len(traces) != 1 or not kern or not np.array_equal(traced, probs):
-            raise AssertionError("the traced predict wrote no trace of CUDA kernels, or "
-                                 "its probabilities differ from the untraced run's")
 
-        def dev_us(a):  # the profiler's name for device time changed across versions
-            us = getattr(a, "self_device_time_total", None)
-            return getattr(a, "self_cuda_time_total", 0) if us is None else us
 
-        for a in sorted(prof.key_averages(), key=lambda a: -dev_us(a))[:5]:
-            log(f"    {a.key[:60]}: {a.count} calls, {dev_us(a) / 1e3:.3f} ms on the card")
-        log("  command seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
-        return {"k1": sum(k1.values()), "k2": k2, "k2_by_t": k2_by_t, "secs": secs,
-                "v92_f1s": {k: v.best_f1 for k, v in v92.variants.items()}}
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+# the mesh phase: the two-rank v92d CV's rounds (training's 500 cut to
+# this), the leaf-wise v114d CV's, and the sharded extraction's chunks
+# (the single-device bundle's, so that each chunk's GP width is the same)
+MESH_ROUNDS, MESH_LG_ROUNDS, MESH_CHUNK = 50, 10, 2048
+# a sharded forest against the single-device one (tests/test_sharded_training.py:35-45,
+# :107-122): leaf values, eval history; the extraction's bars
+# (tests/test_sharded_pipeline.py:42-56) and Bazin's share of close lanes
+MESH_LEAF_TOL, MESH_HIST_TOL = (2e-4, 2e-5), (1e-4, 1e-5)
+MESH_FEAT_TOL, MESH_BAZIN_TOL, MESH_BAZIN_SHARE = (2e-4, 1e-5), (1e-3, 1e-4), 0.85
+V92D_GRID = np.linspace(0.05, 0.5, 200)  # run_v92's threshold grid
+
+
+def mesh_v92(mesh, X224, y, names, X224_te):
+    """``run_v92``'s v92d variant with every CV on ``mesh``."""
+    from mallorn_tpu_torch.train.pipelines import V92D_ONLY, run_v92
+
+    return run_v92(X224, y, names, X224_te, params=V34A_PARAMS, variants=V92D_ONLY,
+                   mesh=mesh)
+
+
+def mesh_ranks(mesh, X, y, w, packed, meta):
+    """The mesh phase on each of its gloo ranks: the v92d CV at MESH_ROUNDS,
+    one v114d leaf-wise CV at MESH_LG_ROUNDS, and the train split's v34a
+    families extracted with the objects split over the ranks. Returns rank
+    0's results with every rank's launches, bytes and seconds."""
+    from mallorn_tpu_torch.parallel.pipeline import extract_v34a_bundle_sharded
+
+    def counted(fn):
+        hist_cuda.reset_launches()
+        chol_cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mesh.record() as calls:
+            res = fn()
+        torch.cuda.synchronize()
+        hist_bytes = sum(b for k, s, b in calls if k == "all_reduce_sum" and s.startswith("int64"))
+        return res, [time.perf_counter() - t0, hist_cuda.i64_launches,
+                     hist_cuda.seg_i64_launches,
+                     hist_cuda.launches + hist_cuda.seg_launches,
+                     chol_cuda.launches + chol_cuda.cluster_launches + chol_cuda.large_launches,
+                     hist_bytes, sum(b for _, _, b in calls), len(calls)]
+
+    cv, c_cv = counted(lambda: train_cv(
+        X, y, None, V34A_PARAMS._replace(n_rounds=MESH_ROUNDS), sample_weight=w,
+        threshold_grid=V92D_GRID, mesh=mesh))
+    lg, c_lg = counted(lambda: train_cv(
+        X, y, None, V114D_PARAMS._replace(n_rounds=MESH_LG_ROUNDS), sample_weight=w,
+        threshold_grid=V92D_GRID, mesh=mesh))
+    bundle, c_ex = counted(lambda: extract_v34a_bundle_sharded(
+        mesh, packed, meta, GP_STEPS, chunk_size=MESH_CHUNK))
+    stats = torch.tensor([c_cv, c_lg, c_ex], dtype=torch.float64, device=mesh.device)
+    per_rank = mesh.all_gather(stats[None]).cpu().numpy()
+    return {"cv": cv, "lg": lg, "per_rank": per_rank,
+            "bundle": {f: {k: v.cpu() for k, v in fs.items()} for f, fs in bundle.items()}}
+
+
+def forests_close(name: str, got, want) -> bool:
+    """Sharded fold models against single-device ones at the JAX package's
+    sharded-training bars (raises where they differ); returns whether every
+    forest and eval history is also equal bit for bit."""
+    exact = True
+    for k, (a, b) in enumerate(zip(got, want)):
+        fa, fb = (type(a.forest)(*[t.cpu() for t in m.forest]) for m in (a, b))
+        same = torch.equal(fa.feature, fb.feature) and torch.equal(fa.split_bin, fb.split_bin)
+        leaf = close(fa.leaf_value, fb.leaf_value, *MESH_LEAF_TOL)
+        hist = np.allclose(a.eval_history, b.eval_history, *MESH_HIST_TOL)
+        bits = forests_bits_equal(fa, fb) and np.array_equal(a.eval_history, b.eval_history)
+        exact = exact and bits
+        log(f"  {name} fold {k}: features and split bins equal {same}; leaf values max "
+            f"|d| {leaf[0]:.3e} (rtol {MESH_LEAF_TOL[0]:g}, atol {MESH_LEAF_TOL[1]:g}) "
+            f"{'ok' if leaf[2] else 'FAIL'}; eval history within rtol {MESH_HIST_TOL[0]:g} "
+            f"{hist}; best iteration {a.best_iteration} / {b.best_iteration}; forest and "
+            f"history bit for bit {bits}")
+        if not (same and leaf[2] and hist and a.best_iteration == b.best_iteration):
+            raise AssertionError(f"{name}: the sharded fold {k} differs from single-device")
+    return exact
+
+
+def run_mesh(trained: dict, workspace, dev) -> dict:
+    """The mesh phase: (a) ``run_v92`` on a world-size-1 NCCL mesh in this
+    process (forests bit for bit the training phase's, K1's external-scale
+    entry launched rounds x depth times); (b) two gloo ranks on this card:
+    the v92d CV at MESH_ROUNDS and a v114d leaf-wise CV against their
+    single-device fits, (c) the train split's sharded extraction against
+    the training phase's bundle; (d) ``train --config v34a --mesh 1`` in the
+    command line phase's workspace, its result JSON equal to that phase's,
+    and ``--mesh 2`` refused."""
+    from mallorn_tpu_torch.cli.main import main as cli_main
+    from mallorn_tpu_torch.parallel.mesh import default_mesh, launch
+
+    out = trained["out"]
+    tr_packed, tr_meta = trained["tr"]
+    te_packed, _ = trained["te"]
+    y = np.asarray(tr_meta.target)
+    X224, names224 = assemble_v34a_matrix(out.bundles[0], out.selection.selected)
+    X224_te, _ = assemble_v34a_matrix(out.bundles[1], out.selection.selected)
+    X224, X224_te = X224.cpu().numpy(), X224_te.cpu().numpy()
+    res = {}
+
+    # (a) world size 1 over NCCL, in this process
+    hist_cuda.reset_launches()
+    t0 = time.perf_counter()
+    v92 = launch(mesh_v92, 1, (X224, y, names224, X224_te), device=dev, spawn=False)
+    torch.cuda.synchronize()
+    res["ws1_s"] = time.perf_counter() - t0
+    rr = out.rounds_run
+    want = ADV_PARAMS.max_depth * rr["adversarial"] + V34A_PARAMS.max_depth * rr["v92d"]
+    same = all(forests_bits_equal(a.forest, b.forest)
+               for a, b in zip(v92.winner.models, out.winner.models))
+    res["ws1_k1"] = hist_cuda.i64_launches
+    log(f"  (a) run_v92 on a world-size-1 NCCL mesh: {res['ws1_s']:.3f} s; v92d forests bit "
+        f"for bit the training phase's: {same}; OOF F1 {v92.winner.best_f1:.4f} (training "
+        f"{out.winner.best_f1:.4f}); adversarial AUC {v92.adversarial.auc:.4f} "
+        f"({out.adversarial.auc:.4f}); K1's external-scale launches {hist_cuda.i64_launches} "
+        f"(rounds x depth predicts {want}), float32 K1 {hist_cuda.launches}")
+    if (not same or v92.winner.best_f1 != out.winner.best_f1 or hist_cuda.i64_launches != want
+            or hist_cuda.launches or default_mesh() is not None):
+        raise AssertionError("(a) the world-size-1 mesh differs from the training phase")
+
+    # (b), (c) two gloo ranks on this card
+    keep = [i for i, n in enumerate(names224) if n not in SHIFT_FEATURES]
+    X = _finite_or_nan(X224[:, keep])
+    w = out.adversarial.sample_weights
+    tr_u, _ = unify_time_padding(tr_packed, te_packed)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    r = launch(mesh_ranks, 2, (X, y, w, tr_u.map(lambda x: x.to(cpu)), tr_meta), device=dev,
+               shared_device=True, timeout=600)
+    res["ranks_s"] = time.perf_counter() - t0
+    pr = r["per_rank"]  # [rank, stage (cv, lg, extract), counter]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cv_ref = train_cv(X, y, None, V34A_PARAMS._replace(n_rounds=MESH_ROUNDS), sample_weight=w,
+                      threshold_grid=V92D_GRID, device=dev)
+    torch.cuda.synchronize()
+    res["single_cv_s"] = time.perf_counter() - t0
+    lg_ref = train_cv(X, y, None, V114D_PARAMS._replace(n_rounds=MESH_LG_ROUNDS),
+                      sample_weight=w, threshold_grid=V92D_GRID, device=dev)
+    log(f"  (b) two gloo ranks on one card (collectives through pinned host memory): "
+        f"{res['ranks_s']:.3f} s for the call, rank seconds v92d CV {pr[:, 0, 0].round(3)}, "
+        f"v114d CV {pr[:, 1, 0].round(3)}, extraction {pr[:, 2, 0].round(3)}; the v92d CV "
+        f"on one card without a mesh {res['single_cv_s']:.3f} s")
+    cv_rounds, lg_rounds = r["cv"].rounds_run, r["lg"].rounds_run
+    for rank in range(2):
+        log(f"    rank {rank}: K1 external-scale launches {int(pr[rank, 0, 1])} (v92d, "
+            f"{cv_rounds} rounds x 5 predicts {cv_rounds * V34A_PARAMS.max_depth}), K3 "
+            f"{int(pr[rank, 1, 2])} (v114d, {lg_rounds} rounds x {V114D_PARAMS.max_leaves} "
+            f"predicts {lg_rounds * V114D_PARAMS.max_leaves}), float32 K1 / K3 "
+            f"{int(pr[rank, 0, 3] + pr[rank, 1, 3])}; int64 bytes all-reduced per round "
+            f"{pr[rank, 0, 5] / cv_rounds:,.0f} (v92d) and {pr[rank, 1, 5] / lg_rounds:,.0f} "
+            f"(v114d); {int(pr[rank, 0, 7])} collectives in the v92d CV")
+    res["bits"] = (forests_close("v92d CV", r["cv"].models, cv_ref.models)
+                   and forests_close("v114d CV", r["lg"].models, lg_ref.models))
+    log(f"  v92d CV OOF F1 {r['cv'].best_f1:.4f} / single-device {cv_ref.best_f1:.4f}; v114d "
+        f"{r['lg'].best_f1:.4f} / {lg_ref.best_f1:.4f}; every sharded forest bit for bit the "
+        f"single-device one: {res['bits']}")
+    if ((pr[:, 0, 1] != cv_rounds * V34A_PARAMS.max_depth).any()
+            or (pr[:, 1, 2] != lg_rounds * V114D_PARAMS.max_leaves).any()
+            or (pr[:, :2, 3] != 0).any()):
+        raise AssertionError("(b) a rank's launches disagree with the prediction")
+
+    # (c) the sharded extraction against the training phase's bundle
+    want_b = out.bundles[0]
+    worst = {}
+    for fam, cols in want_b.items():
+        got = r["bundle"][fam]
+        if list(got) != list(cols):
+            raise AssertionError(f"(c) {fam}: the sharded columns differ from single-device")
+        rt, at = MESH_BAZIN_TOL if fam == "bazin" else MESH_FEAT_TOL
+        shares = [float(torch.isclose(got[k].double(), cols[k].cpu().double(), rtol=rt, atol=at,
+                                      equal_nan=True).double().mean()) for k in cols]
+        worst[fam] = min(shares)
+    log(f"  (c) sharded extraction of {tr_packed.n_objects} objects on 2 ranks: K2 launches per "
+        f"rank {pr[:, 2, 4].astype(int).tolist()}; the smallest share of close lanes per "
+        f"family {worst} (bazin >= {MESH_BAZIN_SHARE}, the others 1.0)")
+    if any(v < 1.0 for f, v in worst.items() if f != "bazin") or worst["bazin"] < MESH_BAZIN_SHARE:
+        raise AssertionError("(c) the sharded extraction differs from the single-device bundle")
+    res.update(k1_ranks=pr[:, 0, 1].astype(int).tolist(), k3_ranks=pr[:, 1, 2].astype(int).tolist(),
+               k2_ranks=pr[:, 2, 4].astype(int).tolist(),
+               bytes_per_round=float(pr[0, 0, 5] / cv_rounds))
+
+    # (d) the command line on the mesh
+    if workspace is not None:
+        data, cache, single = (workspace / d for d in ("data", "cache", "artifacts"))
+        t0 = time.perf_counter()
+        cli_main(["train", "--data", str(data), "--cache", str(cache), "--config", "v34a",
+                  "--out", str(workspace / "artifacts_mesh"), "--mesh", "1"])
+        res["cli_s"] = time.perf_counter() - t0
+        a = json.loads((single / "result_v34a.json").read_text())
+        b = json.loads((workspace / "artifacts_mesh" / "result_v34a.json").read_text())
+        refused = ""
+        try:
+            cli_main(["train", "--data", str(data), "--cache", str(cache), "--config", "v34a",
+                      "--out", str(workspace / "artifacts_mesh2"), "--mesh",
+                      str(torch.cuda.device_count() + 1)])
+        except SystemExit as e:
+            refused = str(e)
+        log(f"  (d) train --config v34a --mesh 1: {res['cli_s']:.3f} s, result JSON equal to "
+            f"the single-device run's: {a == b} (OOF F1 {b['oof_f1']:.4f}); --mesh "
+            f"{torch.cuda.device_count() + 1}: {refused!r}")
+        if a != b or "devices available" not in refused or default_mesh() is not None:
+            raise AssertionError("(d) the command line's mesh run differs or was not refused")
+    return res
 
 
 def main() -> int:
@@ -2772,6 +3084,9 @@ def main() -> int:
             check_mode_hist(mode, "ragged", 5, 222, 2443, 4, seed=6999, inactive=0.3)
             # three node groups of the grid's z axis (8 + 8 + 1 nodes)
             check_mode_hist(mode, "nodes17", 5, 222, 2444, 17, seed=6998)
+        i64_results = [check_hist_i64(kernel, fit, K, F, N, k, seed=9000 + 17 * i + k)
+                       for i, (kernel, fit, K, F, N, nodes) in enumerate(I64_SHAPES)
+                       for k in nodes]
 
     with Phase("kernel against plain in training"):
         check_training_kernel_vs_plain(dev)
@@ -2803,8 +3118,15 @@ def main() -> int:
     with Phase("DL models"):
         dl = run_dl(trained, runners, dev)
 
-    with Phase("command line"):
-        cli = run_cli(trained, dev)
+    cli_work = Path(tempfile.mkdtemp(prefix="mallorn_cli_"))
+    try:
+        with Phase("command line"):
+            cli = run_cli(trained, dev, cli_work)
+
+        with Phase("mesh"):
+            mesh = run_mesh(trained, cli_work, dev)
+    finally:
+        shutil.rmtree(cli_work, ignore_errors=True)
 
     # K2's rows: the server's GP width (phase 2 and the predict) and the
     # coarse phase's width, each with serving's launches at that width
@@ -2911,6 +3233,31 @@ def main() -> int:
             "name", "K", "F", "N", "n_seg", "max_abs_err", "ms", "launch_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")}],
     })
+    # K1's and K3's external-scale int64 entries: the v92d CV's deepest level
+    # and the v114d pair, launches from the mesh phase (every rank's)
+    for name, kernel, fit, nodes, n_launches, replaces in (
+            ("hist_i64", "K1", "v92d", 8, mesh["ws1_k1"] + sum(mesh["k1_ranks"]),
+             "mallorn_tpu/ops/hist_pallas.py:508"),
+            ("seg_hist_i64", "K3", "v114d_pair", 2, sum(mesh["k3_ranks"]),
+             "mallorn_tpu/ops/hist_pallas.py:42")):
+        r = next(r for r in i64_results if (r["kernel"], r["nodes"]) == (kernel, nodes))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mallorn_tpu_torch/csrc/hist.cu",
+            "replaces": replaces,
+            "launches": n_launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "launch_ms": r["launch_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
+        })
+    # K1's and K3's launches under a mesh, on their float32 rows: the mesh
+    # phase's external-scale launches at world size 1 over NCCL in this
+    # process and on each gloo rank (the hist_i64 / seg_hist_i64 rows'
+    # ``launches`` are their sums)
+    by_name = {k["name"]: k for k in kernels}
+    by_name["hist"]["mesh_launches"] = {"world_size_1_nccl": mesh["ws1_k1"],
+                                        "two_gloo_ranks": mesh["k1_ranks"]}
+    by_name["seg_hist"]["mesh_launches"] = {"two_gloo_ranks": mesh["k3_ranks"]}
     # the histogram modes' rows: the v92d CV's deepest level, launches from
     # the mode's training run; max_abs_err and plain_ms against the plain
     # version with the kernel's arithmetic (K4's fixed-point twin), and

@@ -11,8 +11,13 @@ the port's modules: CSV files in the reference's layout in
 (``data.loader``, the native parser), feature caches (``io.cache``),
 model files (``io.model_store``) and submissions out. Every command runs
 on the card; ``main(argv, device="cpu")`` runs it on the host (the tests
-do). Multi-device training (the JAX package's ``--mesh``) is not ported
-yet.
+do).
+
+``train --mesh N`` runs the command on N ranks (``parallel.mesh.launch``:
+NCCL, one card per rank; gloo ranks on the host under ``device="cpu"``),
+with the rank's mesh as the default mesh of that invocation only, so every
+GBDT CV of the config trains with its rows split over the ranks (the same
+forests as on one device). Rank 0 writes every file.
 """
 
 from __future__ import annotations
@@ -224,6 +229,7 @@ def cmd_train(args):
     from mallorn_tpu_torch.train.cv import train_cv
 
     dev = args.device
+    writer = getattr(args, "writer", True)  # False on the ranks of a mesh but rank 0
     log = load_metadata(Path(args.data), "train")
     y = log["target"]
 
@@ -242,7 +248,8 @@ def cmd_train(args):
     has_test = object_ids_test is not None
 
     out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if writer:
+        out_dir.mkdir(parents=True, exist_ok=True)
 
     if args.config == "baseline":
         Xtr, names = load_matrices(args.cache, "train", ["features_v4"])
@@ -276,7 +283,7 @@ def cmd_train(args):
         selection = cached_select_features(
             Path(args.cache) / "selected_features.npz", Xv4, y, v4_names,
             lambda: train_cv(Xv4, y, None, sel_params, device=dev).importance_gain,
-            120, key_extra=pipelines.params_digest(sel_params))
+            120, key_extra=pipelines.params_digest(sel_params), save=writer)
 
         sel_idx = [v4_names.index(n) for n in selection.selected]
         Xtr_all, all_names = load_matrices(args.cache, "train", fams)
@@ -298,8 +305,9 @@ def cmd_train(args):
         if args.config in ("v34a", "v19"):
             cv = train_cv(Xtr, y, Xte, R(pipelines.V34A_PARAMS), device=dev, verbose=True)
             result, test_preds, threshold = cv_result(cv, n_features=len(names))
-            save_cv_models(out_dir / f"models_{args.config}", cv.models, cv.best_threshold,
-                           names)
+            if writer:
+                save_cv_models(out_dir / f"models_{args.config}", cv.models,
+                               cv.best_threshold, names)
         elif args.config == "v14":
             # the residual MLP's CV on the selected engineered columns
             # (reference scripts/train_v14_nn_features.py:51-117, 141-153)
@@ -361,8 +369,9 @@ def cmd_train(args):
             cv = out.variants[key]
             result, test_preds, threshold = cv_result(
                 cv, adv_auc=out.adversarial.auc, n_features=len(out.feature_names))
-            save_cv_models(out_dir / f"models_{args.config}", cv.models, cv.best_threshold,
-                           out.feature_names)
+            if writer:
+                save_cv_models(out_dir / f"models_{args.config}", cv.models,
+                               cv.best_threshold, out.feature_names)
             # v121's per-object error analysis of the winner's OOF
             # (reference: scripts/train_v121_error_analysis.py)
             from mallorn_tpu_torch.train.analysis import error_analysis, print_error_analysis
@@ -423,7 +432,7 @@ def cmd_train(args):
                                            for k, v in out.per_model.items()}}
             test_preds, threshold = out.ensemble_test, out.threshold
             # per-model multiseed submissions beside the blend (notebook :316-326)
-            if has_test:
+            if has_test and writer:
                 for mname, m in out.per_model.items():
                     if m["test"] is not None:
                         write_submission(out_dir / f"submission_{mname}_multiseed.csv",
@@ -578,9 +587,11 @@ def cmd_train(args):
         else:
             raise SystemExit(f"unknown config {args.config}")
 
+    _log(json.dumps(result, default=float))
+    if not writer:
+        return
     (out_dir / f"result_{args.config}.json").write_text(
         json.dumps(result, default=float, indent=2))
-    _log(json.dumps(result, default=float))
 
     if object_ids_test is not None and test_preds is not None:
         sub = write_submission(out_dir / f"submission_{args.config}.csv", object_ids_test,
@@ -677,6 +688,10 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--rounds", type=int, default=None,
                     help="override n_rounds on every GBDT config (epochs for "
                          "the DL configs)")
+    pt.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="train every GBDT CV distributed over N ranks (one card "
+                         "each; rows split, histograms all-reduced; forests "
+                         "identical to single-device)")
     pt.set_defaults(fn=cmd_train)
 
     pp = sub.add_parser("predict", help="predict from saved fold models")
@@ -689,12 +704,49 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _train_on_rank(mesh, args) -> None:
+    """One rank of ``train --mesh N``: the rank's mesh is the default mesh
+    while the command runs; rank 0 alone writes files and prints."""
+    import contextlib
+    import os
+
+    from mallorn_tpu_torch.parallel.mesh import set_default_mesh
+
+    args.device, args.writer = mesh.device, mesh.rank == 0
+    set_default_mesh(mesh)
+    try:
+        with contextlib.ExitStack() as stack:
+            if mesh.rank:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            args.fn(args)
+    finally:
+        set_default_mesh(None)
+
+
 def main(argv=None, device: DeviceLike = None):
     """Parse ``argv`` and run the command on ``device`` (the card unless
-    the caller asks for the CPU; with no card and no request, raises)."""
+    the caller asks for the CPU; with no card and no request, raises).
+    ``train --mesh N`` runs on N ranks: N cards, or N host processes under
+    ``device="cpu"``; more ranks than cards raises ``SystemExit``."""
     args = build_parser().parse_args(argv)
+    n = getattr(args, "mesh", None)
+    if n is not None:
+        import torch
+
+        if torch.device("cuda" if device is None else device).type == "cuda":
+            n_dev = torch.cuda.device_count()
+            if n > n_dev:
+                raise SystemExit(f"--mesh {n}: only {n_dev} devices available")
+        if n < 1:
+            raise SystemExit(f"--mesh {n}: at least one rank")
     args.device = resolve_device(device)
-    args.fn(args)
+    if n is None:
+        args.fn(args)
+        return
+    from mallorn_tpu_torch.parallel.mesh import launch
+
+    launch(_train_on_rank, n, (args,), device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 // (grad, hess) histograms of the GBDT, batched over folds or lanes: the
 // depthwise level histogram (K1) and the leaf-wise segment histogram (K3),
-// one kernel template (group_hist_kernel<kLevel, kChunked>), and the depthwise fit's
+// one kernel template (group_hist_kernel<kLevel, kChunked, kExternal>), and the depthwise fit's
 // two histogram modes (K4 / K5, mode_hist_kernel, further down), all
 // shared-memory integer histograms.
 //
@@ -99,6 +99,20 @@
 // - the launcher raises an instantiation's dynamic shared-memory limit
 //   (cudaFuncSetAttribute) only when a launch asks for more than it was
 //   last given on the device, not on every launch.
+//
+// The external scale (kExternal; mallorn_hist and mallorn_seg_hist given a
+// non-null maxabs) serves a fit whose rows are split over ranks
+// (parallel/sharded_train.py). A rank that found its own scale from
+// its own rows would round its q on another grid than its neighbours, and
+// the float32 histograms of the shards would not add up to the whole's.
+// So the caller gives every rank one scale: the per-lane max |g| and
+// max |h| over all ranks' rows ([K, 2] float32, a non-finite value as
+// +inf) and ceil(log2 N) of the global row count. The CTA skips its scale
+// pass and writes the raw int64 sums [K, F, n_seg, 2] instead of float32
+// (zeros in a lane whose maxima are not finite). Each rank's int64 sums
+// are then exactly the single-device sums restricted to its rows, their
+// int64 all-reduce is exact in any order, and one conversion of the total
+// (hist_cuda._from_fixed) gives the single-device histogram bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -198,7 +212,8 @@ __device__ __forceinline__ float from_fixed(unsigned long long a, double inv) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K3 (group_hist_kernel<kLevel, kChunked>; the design is in the header above)
+// K1 and K3 (group_hist_kernel<kLevel, kChunked, kExternal>; the design is in the header
+// above)
 
 constexpr int kSegThreads = 256;
 constexpr int kSegWarps = kSegThreads / 32;
@@ -292,13 +307,17 @@ __device__ __forceinline__ void add_fixed(unsigned* words, int plane, int c, lon
 // = n_seg segments) or K3's segment bases (one chunk: z_ids = id_limit =
 // n_seg, a row is active for a base in [0, n_seg), a bin counts in
 // [0, n_seg - base); n_bins unused). kChunked false: one chunk, id0 = 0
-// and n_seg = n_seg_out at compile time.
-template <bool kLevel, bool kChunked>
+// and n_seg = n_seg_out at compile time. kExternal: the lane's scale comes
+// from ext_max[k] (max |g|, max |h| of every rank's rows) and log2n (of the
+// global row count), and out is int64 [.., n_seg_out, 2] (raw sums);
+// otherwise the CTA finds the scale from its fold's rows and out is
+// float32.
+template <bool kLevel, bool kChunked, bool kExternal>
 __global__ void __launch_bounds__(kSegThreads)
 group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ ids,
-                  const float2* __restrict__ gh, float* __restrict__ out, int F, int N,
+                  const float2* __restrict__ gh, void* __restrict__ out, int F, int N,
                   int n_seg_out, int id_limit, int z_ids, int n_bins, int group, int tile_rows,
-                  int log2n) {
+                  int log2n, const float2* __restrict__ ext_max) {
   static_assert(kLevel || !kChunked, "K3 runs one chunk");
   extern __shared__ uint4 smem[];
   const int k = blockIdx.y;
@@ -354,39 +373,47 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
   for (int i = tid; i < plane; i += kSegThreads) smem[i] = make_uint4(0u, 0u, 0u, 0u);
 
   // the fold's scale: max |g|, max |h| over its rows (exact in any order)
-  // and whether any value is not finite; eight loads in flight a thread
+  // and whether any value is not finite; eight loads in flight a thread.
+  // kExternal: the caller's maxima of every rank's rows
   float mg = 0.0f, mh = 0.0f;
   bool bad = false;
-  for (int r0 = tid; r0 < N; r0 += 8 * kSegThreads) {
-    float2 w[8];
+  if (kExternal) {
+    const float2 m = ext_max[k];
+    mg = m.x;
+    mh = m.y;
+    bad = !(isfinite(mg) && isfinite(mh));
+  } else {
+    for (int r0 = tid; r0 < N; r0 += 8 * kSegThreads) {
+      float2 w[8];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int r = r0 + u * kSegThreads;
-      w[u] = r < N ? v[r] : make_float2(0.0f, 0.0f);
+      for (int u = 0; u < 8; ++u) {
+        const int r = r0 + u * kSegThreads;
+        w[u] = r < N ? v[r] : make_float2(0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        mg = fmaxf(mg, fabsf(w[u].x));
+        mh = fmaxf(mh, fabsf(w[u].y));
+        bad = bad || !(isfinite(w[u].x) && isfinite(w[u].y));
+      }
     }
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      mg = fmaxf(mg, fabsf(w[u].x));
-      mh = fmaxf(mh, fabsf(w[u].y));
-      bad = bad || !(isfinite(w[u].x) && isfinite(w[u].y));
+    for (int o = 16; o > 0; o >>= 1) {
+      mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, o));
+      mh = fmaxf(mh, __shfl_xor_sync(0xffffffffu, mh, o));
     }
-  }
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 0) {
+      red_max[warp] = make_float2(mg, mh);
+      red_bad[warp] = bad;
+    }
+    __syncthreads();
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, o));
-    mh = fmaxf(mh, __shfl_xor_sync(0xffffffffu, mh, o));
-  }
-  bad = __any_sync(0xffffffffu, bad);
-  if (lane == 0) {
-    red_max[warp] = make_float2(mg, mh);
-    red_bad[warp] = bad;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < kSegWarps; ++w) {
-    mg = fmaxf(mg, red_max[w].x);
-    mh = fmaxf(mh, red_max[w].y);
-    bad = bad || red_bad[w];
+    for (int w = 0; w < kSegWarps; ++w) {
+      mg = fmaxf(mg, red_max[w].x);
+      mh = fmaxf(mh, red_max[w].y);
+      bad = bad || red_bad[w];
+    }
   }
   const bool finite = !bad;
   const int pg = fixed_exponent(mg, log2n), ph = fixed_exponent(mh, log2n);
@@ -449,6 +476,28 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
   }
   cp_async_wait<0>();
 
+  // kExternal's epilogue: the raw int64 sums, one segment's (g, h) per
+  // 16-byte store (zeros where the lane is not finite)
+  if (kExternal) {
+    for (int g = 0; g < n_f; ++g) {
+      const int c0 = g * n_seg;
+      longlong2* o = reinterpret_cast<longlong2*>(out) +
+                     (static_cast<size_t>(k) * F + f0 + g) * n_seg_out + seg0;
+      for (int s = tid; s < n_seg; s += kSegThreads) {
+        const int c = c0 + s;
+        o[s] = finite ? make_longlong2(
+                            static_cast<long long>(
+                                static_cast<unsigned long long>(words[plane + c]) << 32 |
+                                words[c]),
+                            static_cast<long long>(
+                                static_cast<unsigned long long>(words[3 * plane + c]) << 32 |
+                                words[2 * plane + c]))
+                      : make_longlong2(0, 0);
+      }
+    }
+    return;
+  }
+
   // the epilogue: one conversion per sum, two segments per float4 store
   const double inv_g = exp2_exact(-pg), inv_h = exp2_exact(-ph);  // 1 / S, exact
   auto cell = [&](int c) {
@@ -461,7 +510,8 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
   };
   for (int g = 0; g < n_f; ++g) {
     const int c0 = g * n_seg;
-    float* o = out + ((static_cast<size_t>(k) * F + f0 + g) * n_seg_out + seg0) * 2;
+    float* o = reinterpret_cast<float*>(out) +
+               ((static_cast<size_t>(k) * F + f0 + g) * n_seg_out + seg0) * 2;
     const int head = (reinterpret_cast<uintptr_t>(o) & 15) ? 1 : 0;  // o is 8-byte aligned
     const int n_pairs = (n_seg - head) >> 1;
     for (int p = tid; p < n_pairs; p += kSegThreads) {
@@ -492,11 +542,14 @@ constexpr int kMaxDevices = 64;
 // shared-memory limit is raised only when this launch needs more than the
 // instantiation was last given on the current device (a driver call per
 // launch otherwise): limits only grow, under a lock, so every launch runs
-// under a limit at least its own.
-template <bool kLevel, bool kChunked>
-int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, float* out, int K,
+// under a limit at least its own. kExternal: ext_max [K, 2] and log2n come
+// from the caller (log2n of a global row count, at least ceil(log2 N) and
+// at most 62) and out is int64; otherwise out is float32 and the kernel
+// takes log2n = ceil(log2 N).
+template <bool kLevel, bool kChunked, bool kExternal>
+int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, void* out, int K,
                  int F, int N, int n_seg, int id_limit, int z_ids, int n_bins, int group,
-                 int tile_rows, void* stream) {
+                 int tile_rows, const float* ext_max, int log2n, void* stream) {
   static std::mutex lock;
   static size_t granted[kMaxDevices] = {};
   if (K <= 0 || F <= 0 || n_seg <= 0) return 0;
@@ -507,6 +560,11 @@ int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, flo
       group < 1 || tile_rows < kSegThreads || tile_rows % kSegThreads ||
       tile_rows > kSegMaxTileRows)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!kExternal) {
+    log2n = ceil_log2(N);
+  } else if (ext_max == nullptr || log2n < ceil_log2(N) || log2n > 62) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem = seg_smem_bytes(static_cast<int>(cta_seg), group, tile_rows);
   if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
@@ -515,17 +573,19 @@ int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, flo
   {
     std::lock_guard<std::mutex> hold(lock);
     if (dev >= kMaxDevices || smem > granted[dev]) {
-      err = cudaFuncSetAttribute(group_hist_kernel<kLevel, kChunked>,
+      err = cudaFuncSetAttribute(group_hist_kernel<kLevel, kChunked, kExternal>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
       if (dev < kMaxDevices) granted[dev] = smem;
     }
   }
-  group_hist_kernel<kLevel, kChunked><<<dim3((F + group - 1) / group, K, n_chunks),
-                                        kSegThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      binned, ids, reinterpret_cast<const float2*>(gh), out, F, N, n_seg, id_limit, z_ids,
-      n_bins, group, tile_rows, ceil_log2(N));
+  group_hist_kernel<kLevel, kChunked, kExternal>
+      <<<dim3((F + group - 1) / group, K, n_chunks), kSegThreads, smem,
+          static_cast<cudaStream_t>(stream)>>>(binned, ids, reinterpret_cast<const float2*>(gh),
+                                               out, F, N, n_seg, id_limit, z_ids, n_bins, group,
+                                               tile_rows, log2n,
+                                               reinterpret_cast<const float2*>(ext_max));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -715,27 +775,39 @@ int launch_mode(const int16_t* binned, const int32_t* nodes, const void* digits,
 }  // namespace
 
 // K3: group features per CTA and tile_rows rows per staged tile
-// (hist_cuda.seg_hist_layout); refuses a layout that does not fit
+// (hist_cuda.seg_hist_layout); refuses a layout that does not fit.
+// maxabs null: the lane's own scale, out float32 [K, F, n_seg, 2]. maxabs
+// [K, 2] float32 (every rank's max |g|, max |h| per lane, +inf where not
+// finite) with log2n (ceil(log2) of the global row count): the external
+// scale, out int64 [K, F, n_seg, 2] (the raw sums)
 extern "C" int mallorn_seg_hist(const int16_t* binned, const int32_t* seg_base,
-                                const float* gh, float* out, int K, int F, int N, int n_seg,
-                                int group, int tile_rows, void* stream) {
-  return launch_group<false, false>(binned, seg_base, gh, out, K, F, N, n_seg, n_seg, n_seg, 0,
-                                    group, tile_rows, stream);
+                                const float* gh, void* out, int K, int F, int N, int n_seg,
+                                int group, int tile_rows, const float* maxabs, int log2n,
+                                void* stream) {
+  const auto launch =
+      maxabs ? launch_group<false, false, true> : launch_group<false, false, false>;
+  return launch(binned, seg_base, gh, out, K, F, N, n_seg, n_seg, n_seg, 0, group, tile_rows,
+                maxabs, log2n, stream);
 }
 
 // K1: group features per CTA, tile_rows rows per staged tile and
 // chunk_nodes nodes per CTA (hist_cuda.hist_plan; chunk_nodes = k_nodes is
 // one chunk); refuses a layout that does not fit, or more chunks than the
-// grid's z axis takes (65,535)
+// grid's z axis takes (65,535). maxabs and log2n as mallorn_seg_hist's:
+// out float32 or int64 [K, F, k_nodes, n_bins_tot, 2]
 extern "C" int mallorn_hist(const int16_t* binned, const int32_t* node_q, const float* gh,
-                            float* out, int K, int F, int N, int k_nodes, int n_bins_tot,
-                            int group, int tile_rows, int chunk_nodes, void* stream) {
+                            void* out, int K, int F, int N, int k_nodes, int n_bins_tot,
+                            int group, int tile_rows, int chunk_nodes, const float* maxabs,
+                            int log2n, void* stream) {
   if (k_nodes <= 0 || n_bins_tot <= 0) return 0;
   const long long n_seg = static_cast<long long>(k_nodes) * n_bins_tot;
   if (n_seg > 0x7fffffffLL || chunk_nodes < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const auto launch = chunk_nodes < k_nodes ? launch_group<true, true> : launch_group<true, false>;
+  const bool chunked = chunk_nodes < k_nodes;
+  const auto launch =
+      maxabs ? (chunked ? launch_group<true, true, true> : launch_group<true, false, true>)
+             : (chunked ? launch_group<true, true, false> : launch_group<true, false, false>);
   return launch(binned, node_q, gh, out, K, F, N, static_cast<int>(n_seg), k_nodes,
-                chunk_nodes, n_bins_tot, group, tile_rows, stream);
+                chunk_nodes, n_bins_tot, group, tile_rows, maxabs, log2n, stream);
 }
 
 // K4: digits [K, N, 6] bf16, maxabs [K, 6] float32 (max |digit| per channel)

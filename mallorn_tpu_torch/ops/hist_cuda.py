@@ -38,8 +38,21 @@ skipped like an inactive row.
   K3's and K4's; K5's plain version is its kernel's arithmetic already).
 - ``launches`` counts K1's launches (``launches_by_nodes`` per level
   width), ``seg_launches`` K3's,
-  ``bf16_launches`` K4's and ``i8_launches`` K5's (plain calls do not
+  ``bf16_launches`` K4's and ``i8_launches`` K5's, ``i64_launches`` and
+  ``seg_i64_launches`` the external-scale entries' (plain calls do not
   count).
+
+K1 and K3 also have an external-scale entry for a fit whose rows are
+split over ranks (``parallel.sharded_train``): ``build_histograms_i64``
+and ``build_seg_histograms_i64`` take every rank's per-lane max |g| and
+max |h| and the global row count, and return the raw int64 fixed-point
+sums of this rank's rows. Those are exactly the single-device sums
+restricted to the rank's rows, so their all-reduced total, converted once
+(``from_fixed_sums``), is the single-device histogram bit for bit. Their
+plain twins are ``build_histograms_i64_fixed`` and
+``build_seg_histograms_i64_fixed`` (``build_histograms_fixed`` and
+``build_seg_histograms_fixed`` are the twins of all rows at their own
+scale, converted).
 
 K1 and K3 run one kernel, ``csrc/hist.cu`` ``group_hist_kernel`` (its note
 says more): K1's output is K3's with n_seg = k_nodes n_bins_tot and a
@@ -53,10 +66,14 @@ the shape: ``hist_layout`` (K1, by level) and ``seg_hist_layout`` (K3).
 A K1 level wider than one CTA's histograms hold (54 nodes at 257 bins) is
 split into chunks of nodes over the grid's z axis (``hist_plan``).
 The wrappers allocate ``out`` and launch, nothing else; ``launch_hist_kernel``
-and ``launch_seg_kernel`` are the launches alone.
+and ``launch_seg_kernel`` are the launches alone, of either scale (the
+external one given ``maxabs`` and ``log2n``: one C entry per kernel,
+``mallorn_hist`` / ``mallorn_seg_hist``, with a nullable ``maxabs``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -74,11 +91,14 @@ launches_by_nodes: dict = {}  # K1's launches per k_nodes
 seg_launches = 0
 bf16_launches = 0
 i8_launches = 0
+i64_launches = 0  # K1's external-scale entry
+seg_i64_launches = 0  # K3's
 
 
 def reset_launches() -> None:
-    global launches, seg_launches, bf16_launches, i8_launches
+    global launches, seg_launches, bf16_launches, i8_launches, i64_launches, seg_i64_launches
     launches = seg_launches = bf16_launches = i8_launches = 0
+    i64_launches = seg_i64_launches = 0
     launches_by_nodes.clear()
 
 
@@ -124,19 +144,45 @@ def _log2_ceil(n: int) -> int:
     return max(int(n) - 1, 0).bit_length()
 
 
-def _fixed_point(gh: torch.Tensor):
-    """(q [K, N, C] int64, scale [K, C] float64, finite [K]): per fold and
-    channel, S = 2^(62 - ceil(log2 N) - e) with max|gh| < 2^e, each value
-    rounded to the nearest integer of value * S."""
+def lane_maxabs(gh: torch.Tensor) -> torch.Tensor:
+    """[K, C] float32 max |gh| over the rows of each lane and channel, +inf
+    where a lane holds a non-finite value: what ``fixed_scale`` and the
+    external-scale entries take (a max-reduce of it over ranks is the
+    global one)."""
     K, N, C = gh.shape
-    maxabs = gh.abs().amax(dim=1) if N else torch.zeros(K, C, device=gh.device)
+    if not N:
+        return torch.zeros(K, C, dtype=torch.float32, device=gh.device)
+    m = gh.abs().amax(dim=1).float()  # NaN propagates
+    bad = ~torch.isfinite(gh).all(dim=1).all(dim=1, keepdim=True)
+    return torch.where(bad | ~torch.isfinite(m), torch.inf, m)
+
+
+def fixed_scale(maxabs: torch.Tensor, n_rows: int):
+    """(scale [K, C] float64, finite [K]) of the fixed point at per-lane
+    maxima ``maxabs`` [K, C] and ``n_rows`` rows: S = 2^(62 - ceil(log2
+    n_rows) - e) with maxabs < 2^e (1 where maxabs is 0); a lane is finite
+    when all its maxima are."""
     _, e = torch.frexp(maxabs)
     scale = torch.where(maxabs > 0,
                         torch.ldexp(torch.ones_like(maxabs, dtype=torch.float64),
-                                    62 - _log2_ceil(N) - e), 1.0).to(torch.float64)
+                                    62 - _log2_ceil(n_rows) - e), 1.0).to(torch.float64)
+    return scale, torch.isfinite(maxabs).all(dim=1)
+
+
+def _fixed_point(gh: torch.Tensor, maxabs: Optional[torch.Tensor] = None,
+                 n: Optional[int] = None):
+    """(q [K, N, C] int64, scale [K, C] float64, finite [K]): per fold and
+    channel, S = 2^(62 - ceil(log2 N) - e) with max|gh| < 2^e, each value
+    rounded to the nearest integer of value * S (0 in a lane that is not
+    finite). ``maxabs`` [K, C] and ``n`` replace the rows' own maxima and
+    count (the global ones of a fit split over ranks)."""
+    K, N, C = gh.shape
+    if maxabs is None:
+        maxabs = gh.abs().amax(dim=1) if N else torch.zeros(K, C, device=gh.device)
+    scale, finite = fixed_scale(maxabs, N if n is None else n)
     q = torch.round(gh.double() * scale[:, None, :])
-    q = torch.where(torch.isfinite(q), q, 0.0).to(torch.int64)
-    return q, scale, torch.isfinite(maxabs).all(dim=1)
+    q = torch.where(torch.isfinite(q) & finite[:, None, None], q, 0.0).to(torch.int64)
+    return q, scale, finite
 
 
 def _from_fixed(acc: torch.Tensor, scale: torch.Tensor, finite: torch.Tensor) -> torch.Tensor:
@@ -145,6 +191,25 @@ def _from_fixed(acc: torch.Tensor, scale: torch.Tensor, finite: torch.Tensor) ->
     tail = (1,) * (acc.dim() - 2)
     out = (acc.double() * (1.0 / scale).reshape(len(scale), *tail, scale.shape[1])).float()
     return torch.where(finite.reshape(-1, *tail, 1), out, torch.nan)
+
+
+def from_fixed_sums(acc: torch.Tensor, maxabs: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Int64 sums of the external-scale entries (or their all-reduced
+    total) -> float32 histograms at the scale of ``maxabs`` and ``n_rows``;
+    NaN in every cell of a lane that is not finite."""
+    scale, finite = fixed_scale(maxabs.to(acc.device), n_rows)
+    return _from_fixed(acc, scale, finite)
+
+
+def build_histograms_i64_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                               k_nodes: int, n_bins_tot: int, maxabs: torch.Tensor,
+                               n_rows: int) -> torch.Tensor:
+    """K1's int64 fixed-point sums [K, F, k_nodes, n_bins_tot, 2] in plain
+    PyTorch, at the scale of ``maxabs`` and ``n_rows``, zeros in a lane
+    that is not finite: equal to ``build_histograms_i64`` bit for bit."""
+    _check_shapes(binned, node_q, gh)
+    q, _, _ = _fixed_point(gh, maxabs, n_rows)
+    return build_histograms_plain(binned, node_q, q, k_nodes, n_bins_tot)
 
 
 def build_histograms_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
@@ -276,10 +341,13 @@ def seg_hist_layout(n_seg: int):
 # ---------------------------------------------------------------------------
 
 def launch_hist_kernel(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
-                       out: torch.Tensor, k_nodes: int, n_bins_tot: int) -> None:
+                       out: torch.Tensor, k_nodes: int, n_bins_tot: int,
+                       maxabs: Optional[torch.Tensor] = None, log2n: int = 0) -> None:
     """One launch of K1 on inputs the wrapper checked, at
     ``hist_plan(k_nodes, n_bins_tot)``; writes ``out`` [K, F, k_nodes,
-    n_bins_tot, 2] float32. Counts nothing."""
+    n_bins_tot, 2]: float32 at the folds' own scale, or, given ``maxabs``
+    [K, 2] and ``log2n``, the int64 sums at that external scale. Counts
+    nothing."""
     K, F, N = binned.shape
     chunk, _, group, rows, _ = hist_plan(k_nodes, n_bins_tot)
     lib = cuda_build.load()
@@ -287,8 +355,51 @@ def launch_hist_kernel(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Ten
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.mallorn_hist(binned.data_ptr(), node_q.data_ptr(), gh.data_ptr(),
                               out.data_ptr(), K, F, N, k_nodes, n_bins_tot, group, rows,
-                              chunk, stream)
+                              chunk, None if maxabs is None else maxabs.data_ptr(), log2n,
+                              stream)
     cuda_build.check(rc, "mallorn_hist")
+
+
+def _check_external(name: str, gh: torch.Tensor, maxabs: torch.Tensor, n_rows: int) -> int:
+    """log2 of the global row count of an external-scale call, after
+    checking ``maxabs`` [K, 2] float32 on ``gh``'s device and ``n_rows``
+    against the rows given."""
+    K, N, _ = gh.shape
+    if tuple(maxabs.shape) != (K, 2) or maxabs.dtype != torch.float32:
+        raise ValueError(f"{name}: maxabs must be [K, 2] float32, got "
+                         f"{tuple(maxabs.shape)} {maxabs.dtype}")
+    if maxabs.device != gh.device or not maxabs.is_contiguous():
+        raise ValueError(f"{name}: maxabs must be contiguous on {gh.device}")
+    log2n = _log2_ceil(n_rows)
+    if n_rows < N or log2n > 62:
+        raise ValueError(f"{name}: n_rows = {n_rows} must count at least this call's {N} "
+                         f"rows and at most 2^62")
+    return log2n
+
+
+def build_histograms_i64(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                         k_nodes: int, n_bins_tot: int, maxabs: torch.Tensor,
+                         n_rows: int) -> torch.Tensor:
+    """K1's external-scale entry: the int64 fixed-point (grad, hess) sums
+    [K, F, k_nodes, n_bins_tot, 2] of these rows at the scale of ``maxabs``
+    [K, 2] float32 (every rank's max |g|, max |h| per lane, +inf where not
+    finite; ``lane_maxabs``) and ``n_rows`` (the global row count). Zeros
+    in a lane that is not finite. A CPU tensor runs the plain twin
+    ``build_histograms_i64_fixed``."""
+    global i64_launches
+    if binned.device.type == "cpu":
+        return build_histograms_i64_fixed(binned, node_q, gh, k_nodes, n_bins_tot,
+                                          maxabs, n_rows)
+    _check_cuda_inputs("build_histograms_i64", binned, node_q, gh)
+    log2n = _check_external("build_histograms_i64", gh, maxabs, n_rows)
+    hist_plan(k_nodes, n_bins_tot)
+    K, F, _ = binned.shape
+    out = torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.int64, device=binned.device)
+    if K == 0 or F == 0:
+        return out
+    launch_hist_kernel(binned, node_q, gh, out, k_nodes, n_bins_tot, maxabs, log2n)
+    i64_launches += 1
+    return out
 
 
 def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
@@ -368,18 +479,47 @@ def build_seg_histograms_fixed(binned: torch.Tensor, seg_base: torch.Tensor,
     return _from_fixed(build_seg_histograms_plain(binned, seg_base, q, n_seg), scale, finite)
 
 
+def build_seg_histograms_i64_fixed(binned: torch.Tensor, seg_base: torch.Tensor,
+                                   gh: torch.Tensor, n_seg: int, maxabs: torch.Tensor,
+                                   n_rows: int) -> torch.Tensor:
+    """K3's int64 fixed-point sums [K, F, n_seg, 2] in plain PyTorch at the
+    scale of ``maxabs`` and ``n_rows`` (as ``build_histograms_i64_fixed``):
+    equal to ``build_seg_histograms_i64`` bit for bit."""
+    _check_seg_shapes(binned, seg_base, gh)
+    q, _, _ = _fixed_point(gh, maxabs, n_rows)
+    return build_seg_histograms_plain(binned, seg_base, q, n_seg)
+
+
+def _check_seg_cuda_inputs(name: str, binned, seg_base, gh) -> None:
+    """What K3 takes: CUDA tensors on one device, int16 bins, int32
+    segment bases, float32 (g, h), contiguous."""
+    if binned.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {binned.device}")
+    _check_seg_shapes(binned, seg_base, gh)
+    if (binned.dtype, seg_base.dtype, gh.dtype) != (torch.int16, torch.int32, torch.float32):
+        raise TypeError(f"{name}: expected int16 bins, int32 segment bases "
+                        f"and float32 (g, h); got {binned.dtype}, {seg_base.dtype}, {gh.dtype}")
+    if not (binned.is_contiguous() and seg_base.is_contiguous() and gh.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if not (seg_base.device == gh.device == binned.device):
+        raise ValueError(f"{name}: inputs on different devices")
+
+
 def launch_seg_kernel(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch.Tensor,
-                      out: torch.Tensor, n_seg: int) -> None:
+                      out: torch.Tensor, n_seg: int, maxabs: Optional[torch.Tensor] = None,
+                      log2n: int = 0) -> None:
     """One launch of K3 on inputs the wrapper checked, at
-    ``seg_hist_layout(n_seg)``; writes ``out`` [K, F, n_seg, 2] float32.
-    Counts nothing."""
+    ``seg_hist_layout(n_seg)``; writes ``out`` [K, F, n_seg, 2]: float32,
+    or int64 at the external scale of ``maxabs`` and ``log2n`` (as
+    ``launch_hist_kernel``). Counts nothing."""
     K, F, N = binned.shape
     group, rows, _ = seg_hist_layout(n_seg)
     lib = cuda_build.load()
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.mallorn_seg_hist(binned.data_ptr(), seg_base.data_ptr(), gh.data_ptr(),
-                                  out.data_ptr(), K, F, N, n_seg, group, rows, stream)
+                                  out.data_ptr(), K, F, N, n_seg, group, rows,
+                                  None if maxabs is None else maxabs.data_ptr(), log2n, stream)
     cuda_build.check(rc, "mallorn_seg_hist")
 
 
@@ -390,16 +530,7 @@ def build_seg_histograms(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch
     global seg_launches
     if binned.device.type == "cpu":
         return build_seg_histograms_plain(binned, seg_base, gh, n_seg)
-    if binned.device.type != "cuda":
-        raise ValueError(f"build_seg_histograms: unsupported device {binned.device}")
-    _check_seg_shapes(binned, seg_base, gh)
-    if (binned.dtype, seg_base.dtype, gh.dtype) != (torch.int16, torch.int32, torch.float32):
-        raise TypeError(f"build_seg_histograms: expected int16 bins, int32 segment bases "
-                        f"and float32 (g, h); got {binned.dtype}, {seg_base.dtype}, {gh.dtype}")
-    if not (binned.is_contiguous() and seg_base.is_contiguous() and gh.is_contiguous()):
-        raise ValueError("build_seg_histograms: inputs must be contiguous")
-    if not (seg_base.device == gh.device == binned.device):
-        raise ValueError("build_seg_histograms: inputs on different devices")
+    _check_seg_cuda_inputs("build_seg_histograms", binned, seg_base, gh)
     seg_hist_layout(n_seg)  # refuses n_seg beyond the kernel's shared memory
     K, F, _ = binned.shape
     out = torch.empty(K, F, n_seg, 2, dtype=torch.float32, device=binned.device)
@@ -407,6 +538,27 @@ def build_seg_histograms(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch
         return out
     launch_seg_kernel(binned, seg_base, gh, out, n_seg)
     seg_launches += 1
+    return out
+
+
+def build_seg_histograms_i64(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch.Tensor,
+                             n_seg: int, maxabs: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K3's external-scale entry: the int64 fixed-point segment sums
+    [K, F, n_seg, 2] of these rows at the scale of ``maxabs`` [K, 2] and
+    ``n_rows`` (as ``build_histograms_i64``). A CPU tensor runs the plain
+    twin ``build_seg_histograms_i64_fixed``."""
+    global seg_i64_launches
+    if binned.device.type == "cpu":
+        return build_seg_histograms_i64_fixed(binned, seg_base, gh, n_seg, maxabs, n_rows)
+    _check_seg_cuda_inputs("build_seg_histograms_i64", binned, seg_base, gh)
+    log2n = _check_external("build_seg_histograms_i64", gh, maxabs, n_rows)
+    seg_hist_layout(n_seg)
+    K, F, _ = binned.shape
+    out = torch.empty(K, F, n_seg, 2, dtype=torch.int64, device=binned.device)
+    if K == 0 or F == 0:
+        return out
+    launch_seg_kernel(binned, seg_base, gh, out, n_seg, maxabs, log2n)
+    seg_i64_launches += 1
     return out
 
 

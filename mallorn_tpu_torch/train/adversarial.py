@@ -56,12 +56,14 @@ def roc_auc(y: np.ndarray, score: np.ndarray) -> float:
 def adversarial_validation(X_train: np.ndarray, X_test: np.ndarray,
                            params: GBDTParams = ADV_PARAMS, n_folds: int = 5,
                            seed: int = 42, early_stopping_rounds: int = 20,
-                           device: DeviceLike = None) -> AdversarialResult:
+                           device: DeviceLike = None, mesh=None) -> AdversarialResult:
+    """``mesh`` (None: the default mesh): the folds' rows split over its
+    ranks (the same trees as on one device)."""
     X = np.vstack([X_train, X_test])
     y = np.concatenate([np.zeros(len(X_train)), np.ones(len(X_test))])
     cv = train_cv(X, y, None, params, use_scale_pos_weight=False, n_folds=n_folds,
                   seed=seed, early_stopping_rounds=early_stopping_rounds,
-                  device=device)
+                  device=device, mesh=mesh)
     auc = roc_auc(y, cv.oof_preds)
     shift = auc >= 0.55  # reweight from "moderate" shift up
     train_preds = cv.oof_preds[: len(X_train)]

@@ -12,6 +12,13 @@ The machine with the card has no scikit-learn, so the fold assignment is
 a numpy copy of ``StratifiedKFold(shuffle=True)._make_test_folds``: the
 same ``np.random.RandomState`` calls in the same order give the same
 folds.
+
+A mesh enters through ``mesh=`` or, when that is None, the process's
+default mesh (``parallel.mesh.default_mesh``; the command line's ``--mesh
+N`` sets it in each rank): the batched fit then runs with every fold's
+rows split over the ranks (``parallel.sharded_train.
+train_gbdt_folds_sharded``), the same forests as on one device, on the
+mesh's device. Every rank computes the whole result.
 """
 
 from __future__ import annotations
@@ -22,9 +29,19 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from mallorn_tpu_torch.parallel.mesh import Mesh, default_mesh
 from mallorn_tpu_torch.trees.gbdt import (GBDTModel, GBDTParams, predict_margin_models,
                                           train_gbdt_folds)
 from mallorn_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def _fit_folds(folds, params: GBDTParams, mesh: Optional[Mesh], dev, **kw) -> List[GBDTModel]:
+    """The batched fit of the folds, on ``mesh`` when there is one."""
+    if mesh is None:
+        return train_gbdt_folds(folds, params, device=dev, **kw)
+    from mallorn_tpu_torch.parallel.sharded_train import train_gbdt_folds_sharded
+
+    return train_gbdt_folds_sharded(mesh, folds, params, **kw)
 
 
 def stratified_kfold(y: np.ndarray, n_splits: int = 5, seed: int = 42
@@ -117,7 +134,8 @@ def train_cv_multiclass(X_train: np.ndarray, y_class: np.ndarray,
                         X_test: Optional[np.ndarray] = None,
                         params: GBDTParams = GBDTParams(), n_folds: int = 5,
                         early_stopping_rounds: int = 50, seed: int = 42,
-                        device: DeviceLike = None, verbose: bool = False
+                        device: DeviceLike = None, mesh: Optional[Mesh] = None,
+                        verbose: bool = False
                         ) -> Tuple[np.ndarray, Optional[np.ndarray], List[GBDTModel]]:
     """K-class multi:softprob CV: stratified K-fold on the class ids, all
     folds (and their classes, as lanes) in one batched fit early-stopped
@@ -126,11 +144,13 @@ def train_cv_multiclass(X_train: np.ndarray, y_class: np.ndarray,
     the test probabilities the fold mean of the softmaxes.
 
     ``params.num_class`` must be >= 2; ``y_class`` holds class ids
-    0..K-1. Returns (oof_probs [N, K], test_probs [N_test, K] or None,
+    0..K-1. ``mesh`` (None: the default mesh): the folds' rows split over
+    its ranks. Returns (oof_probs [N, K], test_probs [N_test, K] or None,
     models)."""
     if params.num_class < 2:
         raise ValueError("params.num_class must be >= 2")
-    dev = resolve_device(device)
+    mesh = mesh if mesh is not None else default_mesh()
+    dev = mesh.device if mesh is not None else resolve_device(device)
     y_class = np.asarray(y_class)
     K = params.num_class
     splits = stratified_kfold(y_class, n_folds, seed)
@@ -138,10 +158,10 @@ def train_cv_multiclass(X_train: np.ndarray, y_class: np.ndarray,
     folds = [{"y": y_class[tr].astype(np.float32), "w": None,
               "y_val": y_class[va].astype(np.float32), "spw": 1.0, "seed": params.seed,
               "X_parent": X_parent, "tr_idx": tr, "va_idx": va} for tr, va in splits]
-    models = train_gbdt_folds(
-        folds, params, early_stopping_rounds=early_stopping_rounds,
+    models = _fit_folds(
+        folds, params, mesh, dev, early_stopping_rounds=early_stopping_rounds,
         pad_rows_to=max(len(tr) for tr, _ in splits),
-        pad_val_rows_to=max(len(va) for _, va in splits), device=dev)
+        pad_val_rows_to=max(len(va) for _, va in splits))
 
     oof = np.zeros((len(y_class), K), np.float64)
     for model, (_, va) in zip(models, splits):
@@ -173,7 +193,8 @@ def train_cv(X_train: np.ndarray, y: np.ndarray, X_test: Optional[np.ndarray] = 
              extra_train: Optional[Tuple] = None,
              y_train_soft: Optional[np.ndarray] = None,
              train_transform: Optional[Callable] = None,
-             device: DeviceLike = None, verbose: bool = False) -> CVResult:
+             device: DeviceLike = None, mesh: Optional[Mesh] = None,
+             verbose: bool = False) -> CVResult:
     """Stratified K-fold GBDT with OOF and fold-averaged test predictions.
 
     ``sigmoid_outputs``: a custom objective's raw margins take an explicit
@@ -194,8 +215,12 @@ def train_cv(X_train: np.ndarray, y: np.ndarray, X_test: Optional[np.ndarray] = 
     each fold's primary training rows (before ``extra_train`` is
     appended). A transformed fold carries its own matrices and bins on its
     own; scale_pos_weight then counts the transformed targets rounded at
-    0.5."""
-    dev = resolve_device(device)
+    0.5.
+
+    ``mesh`` (None: the default mesh): the folds' rows split over its
+    ranks, on its device."""
+    mesh = mesh if mesh is not None else default_mesh()
+    dev = mesh.device if mesh is not None else resolve_device(device)
     X_parent = np.asarray(X_train, np.float32)
     y = np.asarray(y)
     y_soft = None if y_train_soft is None else np.asarray(y_train_soft, np.float32)
@@ -242,10 +267,11 @@ def train_cv(X_train: np.ndarray, y: np.ndarray, X_test: Optional[np.ndarray] = 
         return f
 
     folds = [fold(k, tr, va) for k, (tr, va) in enumerate(splits)]
-    models = train_gbdt_folds(
-        folds, params, objective=objective, early_stopping_rounds=early_stopping_rounds,
+    models = _fit_folds(
+        folds, params, mesh, dev, objective=objective,
+        early_stopping_rounds=early_stopping_rounds,
         pad_rows_to=max(len(f["y"]) for f in folds),
-        pad_val_rows_to=max(len(va) for _, va in splits), device=dev)
+        pad_val_rows_to=max(len(va) for _, va in splits))
 
     use_sigmoid = sigmoid_outputs or objective is None
 

@@ -102,11 +102,12 @@ def _selection_digest(X: np.ndarray, y: np.ndarray, names: Sequence[str], top_k:
 def cached_select_features(cache_file, X: np.ndarray, y: np.ndarray,
                            names: Sequence[str], importance_fn: Callable[[], np.ndarray],
                            top_k: int = 120, corr_threshold: float = 0.95,
-                           key_extra: str = "") -> SelectionResult:
+                           key_extra: str = "", save: bool = True) -> SelectionResult:
     """Load-or-compute the staged selection artifact (an npz keyed by a
     content digest of X, y, names and the settings): ``importance_fn()``
     (the selection CV) runs only on a miss. ``cache_file=None`` always
-    computes and writes nothing."""
+    computes and writes nothing; ``save=False`` reads the artifact but
+    never writes it (the ranks of a mesh other than rank 0)."""
     dig = _selection_digest(X, y, names, top_k, corr_threshold, key_extra)
     path = None if cache_file is None else Path(cache_file)
     if path is not None and path.exists():
@@ -123,7 +124,7 @@ def cached_select_features(cache_file, X: np.ndarray, y: np.ndarray,
         except (OSError, KeyError, ValueError):
             pass  # stale or corrupt: recompute
     res = select_features(X, names, importance_fn(), top_k, corr_threshold)
-    if path is not None:
+    if path is not None and save:
         path.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(dir=path.parent, suffix=".npz")
         os.close(fd)

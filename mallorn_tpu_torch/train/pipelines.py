@@ -173,12 +173,13 @@ def run_v92(X_train: np.ndarray, y: np.ndarray, feature_names: Sequence[str],
             X_test: Optional[np.ndarray] = None, params: GBDTParams = V34A_PARAMS,
             variants: Optional[Dict] = None, adv: Optional[AdversarialResult] = None,
             adv_params: Optional[GBDTParams] = None, device: DeviceLike = None,
-            verbose: bool = False, timings: Optional[Dict[str, float]] = None
-            ) -> V92Result:
+            verbose: bool = False, timings: Optional[Dict[str, float]] = None,
+            mesh=None) -> V92Result:
     """The winning pipeline: v34a columns minus the shift features, the
     adversarial weights, one CV per objective variant (reference:
     train_v92_focal_adversarial.py). ``timings`` collects the seconds of
-    the adversarial stage and of each variant's CV."""
+    the adversarial stage and of each variant's CV. ``mesh`` (None: the
+    default mesh): every CV's rows split over its ranks."""
     timings = {} if timings is None else timings
     keep = [i for i, n in enumerate(feature_names) if n not in SHIFT_FEATURES]
     names = [feature_names[i] for i in keep]
@@ -194,7 +195,7 @@ def run_v92(X_train: np.ndarray, y: np.ndarray, feature_names: Sequence[str],
         else:
             t0 = time.perf_counter()
             adv = adversarial_validation(Xtr, Xte, params=adv_params or ADV_PARAMS,
-                                         device=device)
+                                         device=device, mesh=mesh)
             timings["adversarial"] = time.perf_counter() - t0
 
     results: Dict[str, CVResult] = {}
@@ -203,7 +204,7 @@ def run_v92(X_train: np.ndarray, y: np.ndarray, feature_names: Sequence[str],
         gamma = cfg.get("gamma", 0.0)
         common = dict(sample_weight=adv.sample_weights,
                       threshold_grid=np.linspace(0.05, 0.5, 200), device=device,
-                      verbose=verbose)
+                      mesh=mesh, verbose=verbose)
         if gamma > 0:
             cv = train_cv(Xtr, y, Xte, params, use_scale_pos_weight=False,
                           objective=objectives.make_focal(gamma=gamma, alpha=cfg["alpha"]),

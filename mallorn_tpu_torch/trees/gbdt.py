@@ -56,6 +56,17 @@ start, so a round's class trees are independent: they grow as extra lanes
 
 The random bits (round keys, column permutations, DART's drop draws) are
 the JAX package's own, computed on the host (``utils.prng``) once per fit.
+
+A mesh enters the fit through hooks of ``_fit_impl``, not a second fit
+(``parallel.sharded_train``): each rank passes its block of rows,
+``hist_fn`` / ``seg_hist_fn`` that all-reduce K1's / K3's exact int64 sums
+at one global scale, and ``gather_rows`` / ``gather_val``, which bring the
+few other row sums' terms to every rank in row order: the rows' terminal
+leaf and (g, h), and each validation row's loss. Those sums then run on
+the single-device rows in the single-device order (float32 sums of
+partials would differ in the last bit, and a near-tie split with them), so
+every rank grows the single-device trees bit for bit and takes the same
+early-stopping branch.
 """
 
 from __future__ import annotations
@@ -296,9 +307,12 @@ def _best_splits(hist: torch.Tensor, col_mask: torch.Tensor, p: GBDTParams,
 
 
 def _train_tree(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: torch.Tensor,
-                p: GBDTParams, hist_fn: HistFn, symmetric: bool = False):
+                p: GBDTParams, hist_fn: HistFn, symmetric: bool = False,
+                gather_rows: Optional[Callable] = None):
     """Grow one depthwise tree per fold (``symmetric``: one oblivious tree,
-    every node of a level on the level's shared split).
+    every node of a level on the level's shared split). ``gather_rows``: a
+    mesh's [K, rank rows, ...] tensors -> [K, fit rows, ...] (several in
+    one collective), for the terminal leaves' sums over every row.
 
     binned_T [K, F, N] int16, gh [K, N, 2] float32, col_mask [K, F] bool.
     Returns ((feature, split_bin, default_left, is_leaf, leaf_value), each
@@ -374,6 +388,9 @@ def _train_tree(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: torch.Tensor
     # (the same result from run to run)
     leaf_start = 2 ** depth - 1
     local = node - leaf_start
+    if gather_rows is not None:  # every rank's rows, in the single-device order
+        local, gh = gather_rows(local.to(torch.int32), gh)
+        local = local.long()
     at_leaf = (local >= 0) & (local < 2 ** depth)
     onehot = (local[..., None] == torch.arange(2 ** depth, device=dev)) & at_leaf[..., None]
     sums = xla_cpu.row_sums(torch.where(onehot[..., None], gh[:, :, None, :], 0.0))
@@ -545,31 +562,40 @@ def _round_randomness(seed: int, n_rounds: int, n_features: int, colsample: floa
             drop)
 
 
-def _val_logloss(margin_val, yv, vmask):
+def _num_den(per_row, vmask, gather):
+    """(numerator, denominator) [K] of a masked mean of ``per_row`` [K, Nv]:
+    the masked sum and the mask's count, over every rank's rows in row
+    order when ``gather`` (a mesh's row gather, the terms beside the mask
+    in one collective) is given."""
+    if gather is not None:
+        per_row, vmask = gather(per_row, vmask)
+    return torch.where(vmask, per_row, 0.0).sum(dim=1), vmask.to(torch.float32).sum(dim=1)
+
+
+def _val_logloss(margin_val, yv, vmask, gather=None):
     """[K] masked validation logloss."""
-    den = vmask.to(torch.float32).sum(dim=1)
     p = torch.sigmoid(margin_val)
     eps = 1e-16
     ll = -(yv * torch.log(torch.clamp(p, eps, 1.0))
            + (1 - yv) * torch.log(torch.clamp(1 - p, eps, 1.0)))
-    return torch.where(vmask, ll, 0.0).sum(dim=1) / den
+    num, den = _num_den(ll, vmask, gather)
+    return num / den
 
 
-def _val_rmse(margin_val, yv, vmask):
+def _val_rmse(margin_val, yv, vmask, gather=None):
     """[K] masked validation rmse of the raw margins."""
-    den = vmask.to(torch.float32).sum(dim=1)
     d = margin_val - yv
-    return torch.sqrt(torch.where(vmask, d * d, 0.0).sum(dim=1) / den)
+    num, den = _num_den(d * d, vmask, gather)
+    return torch.sqrt(num / den)
 
 
-def _val_mlogloss(margin_val, yv, vmask):
+def _val_mlogloss(margin_val, yv, vmask, gather=None):
     """[K] masked validation multiclass logloss, -log softmax(margin)[y], of
     margins [K, C, Nv] and class ids yv [K, Nv]."""
-    den = vmask.to(torch.float32).sum(dim=1)
     logp = torch.log_softmax(margin_val, dim=1)
     yk = yv.long()[:, None, :] == torch.arange(margin_val.shape[1], device=yv.device)[:, None]
-    ll = -torch.where(yk, logp, 0.0).sum(dim=1)
-    return torch.where(vmask, ll, 0.0).sum(dim=1) / den
+    num, den = _num_den(-torch.where(yk, logp, 0.0).sum(dim=1), vmask, gather)
+    return num / den
 
 
 # the validation metric of early stopping per GBDTParams.eval_metric
@@ -616,11 +642,14 @@ def _check_params(p: GBDTParams) -> None:
     level_hist_fn(p)  # an unknown hist_dtype raises in every fit
 
 
-def _tree_fns(p: GBDTParams, hist_fn: HistFn, seg_hist_fn: SegHistFn):
+def _tree_fns(p: GBDTParams, hist_fn: HistFn, seg_hist_fn: SegHistFn,
+              gather_rows: Optional[Callable] = None):
     """(grow, predict, buffers) of ``p.grow_policy``: ``grow(binned_T, gh,
     col_mask)`` -> (tree, gains [L, F], node [L, N]) over L lanes,
     ``predict(tree, binned_val_T)`` -> [L, Nv], ``buffers(L, R, dev)`` the
-    empty [L, R, ...] forest of the fit."""
+    empty [L, R, ...] forest of the fit. ``gather_rows``: a mesh's row
+    gather for a depthwise tree's leaf sums (a leaf-wise tree reads its
+    sums from K3's histograms, which ``seg_hist_fn`` reduces)."""
     if p.grow_policy == "lossguide":
         M, steps = 2 * p.max_leaves - 1, lossguide_steps(p)
 
@@ -644,26 +673,32 @@ def _tree_fns(p: GBDTParams, hist_fn: HistFn, seg_hist_fn: SegHistFn):
                 torch.zeros(L, R, n_int, dtype=torch.bool, device=dev),
                 torch.zeros(L, R, n_heap, dtype=torch.float32, device=dev)]
 
-    return (lambda b, gh, cm: _train_tree(b, gh, cm, p, hist_fn, symmetric),
+    return (lambda b, gh, cm: _train_tree(b, gh, cm, p, hist_fn, symmetric, gather_rows),
             lambda t, bv: _predict_tree(t, bv, p.n_bins, p.max_depth + 1), buffers)
 
 
 def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[int],
               p: GBDTParams, objective, early_stop: int, hist_fn: Optional[HistFn],
-              seg_hist_fn: SegHistFn):
+              seg_hist_fn: SegHistFn, gather_rows: Optional[Callable] = None,
+              gather_val: Optional[Callable] = None):
     """K batched fits. binned_T [K, F, N] int16; y, w [K, N] f32 (class ids
     in y with num_class >= 2); row_ids [K, N]; validation binned_val_T [K,
     F, Nv], yv [K, Nv], vmask [K, Nv] bool (None without a validation set);
     seeds [K]. ``hist_fn`` builds a depthwise or symmetric fit's level
     histograms (None: ``p.hist_dtype``'s kernel), ``seg_hist_fn`` a
-    leaf-wise fit's.
+    leaf-wise fit's. On a mesh, the arrays are this rank's block of rows
+    (``row_ids`` their global ids), the histogram functions reduce over
+    the ranks, and ``gather_rows`` / ``gather_val`` turn a rank's [K,
+    rows, ...] training / validation terms (several tensors in one
+    collective) into the fit's rows in row order, for the leaf sums and
+    the validation metrics.
 
     Returns (Forest or LGForest of [K, R, ...] buffers ([K, R, C, ...] with
     C = num_class >= 2), gains [K, F], metrics [K, R] numpy, best-iteration
     validation margins [K, Nv] ([K, C, Nv]) numpy (NaN when the fit did not
     early-stop))."""
     _check_params(p)
-    grow, predict, buffers = _tree_fns(p, hist_fn or level_hist_fn(p), seg_hist_fn)
+    grow, predict, buffers = _tree_fns(p, hist_fn or level_hist_fn(p), seg_hist_fn, gather_rows)
     K, n_f, n = binned_T.shape
     dev = binned_T.device
     R = p.n_rounds
@@ -681,7 +716,7 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
     if p.dart_rate > 0.0:
         drop = torch.from_numpy(np.stack([r[2] for r in rand])).to(dev)  # [K, R, R]
         return _fit_dart(binned_T, y, w, row_ids, binned_val_T, yv, vmask, p, objective,
-                         k_sub, col_masks, drop, grow, predict, buffers)
+                         k_sub, col_masks, drop, grow, predict, buffers, gather_val)
     if C > 1:
         # one copy per fit of each fold's bins for its class lanes
         binned_T = binned_T.repeat_interleave(C, dim=0)
@@ -737,7 +772,7 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
         if not has_val:
             continue
         new_mv = margin_val + predict(tree, binned_val_T)
-        metric = val_metric(new_mv.view(K, C, nv) if C > 1 else new_mv, yv, vmask)
+        metric = val_metric(new_mv.view(K, C, nv) if C > 1 else new_mv, yv, vmask, gather_val)
         margin_val = torch.where(a1, new_mv, margin_val)
         metrics[:, r] = torch.where(active, metric, metrics[:, r])
         if early:
@@ -760,7 +795,7 @@ def _fit_impl(binned_T, y, w, row_ids, binned_val_T, yv, vmask, seeds: Sequence[
 
 
 def _fit_dart(binned_T, y, w, row_ids, binned_val_T, yv, vmask, p: GBDTParams, objective,
-              k_sub, col_masks, drop_cand, grow, predict, buffers):
+              k_sub, col_masks, drop_cand, grow, predict, buffers, gather_val=None):
     """DART over K lanes (the JAX package's ``_fit_dart``): per-tree
     contributions c_train [K, R, N] and c_val [K, R, Nv] and a scale per
     tree [K, R]. Round r drops each earlier tree that ``drop_cand`` [K, R,
@@ -803,7 +838,7 @@ def _fit_dart(binned_T, y, w, row_ids, binned_val_T, yv, vmask, p: GBDTParams, o
         if has_val:
             c_val[:, r] = predict(tree, binned_val_T)
             full_val = xla_cpu.scaled_sum(scale[:, :r + 1], c_val[:, :r + 1]) + p.base_score
-            metrics[:, r] = _val_logloss(full_val, yv, vmask)
+            metrics[:, r] = _val_logloss(full_val, yv, vmask, gather_val)
     bufs[-1] = bufs[-1] * scale[:, :, None]
     forest = LGForest(*bufs) if p.grow_policy == "lossguide" else Forest(*bufs)
     best_mv = np.full((K, nv), np.nan, np.float32)
@@ -894,14 +929,20 @@ def train_gbdt(X_train: np.ndarray, y_train: np.ndarray,
 
 
 def _stack_folds(folds, params: GBDTParams, pad_rows_to: int, pad_val_rows_to: int,
-                 dev: torch.device):
+                 dev: torch.device, block: Optional[tuple] = None):
     """Bin every fold and stack them on a leading fold axis, padded to
     shared row counts (zero weight / masked). Folds that are row subsets of
     one shared parent matrix (``X_parent``, ``tr_idx``, ``va_idx``) bin
     from one global sort and one device gather; others bin on their own.
 
+    ``block`` = (lo, hi, vlo, vhi): keep only the padded training rows
+    [lo, hi) and validation rows [vlo, vhi) (a rank's block of a mesh;
+    the bin edges still come from every row of the fold, and ``row_ids``
+    are the global ones).
+
     Returns (dict of [K, ...] tensors, bin specs)."""
     K = len(folds)
+    lo, hi, vlo, vhi = block or (0, pad_rows_to, 0, pad_val_rows_to)
     parents = [f.get("X_parent") for f in folds]
     shared = (all(f.get(k) is not None for f in folds for k in ("X_parent", "tr_idx", "va_idx"))
               and all(p is parents[0] for p in parents)
@@ -916,24 +957,27 @@ def _stack_folds(folds, params: GBDTParams, pad_rows_to: int, pad_val_rows_to: i
         for k, f in enumerate(folds):
             idx[k, :len(f["tr_idx"])] = f["tr_idx"]
             idx[k, pad_rows_to:pad_rows_to + len(f["va_idx"])] = f["va_idx"]
+        if block is not None:  # this rank's rows alone
+            idx = np.concatenate([idx[:, lo:hi], idx[:, pad_rows_to + vlo:pad_rows_to + vhi]], 1)
         binned = apply_bins_folds_gather(
             torch.as_tensor(Xp, device=dev), torch.stack([s.edges for s in specs]),
             torch.as_tensor(idx, device=dev), params.n_bins)
-        binned_tr, binned_va = binned[:, :pad_rows_to], binned[:, pad_rows_to:]
+        binned_tr, binned_va = binned[:, :hi - lo], binned[:, hi - lo:]
     else:
         specs, tr, va = [], [], []
         for f, wb in zip(folds, w_bases):
             spec = fit_bins(np.asarray(f["X"], np.float32), params.n_bins,
                             sample_weight=wb, device=dev)
             specs.append(spec)
-            for X, n_to, out in ((f["X"], pad_rows_to, tr), (f["X_val"], pad_val_rows_to, va)):
-                b = apply_bins(spec, torch.as_tensor(np.asarray(X, np.float32), device=dev))
-                out.append(_pad_rows(b.to(torch.int16), n_to))
+            for X, a, b, out in ((f["X"], lo, hi, tr), (f["X_val"], vlo, vhi, va)):
+                Xb = np.asarray(X, np.float32)[a:b]
+                binned = apply_bins(spec, torch.as_tensor(Xb, device=dev))
+                out.append(_pad_rows(binned.to(torch.int16), b - a))
         binned_tr, binned_va = torch.stack(tr), torch.stack(va)
 
-    def stack(key, n_to, fill=0.0, dtype=np.float32):
+    def stack(key, n_to, a, b, fill=0.0, dtype=np.float32):
         return torch.as_tensor(np.stack([
-            np.concatenate([v, np.full(n_to - len(v), fill, dtype)])
+            np.concatenate([v, np.full(n_to - len(v), fill, dtype)])[a:b]
             for v in key]), device=dev)
 
     # scale_pos_weight enters the objective through the weights, not the
@@ -943,12 +987,13 @@ def _stack_folds(folds, params: GBDTParams, pad_rows_to: int, pad_val_rows_to: i
     arrs = {
         "binned_T": binned_tr.transpose(1, 2).contiguous(),
         "binned_val_T": binned_va.transpose(1, 2).contiguous(),
-        "y": stack([np.asarray(f["y"], np.float32) for f in folds], pad_rows_to),
-        "w": stack(ws, pad_rows_to),
-        "yv": stack([np.asarray(f["y_val"], np.float32) for f in folds], pad_val_rows_to),
+        "y": stack([np.asarray(f["y"], np.float32) for f in folds], pad_rows_to, lo, hi),
+        "w": stack(ws, pad_rows_to, lo, hi),
+        "yv": stack([np.asarray(f["y_val"], np.float32) for f in folds], pad_val_rows_to,
+                    vlo, vhi),
         "vmask": stack([np.ones(len(f["y_val"]), bool) for f in folds], pad_val_rows_to,
-                       False, bool),
-        "row_ids": torch.arange(pad_rows_to, device=dev).expand(K, pad_rows_to),
+                       vlo, vhi, False, bool),
+        "row_ids": torch.arange(lo, hi, device=dev).expand(K, hi - lo),
     }
     return arrs, specs
 

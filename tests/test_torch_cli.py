@@ -198,6 +198,31 @@ def test_module_entry_point_refuses_without_a_card(workspace):
     assert not (workspace / "refused").exists()
 
 
+def test_train_mesh_flag_identical_result(workspace, trained, monkeypatch):
+    """``train --mesh 2`` on the host: two gloo ranks, every CV's rows split
+    over them (the default mesh of each rank, never of this process), rank
+    0 the only writer: the single-device result JSON and submission. More
+    ranks than cards is refused with the JAX package's message
+    (``mallorn_tpu/cli/main.py:153-155``)."""
+    import torch
+
+    from mallorn_tpu_torch.parallel.mesh import default_mesh
+
+    single = trained("port", "v34a")
+    out = workspace / "port_v34a_mesh"
+    argv = ["train", "--data", str(workspace / "data"), "--cache", str(workspace / "cache"),
+            "--config", "v34a", "--out", str(out), *PARITY]
+    port_main(argv + ["--mesh", "2"])
+    assert (json.loads((out / "result_v34a.json").read_text())
+            == json.loads((single / "result_v34a.json").read_text()))
+    assert filecmp.cmp(out / "submission_v34a.csv", single / "submission_v34a.csv",
+                       shallow=False)
+    assert default_mesh() is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--mesh 2: only 1 devices available"):
+        cli.main(argv + ["--mesh", "2"])
+
+
 # ---------------------------------------------------------------------------
 # slow: every config on the port alone
 # ---------------------------------------------------------------------------

@@ -303,7 +303,8 @@ def test_kernel_chunked_launch_equals_one_chunk(chunk):
     lib = cuda_build.load()
     cuda_build.check(lib.mallorn_hist(binned.data_ptr(), node_q.data_ptr(), gh.data_ptr(),
                                       out.data_ptr(), 3, 37, 2443, 16, NBT, group, rows, chunk,
-                                      torch.cuda.current_stream().cuda_stream), "mallorn_hist")
+                                      None, 0, torch.cuda.current_stream().cuda_stream),
+                     "mallorn_hist")
     torch.cuda.synchronize()
     assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 

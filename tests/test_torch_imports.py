@@ -58,7 +58,8 @@ def test_import_closure_has_no_jax_pandas_sklearn_or_jax_package():
               "data.augmentation", "models.layers", "models.data", "models.train_dl",
               "models.transformer", "models.lstm", "models.gru", "models.atat",
               "models.mlp", "models.astromer", "features.astromer", "cli.main",
-              "data.loader", "io.native", "io.cache", "utils.profiling"):
+              "data.loader", "io.native", "io.cache", "utils.profiling",
+              "parallel.mesh", "parallel.sharded_train", "parallel.pipeline"):
         assert f"mallorn_tpu_torch.{m}" in walked, m
     assert lines["BANNED"].strip() == "", f"the port pulled in: {lines['BANNED']}"
 

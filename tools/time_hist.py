@@ -140,8 +140,11 @@ def sweep(torch, hist_cuda, cuda_build, stream, ms) -> dict:
                     if hist_cuda._seg_smem_bytes(n_seg, group, rows) > hist_cuda.SMEM_BYTES:
                         continue
 
-                    # a checkout with hist_plan takes nodes per CTA (here all)
+                    # a checkout with hist_plan takes nodes per CTA (here all),
+                    # one with the external-scale entry a null maxabs and log2n
                     chunk = (k_nodes,) if hasattr(hist_cuda, "hist_plan") else ()
+                    if hasattr(hist_cuda, "build_histograms_i64"):
+                        chunk += (None, 0)
 
                     def launch():
                         cuda_build.check(lib.mallorn_hist(

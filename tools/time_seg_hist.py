@@ -110,10 +110,13 @@ def time_checkout(layouts: bool) -> dict:
             "launch_ms": ms(launch),
             "sha256": hashlib.sha256(want.cpu().numpy().tobytes()).hexdigest()}
         if layouts and name == "pair" and hasattr(hist_cuda, "seg_hist_layout"):
+            # a checkout with the external-scale entry takes a null maxabs and log2n
+            ext = (None, 0) if hasattr(hist_cuda, "build_seg_histograms_i64") else ()
+
             def launch_at(group, rows):
                 cuda_build.check(lib.mallorn_seg_hist(
                     binned.data_ptr(), seg_base.data_ptr(), gh.data_ptr(), out.data_ptr(),
-                    K, F, N, n_seg, group, rows, stream), "mallorn_seg_hist")
+                    K, F, N, n_seg, group, rows, *ext, stream), "mallorn_seg_hist")
             res[name]["launch_ms_by_layout"] = {
                 f"G{g}_R{r}": ms(lambda: launch_at(g, r)) for g, r in LAYOUTS}
             torch.cuda.synchronize()
