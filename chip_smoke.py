@@ -70,7 +70,14 @@ Phases, each printing its wall time on its own line:
    halves at one global scale: each half bit for bit its int64 twin, the
    halves adding up to the whole, the converted total bit for bit the
    float32 entry's, a NaN lane zeros, with the same times (the library
-   yardstick an int64 ``scatter_add_``);
+   yardstick an int64 ``scatter_add_``); then the histogram modes'
+   external-scale entries (K5's int32 digit sums, K4's int64 digit sums) at
+   the v92d CV's deepest level and the multiclass head's (20 lanes x 224
+   columns, 8 nodes), the rows in two halves at one global scale: each half
+   bit for bit its plain twin, the halves adding up to the whole launch,
+   the converted total the mode's float32 launch bit for bit (NaN at the
+   same cells: a NaN g makes K5's g channel NaN, every K4 cell of its
+   lane), with the same times;
 7. kernel against plain in training: a 600 x 30 fixture (NaNs, subsample
    and colsample 0.8, 20 rounds of depth 5) fitted with K1 twice and once
    with the kernel's fixed-point arithmetic in plain PyTorch, and the same
@@ -129,8 +136,9 @@ Phases, each printing its wall time on its own line:
    leaf-wise rounds (0 elsewhere), every output finite; OOF F1 gates v34a
    0.629 and the seed ensemble 0.633;
 12. the other tree policies and the multiclass head, on the runners'
-   224-column v34a matrix: the symmetric v118 CV, the leaf-wise v110 CV,
-   its DART twin v111 (all 600 rounds), the v119 stack over the runners'
+   224-column v34a matrix: the symmetric v118 CV, the leaf-wise v110 CV
+   and its DART twin v111 (each cut to 300 of its 600 rounds; v111 runs all
+   300), the v119 stack over the runners'
    v34a and v110 and v118 (``ensembles.stack_oof``), and v62: the train
    split regenerated with the port's generator and held column for column
    against ``.bench_data_v2.npz``, then ``run_v62`` on its spectral types
@@ -148,9 +156,10 @@ Phases, each printing its wall time on its own line:
    fits by Bazin's bar on their cost); the command line's backbone-plus-
    family experiments v55, v64, v30, v57 (dereddened twins), v45
    (categorical bins) and v105 (the top 30 interactions) on the 224-column
-   v34a matrix, K1 launches = rounds x depth; an 8-trial TPE search on the
-   v92d matrix (each trial's seconds, rounds and K1 launches), then depth
-   8 with and without subtraction (K1 at 64 and 128 nodes, rounds x depth
+   v34a matrix at 250 rounds, K1 launches = rounds x depth; an 8-trial
+   TPE search on the v92d matrix at 100 rounds a trial (each trial's
+   seconds, rounds and K1 launches), then depth 8 at 100 rounds with and
+   without subtraction (K1 at 64 and 128 nodes, rounds x depth
    launches; the forests' differing split slots counted) and depth-8
    single fits bit for bit K1's fixed-point twin; Platt and isotonic
    calibration (test Brier score), threshold variants, the error analysis
@@ -171,7 +180,7 @@ Phases, each printing its wall time on its own line:
    of lanes, gp1d at multiband_gp's gate); the command line's experiments
    v9, v20, v35, v40, v47, v48, v56, v58, v59b, v65 and v66 (the family's
    columns on the 224-column v34a matrix, ``train_cv`` at V34A_PARAMS cut
-   to 250 rounds; K1 launches = rounds x depth); ``augment_dataset`` over one copy of the
+   to 150 rounds; K1 launches = rounds x depth); ``augment_dataset`` over one copy of the
    train split on the card and on the CPU (masks equal, times, fluxes and
    errors within rtol 1e-5) and the transforms' invariants on the card.
    The kernel phase also checks K2 at gp1d's shapes (B = 12,288 and
@@ -223,7 +232,15 @@ Phases, each printing its wall time on its own line:
    training phase's bundle (rtol 2e-4 / atol 1e-5, Bazin >= 85% of lanes),
    K2 launches per rank; (d) ``train --config v34a --mesh 1`` (one NCCL
    rank) in the command line's workspace, its result JSON equal to that
-   phase's, and ``--mesh`` beyond the card count refused.
+   phase's, and ``--mesh`` beyond the card count refused; (e) ``run_v92``
+   in ``hist_dtype="int8"`` and ``"i8bf16"`` on a world-size-1 NCCL mesh
+   at full width (222 columns, 5 folds, the v92d rounds and depth) on the
+   histogram modes phase's inputs of that mode, its forests and eval
+   histories bit for bit that phase's, OOF F1 >= 0.633, the mode's
+   external-scale entry launched rounds x depth times and no float32
+   histogram kernel; (f) on the two gloo ranks of (b), the v92d CV at 15
+   rounds in each mode, bit for bit its single-device fit, each rank's
+   launches and integer bytes all-reduced per round.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -331,6 +348,9 @@ RUNNER_HIST_SHAPES = (("baseline", 5, 127, 2444, (1, 1, 2, 4, 8, 16)),
 POLICY_HIST_SHAPES = (("symmetric", 5, 224, 2444, (1, 1, 2, 4, 8)),
                       ("multiclass", 20, 224, 2444, (1, 1, 2, 4, 8)))
 POLICY_SEG_SHAPE = ("v110_pair", 5, 224, 2444, 2)
+# the leaf-wise v110 CV and its DART twin v111 run this many of their 600
+# rounds (cut to pay for the mesh phase's histogram modes)
+POLICY_LG_ROUNDS = 300
 # K1 at depth 8, the top of HPO's space, on the v92d matrix: the last
 # level's 64 nodes (subtraction) and 128 (none), two and three chunks of
 # nodes on the grid's z axis
@@ -381,6 +401,18 @@ MODE_KERNELS = {
     "i8bf16": ("hist_bf16", "bf16_launches", hist_cuda.build_histograms_bf16,
                hist_cuda.build_histograms_bf16_fixed),
 }
+# the modes' external-scale entries (the mesh's histograms): (row name,
+# launch counter, entry, its plain twin, digit channels, the TPU kernel)
+MODE_SUMS = {
+    "int8": ("hist_i8_sums", "i8_sums_launches", hist_cuda.build_histograms_i8_sums,
+             hist_cuda.build_histograms_i8_sums_fixed, 8, "mallorn_tpu/ops/hist_pallas.py:368"),
+    "i8bf16": ("hist_bf16_i64", "bf16_i64_launches", hist_cuda.build_histograms_bf16_i64,
+               hist_cuda.build_histograms_bf16_i64_fixed, 6,
+               "mallorn_tpu/ops/hist_pallas.py:202"),
+}
+# their shapes: the v92d CV's deepest level and the multiclass v62 head's
+# (5 folds x 4 classes as 20 lanes, 224 columns) at 8 nodes
+MODE_SUM_SHAPES = (("v92d", 5, 222, 2444, 8), ("multiclass", 20, 224, 2444, 8))
 
 
 def log(msg: str) -> None:
@@ -1089,6 +1121,109 @@ def check_hist_i64(kernel: str, fit: str, K: int, F: int, N: int, nodes: int,
     return res
 
 
+def nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """float32 tensors NaN at the same cells and bit for bit everywhere
+    else."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bits_equal(torch.where(na, 0.0, a),
+                                                    torch.where(nb, 0.0, b))
+
+
+def check_mode_sums(mode: str, fit: str, K: int, F: int, N: int, nodes: int, seed: int) -> dict:
+    """A histogram mode's external-scale entry (K5's ``build_histograms_i8_sums``
+    for "int8", K4's ``build_histograms_bf16_i64`` for "i8bf16") at one
+    shape, with the rows split in two halves at one global scale (K5: the
+    halves' ``amax_parts`` max-reduced; K4: their ``digit_maxabs``): each
+    half bit for bit its plain twin, the halves' sums adding up to the
+    whole's launch, and the total converted once (``from_i8_sums`` /
+    ``from_bf16_sums``) the single-device float32 launch of the mode bit for
+    bit, NaN at the same cells: the last lane's NaN g makes K5's g channel
+    NaN and every K4 cell of the lane (its sums zeros). Times: the wrapper,
+    the launch alone on prepared digits, the plain twin, one int64
+    ``scatter_add_`` yardstick and the bound."""
+    row, _, entry, twin, C, _ = MODE_SUMS[mode]
+    int8 = mode == "int8"
+    f32 = MODE_KERNELS[mode][2]
+    binned, node_q, gh = hist_inputs(K, F, N, nodes, seed)
+    gh[K - 1, N // 3, 0] = float("nan")
+    halves = [slice(0, N // 2), slice(N // 2, N)]
+    part = [(binned[:, :, h].contiguous(), node_q[:, h].contiguous(), gh[:, h].contiguous())
+            for h in halves]
+    if int8:
+        scale = hist_cuda.amax_of(torch.maximum(*[hist_cuda.amax_parts(g) for _, _, g in part]))
+        convert = lambda t: hist_cuda.from_i8_sums(t, scale)  # noqa: E731
+    else:
+        scale = torch.maximum(*[hist_cuda.digit_maxabs(g) for _, _, g in part]).contiguous()
+        convert = lambda t: hist_cuda.from_bf16_sums(t, scale, N)  # noqa: E731
+    sums = [entry(b, i, g, nodes, N_BINS_TOT, scale, N) for b, i, g in part]
+    twins = [twin(b, i, g, nodes, N_BINS_TOT, scale, N) for b, i, g in part]
+    whole = entry(binned, node_q, gh, nodes, N_BINS_TOT, scale, N)
+    torch.cuda.synchronize()
+    twin_equal = all(torch.equal(a, b) for a, b in zip(sums, twins))
+    adds_up = torch.equal(sums[0] + sums[1], whole)
+    got = convert(sums[0] + sums[1])
+    want = f32(binned, node_q, gh, nodes, N_BINS_TOT)
+    f32_equal = nan_equal(got, want)
+    strict = bits_equal(got, want)
+    if int8:
+        nan_lane = (bool(torch.isnan(got[K - 1, ..., 0]).all())
+                    and bool(torch.isfinite(got[K - 1, ..., 1]).all()))
+    else:
+        nan_lane = bool((whole[K - 1] == 0).all()) and bool(torch.isnan(got[K - 1]).all())
+    others_finite = bool(torch.isfinite(got[:K - 1]).all())
+    tag = f"{row} ({mode}) {fit} K={K} F={F} N={N} nodes={nodes}"
+    log(f"  {tag}: each half bit for bit its plain twin {twin_equal}; the halves add up to the "
+        f"whole {adds_up}; converted, the float32 {MODE_KERNELS[mode][0]} launch bit for bit "
+        f"with NaN at the same cells {f32_equal} (every bit, NaN payloads included: {strict}); "
+        f"the NaN lane as on one device {nan_lane}; the other lanes finite {others_finite}")
+    if not (twin_equal and adds_up and f32_equal and nan_lane and others_finite):
+        raise AssertionError(f"{tag} failed its checks")
+    digits, sc = hist_cuda.launch_inputs(int8, gh, scale)
+    out = torch.empty_like(whole)
+    log2n = hist_cuda._log2_ceil(N)
+    launch_ms = cuda_ms(lambda: hist_cuda.launch_mode_kernel(
+        int8, binned, node_q, digits, sc, out, nodes, N_BINS_TOT, log2n), reps=50)
+    torch.cuda.synchronize()
+    if not torch.equal(out, whole):
+        raise AssertionError(f"{tag}: the launch alone disagrees with the wrapper")
+    ms = cuda_ms(lambda: entry(binned, node_q, gh, nodes, N_BINS_TOT, scale, N), reps=50)
+    plain_ms = cuda_ms(lambda: twin(binned, node_q, gh, nodes, N_BINS_TOT, scale, N), reps=3,
+                       warmup=1)
+    # the yardstick: one int64 scatter_add_ of the rows' C integer digit
+    # values into every (lane, feature, node, bin) cell (the values and the
+    # cell ids are set-up, untimed)
+    if int8:
+        vals = digits.long()
+    else:
+        vals, _, _ = hist_cuda._fixed_point(digits.float(), scale, N)
+    n_seg = nodes * N_BINS_TOT
+    nq = node_q.long()
+    active = (nq >= 0) & (nq < nodes)
+    kf = torch.arange(K * F, device="cuda").view(K, F, 1) * n_seg
+    idx = torch.where(active[:, None, :], kf + nq[:, None, :] * N_BINS_TOT + binned.long(),
+                      K * F * n_seg).reshape(-1, 1).expand(-1, C)
+    v = vals[:, None, :, :].expand(K, F, N, C).reshape(-1, C)
+    sink = torch.zeros(K * F * n_seg + 1, C, dtype=torch.int64, device="cuda")
+    library_ms = cuda_ms(lambda: sink.scatter_add_(0, idx, v), reps=20)
+    # bins, node ids, the digits (K5 8 B a row, K4 12 B) and the scale in,
+    # the C integer sums (K5 4 B each, K4 8 B) out; C adds per active
+    # (row, feature)
+    out_bytes = 4 if int8 else 8
+    n_bytes = (K * F * N * 2 + K * N * 4 + K * N * (8 if int8 else 12) + K * C * 4
+               + K * F * n_seg * C * out_bytes)
+    n_ops = float(C) * F * float(active.sum())
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
+    res = {"mode": mode, "fit": fit, "K": K, "F": F, "N": N, "nodes": nodes,
+           "max_abs_err": 0.0, "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(f"  {tag} times: kernel_ms={ms:.4f} launch_ms={launch_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"library_ms={library_ms:.4f} (one int64 scatter_add_ of the {C} digit values, a "
+        f"yardstick the port never calls) bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: "
+        f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M adds)")
+    return res
+
+
 def check_training_kernel_vs_plain(device) -> None:
     """A small fit with K1 twice and once with the kernel's arithmetic in
     plain PyTorch (``build_histograms_fixed``): the three forests must be
@@ -1335,7 +1470,8 @@ def run_mode_training(mode: str, trained: dict, dev) -> dict:
         f"{'ok' if win.best_f1 >= F1_GATE else 'FAIL'}")
     if win.best_f1 < F1_GATE:
         raise AssertionError(f"[{mode}] v92d OOF F1 {win.best_f1:.4f} below the gate {F1_GATE}")
-    return {"launches": launches, "oof_f1": win.best_f1, "total_s": out.timings["total"]}
+    return {"launches": launches, "oof_f1": win.best_f1, "total_s": out.timings["total"],
+            "out": out}
 
 
 def agreement(got: np.ndarray, want: np.ndarray) -> float:
@@ -1752,8 +1888,8 @@ def run_policies(trained: dict, runners: dict, dev) -> dict:
 
     runs = {
         "v118": lambda: with_rounds(cv(V118_PARAMS), V118_PARAMS.max_depth, 0),
-        "v110": lambda: with_rounds(cv(V110_PARAMS), 0, L),
-        "v111": lambda: with_rounds(cv(V111_PARAMS), 0, L),
+        "v110": lambda: with_rounds(cv(V110_PARAMS._replace(n_rounds=POLICY_LG_ROUNDS)), 0, L),
+        "v111": lambda: with_rounds(cv(V111_PARAMS._replace(n_rounds=POLICY_LG_ROUNDS)), 0, L),
         "v62": v62,
     }
     rows, k1_all, k3_all = {}, 0, 0
@@ -1779,7 +1915,7 @@ def run_policies(trained: dict, runners: dict, dev) -> dict:
         rows[name] = {"s": secs, "rounds": rounds, "oof_f1": f1, "threshold": thr,
                       "test_f1": test_f1, "k1": k1, "k3": k3, "oof": oof, "test": test,
                       **extra}
-    if rows["v111"]["rounds"] != [V111_PARAMS.n_rounds]:
+    if rows["v111"]["rounds"] != [POLICY_LG_ROUNDS]:
         raise AssertionError("v111 (DART) did not run every round")
     # v119: stacking over the v34a, v110 and v118 CVs (cli/main.py's bases)
     v34a = runners["v34a"]
@@ -1816,7 +1952,11 @@ FIT_COST_COLUMNS = {"tde_models": [f"{b}_tde_fit_chi2" for b in LSST_BANDS],
                     "advanced_physics": [f"temp_chi2_epoch_{int(e)}d"
                                          for e in advanced_physics.TEMP_EPOCHS]}
 # HPO: TPE over DEFAULT_SPACE on the v92d matrix, then depth 8
-HPO_TRIALS, HPO_STARTUP, HPO_ROUNDS, HPO_SEED = 8, 4, 200, 19
+# HPO's trials and the depth-8 CVs at 100 rounds, the backbone-plus-family
+# experiments at 250 of V34A_PARAMS' 500 (cut to pay for the mesh phase's
+# histogram modes)
+HPO_TRIALS, HPO_STARTUP, HPO_ROUNDS, HPO_SEED = 8, 4, 100, 19
+FAMILY_ROUNDS = 250
 DEPTH8_ROUNDS = 10  # the depth-8 single fits held against K1's fixed-point twin
 
 
@@ -1981,7 +2121,7 @@ def run_families(trained: dict, ensemble: dict, runners: dict, dev) -> dict:
         hist_cuda.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cv = train_cv(Xtr2, y, Xte2, V34A_PARAMS, device=dev)
+        cv = train_cv(Xtr2, y, Xte2, V34A_PARAMS._replace(n_rounds=FAMILY_ROUNDS), device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         k1, want_k1 = hist_cuda.launches, V34A_PARAMS.max_depth * cv.rounds_run
@@ -2171,7 +2311,7 @@ GP1D_K2_SHAPES = ((12288, 40), (12287, 40), (12288, 48))
 WARP_SHARE = 0.98  # DTW's warp fractions equal on at least this share of lanes
 # rounds of each families 2 experiment (V34A_PARAMS' 500 cut to pay for the
 # mesh phase)
-FAMILY2_ROUNDS = 250
+FAMILY2_ROUNDS = 150
 AUG_KEY = 20  # augment_dataset's key: prng.PRNGKey(AUG_KEY)
 AUG_RTOL = 1e-5
 
@@ -2671,6 +2811,9 @@ def run_cli(trained: dict, dev, work: Path) -> dict:
 # this), the leaf-wise v114d CV's, and the sharded extraction's chunks
 # (the single-device bundle's, so that each chunk's GP width is the same)
 MESH_ROUNDS, MESH_LG_ROUNDS, MESH_CHUNK = 50, 10, 2048
+# the histogram modes' v92d CVs on the two gloo ranks: each round
+# all-reduces 2x (K5) and 3x (K4) K1's int64 bytes through pinned host memory
+MESH_MODE_ROUNDS = 15
 # a sharded forest against the single-device one (tests/test_sharded_training.py:35-45,
 # :107-122): leaf values, eval history; the extraction's bars
 # (tests/test_sharded_pipeline.py:42-56) and Bazin's share of close lanes
@@ -2679,19 +2822,22 @@ MESH_FEAT_TOL, MESH_BAZIN_TOL, MESH_BAZIN_SHARE = (2e-4, 1e-5), (1e-3, 1e-4), 0.
 V92D_GRID = np.linspace(0.05, 0.5, 200)  # run_v92's threshold grid
 
 
-def mesh_v92(mesh, X224, y, names, X224_te):
-    """``run_v92``'s v92d variant with every CV on ``mesh``."""
+def mesh_v92(mesh, X224, y, names, X224_te, mode="i8full"):
+    """``run_v92``'s v92d variant with every CV on ``mesh``, every fit in
+    the histogram mode ``mode``."""
     from mallorn_tpu_torch.train.pipelines import V92D_ONLY, run_v92
 
-    return run_v92(X224, y, names, X224_te, params=V34A_PARAMS, variants=V92D_ONLY,
+    return run_v92(X224, y, names, X224_te, params=V34A_PARAMS._replace(hist_dtype=mode),
+                   adv_params=ADV_PARAMS._replace(hist_dtype=mode), variants=V92D_ONLY,
                    mesh=mesh)
 
 
 def mesh_ranks(mesh, X, y, w, packed, meta):
     """The mesh phase on each of its gloo ranks: the v92d CV at MESH_ROUNDS,
-    one v114d leaf-wise CV at MESH_LG_ROUNDS, and the train split's v34a
-    families extracted with the objects split over the ranks. Returns rank
-    0's results with every rank's launches, bytes and seconds."""
+    one v114d leaf-wise CV at MESH_LG_ROUNDS, the train split's v34a
+    families extracted with the objects split over the ranks, and the v92d
+    CV at MESH_MODE_ROUNDS in each histogram mode. Returns rank 0's results
+    with every rank's launches, bytes and seconds."""
     from mallorn_tpu_torch.parallel.pipeline import extract_v34a_bundle_sharded
 
     def counted(fn):
@@ -2702,12 +2848,15 @@ def mesh_ranks(mesh, X, y, w, packed, meta):
         with mesh.record() as calls:
             res = fn()
         torch.cuda.synchronize()
-        hist_bytes = sum(b for k, s, b in calls if k == "all_reduce_sum" and s.startswith("int64"))
+        hist_bytes = sum(b for k, s, b in calls
+                         if k == "all_reduce_sum" and s.startswith(("int64", "int32")))
         return res, [time.perf_counter() - t0, hist_cuda.i64_launches,
                      hist_cuda.seg_i64_launches,
                      hist_cuda.launches + hist_cuda.seg_launches,
                      chol_cuda.launches + chol_cuda.cluster_launches + chol_cuda.large_launches,
-                     hist_bytes, sum(b for _, _, b in calls), len(calls)]
+                     hist_bytes, sum(b for _, _, b in calls), len(calls),
+                     hist_cuda.bf16_i64_launches + hist_cuda.i8_sums_launches,
+                     hist_cuda.bf16_launches + hist_cuda.i8_launches]
 
     cv, c_cv = counted(lambda: train_cv(
         X, y, None, V34A_PARAMS._replace(n_rounds=MESH_ROUNDS), sample_weight=w,
@@ -2717,9 +2866,15 @@ def mesh_ranks(mesh, X, y, w, packed, meta):
         threshold_grid=V92D_GRID, mesh=mesh))
     bundle, c_ex = counted(lambda: extract_v34a_bundle_sharded(
         mesh, packed, meta, GP_STEPS, chunk_size=MESH_CHUNK))
-    stats = torch.tensor([c_cv, c_lg, c_ex], dtype=torch.float64, device=mesh.device)
+    modes, c_modes = {}, []
+    for mode in MODES:
+        modes[mode], c = counted(lambda: train_cv(
+            X, y, None, V34A_PARAMS._replace(n_rounds=MESH_MODE_ROUNDS, hist_dtype=mode),
+            sample_weight=w, threshold_grid=V92D_GRID, mesh=mesh))
+        c_modes.append(c)
+    stats = torch.tensor([c_cv, c_lg, c_ex, *c_modes], dtype=torch.float64, device=mesh.device)
     per_rank = mesh.all_gather(stats[None]).cpu().numpy()
-    return {"cv": cv, "lg": lg, "per_rank": per_rank,
+    return {"cv": cv, "lg": lg, "modes": modes, "per_rank": per_rank,
             "bundle": {f: {k: v.cpu() for k, v in fs.items()} for f, fs in bundle.items()}}
 
 
@@ -2745,7 +2900,7 @@ def forests_close(name: str, got, want) -> bool:
     return exact
 
 
-def run_mesh(trained: dict, workspace, dev) -> dict:
+def run_mesh(trained: dict, mode_runs: dict, workspace, dev) -> dict:
     """The mesh phase: (a) ``run_v92`` on a world-size-1 NCCL mesh in this
     process (forests bit for bit the training phase's, K1's external-scale
     entry launched rounds x depth times); (b) two gloo ranks on this card:
@@ -2753,7 +2908,12 @@ def run_mesh(trained: dict, workspace, dev) -> dict:
     single-device fits, (c) the train split's sharded extraction against
     the training phase's bundle; (d) ``train --config v34a --mesh 1`` in the
     command line phase's workspace, its result JSON equal to that phase's,
-    and ``--mesh 2`` refused."""
+    and ``--mesh 2`` refused; (e) ``run_v92`` in each histogram mode on a
+    world-size-1 NCCL mesh, on the inputs of the histogram modes phase's
+    run of that mode (forests bit for bit that run's, the mode's
+    external-scale entry launched rounds x depth times and its float32
+    kernel never); (f) on the two gloo ranks of (b), the v92d CV at
+    MESH_MODE_ROUNDS in each mode, bit for bit its single-device fit."""
     from mallorn_tpu_torch.cli.main import main as cli_main
     from mallorn_tpu_torch.parallel.mesh import default_mesh, launch
 
@@ -2785,6 +2945,41 @@ def run_mesh(trained: dict, workspace, dev) -> dict:
     if (not same or v92.winner.best_f1 != out.winner.best_f1 or hist_cuda.i64_launches != want
             or hist_cuda.launches or default_mesh() is not None):
         raise AssertionError("(a) the world-size-1 mesh differs from the training phase")
+
+    # (e) the histogram modes at world size 1 over NCCL, on the inputs of
+    # the histogram modes phase's run of each mode
+    res["ws1_modes"] = {}
+    for mode in MODES:
+        mo = mode_runs[mode]["out"]
+        row, counter = MODE_SUMS[mode][:2]
+        Xm, names_m = assemble_v34a_matrix(mo.bundles[0], mo.selection.selected)
+        Xm_te, _ = assemble_v34a_matrix(mo.bundles[1], mo.selection.selected)
+        hist_cuda.reset_launches()
+        t0 = time.perf_counter()
+        vm = launch(mesh_v92, 1, (Xm.cpu().numpy(), y, names_m, Xm_te.cpu().numpy(), mode),
+                    device=dev, spawn=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ext = getattr(hist_cuda, counter)
+        f32 = hist_cuda.launches + hist_cuda.bf16_launches + hist_cuda.i8_launches
+        want = (ADV_PARAMS.max_depth * mo.rounds_run["adversarial"]
+                + V34A_PARAMS.max_depth * mo.rounds_run["v92d"])
+        same = (len(vm.winner.models) == len(mo.winner.models)
+                and all(forests_bits_equal(a.forest, b.forest)
+                        for a, b in zip(vm.winner.models, mo.winner.models))
+                and all(np.array_equal(a.eval_history, b.eval_history)
+                        for a, b in zip(vm.winner.models, mo.winner.models)))
+        res["ws1_modes"][mode] = {"s": secs, "launches": ext, "oof_f1": vm.winner.best_f1}
+        log(f"  (e) [{mode}] run_v92 on a world-size-1 NCCL mesh, {len(vm.feature_names)} "
+            f"columns, {len(vm.winner.models)} folds: {secs:.3f} s; v92d forests and eval histories bit "
+            f"for bit the histogram modes phase's: {same}; OOF F1 {vm.winner.best_f1:.4f} "
+            f"(single-device {mo.winner.best_f1:.4f}, gate {F1_GATE}); adversarial AUC "
+            f"{vm.adversarial.auc:.4f} ({mo.adversarial.auc:.4f}); {row} launches {ext} "
+            f"(rounds x depth predicts {want}), float32 histogram launches {f32}")
+        if (not same or vm.winner.best_f1 != mo.winner.best_f1 or vm.winner.best_f1 < F1_GATE
+                or ext != want or f32 or default_mesh() is not None):
+            raise AssertionError(f"(e) [{mode}] the world-size-1 mesh differs from the "
+                                 f"single-device run")
 
     # (b), (c) two gloo ranks on this card
     keep = [i for i, n in enumerate(names224) if n not in SHIFT_FEATURES]
@@ -2847,6 +3042,34 @@ def run_mesh(trained: dict, workspace, dev) -> dict:
     res.update(k1_ranks=pr[:, 0, 1].astype(int).tolist(), k3_ranks=pr[:, 1, 2].astype(int).tolist(),
                k2_ranks=pr[:, 2, 4].astype(int).tolist(),
                bytes_per_round=float(pr[0, 0, 5] / cv_rounds))
+
+    # (f) the histogram modes' v92d CVs on the two gloo ranks
+    res["mode_ranks"] = {}
+    for i, mode in enumerate(MODES):
+        st = 3 + i
+        row = MODE_SUMS[mode][0]
+        got = r["modes"][mode]
+        ref = train_cv(X, y, None, V34A_PARAMS._replace(n_rounds=MESH_MODE_ROUNDS,
+                                                        hist_dtype=mode),
+                       sample_weight=w, threshold_grid=V92D_GRID, device=dev)
+        rounds = got.rounds_run
+        want = rounds * V34A_PARAMS.max_depth
+        log(f"  (f) [{mode}] the v92d CV at {MESH_MODE_ROUNDS} rounds on the two gloo ranks: "
+            f"rank seconds {pr[:, st, 0].round(3)}; OOF F1 {got.best_f1:.4f} / single-device "
+            f"{ref.best_f1:.4f}")
+        for rank in range(2):
+            log(f"    rank {rank}: {row} launches {int(pr[rank, st, 8])} ({rounds} rounds x "
+                f"{V34A_PARAMS.max_depth} predicts {want}), float32 histogram launches "
+                f"{int(pr[rank, st, 9] + pr[rank, st, 3])}; integer bytes all-reduced per "
+                f"round {pr[rank, st, 5] / rounds:,.0f}; {int(pr[rank, st, 7])} collectives")
+        bits = forests_close(f"[{mode}] v92d CV", got.models, ref.models)
+        log(f"  (f) [{mode}] every sharded forest and eval history bit for bit the "
+            f"single-device one: {bits}")
+        if (not bits or (pr[:, st, 8] != want).any() or (pr[:, st, [3, 9]] != 0).any()
+                or got.best_f1 != ref.best_f1):
+            raise AssertionError(f"(f) [{mode}] the two-rank CV differs from single-device")
+        res["mode_ranks"][mode] = {"launches": pr[:, st, 8].astype(int).tolist(),
+                                   "bytes_per_round": float(pr[0, st, 5] / rounds)}
 
     # (d) the command line on the mesh
     if workspace is not None:
@@ -3087,6 +3310,9 @@ def main() -> int:
         i64_results = [check_hist_i64(kernel, fit, K, F, N, k, seed=9000 + 17 * i + k)
                        for i, (kernel, fit, K, F, N, nodes) in enumerate(I64_SHAPES)
                        for k in nodes]
+        mode_sum_results = {mode: [check_mode_sums(mode, fit, K, F, N, k, seed=9500 + 17 * i)
+                                   for i, (fit, K, F, N, k) in enumerate(MODE_SUM_SHAPES)]
+                            for mode in MODES}
 
     with Phase("kernel against plain in training"):
         check_training_kernel_vs_plain(dev)
@@ -3124,7 +3350,7 @@ def main() -> int:
             cli = run_cli(trained, dev, cli_work)
 
         with Phase("mesh"):
-            mesh = run_mesh(trained, cli_work, dev)
+            mesh = run_mesh(trained, mode_runs, cli_work, dev)
     finally:
         shutil.rmtree(cli_work, ignore_errors=True)
 
@@ -3275,6 +3501,29 @@ def main() -> int:
             "ms": r["ms"], "kernel_only_ms": r["kernel_only_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
+        })
+    # the histogram modes' external-scale entries (the mesh's K5 / K4): the
+    # v92d CV's deepest level, launches from the mesh phase ((e)'s world size
+    # 1 plus (f)'s every rank), the multiclass shape beside it; max_abs_err
+    # against the plain twin (integer sums, bit for bit)
+    for mode in MODES:
+        row, _, _, _, _, replaces = MODE_SUMS[mode]
+        r, rm = mode_sum_results[mode]
+        kernels.append({
+            "name": row, "route": "cuda",
+            "source": "mallorn_tpu_torch/csrc/hist.cu",
+            "replaces": replaces,
+            "launches": mesh["ws1_modes"][mode]["launches"]
+            + sum(mesh["mode_ranks"][mode]["launches"]),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "launch_ms": r["launch_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
+            "mesh_launches": {"world_size_1_nccl": mesh["ws1_modes"][mode]["launches"],
+                              "two_gloo_ranks": mesh["mode_ranks"][mode]["launches"]},
+            "bytes_per_round": mesh["mode_ranks"][mode]["bytes_per_round"],
+            "shapes": [{k: q[k] for k in ("fit", "K", "F", "N", "nodes", "ms", "launch_ms",
+                                          "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                       for q in (r, rm)],
         })
     # the factor-only Cholesky's rows: the blocked kernel at the GP's batch
     # and T = 160, the cluster kernel at B = 64, T = 400, the tiled kernel at

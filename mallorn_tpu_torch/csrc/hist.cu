@@ -1,8 +1,8 @@
 // (grad, hess) histograms of the GBDT, batched over folds or lanes: the
 // depthwise level histogram (K1) and the leaf-wise segment histogram (K3),
 // one kernel template (group_hist_kernel<kLevel, kChunked, kExternal>), and the depthwise fit's
-// two histogram modes (K4 / K5, mode_hist_kernel, further down), all
-// shared-memory integer histograms.
+// two histogram modes (K4 / K5, mode_hist_kernel<kInt8, kExternal>, further
+// down), all shared-memory integer histograms.
 //
 // K1 (group_hist_kernel<true, .>) replaces mallorn_tpu/ops/hist_pallas.py:
 // _fullhot_kernel (the Pallas kernel behind build_histograms_fullhot), with
@@ -591,11 +591,12 @@ int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, voi
 
 // ---------------------------------------------------------------------------
 // K4 / K5: the depthwise fit's histogram modes (GBDTParams.hist_dtype
-// "bf16" / "i8bf16" and "int8"), one template: mode_hist_kernel<kInt8>.
+// "bf16" / "i8bf16" and "int8"), one template: mode_hist_kernel<kInt8,
+// kExternal>.
 //
-// K4 (mode_hist_kernel<false>) replaces mallorn_tpu/ops/hist_pallas.py:
+// K4 (mode_hist_kernel<false, .>) replaces mallorn_tpu/ops/hist_pallas.py:
 // _binlane_kernel (behind build_histograms_binlane); K5
-// (mode_hist_kernel<true>) replaces _binlane_kernel_i8 (behind
+// (mode_hist_kernel<true, .>) replaces _binlane_kernel_i8 (behind
 // build_histograms_binlane_i8). Both keep K1's contract: for fold k,
 // feature f, node c < k_nodes and bin b < n_bins_tot,
 //   out[k, f, c, b, ch] = sum_r [nodes[k, r] == c] [binned[k, f, r] == b] x_ch(r)
@@ -650,6 +651,21 @@ int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, voi
 // (8 int32 or 6 int64 per active row and feature, serialised where rows
 // share a bin, as in a crowded missing bin) and on zeroing and writing the
 // whole histogram.
+//
+// The external scale (kExternal; mallorn_hist_bf16 / mallorn_hist_i8 given
+// external = 1) serves a fit whose rows are split over ranks, as K1's does:
+// every rank's digits must sit on one grid, and the ranks add integers, not
+// floats. K5: the caller quantizes (g, h) at the s of every rank's rows
+// (max |x| max-reduced), and the kernel writes each cell's eight raw digit
+// sums [K, F, k_nodes, n_bins_tot, 8] int32 (32 B a cell; exact up to 2^25
+// global rows, which the launch enforces). K4: each digit channel's scale
+// comes from the caller's max |digit| [K, 6] (every rank's) and log2 of the
+// global row count, and the kernel writes the six raw int64 sums [.., 6]
+// (48 B a cell; zeros in a lane whose maxima are not finite). The
+// all-reduced sums, converted once (hist_cuda.from_i8_sums: the
+// recombination above; hist_cuda.from_bf16_sums: one conversion per digit
+// channel, then (S0 + S1) + S2), are the single-device histograms bit for
+// bit. The accumulation is the float32 launch's; only the epilogue differs.
 
 // 512 threads per CTA: an SM holds 3 (K5) or 2 (K4) CTAs of 65,792 /
 // 98,688 B, 1,536 / 1,024 threads; of 256, 512 and 1,024, 512 was the
@@ -673,12 +689,11 @@ struct ModeTraits<true> {  // K5
   using Cell = int;
 };
 
-template <bool kInt8>
+template <bool kInt8, bool kExternal>
 __global__ void __launch_bounds__(kModeThreads)
 mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ nodes,
                  const void* __restrict__ digits, const float* __restrict__ scale,
-                 float* __restrict__ out, int F, int N, int k_nodes, int n_bins_tot,
-                 int log2n) {
+                 void* __restrict__ out, int F, int N, int k_nodes, int n_bins_tot, int log2n) {
   constexpr int C = ModeTraits<kInt8>::kChannels;
   extern __shared__ uint4 smem[];
   const int f = blockIdx.x;
@@ -688,12 +703,14 @@ mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__
   const int n_seg = n_nodes * n_bins_tot;
   const int16_t* b = binned + (static_cast<size_t>(k) * F + f) * N;
   const int32_t* nd = nodes + static_cast<size_t>(k) * N;
-  // output cell i = (node, bin) * 2 + channel: its digit cells are
-  // acc[i * C / 2 .. + C / 2), the group's output one contiguous run
-  float* o = out + ((static_cast<size_t>(k) * F + f) * k_nodes + node0) * n_bins_tot * 2;
-  const int n_out = n_seg * 2;
+  // the group's first (node, bin) cell of out; its cells are one contiguous
+  // run of n_seg: float32 (g, h) pairs, or kExternal's C raw sums each
+  const size_t cell0 = ((static_cast<size_t>(k) * F + f) * k_nodes + node0) * n_bins_tot;
+  float* o = static_cast<float*>(out) + cell0 * 2;
+  const int n_out = n_seg * 2;  // output cell i = (node, bin) * 2 + channel
 
   if constexpr (kInt8) {
+    // cell s's digit sums: acc[8 s .. 8 s + 8), g's four then h's, one int4 each
     int* acc = reinterpret_cast<int*>(smem);
     for (int i = threadIdx.x; i < n_seg * C / 4; i += kModeThreads)
       smem[i] = make_uint4(0u, 0u, 0u, 0u);
@@ -714,6 +731,13 @@ mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__
                                });
     __syncthreads();
 
+    if constexpr (kExternal) {
+      // the raw digit sums, [n_seg, 8] int32, two int4 stores per cell
+      int4* oi = static_cast<int4*>(out) + cell0 * 2;
+      for (int i = threadIdx.x; i < n_out; i += kModeThreads)
+        oi[i] = reinterpret_cast<const int4*>(acc)[i];
+      return;
+    }
     constexpr float kInvQ = 1.0f / 67108864.0f;  // 2^-26, exact
     const float sg = __fmul_rn(scale[2 * k], kInvQ), sh = __fmul_rn(scale[2 * k + 1], kInvQ);
     for (int i = threadIdx.x; i < n_out; i += kModeThreads) {
@@ -740,6 +764,14 @@ mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__
         inv);
 
     const unsigned long long* acc = reinterpret_cast<const unsigned long long*>(smem);
+    if constexpr (kExternal) {
+      // the raw int64 sums, [n_seg, 6], three 16-byte stores per cell
+      // (zeros where a channel's maximum is not finite: nothing was added)
+      ulonglong2* oi = static_cast<ulonglong2*>(out) + cell0 * 3;
+      for (int i = threadIdx.x; i < n_seg * 3; i += kModeThreads)
+        oi[i] = finite ? reinterpret_cast<const ulonglong2*>(acc)[i] : make_ulonglong2(0ull, 0ull);
+      return;
+    }
     for (int i = threadIdx.x; i < n_out; i += kModeThreads) {
       const unsigned long long* a = acc + 3 * i;
       const int c0 = 3 * (i & 1);
@@ -750,25 +782,40 @@ mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__
   }
 }
 
-template <bool kInt8>
+// K5 holds its digit sums in int32: |digit| <= 64 (d3's |d3| <= 32), so a
+// cell is exact up to 2^25 rows, the most an external launch may count
+constexpr int kMaxLog2RowsI8 = 25;
+
+// The mode kernel's launch. kExternal: scale is the caller's (K4: every
+// rank's max |digit| [K, 6]; K5: unread, the digits were quantized at the
+// global s) and log2n that of the global row count (at least ceil(log2 N);
+// at most 62 for K4, 25 for K5), and out is the raw integer sums [K, F,
+// k_nodes, n_bins_tot, C] (K4 int64, K5 int32); otherwise out is float32
+// [.., 2] and log2n = ceil(log2 N).
+template <bool kInt8, bool kExternal>
 int launch_mode(const int16_t* binned, const int32_t* nodes, const void* digits,
-                const float* scale, float* out, int K, int F, int N, int k_nodes,
-                int n_bins_tot, void* stream) {
+                const float* scale, void* out, int K, int F, int N, int k_nodes,
+                int n_bins_tot, int log2n, void* stream) {
   using Tr = ModeTraits<kInt8>;
   if (K <= 0 || F <= 0 || k_nodes <= 0 || n_bins_tot <= 0) return 0;
+  if (!kExternal) {
+    log2n = ceil_log2(N);
+  } else if (log2n < ceil_log2(N) || log2n > (kInt8 ? kMaxLog2RowsI8 : 62)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int group = k_nodes < kModeNodes ? k_nodes : kModeNodes;
   const size_t smem =
       static_cast<size_t>(group) * n_bins_tot * Tr::kChannels * sizeof(typename Tr::Cell);
   const int node_groups = (k_nodes + kModeNodes - 1) / kModeNodes;
   if (smem > static_cast<size_t>(kMaxSmemBytes) || K > 65535 || node_groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(mode_hist_kernel<kInt8>,
+  cudaError_t err = cudaFuncSetAttribute(mode_hist_kernel<kInt8, kExternal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mode_hist_kernel<kInt8><<<dim3(F, K, node_groups), kModeThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      binned, nodes, digits, scale, out, F, N, k_nodes, n_bins_tot, ceil_log2(N));
+  mode_hist_kernel<kInt8, kExternal><<<dim3(F, K, node_groups), kModeThreads, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      binned, nodes, digits, scale, out, F, N, k_nodes, n_bins_tot, log2n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -810,18 +857,28 @@ extern "C" int mallorn_hist(const int16_t* binned, const int32_t* node_q, const 
                 chunk_nodes, n_bins_tot, group, tile_rows, maxabs, log2n, stream);
 }
 
-// K4: digits [K, N, 6] bf16, maxabs [K, 6] float32 (max |digit| per channel)
+// K4: digits [K, N, 6] bf16, maxabs [K, 6] float32 (max |digit| per
+// channel). external 0: the fold's own maxima and ceil(log2 N), out float32
+// [K, F, k_nodes, n_bins_tot, 2]; external 1: every rank's maxima and log2n
+// of the global row count, out the raw int64 sums [K, F, k_nodes,
+// n_bins_tot, 6] (zeros in a lane whose maxima are not finite)
 extern "C" int mallorn_hist_bf16(const int16_t* binned, const int32_t* nodes,
-                                 const void* digits, const float* maxabs, float* out, int K,
-                                 int F, int N, int k_nodes, int n_bins_tot, void* stream) {
-  return launch_mode<false>(binned, nodes, digits, maxabs, out, K, F, N, k_nodes, n_bins_tot,
-                            stream);
+                                 const void* digits, const float* maxabs, void* out, int K,
+                                 int F, int N, int k_nodes, int n_bins_tot, int external,
+                                 int log2n, void* stream) {
+  const auto launch = external ? launch_mode<false, true> : launch_mode<false, false>;
+  return launch(binned, nodes, digits, maxabs, out, K, F, N, k_nodes, n_bins_tot, log2n, stream);
 }
 
-// K5: digits [K, N, 8] int8, scale [K, 2] float32 (s per channel)
+// K5: digits [K, N, 8] int8, scale [K, 2] float32 (s per channel).
+// external 0: out float32 [K, F, k_nodes, n_bins_tot, 2]; external 1: the
+// digits were quantized at every rank's s (scale unread), out the raw
+// int32 digit sums [K, F, k_nodes, n_bins_tot, 8], refused beyond 2^25
+// global rows (log2n)
 extern "C" int mallorn_hist_i8(const int16_t* binned, const int32_t* nodes,
-                               const void* digits, const float* scale, float* out, int K,
-                               int F, int N, int k_nodes, int n_bins_tot, void* stream) {
-  return launch_mode<true>(binned, nodes, digits, scale, out, K, F, N, k_nodes, n_bins_tot,
-                           stream);
+                               const void* digits, const float* scale, void* out, int K,
+                               int F, int N, int k_nodes, int n_bins_tot, int external,
+                               int log2n, void* stream) {
+  const auto launch = external ? launch_mode<true, true> : launch_mode<true, false>;
+  return launch(binned, nodes, digits, scale, out, K, F, N, k_nodes, n_bins_tot, log2n, stream);
 }

@@ -38,8 +38,9 @@ skipped like an inactive row.
   K3's and K4's; K5's plain version is its kernel's arithmetic already).
 - ``launches`` counts K1's launches (``launches_by_nodes`` per level
   width), ``seg_launches`` K3's,
-  ``bf16_launches`` K4's and ``i8_launches`` K5's, ``i64_launches`` and
-  ``seg_i64_launches`` the external-scale entries' (plain calls do not
+  ``bf16_launches`` K4's and ``i8_launches`` K5's, ``i64_launches``,
+  ``seg_i64_launches``, ``bf16_i64_launches`` and ``i8_sums_launches``
+  the external-scale entries' of K1, K3, K4 and K5 (plain calls do not
   count).
 
 K1 and K3 also have an external-scale entry for a fit whose rows are
@@ -52,7 +53,8 @@ restricted to the rank's rows, so their all-reduced total, converted once
 plain twins are ``build_histograms_i64_fixed`` and
 ``build_seg_histograms_i64_fixed`` (``build_histograms_fixed`` and
 ``build_seg_histograms_fixed`` are the twins of all rows at their own
-scale, converted).
+scale, converted). K4 and K5 have theirs too, in their section:
+``build_histograms_bf16_i64`` and ``build_histograms_i8_sums``.
 
 K1 and K3 run one kernel, ``csrc/hist.cu`` ``group_hist_kernel`` (its note
 says more): K1's output is K3's with n_seg = k_nodes n_bins_tot and a
@@ -93,12 +95,15 @@ bf16_launches = 0
 i8_launches = 0
 i64_launches = 0  # K1's external-scale entry
 seg_i64_launches = 0  # K3's
+bf16_i64_launches = 0  # K4's
+i8_sums_launches = 0  # K5's
 
 
 def reset_launches() -> None:
     global launches, seg_launches, bf16_launches, i8_launches, i64_launches, seg_i64_launches
+    global bf16_i64_launches, i8_sums_launches
     launches = seg_launches = bf16_launches = i8_launches = 0
-    i64_launches = seg_i64_launches = 0
+    i64_launches = seg_i64_launches = bf16_i64_launches = i8_sums_launches = 0
     launches_by_nodes.clear()
 
 
@@ -360,20 +365,21 @@ def launch_hist_kernel(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Ten
     cuda_build.check(rc, "mallorn_hist")
 
 
-def _check_external(name: str, gh: torch.Tensor, maxabs: torch.Tensor, n_rows: int) -> int:
+def _check_external(name: str, gh: torch.Tensor, maxabs: torch.Tensor, n_rows: int,
+                    channels: int = 2, max_log2: int = 62) -> int:
     """log2 of the global row count of an external-scale call, after
-    checking ``maxabs`` [K, 2] float32 on ``gh``'s device and ``n_rows``
-    against the rows given."""
+    checking ``maxabs`` [K, channels] float32 on ``gh``'s device and
+    ``n_rows`` against the rows given (at most 2^max_log2)."""
     K, N, _ = gh.shape
-    if tuple(maxabs.shape) != (K, 2) or maxabs.dtype != torch.float32:
-        raise ValueError(f"{name}: maxabs must be [K, 2] float32, got "
+    if tuple(maxabs.shape) != (K, channels) or maxabs.dtype != torch.float32:
+        raise ValueError(f"{name}: maxabs must be [K, {channels}] float32, got "
                          f"{tuple(maxabs.shape)} {maxabs.dtype}")
     if maxabs.device != gh.device or not maxabs.is_contiguous():
         raise ValueError(f"{name}: maxabs must be contiguous on {gh.device}")
     log2n = _log2_ceil(n_rows)
-    if n_rows < N or log2n > 62:
+    if n_rows < N or log2n > max_log2:
         raise ValueError(f"{name}: n_rows = {n_rows} must count at least this call's {N} "
-                         f"rows and at most 2^62")
+                         f"rows and at most 2^{max_log2}")
     return log2n
 
 
@@ -595,6 +601,22 @@ def build_seg_histograms_i64(binned: torch.Tensor, seg_base: torch.Tensor, gh: t
 # digits row-major ([K, N, 8] int8 or [K, N, 6] bf16) and their scales
 # (``launch_inputs``), then launch (``launch_mode_kernel``).
 #
+# The external-scale entries serve a fit whose rows are split over ranks
+# (``parallel.sharded_train``), as K1's ``build_histograms_i64`` does: one
+# scale for every rank's rows, raw integer sums, an all-reduce, one
+# conversion. K5's ``build_histograms_i8_sums`` quantizes (g, h) at the s of
+# every rank's rows (``amax``: ``x.abs().amax`` over them, which the ranks
+# reach by max-reducing ``amax_parts`` and decoding with ``amax_of``) and
+# returns the int32 digit sums [K, F, k_nodes, n_bins_tot, 8] (at most 2^25
+# global rows); ``from_i8_sums`` recombines them. K4's
+# ``build_histograms_bf16_i64`` takes every rank's max |digit| [K, 6]
+# (``digit_maxabs``, a non-finite lane +inf) and the global row count and
+# returns the int64 sums [.., 6]; ``from_bf16_sums`` converts each digit
+# channel once and adds (S0 + S1) + S2. Their plain twins,
+# ``build_histograms_i8_sums_fixed`` and ``build_histograms_bf16_i64_fixed``,
+# equal them bit for bit; counters ``i8_sums_launches`` and
+# ``bf16_i64_launches``.
+#
 # Plain versions: K5's (``build_histograms_i8_plain``, ``index_add_`` of
 # the digits, ``_recombine_i8``) is bit for bit the kernel's and the JAX
 # package's. K4 has two: ``build_histograms_bf16_plain`` (float32
@@ -607,6 +629,9 @@ def build_seg_histograms_i64(binned: torch.Tensor, seg_base: torch.Tensor, gh: t
 Q_BITS = 26  # hist_pallas._Q_BITS
 MODE_NODES = 8  # nodes per CTA of the mode kernel (grid z takes the rest)
 MODE_CELL_BYTES = {False: 6 * 8, True: 8 * 4}  # per (node, bin): K4, K5
+# K5's external entry sums digits (|digit| <= 64) in int32: exact up to
+# 2^25 global rows (csrc/hist.cu kMaxLog2RowsI8)
+I8_SUMS_MAX_LOG2_ROWS = 25
 
 
 def split_gh_digits(gh: torch.Tensor) -> torch.Tensor:
@@ -622,16 +647,53 @@ def split_gh_digits(gh: torch.Tensor) -> torch.Tensor:
     return torch.stack([d0, d1, d2], dim=-1).reshape(*gh.shape[:2], 6)
 
 
-def quantize_gh_i8(gh: torch.Tensor):
+def digit_maxabs(gh: torch.Tensor) -> torch.Tensor:
+    """[K, 6] float32 max |digit| of (g, h) [K, N, 2]'s bf16 digits per lane
+    and channel, +inf in every channel of a lane with a non-finite digit
+    (``lane_maxabs``): what K4's external entry takes, max-reduced over
+    ranks."""
+    return lane_maxabs(split_gh_digits(gh).float())
+
+
+def amax_parts(gh: torch.Tensor) -> torch.Tensor:
+    """[K, 2 C] float32 of [K, N, C] values: per lane and channel the max
+    |x| over its finite values, then a code, 2 where the channel holds a
+    NaN, 1 an infinity, else 0. The elementwise max of two ranks' parts is
+    the parts of their rows together, and ``amax_of`` turns them into
+    ``x.abs().amax(dim=1)`` NaN and inf included (a max-reduce of NaN
+    itself does not agree across backends)."""
+    x = gh.float()
+    K, N, C = x.shape
+    if not N:
+        return torch.zeros(K, 2 * C, dtype=torch.float32, device=x.device)
+    fin = torch.isfinite(x)
+    m = torch.where(fin, x.abs(), 0.0).amax(dim=1)
+    code = torch.where(torch.isnan(x).any(dim=1), 2.0, (~fin).any(dim=1).float())
+    return torch.cat([m, code], dim=1).contiguous()
+
+
+def amax_of(parts: torch.Tensor) -> torch.Tensor:
+    """[K, C] float32 max |x| of ``amax_parts``' [K, 2 C] (or their
+    max-reduce): NaN where a value was NaN, else +inf where one was
+    infinite."""
+    C = parts.shape[1] // 2
+    m, code = parts[:, :C], parts[:, C:]
+    return torch.where(code == 2.0, torch.nan,
+                       torch.where(code == 1.0, torch.inf, m)).contiguous()
+
+
+def quantize_gh_i8(gh: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """(digits [K, N, 8] int8, scale [K, 2] float32) of float32 (g, h)
     [K, N, 2] (``hist_pallas.quantize_gh_i8`` per fold): s = max(max |x|,
-    1e-30) over the fold's rows, q = round_half_even(x / s * 2^26) (a true
-    division), balanced base-128 digits d0..d2 in [-64, 64] and the rest
-    d3 (|d3| <= 32): g's four digits, then h's."""
+    1e-30) over the fold's rows (``amax`` [K, 2]: over every rank's rows),
+    q = round_half_even(x / s * 2^26) (a true division), balanced base-128
+    digits d0..d2 in [-64, 64] and the rest d3 (|d3| <= 32): g's four
+    digits, then h's."""
     x = gh.float()
     K, N, _ = x.shape
-    amax = x.abs().amax(dim=1) if N else torch.zeros(K, 2, device=x.device)
-    s = torch.clamp(amax, min=1e-30)
+    if amax is None:
+        amax = x.abs().amax(dim=1) if N else torch.zeros(K, 2, device=x.device)
+    s = torch.clamp(amax.to(x.device), min=1e-30)
     q = torch.round(x / s[:, None, :] * float(2 ** Q_BITS)).to(torch.int32)
     # q + 64 (1 + 128 + 128^2) = sum_{j<3} (d_j + 64) 128^j + d3 128^3, so
     # the balanced digits are shifts and masks of one offset integer: the
@@ -669,6 +731,28 @@ def build_histograms_i8_plain(binned: torch.Tensor, node_q: torch.Tensor, gh: to
     return _recombine_i8(P.transpose(3, 4), scale)
 
 
+def build_histograms_i8_sums_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                                   k_nodes: int, n_bins_tot: int, amax: torch.Tensor,
+                                   n_rows: int) -> torch.Tensor:
+    """K5's digit sums [K, F, k_nodes, n_bins_tot, 8] int32 in plain
+    PyTorch: the digits at s = max(``amax``, 1e-30) (``amax`` [K, 2] the
+    max |x| of every rank's rows, ``amax_of``), ``index_add_`` sums of the
+    8 digit columns. Equal to ``build_histograms_i8_sums`` bit for bit; at
+    most 2^25 global rows (``n_rows``)."""
+    _check_shapes(binned, node_q, gh)
+    _check_external("build_histograms_i8_sums_fixed", gh, amax, n_rows, 2,
+                    I8_SUMS_MAX_LOG2_ROWS)
+    digits, _ = quantize_gh_i8(gh, amax)
+    return _segment_sums(binned, node_q, digits.long(), k_nodes, n_bins_tot).to(torch.int32)
+
+
+def from_i8_sums(P: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """K5's digit sums [K, F, k_nodes, n_bins_tot, 8] (or their all-reduced
+    total) -> float32 (g, h) [K, F, k_nodes, n_bins_tot, 2] at s = max(
+    ``amax``, 1e-30): the kernel's recombination, once."""
+    return _recombine_i8(P.transpose(3, 4), torch.clamp(amax.to(P.device), min=1e-30))
+
+
 def build_histograms_bf16_plain(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                                 k_nodes: int, n_bins_tot: int) -> torch.Tensor:
     """K4's arithmetic in plain PyTorch with float32 sums: the digits, three
@@ -693,24 +777,56 @@ def bf16_digit_sums_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.
     return _from_fixed(_segment_sums(binned, node_q, q, k_nodes, n_bins_tot), scale, finite)
 
 
+def _sum_digits(S: torch.Tensor) -> torch.Tensor:
+    """(S0 + S1) + S2 per channel in float32: [.., 6] -> [.., 2]."""
+    return torch.stack([(S[..., 3 * c] + S[..., 3 * c + 1]) + S[..., 3 * c + 2]
+                        for c in range(2)], dim=-1)
+
+
 def build_histograms_bf16_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                                 k_nodes: int, n_bins_tot: int) -> torch.Tensor:
     """K4's kernel arithmetic in plain PyTorch (``bf16_digit_sums_fixed``,
     then (S0 + S1) + S2 per channel in float32): equal to the kernel bit
     for bit."""
-    S = bf16_digit_sums_fixed(binned, node_q, gh, k_nodes, n_bins_tot)
-    return torch.stack([(S[..., 3 * c] + S[..., 3 * c + 1]) + S[..., 3 * c + 2]
-                        for c in range(2)], dim=-1)
+    return _sum_digits(bf16_digit_sums_fixed(binned, node_q, gh, k_nodes, n_bins_tot))
 
 
-def launch_inputs(int8: bool, gh: torch.Tensor):
+def build_histograms_bf16_i64_fixed(binned: torch.Tensor, node_q: torch.Tensor,
+                                    gh: torch.Tensor, k_nodes: int, n_bins_tot: int,
+                                    maxabs: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K4's int64 fixed-point digit sums [K, F, k_nodes, n_bins_tot, 6] in
+    plain PyTorch at the scale of ``maxabs`` [K, 6] (every rank's max
+    |digit|, ``digit_maxabs``) and ``n_rows``, zeros in a lane that is not
+    finite: equal to ``build_histograms_bf16_i64`` bit for bit."""
+    _check_shapes(binned, node_q, gh)
+    _check_external("build_histograms_bf16_i64_fixed", gh, maxabs, n_rows, 6)
+    q, _, _ = _fixed_point(split_gh_digits(gh).float(), maxabs, n_rows)
+    return _segment_sums(binned, node_q, q, k_nodes, n_bins_tot)
+
+
+def from_bf16_sums(acc: torch.Tensor, maxabs: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K4's int64 digit sums [K, F, k_nodes, n_bins_tot, 6] (or their
+    all-reduced total) -> float32 (g, h) [.., 2]: each digit channel
+    converted once at the scale of ``maxabs`` and ``n_rows``, then
+    (S0 + S1) + S2, the kernel's epilogue; NaN (0x7fc00000, the kernel's)
+    in every cell of a lane that is not finite."""
+    scale, finite = fixed_scale(maxabs.to(acc.device), n_rows)
+    out = _sum_digits(_from_fixed(acc, scale, finite))
+    return torch.where(finite.reshape(-1, *(1,) * (out.dim() - 1)), out, torch.nan)
+
+
+def launch_inputs(int8: bool, gh: torch.Tensor, maxabs: Optional[torch.Tensor] = None):
     """(digits, scale) the mode kernel takes for float32 (g, h) [K, N, 2]:
     K5 (``int8``) ``quantize_gh_i8``'s [K, N, 8] int8 digits and [K, 2]
     scales s; K4 ``split_gh_digits``' [K, N, 6] bf16 digits and their
-    [K, 6] float32 max |digit| per fold."""
+    [K, 6] float32 max |digit| per fold. ``maxabs``, an external launch's:
+    K5's ``amax`` [K, 2] (the digits at its s), K4's [K, 6] maxima
+    (returned as the scale)."""
     if int8:
-        return quantize_gh_i8(gh)
+        return quantize_gh_i8(gh, maxabs)
     digits = split_gh_digits(gh)
+    if maxabs is not None:
+        return digits, maxabs
     K, N, _ = digits.shape
     maxabs = digits.abs().amax(dim=1).float() if N else torch.zeros(
         K, 6, dtype=torch.float32, device=gh.device)
@@ -719,10 +835,12 @@ def launch_inputs(int8: bool, gh: torch.Tensor):
 
 def launch_mode_kernel(int8: bool, binned: torch.Tensor, node_q: torch.Tensor,
                        digits: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
-                       k_nodes: int, n_bins_tot: int) -> None:
+                       k_nodes: int, n_bins_tot: int, log2n: Optional[int] = None) -> None:
     """One launch of the mode kernel (K5 if ``int8``, else K4) on inputs the
     wrappers checked and ``launch_inputs`` prepared; writes ``out``
-    [K, F, k_nodes, n_bins_tot, 2] float32. Counts nothing."""
+    [K, F, k_nodes, n_bins_tot, 2] float32, or, given ``log2n`` (of the
+    global row count), the external launch's raw sums (K5 int32 [.., 8],
+    K4 int64 [.., 6]). Counts nothing."""
     K, F, N = binned.shape
     fn_name = "mallorn_hist_i8" if int8 else "mallorn_hist_bf16"
     lib = cuda_build.load()
@@ -730,24 +848,38 @@ def launch_mode_kernel(int8: bool, binned: torch.Tensor, node_q: torch.Tensor,
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = getattr(lib, fn_name)(binned.data_ptr(), node_q.data_ptr(), digits.data_ptr(),
                                    scale.data_ptr(), out.data_ptr(), K, F, N, k_nodes,
-                                   n_bins_tot, stream)
+                                   n_bins_tot, int(log2n is not None), log2n or 0, stream)
     cuda_build.check(rc, fn_name)
 
 
-def _mode_hist(int8: bool, name: str, binned, node_q, gh, k_nodes, n_bins_tot) -> torch.Tensor:
-    """K5 (``int8``) or K4 on CUDA tensors: check, prepare, launch, count."""
-    global bf16_launches, i8_launches
+def _mode_hist(int8: bool, name: str, binned, node_q, gh, k_nodes, n_bins_tot,
+               maxabs: Optional[torch.Tensor] = None, n_rows: int = 0) -> torch.Tensor:
+    """K5 (``int8``) or K4 on CUDA tensors: check, prepare, launch, count.
+    Given ``maxabs`` (K5's ``amax`` [K, 2], K4's [K, 6] maxima) and
+    ``n_rows``, the external launch: raw integer sums at that scale."""
+    global bf16_launches, i8_launches, bf16_i64_launches, i8_sums_launches
     _check_cuda_inputs(name, binned, node_q, gh)
+    external = maxabs is not None
+    log2n = (_check_external(name, gh, maxabs, n_rows, 2 if int8 else 6,
+                             I8_SUMS_MAX_LOG2_ROWS if int8 else 62) if external else None)
     if min(k_nodes, MODE_NODES) * n_bins_tot * MODE_CELL_BYTES[int8] > SMEM_BYTES:
         raise ValueError(f"{name}: {n_bins_tot} bins exceed the kernel's shared memory "
                          f"({SMEM_BYTES} bytes per CTA)")
     K, F, _ = binned.shape
-    out = torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.float32, device=binned.device)
+    if external:
+        channels, dtype = (8, torch.int32) if int8 else (6, torch.int64)
+    else:
+        channels, dtype = 2, torch.float32
+    out = torch.empty(K, F, k_nodes, n_bins_tot, channels, dtype=dtype, device=binned.device)
     if out.numel() == 0:
         return out
-    digits, scale = launch_inputs(int8, gh)
-    launch_mode_kernel(int8, binned, node_q, digits, scale, out, k_nodes, n_bins_tot)
-    if int8:
+    digits, scale = launch_inputs(int8, gh, maxabs)
+    launch_mode_kernel(int8, binned, node_q, digits, scale, out, k_nodes, n_bins_tot, log2n)
+    if external and int8:
+        i8_sums_launches += 1
+    elif external:
+        bf16_i64_launches += 1
+    elif int8:
         i8_launches += 1
     else:
         bf16_launches += 1
@@ -772,3 +904,35 @@ def build_histograms_i8(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Te
     if binned.device.type == "cpu":
         return build_histograms_i8_plain(binned, node_q, gh, k_nodes, n_bins_tot)
     return _mode_hist(True, "build_histograms_i8", binned, node_q, gh, k_nodes, n_bins_tot)
+
+
+def build_histograms_bf16_i64(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                              k_nodes: int, n_bins_tot: int, maxabs: torch.Tensor,
+                              n_rows: int) -> torch.Tensor:
+    """K4's external-scale entry: the int64 fixed-point sums of the six
+    bf16 digits [K, F, k_nodes, n_bins_tot, 6] of these rows, each digit
+    channel at the scale of ``maxabs`` [K, 6] float32 (every rank's max
+    |digit| per lane, +inf where not finite; ``digit_maxabs``) and
+    ``n_rows`` (the global row count). Zeros in a lane that is not finite.
+    A CPU tensor runs the plain twin ``build_histograms_bf16_i64_fixed``."""
+    if binned.device.type == "cpu":
+        return build_histograms_bf16_i64_fixed(binned, node_q, gh, k_nodes, n_bins_tot,
+                                               maxabs, n_rows)
+    return _mode_hist(False, "build_histograms_bf16_i64", binned, node_q, gh, k_nodes,
+                      n_bins_tot, maxabs, n_rows)
+
+
+def build_histograms_i8_sums(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                             k_nodes: int, n_bins_tot: int, amax: torch.Tensor,
+                             n_rows: int) -> torch.Tensor:
+    """K5's external-scale entry: the int32 sums of the eight int8 digits
+    [K, F, k_nodes, n_bins_tot, 8] of these rows, quantized at s =
+    max(``amax``, 1e-30) (``amax`` [K, 2] float32, the max |x| of every
+    rank's rows, NaN and inf as ``x.abs().amax`` gives them; ``amax_of``),
+    for ``n_rows`` <= 2^25 global rows. A CPU tensor runs the plain twin
+    ``build_histograms_i8_sums_fixed``."""
+    if binned.device.type == "cpu":
+        return build_histograms_i8_sums_fixed(binned, node_q, gh, k_nodes, n_bins_tot, amax,
+                                              n_rows)
+    return _mode_hist(True, "build_histograms_i8_sums", binned, node_q, gh, k_nodes, n_bins_tot,
+                      amax, n_rows)

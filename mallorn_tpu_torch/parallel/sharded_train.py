@@ -17,6 +17,17 @@ hooks (``mesh_fit_fns``), one collective for each of the JAX package's
   ones bit for bit, on every rank, and so are histogram subtraction, the
   splits and a leaf-wise tree's node sums, which come from K3's
   histograms;
+- the histogram modes of a depthwise or symmetric fit take the same road
+  through their own external-scale entries. "int8" (K5): each lane's
+  max |g| and max |h| (NaN and inf kept apart: ``amax_parts``) are
+  max-reduced once a tree, every rank quantizes its rows at that global s,
+  and the ranks sum the raw int32 digit sums (32 bytes a (node, bin) cell),
+  recombined once. "bf16" / "i8bf16" (K4): each lane's max |digit| of the
+  six bf16 digit channels is max-reduced once a tree, and the ranks sum
+  the raw int64 digit sums (48 bytes a cell), each channel converted once,
+  then (S0 + S1) + S2. The JAX package takes these scales over each
+  shard's own rows and psums float32 histograms; here they are global, so
+  a sharded mode's histograms are its single-device ones bit for bit;
 - a depthwise tree's terminal leaf sums and each validation metric's sum:
   the JAX package psums float32 partial sums, whose last bits depend on
   the split of the rows, and a near-tie split then flips (on an H100 in
@@ -32,9 +43,10 @@ Row subsampling is keyed by the global row id, so subsample < 1 draws the
 single-device rows. Validation rows split like training rows; the
 best-iteration margins are gathered back in row order.
 
-The histogram modes K4 / K5 (``hist_dtype`` "bf16", "i8bf16", "int8")
-find per-fold digit scales that a mesh would have to agree on too; under a
-mesh they raise.
+Every ``hist_dtype`` runs on a mesh (an unknown one raises, as in a
+single-device fit), so the sharded fit in any mode, at any split of the
+rows, is the single-device fit bit for bit: forest, eval history and best
+iteration.
 """
 
 from __future__ import annotations
@@ -49,15 +61,7 @@ from mallorn_tpu_torch.parallel.mesh import Mesh
 from mallorn_tpu_torch.trees import objectives
 from mallorn_tpu_torch.trees.binning import BinSpec, apply_bins, fit_bins
 from mallorn_tpu_torch.trees.gbdt import (GBDTModel, GBDTParams, _fit_impl, _models_from_fit,
-                                          _stack_folds, _train_tree)
-
-
-def check_mesh_params(params: GBDTParams) -> None:
-    """Raise on a fit the mesh does not run: a depthwise or symmetric fit
-    in a histogram mode other than "i8full" (K1)."""
-    if params.grow_policy != "lossguide" and params.hist_dtype != "i8full":
-        raise ValueError(f"hist_dtype {params.hist_dtype!r} does not run on a mesh: its "
-                         f"per-fold digit scales are not agreed over ranks; use 'i8full'")
+                                          _stack_folds, _train_tree, level_hist_fn)
 
 
 def gather_fn(mesh: Mesh, n: int) -> Callable:
@@ -86,32 +90,47 @@ def gather_fn(mesh: Mesh, n: int) -> Callable:
     return gather
 
 
-def mesh_fit_fns(mesh: Mesh, n_rows: int, n_val: int = 0):
+def mesh_fit_fns(mesh: Mesh, n_rows: int, n_val: int = 0, hist_dtype: str = "i8full"):
     """(hist_fn, seg_hist_fn, gather_rows, gather_val) of a fit whose
     ``n_rows`` training and ``n_val`` validation rows (the single-device
-    counts) are split over ``mesh``: K1 and K3 through their external-scale
-    int64 entries at the global scale, reduced over the ranks, and the row
-    gathers of the leaf sums and the validation metrics."""
-    last = []  # [gh, its version, its lanes' global maxima]
+    counts) are split over ``mesh``: the level histogram of ``hist_dtype``
+    (K1, K4 or K5) and K3 through their external-scale entries at the
+    global scale, reduced over the ranks, and the row gathers of the leaf
+    sums and the validation metrics. An unknown ``hist_dtype`` raises."""
+    level_hist_fn(GBDTParams(hist_dtype=hist_dtype))
+    last = {}  # lane statistic -> (gh, its version, the statistic max-reduced)
 
-    def scale(gh):
+    def reduced(stat, gh):
         # gh is the same tensor at every level of a tree and every step of
         # a leaf-wise one: its lanes' maxima are reduced once a tree
-        if not last or last[0] is not gh or last[1] != gh._version:
-            last[:] = gh, gh._version, mesh.all_reduce(hist_cuda.lane_maxabs(gh).contiguous(),
-                                                       "max")
-        return last[2]
+        got = last.get(stat)
+        if got is None or got[0] is not gh or got[1] != gh._version:
+            got = last[stat] = gh, gh._version, mesh.all_reduce(stat(gh).contiguous(), "max")
+        return got[2]
 
-    def hist_fn(binned_T, node_q, gh, k_nodes, n_bins_tot):
-        m = scale(gh)
+    def k1(binned_T, node_q, gh, k_nodes, n_bins_tot):
+        m = reduced(hist_cuda.lane_maxabs, gh)
         s = hist_cuda.build_histograms_i64(binned_T, node_q, gh, k_nodes, n_bins_tot, m, n_rows)
         return hist_cuda.from_fixed_sums(mesh.all_reduce(s), m, n_rows)
 
+    def k4(binned_T, node_q, gh, k_nodes, n_bins_tot):
+        m = reduced(hist_cuda.digit_maxabs, gh)
+        s = hist_cuda.build_histograms_bf16_i64(binned_T, node_q, gh, k_nodes, n_bins_tot, m,
+                                                n_rows)
+        return hist_cuda.from_bf16_sums(mesh.all_reduce(s), m, n_rows)
+
+    def k5(binned_T, node_q, gh, k_nodes, n_bins_tot):
+        a = hist_cuda.amax_of(reduced(hist_cuda.amax_parts, gh))
+        s = hist_cuda.build_histograms_i8_sums(binned_T, node_q, gh, k_nodes, n_bins_tot, a,
+                                               n_rows)
+        return hist_cuda.from_i8_sums(mesh.all_reduce(s), a)
+
     def seg_hist_fn(binned_T, seg_base, gh, n_seg):
-        m = scale(gh)
+        m = reduced(hist_cuda.lane_maxabs, gh)
         s = hist_cuda.build_seg_histograms_i64(binned_T, seg_base, gh, n_seg, m, n_rows)
         return hist_cuda.from_fixed_sums(mesh.all_reduce(s), m, n_rows)
 
+    hist_fn = {"i8full": k1, "bf16": k4, "i8bf16": k4, "int8": k5}[hist_dtype]
     return hist_fn, seg_hist_fn, gather_fn(mesh, n_rows), gather_fn(mesh, n_val)
 
 
@@ -133,7 +152,6 @@ def make_sharded_training_step(mesh: Mesh, params: GBDTParams, feature_names,
     from mallorn_tpu_torch.features import statistical
     from mallorn_tpu_torch.features.base import feature_matrix
 
-    check_mesh_params(params)
     dev = mesh.device
 
     def step(packed, y, w, margin):
@@ -150,7 +168,7 @@ def make_sharded_training_step(mesh: Mesh, params: GBDTParams, feature_names,
         grad, hess = objectives.logistic(margin[None], yb[None], wb[None])
         gh = torch.stack([grad, hess], dim=-1).contiguous()
         col_mask = torch.ones(1, binned_T.shape[1], dtype=torch.bool, device=dev)
-        hist_fn, _, gather_rows, _ = mesh_fit_fns(mesh, n)
+        hist_fn, _, gather_rows, _ = mesh_fit_fns(mesh, n, hist_dtype=params.hist_dtype)
         tree, _, node = _train_tree(binned_T, gh, col_mask, params, hist_fn,
                                     params.grow_policy == "symmetric", gather_rows)
         new_margin = margin + torch.gather(tree[-1], 1, node)[0]
@@ -165,7 +183,6 @@ def train_gbdt_sharded(mesh: Mesh, X, y, params: GBDTParams,
     """``train_gbdt`` with its rows split over the mesh: global bin edges,
     histograms reduced over the ranks, the same model on every rank, equal
     to single-device training bit for bit."""
-    check_mesh_params(params)
     dev = mesh.device
     X = np.asarray(X, np.float32)
     n = len(X)
@@ -182,7 +199,7 @@ def train_gbdt_sharded(mesh: Mesh, X, y, params: GBDTParams,
     row_ids = torch.arange(lo, hi, device=dev)[None]
     forest, gains, metrics, best_mv = _fit_impl(
         binned_T, yb[None], wb[None], row_ids, None, None, None, [params.seed], params,
-        objectives.logistic, 0, *mesh_fit_fns(mesh, n))
+        objectives.logistic, 0, *mesh_fit_fns(mesh, n, hist_dtype=params.hist_dtype))
     return _models_from_fit(forest, gains, metrics, best_mv, [bin_spec], params, False,
                             None)[0]
 
@@ -197,7 +214,6 @@ def train_gbdt_folds_sharded(mesh: Mesh, folds, params: GBDTParams, objective=No
     histograms and metrics reduced over the ranks, the best-iteration
     validation margins gathered back in row order. Returns one model per
     fold, equal to ``train_gbdt_folds``'s bit for bit."""
-    check_mesh_params(params)
     dev = mesh.device
     objective = objective or objectives.logistic
     pr = pad_rows_to or max(len(f["y"]) for f in folds)
@@ -209,7 +225,7 @@ def train_gbdt_folds_sharded(mesh: Mesh, folds, params: GBDTParams, objective=No
     forest, gains, metrics, best_mv = _fit_impl(
         arrs["binned_T"], arrs["y"], arrs["w"], arrs["row_ids"], arrs["binned_val_T"],
         arrs["yv"], arrs["vmask"], [f.get("seed", params.seed) for f in folds], params,
-        objective, es, *mesh_fit_fns(mesh, pr, pv))
+        objective, es, *mesh_fit_fns(mesh, pr, pv, params.hist_dtype))
     if es:  # each rank's block of validation rows, back in row order
         mv = torch.from_numpy(best_mv).to(dev).movedim(-1, 0).contiguous()
         best_mv = mesh.all_gather(mv)[:pv].movedim(0, -1).cpu().numpy()
@@ -227,9 +243,11 @@ def comm_volume_report(mesh: Mesh, n_rows: int, n_features: int,
 
     Returns {collectives: [(kind, "dtype[shape]", bytes)],
     psum_bytes_per_round: the bytes of every all-reduce of the round,
-    gathered_bytes_per_round: those of every all-gather (the leaf sums'
-    rows), rows_resharded: whether any collective carried a row-length
-    tensor, n_devices}."""
+    hist_bytes_per_round: those of the integer histogram sums among them
+    (int64 for K1, K3 and K4, int32 for K5, by ``params.hist_dtype`` and
+    policy), gathered_bytes_per_round: those of every all-gather (the leaf
+    sums' rows), rows_resharded: whether any collective carried a
+    row-length tensor, n_devices}."""
     rng = np.random.default_rng(0)
     X = rng.normal(size=(n_rows, n_features)).astype(np.float32)
     y = (X[:, 0] > 0).astype(np.float32)
@@ -241,5 +259,7 @@ def comm_volume_report(mesh: Mesh, n_rows: int, n_features: int,
                     for d in s[s.index("[") + 1:-1].split(",") if d)
     return {"collectives": list(calls),
             "psum_bytes_per_round": sum(b for k, _, b in calls if k.startswith("all_reduce")),
+            "hist_bytes_per_round": sum(b for k, s, b in calls if k == "all_reduce_sum"
+                                        and s.startswith(("int64", "int32"))),
             "gathered_bytes_per_round": sum(b for k, _, b in calls if k == "all_gather"),
             "rows_resharded": resharded, "n_devices": mesh.size}

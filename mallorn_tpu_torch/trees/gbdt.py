@@ -59,8 +59,9 @@ the JAX package's own, computed on the host (``utils.prng``) once per fit.
 
 A mesh enters the fit through hooks of ``_fit_impl``, not a second fit
 (``parallel.sharded_train``): each rank passes its block of rows,
-``hist_fn`` / ``seg_hist_fn`` that all-reduce K1's / K3's exact int64 sums
-at one global scale, and ``gather_rows`` / ``gather_val``, which bring the
+``hist_fn`` / ``seg_hist_fn`` that all-reduce the exact integer sums of
+the level histogram's kernel (K1, or K4 / K5 in a histogram mode) and of
+K3 at one global scale, and ``gather_rows`` / ``gather_val``, which bring the
 few other row sums' terms to every rank in row order: the rows' terminal
 leaf and (g, h), and each validation row's loss. Those sums then run on
 the single-device rows in the single-device order (float32 sums of

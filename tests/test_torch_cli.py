@@ -223,6 +223,24 @@ def test_train_mesh_flag_identical_result(workspace, trained, monkeypatch):
         cli.main(argv + ["--mesh", "2"])
 
 
+def test_train_mesh_flag_carries_a_histogram_mode(workspace):
+    """``train --mesh 2 --set hist_dtype=int8``: the mode reaches every CV
+    on the ranks (K5's digit sums all-reduced at one global scale), and the
+    result JSON and submission are the single-device run's in that mode.
+    ("bf16" is not compared here: on the CPU its single-device fit sums in
+    float32, where the mesh sums K4's fixed point; on the card both run
+    the fixed point.)"""
+    base = ["train", "--data", str(workspace / "data"), "--cache", str(workspace / "cache"),
+            "--config", "v34a", "--rounds", "12", "--set", "hist_subtract=false,hist_dtype=int8"]
+    single, mesh = workspace / "port_v34a_int8", workspace / "port_v34a_int8_mesh"
+    port_main(base + ["--out", str(single)])
+    port_main(base + ["--out", str(mesh), "--mesh", "2"])
+    assert (json.loads((mesh / "result_v34a.json").read_text())
+            == json.loads((single / "result_v34a.json").read_text()))
+    assert filecmp.cmp(mesh / "submission_v34a.csv", single / "submission_v34a.csv",
+                       shallow=False)
+
+
 # ---------------------------------------------------------------------------
 # slow: every config on the port alone
 # ---------------------------------------------------------------------------

@@ -310,3 +310,62 @@ def test_mode_kernels_match_plain_and_repeat_bit_for_bit_on_the_card():
                                                                       NBT))
         want = hist_cuda.build_histograms_plain(binned, node_q, gh.double(), n_nodes, NBT)
         np.testing.assert_allclose(a4.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_launch_inputs_take_an_external_maximum():
+    """An external launch's inputs: K5's digits at the s of the given
+    ``amax`` (not the rows' own), K4's digits with the given maxima as the
+    scale."""
+    tg = torch.from_numpy(_fixture(2)[2])
+    amax = tg.abs().amax(dim=1) * 2.0
+    d5, s5 = hist_cuda.launch_inputs(True, tg, amax)
+    assert torch.equal(s5, amax) and torch.equal(d5, hist_cuda.quantize_gh_i8(tg, amax)[0])
+    assert not torch.equal(d5, hist_cuda.quantize_gh_i8(tg)[0])
+    m = hist_cuda.digit_maxabs(tg) * 4.0
+    d4, m4 = hist_cuda.launch_inputs(False, tg, m)
+    assert m4 is m and torch.equal(d4, hist_cuda.split_gh_digits(tg))
+
+
+@pytest.mark.cuda
+def test_mode_external_entries_match_twins_on_the_card():
+    """K4's and K5's external-scale entries against their plain twins bit
+    for bit, over two halves of the rows at one global scale: the halves
+    add up to the whole launch, whose conversion is the float32 launch's
+    histogram (NaN lanes included); an external K5 beyond 2^25 rows
+    raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    for n_nodes in (1, 8, 17):
+        binned, node_q, gh = (torch.from_numpy(a).cuda() for a in _fixture(n_nodes))
+        gh[1, 11, 0] = float("nan")
+        halves = [slice(0, N // 3), slice(N // 3, N)]
+        parts = [(binned[:, :, s].contiguous(), node_q[:, s].contiguous(),
+                  gh[:, s].contiguous()) for s in halves]
+        m = torch.maximum(*[hist_cuda.digit_maxabs(p[2]) for p in parts])
+        a = hist_cuda.amax_of(torch.maximum(*[hist_cuda.amax_parts(p[2]) for p in parts]))
+        hist_cuda.reset_launches()
+        s4 = [hist_cuda.build_histograms_bf16_i64(*p, n_nodes, NBT, m, N) for p in parts]
+        s5 = [hist_cuda.build_histograms_i8_sums(*p, n_nodes, NBT, a, N) for p in parts]
+        torch.cuda.synchronize()
+        assert (hist_cuda.bf16_i64_launches, hist_cuda.i8_sums_launches) == (2, 2)
+        assert hist_cuda.bf16_launches == hist_cuda.i8_launches == 0
+        for p, x4, x5 in zip(parts, s4, s5):
+            assert torch.equal(x4, hist_cuda.build_histograms_bf16_i64_fixed(*p, n_nodes, NBT,
+                                                                            m, N))
+            assert torch.equal(x5, hist_cuda.build_histograms_i8_sums_fixed(*p, n_nodes, NBT,
+                                                                           a, N))
+        assert torch.equal(s4[0] + s4[1],
+                           hist_cuda.build_histograms_bf16_i64(binned, node_q, gh, n_nodes,
+                                                               NBT, m, N))
+        assert torch.equal(s5[0] + s5[1],
+                           hist_cuda.build_histograms_i8_sums(binned, node_q, gh, n_nodes,
+                                                              NBT, a, N))
+        f4 = hist_cuda.build_histograms_bf16(binned, node_q, gh, n_nodes, NBT)
+        f5 = hist_cuda.build_histograms_i8(binned, node_q, gh, n_nodes, NBT)
+        for got, want in ((hist_cuda.from_bf16_sums(s4[0] + s4[1], m, N), f4),
+                          (hist_cuda.from_i8_sums(s5[0] + s5[1], a), f5)):
+            assert torch.equal(got.isnan(), want.isnan())
+            assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        assert torch.isnan(f4[1]).all() and torch.isnan(f5[1, ..., 0]).all()
+    with pytest.raises(ValueError, match="2\\^25"):
+        hist_cuda.build_histograms_i8_sums(binned, node_q, gh, 1, NBT, a, 2 ** 25 + 1)

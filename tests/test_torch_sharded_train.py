@@ -11,7 +11,9 @@ ranks costs seconds.
 - Exactness: the int64 fixed-point twins at one global scale over two
   halves of the rows add up to the whole rows' sums, and their one
   conversion is ``build_histograms_fixed`` / ``build_seg_histograms_fixed``
-  of all rows bit for bit (an empty half, a non-finite g).
+  of all rows bit for bit (an empty half, a non-finite g); the same for
+  the histogram modes' integer digit sums (K4 int64, K5 int32) against
+  ``build_histograms_bf16_fixed`` / ``build_histograms_i8_plain``.
 - Forests: port ``train_gbdt_sharded`` against port ``train_gbdt`` with
   the kernels' fixed-point twins (``hist_fn``), and against JAX's
   ``train_gbdt_sharded``, at tests/test_sharded_training.py:35-45's bars:
@@ -23,6 +25,13 @@ ranks costs seconds.
   ``train_gbdt_folds`` and JAX's at :107-122 (eval history within rtol
   1e-4 / atol 1e-5, ``best_iteration`` equal), and a 3-class case
   (:149-197).
+- The histogram modes ("bf16", "i8bf16", "int8"): depthwise, subsample
+  and symmetric forests and the 3-class early-stopped folds bit for bit
+  the port's single-device fits through the modes' plain twins, one mode
+  on the 2 x 2 mesh, and "int8" against JAX's sharded binlane fit at the
+  bars above (the JAX package takes each shard's own digit scales, so only
+  the bars hold there). A fold whose g is NaN gives the same fit on one
+  rank and on two, in every mode.
 - The comm volume: the int64 histogram bytes of a round equal the
   analytic count and twice the float32 histogram part of JAX's
   ``comm_volume_report``; the only row-length tensors that cross are the
@@ -68,6 +77,14 @@ FOLD_PARAMS = dict(n_rounds=15, max_depth=3, learning_rate=0.2, subsample=0.8,
 MC_PARAMS = dict(n_rounds=10, max_depth=3, learning_rate=0.2, subsample=0.8,
                  colsample_bytree=0.8, num_class=3, hist_subtract=False)
 LEAF_TOL = dict(rtol=2e-4, atol=2e-5)
+# the histogram modes on a mesh, each at these forest cases
+MODES = ("bf16", "i8bf16", "int8")
+MODE_CASES = ("depthwise", "subsample", "symmetric")
+# the single-device level histogram with each mode's kernel arithmetic
+TWINS = {"i8full": hist_cuda.build_histograms_fixed,
+         "bf16": hist_cuda.build_histograms_bf16_fixed,
+         "i8bf16": hist_cuda.build_histograms_bf16_fixed,
+         "int8": hist_cuda.build_histograms_i8_plain}
 
 
 def _jparams(**kw):
@@ -106,53 +123,93 @@ def _pads(folds, q=8):
     return pr, pv
 
 
-def _fixed(**kw):
-    return dict(hist_fn=hist_cuda.build_histograms_fixed,
-                seg_hist_fn=hist_cuda.build_seg_histograms_fixed, device="cpu", **kw)
+def _fixed(mode="i8full", **kw):
+    return dict(hist_fn=TWINS[mode], seg_hist_fn=hist_cuda.build_seg_histograms_fixed,
+                device="cpu", **kw)
+
+
+def _mode_params(mode, case):
+    return T.GBDTParams(**{**BASE, **CASES[case]}, hist_dtype=mode)
+
+
+def _nan_folds():
+    """Three weighted folds; fold 1 holds a NaN label, so its g (not its
+    h) is NaN in one row."""
+    folds = _folds(9, n=240)
+    folds[1]["y"] = folds[1]["y"].copy()
+    folds[1]["y"][17] = np.nan
+    return folds
+
+
+NAN_MODES = ("i8full", "bf16", "int8")
+
+
+def _nan_fit_call(mode):
+    folds = _nan_folds()
+    pr, pv = _pads(folds)
+    return (S.train_gbdt_folds_sharded, (folds, T.GBDTParams(**FOLD_PARAMS, hist_dtype=mode)),
+            dict(pad_rows_to=pr, pad_val_rows_to=pv))
 
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     """The 2-rank fits: every forest case, the 3-class folds and the comm
-    volume, in one launch."""
+    volume, then each histogram mode's forest cases, 3-class folds, comm
+    volume and NaN fold, in one launch."""
     X, y = _data(0)
     mc = _folds(5, n=240, classes=3)
-    calls = [(S.train_gbdt_sharded, (X, y, T.GBDTParams(**{**BASE, **kw})), {})
-             for kw in {**CASES, **PORT_ONLY}.values()]
-    calls.append((S.train_gbdt_folds_sharded, (mc, T.GBDTParams(**MC_PARAMS)),
-                  dict(early_stopping_rounds=5, pad_rows_to=_pads(mc)[0],
-                       pad_val_rows_to=_pads(mc)[1])))
-    calls.append((S.comm_volume_report, (512, 32, T.GBDTParams(
-        n_rounds=10, max_depth=4, learning_rate=0.2, hist_subtract=False)), {}))
-    calls.append((S.comm_volume_report, (512, 32, T.GBDTParams(
-        n_rounds=10, max_depth=4, learning_rate=0.2)), {}))
-    out = M.launch(M.run_each, 2, (calls,), threads=1,
+    mc_kw = dict(early_stopping_rounds=5, pad_rows_to=_pads(mc)[0],
+                 pad_val_rows_to=_pads(mc)[1])
+    calls = {name: (S.train_gbdt_sharded, (X, y, T.GBDTParams(**{**BASE, **kw})), {})
+             for name, kw in {**CASES, **PORT_ONLY}.items()}
+    calls["multiclass"] = (S.train_gbdt_folds_sharded, (mc, T.GBDTParams(**MC_PARAMS)), mc_kw)
+    calls["comm"] = (S.comm_volume_report, (512, 32, T.GBDTParams(
+        n_rounds=10, max_depth=4, learning_rate=0.2, hist_subtract=False)), {})
+    calls["comm_subtract"] = (S.comm_volume_report, (512, 32, T.GBDTParams(
+        n_rounds=10, max_depth=4, learning_rate=0.2)), {})
+    for mode in MODES:
+        for case in MODE_CASES:
+            calls[mode, case] = (S.train_gbdt_sharded, (X, y, _mode_params(mode, case)), {})
+        calls[mode, "multiclass"] = (S.train_gbdt_folds_sharded,
+                                     (mc, T.GBDTParams(**MC_PARAMS, hist_dtype=mode)), mc_kw)
+    for mode in ("bf16", "int8"):
+        calls[mode, "comm"] = (S.comm_volume_report, (512, 32, T.GBDTParams(
+            n_rounds=10, max_depth=4, learning_rate=0.2, hist_subtract=False,
+            hist_dtype=mode)), {})
+    for mode in NAN_MODES:
+        calls[mode, "nan"] = _nan_fit_call(mode)
+    out = M.launch(M.run_each, 2, (list(calls.values()),), threads=1,
                    workdir=tmp_path_factory.mktemp("mesh2"))
-    names = list({**CASES, **PORT_ONLY})
-    return {"forests": dict(zip(names, out)), "multiclass": out[len(names)],
-            "comm": out[-2], "comm_subtract": out[-1]}
+    return dict(zip(calls, out))
 
 
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
-    """The 2 x 2 mesh (4 ranks): a forest with its rows over both axes and
-    the early-stopped folds."""
+    """The 2 x 2 mesh (4 ranks): a forest with its rows over both axes,
+    the early-stopped folds and an "int8" forest."""
     X, y = _data(5)
     folds = _folds(2)
     pr, pv = _pads(folds)
     calls = [(S.train_gbdt_sharded, (X, y, T.GBDTParams(**{**BASE, **CASES["subsample"]})), {}),
              (S.train_gbdt_folds_sharded, (folds, T.GBDTParams(**FOLD_PARAMS)),
-              dict(early_stopping_rounds=10, pad_rows_to=pr, pad_val_rows_to=pv))]
+              dict(early_stopping_rounds=10, pad_rows_to=pr, pad_val_rows_to=pv)),
+             (S.train_gbdt_sharded, (X, y, _mode_params("int8", "subsample")), {})]
     return M.launch(M.run_each, 4, (calls,), mesh_shape=(2, 2), threads=1,
                     workdir=tmp_path_factory.mktemp("mesh4"))
 
 
+def _bits(t):
+    t = torch.as_tensor(t)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def _assert_forest(got, want, exact=False):
     """Port model ``got`` against a port or JAX model ``want`` at the JAX
-    package's bars, or field for field bit for bit (``exact``)."""
+    package's bars, or field for field bit for bit (``exact``; NaN by its
+    bits)."""
     if exact:
         for a, b in zip(got.forest, want.forest):
-            assert torch.equal(a, b)
+            assert torch.equal(_bits(a), _bits(b))
         return
     for name in ("feature", "split_bin"):
         np.testing.assert_array_equal(np.asarray(getattr(got.forest, name)),
@@ -166,7 +223,8 @@ def _assert_fold_models(got, want, exact=False):
     for a, b in zip(got, want):
         _assert_forest(a, b, exact)
         if exact:
-            np.testing.assert_array_equal(a.eval_history, b.eval_history)
+            np.testing.assert_array_equal(a.eval_history.view(np.int32),
+                                          np.asarray(b.eval_history).view(np.int32))
         np.testing.assert_allclose(a.eval_history, np.asarray(b.eval_history), rtol=1e-4,
                                    atol=1e-5)
         assert a.best_iteration == b.best_iteration
@@ -213,6 +271,48 @@ def test_int64_halves_add_to_the_whole_bit_for_bit(kernel, cut):
         assert torch.isfinite(got[0]).all() and torch.isfinite(got[2]).all()
 
 
+@pytest.mark.parametrize("cut", [0, 150, 301])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_mode_sums_halves_add_to_the_whole_bit_for_bit(kernel, cut):
+    """The histogram modes' external-scale twins over two halves of the
+    rows at one global scale (K4: ``digit_maxabs`` max-reduced; K5:
+    ``amax_parts`` max-reduced, decoded): the halves' integer sums add up
+    to the whole rows', and their one conversion is the single-device
+    mode's histogram bit for bit. Lane 1's NaN g makes every K4 cell NaN
+    and K5's g channel; lane 2's infinite h (beside an empty half: none)
+    likewise."""
+    g = torch.Generator().manual_seed(11 + cut)
+    K, F, N, k, B = 3, 6, 301, 4, 17
+    binned = torch.randint(0, B, (K, F, N), generator=g).to(torch.int16)
+    node_q = torch.randint(0, k + 1, (K, N), generator=g).to(torch.int32)
+    gh = torch.randn(K, N, 2, generator=g) * torch.tensor([3.0, 0.25])
+    gh[1, 40, 0] = float("nan")
+    gh[2, 7, 1] = float("inf") if cut else gh[2, 7, 1]
+    halves = [slice(0, cut), slice(cut, N)]
+    parts = [(binned[:, :, s].contiguous(), node_q[:, s].contiguous(), gh[:, s].contiguous())
+             for s in halves]
+    if kernel == "K4":
+        m = torch.maximum(*[hist_cuda.digit_maxabs(p[2]) for p in parts])
+        sums = [hist_cuda.build_histograms_bf16_i64(*p, k, B, m, N) for p in parts]
+        got = hist_cuda.from_bf16_sums(sums[0] + sums[1], m, N)
+        whole = hist_cuda.build_histograms_bf16_fixed(binned, node_q, gh, k, B)
+        assert sums[0].dtype == torch.int64 and sums[0].shape[-1] == 6
+        assert torch.isnan(got[1]).all() and (sums[0][1] == 0).all()
+    else:
+        a = hist_cuda.amax_of(torch.maximum(*[hist_cuda.amax_parts(p[2]) for p in parts]))
+        sums = [hist_cuda.build_histograms_i8_sums(*p, k, B, a, N) for p in parts]
+        got = hist_cuda.from_i8_sums(sums[0] + sums[1], a)
+        whole = hist_cuda.build_histograms_i8_plain(binned, node_q, gh, k, B)
+        assert sums[0].dtype == torch.int32 and sums[0].shape[-1] == 8
+        assert torch.isnan(got[1, ..., 0]).all() and torch.isfinite(got[1, ..., 1]).all()
+    assert torch.equal(sums[0] + sums[1],
+                       (hist_cuda.build_histograms_bf16_i64 if kernel == "K4" else
+                        hist_cuda.build_histograms_i8_sums)(binned, node_q, gh, k, B,
+                                                            m if kernel == "K4" else a, N))
+    assert torch.equal(got.view(torch.int32), whole.view(torch.int32))  # NaN included
+    assert torch.isfinite(got[0]).all()
+
+
 def test_lane_maxabs_marks_non_finite_lanes():
     gh = torch.tensor([[[1.0, -2.0], [-3.0, 0.5]], [[float("nan"), 1.0], [0.0, 0.0]],
                        [[0.0, float("-inf")], [1.0, 1.0]]])
@@ -228,7 +328,7 @@ def test_sharded_forest_matches_port_single_device(two_ranks, case):
     X, y = _data(0)
     params = T.GBDTParams(**{**BASE, **{**CASES, **PORT_ONLY}[case]})
     single = T.train_gbdt(X, y, params, **_fixed())
-    got = two_ranks["forests"][case]
+    got = two_ranks[case]
     _assert_forest(got, single, exact=True)
     if case != "dart":
         p1 = T.predict_proba(single, X).numpy()
@@ -241,7 +341,7 @@ def test_sharded_forest_matches_jax_sharded(two_ranks, case):
     X, y = _data(0)
     kw = {**BASE, **CASES[case]}
     jm = JS.train_gbdt_sharded(jax_mesh(2), X, y, _jparams(**kw))
-    got = two_ranks["forests"][case]
+    got = two_ranks[case]
     _assert_forest(got, jm)
     if case != "dart":
         p1 = np.asarray(J.predict_proba(jm, X, kw["n_rounds"]))
@@ -314,17 +414,96 @@ def test_comm_volume_is_the_int64_histograms(two_ranks, subtract):
         assert analytic == 2 * jhist
 
 
-# --------------------------------------------------------------- refusals
+# --------------------------------------------------------------- histogram modes
 
-@pytest.mark.parametrize("mode", ["bf16", "i8bf16", "int8"])
-def test_histogram_modes_refuse_a_mesh(mode):
-    X, y = _data(0, n=32)
-    with pytest.raises(ValueError, match=mode):
-        S.train_gbdt_sharded(None, X, y, T.GBDTParams(hist_dtype=mode))
-    with pytest.raises(ValueError, match=mode):
-        S.train_gbdt_folds_sharded(None, _folds(1), T.GBDTParams(hist_dtype=mode))
-    # a leaf-wise fit ignores the mode
-    S.check_mesh_params(T.GBDTParams(hist_dtype=mode, grow_policy="lossguide"))
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", MODE_CASES)
+def test_sharded_mode_forest_matches_port_single_device(two_ranks, mode, case):
+    X, y = _data(0)
+    single = T.train_gbdt(X, y, _mode_params(mode, case), **_fixed(mode))
+    _assert_forest(two_ranks[mode, case], single, exact=True)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sharded_mode_multiclass_folds_match_port_single_device(two_ranks, mode):
+    folds = _folds(5, n=240, classes=3)
+    pr, pv = _pads(folds)
+    got = two_ranks[mode, "multiclass"]
+    want = T.train_gbdt_folds(folds, T.GBDTParams(**MC_PARAMS, hist_dtype=mode),
+                              early_stopping_rounds=5, pad_rows_to=pr, pad_val_rows_to=pv,
+                              **_fixed(mode))
+    _assert_fold_models(got, want, exact=True)
+
+
+def test_2d_mesh_mode_forest_matches_port(four_ranks):
+    X, y = _data(5)
+    want = T.train_gbdt(X, y, _mode_params("int8", "subsample"), **_fixed("int8"))
+    _assert_forest(four_ranks[2], want, exact=True)
+
+
+def test_sharded_int8_forest_matches_jax_sharded_binlane(two_ranks):
+    """The JAX package's sharded "int8" fit through its binlane kernel (256
+    rows a shard, so ``_pick_row_chunk`` takes it) quantizes each shard at
+    its own scale; the port's global scale is its single-device fit, so the
+    two agree at the JAX package's sharded-training bars."""
+    X, y = _data(0)
+    kw = {**BASE, **CASES["depthwise"]}
+    jm = JS.train_gbdt_sharded(jax_mesh(2), X, y,
+                               _jparams(**kw, hist_dtype="int8", use_binlane_hist=True))
+    got = two_ranks["int8", "depthwise"]
+    _assert_forest(got, jm)
+    p1 = np.asarray(J.predict_proba(jm, X, kw["n_rounds"]))
+    np.testing.assert_allclose(T.predict_proba(got, X).numpy(), p1, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("mode", NAN_MODES)
+def test_a_non_finite_fold_fits_alike_on_one_rank_and_on_two(two_ranks, mode, tmp_path):
+    """Fold 1's NaN g: K1 and K4 make every cell of the lane NaN, K5 its g
+    channel; the other folds are untouched. One rank in process, two
+    spawned ranks and the single-device fit through the twins give the same
+    models bit for bit."""
+    fn, args, kw = _nan_fit_call(mode)
+    one = M.launch(fn, 1, args, kwargs=kw, spawn=False, workdir=tmp_path)
+    single = T.train_gbdt_folds(*args, **kw, **_fixed(mode))
+    _assert_fold_models(two_ranks[mode, "nan"], one, exact=True)
+    _assert_fold_models(one, single, exact=True)
+    assert np.isnan(single[1].eval_history).any()
+    assert np.isfinite(single[0].eval_history).all() and np.isfinite(single[2].eval_history).all()
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_comm_volume_counts_the_mode_sums(two_ranks, mode):
+    """One all-reduce of the mode's raw digit sums per level (K4 six int64
+    a cell, K5 eight int32) and the lane statistic once a tree (K4's [1, 6]
+    digit maxima, K5's [1, 4] maxima and codes)."""
+    F, depth, n_bins = 32, 4, 256
+    rep = two_ranks[mode, "comm"]
+    dt, C, stat = ("int32", 8, 4) if mode == "int8" else ("int64", 6, 6)
+    hist = [(k, s, b) for k, s, b in rep["collectives"]
+            if k.startswith("all_reduce") and s.startswith(dt)]
+    assert all(k == "all_reduce_sum" for k, _, _ in hist)
+    assert [s for _, s, _ in hist] == [f"{dt}[1,{F},{2 ** d},{n_bins + 1},{C}]"
+                                       for d in range(depth)]
+    analytic = sum(F * 2 ** d * (n_bins + 1) * C * int(dt[3:]) // 8 for d in range(depth))
+    assert rep["hist_bytes_per_round"] == analytic
+    assert rep["psum_bytes_per_round"] - analytic == stat * 4, rep["collectives"]
+
+
+def test_amax_parts_reduce_to_the_rows_amax():
+    """``amax_of`` of the elementwise max of two halves' ``amax_parts`` is
+    ``abs().amax`` of all rows: finite maxima, an infinity, a NaN beside an
+    infinity, and an empty half."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 50, 2, generator=g)
+    x[1, 3, 0] = float("inf")
+    x[2, 40, 1] = float("-inf")
+    x[2, 7, 1] = float("nan")
+    x[3, 30, 0] = float("nan")
+    for cut in (0, 20, 50):
+        parts = torch.maximum(hist_cuda.amax_parts(x[:, :cut]), hist_cuda.amax_parts(x[:, cut:]))
+        got, want = hist_cuda.amax_of(parts), x.abs().amax(dim=1)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
 
 
 def test_mesh_shapes_and_refusals(tmp_path):
@@ -376,8 +555,8 @@ def test_row_gather_packs_tensors_bit_for_bit(tmp_path):
 
 def test_a_failing_rank_fails_the_launch_with_its_traceback(tmp_path):
     X, y = _data(0, n=32)
-    with pytest.raises(RuntimeError, match="hist_dtype 'int8'"):
-        M.launch(S.train_gbdt_sharded, 2, (X, y, T.GBDTParams(hist_dtype="int8")), threads=1,
+    with pytest.raises(RuntimeError, match="hist_dtype 'fp8'"):
+        M.launch(S.train_gbdt_sharded, 2, (X, y, T.GBDTParams(hist_dtype="fp8")), threads=1,
                  workdir=tmp_path)
     with pytest.raises(RuntimeError, match="needs a GPU|only 0 devices"):
         M.launch(S.train_gbdt_sharded, 2, (X, y, T.GBDTParams()), device="cuda")
