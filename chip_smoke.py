@@ -164,9 +164,16 @@ Phases, each printing its wall time on its own line:
    single fits bit for bit K1's fixed-point twin; Platt and isotonic
    calibration (test Brier score), threshold variants, the error analysis
    and the prediction agreement of v92d, v34a and the ensemble; SMOTE and
-   ADASYN at ratio 0.5, every synthetic row on a minority segment. The
-   kernel phase also checks K1 at depth 8's 64 and 128 nodes (two and
-   three chunks of nodes on the grid's z axis);
+   ADASYN at ratio 0.5, every synthetic row on a minority segment; K1's
+   wide-path launches (levels of 17 nodes or more, HPO's and depth 8's)
+   each with one prep launch. The kernel phase also checks K1 at depth 8's
+   64 and 128 nodes, and the wide path on both scales at 17, 32, 55, 64,
+   100 and 128 nodes and on a ragged level (2,443
+   rows, 30% inactive, empty nodes, a NaN, an inf and an all-inactive fold
+   beside finite ones): the prep kernel against its plain version (offsets
+   and maxima equal, each chunk's list the same set of rows), the float32
+   and int64 entries twice, bit for bit equal and bit for bit their
+   fixed-point twins, with the prep and histogram kernels timed alone;
 14. families 2, reusing the training phase's splits and the runners' v34a
    matrix: the twelve remaining families (gp1d, whose 150 Adam steps and
    final NLL run K2 at the band view's width, dtw against templates built
@@ -240,7 +247,11 @@ Phases, each printing its wall time on its own line:
    external-scale entry launched rounds x depth times and no float32
    histogram kernel; (f) on the two gloo ranks of (b), the v92d CV at 15
    rounds in each mode, bit for bit its single-device fit, each rank's
-   launches and integer bytes all-reduced per round.
+   launches and integer bytes all-reduced per round; (g) a depth-8 CV
+   without subtraction (10 rounds) on the world-size-1 NCCL mesh, its
+   forests and eval histories bit for bit the single-device CV's, K1's
+   external-scale launches = rounds x depth, 3 x rounds of them (the 32-,
+   64- and 128-node levels) through the wide path.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -352,9 +363,16 @@ POLICY_SEG_SHAPE = ("v110_pair", 5, 224, 2444, 2)
 # rounds (cut to pay for the mesh phase's histogram modes)
 POLICY_LG_ROUNDS = 300
 # K1 at depth 8, the top of HPO's space, on the v92d matrix: the last
-# level's 64 nodes (subtraction) and 128 (none), two and three chunks of
-# nodes on the grid's z axis
+# level's 64 nodes (subtraction) and 128 (none), wider than one CTA holds
+# (the wide path)
 FAMILY_HIST_SHAPES = (("depth8", 5, 222, 2444, (64, 128)),)
+# K1's wide path on both scales, bit for bit the fixed-point twins: the
+# v92d CV's shape from the switch (17 nodes) through the first width beyond
+# one CTA (55) to depth 8's, and a ragged level (2,443 rows, 30% inactive,
+# the nodes of ids 16-47 empty, a NaN fold, an inf fold and an
+# all-inactive fold beside finite ones)
+WIDE_HIST_SHAPES = (("depth8", 5, 222, 2444, (17, 32, 55, 64, 100, 128)),)
+WIDE_RAGGED = ("ragged_wide", 5, 222, 2443, 100)
 # the bench split's generator call (bench.py): its train split regenerated
 # gives v62 the spectral types the npz does not store
 BENCH_SPLITS = dict(n_train=3054, seed=20260816, tde_frac=0.05)
@@ -819,8 +837,9 @@ def check_hist(fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
     torch.cuda.synchronize()
     if not bits_equal(out, a):
         raise AssertionError(f"K1 {tag}: the launch alone disagrees with the wrapper")
-    log(f"  {tag} launch_ms={launch_ms:.4f} (the launch alone; G={group}, "
-        f"{tile_rows}-row tiles, {n_chunks} chunk(s) of {chunk} nodes)")
+    layout = (f"the wide path: prep + {n_chunks} chunks of {chunk} nodes" if tile_rows == 0
+              else f"{tile_rows}-row tiles")
+    log(f"  {tag} launch_ms={launch_ms:.4f} (the launch alone; G={group}, {layout})")
     return {"fit": fit, "K": K, "F": F, "N": N, "nodes": k_nodes,
             "max_abs_err": rows["vs_plain"][0], "launch_ms": launch_ms,
             "features_per_cta": group, "tile_rows": tile_rows, "node_chunks": n_chunks,
@@ -860,6 +879,119 @@ def hist_times(tag: str, kernel, plain, binned, node_q, gh, k_nodes: int) -> dic
         f"calls) bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: "
         f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M adds)")
     return res
+
+
+def grouped_equal(got, want) -> bool:
+    """The prep kernel's output (``hist_cuda.GroupedRows``) bit for bit its
+    plain version's over the lists: offsets, maxima, (row, node) entries
+    and q (the kernel leaves the lists' tails unwritten)."""
+    listed = torch.arange(got.q.shape[1], device=got.q.device) < got.offsets[:, -1:]
+    return (torch.equal(got.offsets, want.offsets) and bits_equal(got.maxabs, want.maxabs)
+            and torch.equal(got.entries[listed], want.entries[listed])
+            and torch.equal(got.q[listed], want.q[listed]))
+
+
+def check_wide_hist(fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
+                    ragged: bool = False) -> dict:
+    """K1's wide path (levels of 17 nodes or more) on both scales: the prep
+    kernel (``launch_group_rows``, at the folds' own scale and at an
+    external one) bit for bit its plain version over its lists; the float32
+    entry twice, bit for bit equal and bit for bit
+    ``build_histograms_fixed``, within HIST_TOL of the float32 and float64
+    plain versions on its finite folds; the external-scale entry at the
+    folds' own maxima twice, bit for bit equal and bit for bit
+    ``build_histograms_i64_fixed``, its sums converted once bit for bit the
+    float32 output. ``ragged``: 30% of rows inactive, the nodes of ids 16-47
+    empty, fold 1 NaN, fold 2 inf, fold 3 all inactive. Times the prep
+    kernel alone (both scales), its plain version and bound, and the
+    histogram kernel alone (both scales)."""
+    binned, node_q, gh = hist_inputs(K, F, N, k_nodes, seed, 0.3 if ragged else 0.0)
+    if ragged:
+        node_q[(node_q >= 16) & (node_q < 48)] = k_nodes
+        gh[1, N // 3, 0] = float("nan")
+        gh[2, N - 1, 1] = float("inf")
+        node_q[3] = k_nodes
+    chunk, n_chunks, group, tile_rows, _ = hist_cuda.hist_plan(k_nodes, N_BINS_TOT)
+    tag = (f"K1 wide {fit} K={K} F={F} N={N} nodes={k_nodes} ({n_chunks} chunks of "
+           f"{chunk} nodes, G={group})")
+    if tile_rows != 0:
+        raise AssertionError(f"{tag}: hist_plan did not pick the wide path")
+    m2 = (hist_cuda.lane_maxabs(gh) * 2).contiguous()  # an external scale of 3N rows
+    log2_3n = hist_cuda._log2_ceil(3 * N)
+    prep_ok = (grouped_equal(hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk),
+                             hist_cuda.group_rows_plain(node_q, gh, k_nodes, chunk))
+               and grouped_equal(hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk, m2,
+                                                             log2_3n),
+                                 hist_cuda.group_rows_plain(node_q, gh, k_nodes, chunk, m2,
+                                                            3 * N)))
+    a = hist_cuda.build_histograms(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    b = hist_cuda.build_histograms(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    repeat_equal = bits_equal(a, b)
+    fixed_equal = bits_equal(a, hist_cuda.build_histograms_fixed(binned, node_q, gh, k_nodes,
+                                                                 N_BINS_TOT))
+    folds = torch.isfinite(gh).flatten(1).all(dim=1)
+    plain = hist_cuda.build_histograms_plain(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    f64 = hist_cuda.build_histograms_plain(binned, node_q, gh.double(), k_nodes, N_BINS_TOT)
+    vs_plain = close(a[folds], plain[folds], *HIST_TOL)
+    vs_f64 = close(a[folds], f64[folds], *HIST_TOL)
+    m = hist_cuda.lane_maxabs(gh)
+    s1, s2 = (hist_cuda.build_histograms_i64(binned, node_q, gh, k_nodes, N_BINS_TOT, m, N)
+              for _ in range(2))
+    i64_equal = torch.equal(s1, s2) and torch.equal(s1, hist_cuda.build_histograms_i64_fixed(
+        binned, node_q, gh, k_nodes, N_BINS_TOT, m, N))
+    converted = bits_equal(hist_cuda.from_fixed_sums(s1, m, N), a)
+    lanes_ok = True
+    if ragged:
+        lanes_ok = (bool(torch.isnan(a[1:3]).all()) and bool((s1[1:4] == 0).all())
+                    and bool((a[3] == 0).all()) and bool((a[[0, 4], :, 16:48] == 0).all())
+                    and bool(torch.isfinite(a[[0, 3, 4]]).all()))
+    log(f"  {tag}: prep kernel = its plain version {prep_ok}; two launches bit for bit equal "
+        f"{repeat_equal}, bit for bit its fixed-point twin {fixed_equal}, vs_plain max_abs="
+        f"{vs_plain[0]:.3e} vs_f64 max_abs={vs_f64[0]:.3e} (rtol={HIST_TOL[0]:g}, "
+        f"atol={HIST_TOL[1]:g}); external scale: two launches equal and bit for bit its int64 "
+        f"twin {i64_equal}, converted bit for bit the float32 entry {converted}"
+        + (f"; NaN / inf / all-inactive folds and empty nodes {lanes_ok}" if ragged else ""))
+    if not (prep_ok and repeat_equal and fixed_equal and vs_plain[2] and vs_f64[2]
+            and i64_equal and converted and lanes_ok):
+        raise AssertionError(f"{tag} failed its checks")
+    # the two kernels alone, each held to the wrapper's output
+    log2n = hist_cuda._log2_ceil(N)
+    own = hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk)
+    ext = hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk, m, log2n)
+    out, out64 = torch.empty_like(a), torch.empty_like(s1)
+    times = {
+        "prep_ms": cuda_ms(lambda: hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk),
+                           reps=50),
+        "prep_i64_ms": cuda_ms(lambda: hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk,
+                                                                   m, log2n), reps=50),
+        "wide_ms": cuda_ms(lambda: hist_cuda.launch_wide_kernel(
+            binned, own, out, k_nodes, N_BINS_TOT, chunk, group), reps=50),
+        "wide_i64_ms": cuda_ms(lambda: hist_cuda.launch_wide_kernel(
+            binned, ext, out64, k_nodes, N_BINS_TOT, chunk, group, log2n), reps=50),
+        "launch_ms": cuda_ms(lambda: hist_cuda.launch_hist_kernel(
+            binned, node_q, gh, out, k_nodes, N_BINS_TOT), reps=50),
+        "prep_plain_ms": cuda_ms(
+            lambda: hist_cuda.group_rows_plain(node_q, gh, k_nodes, chunk), reps=3, warmup=1)}
+    # the prep's share of a K1 call on the card: the call's two launches less
+    # the histogram kernel's (prep_ms, one call alone, is bound by its host
+    # side: four allocations and a ctypes call)
+    times["prep_share_ms"] = times["launch_ms"] - times["wide_ms"]
+    torch.cuda.synchronize()
+    if not (bits_equal(out, a) and torch.equal(out64, s1)):
+        raise AssertionError(f"{tag}: a kernel alone disagrees with its wrapper")
+    # the prep's bound: ids and (g, h) read; the listed rows' entries and q
+    # (24 B each), the offsets and the maxima written
+    n_bytes = K * N * 12 + 24 * int(own.offsets[:, -1].sum()) + 4 * K * (n_chunks + 1) + 8 * K
+    times["prep_bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {tag} times: launch_ms={times['launch_ms']:.4f} (prep + histogram kernel) "
+        f"wide_ms={times['wide_ms']:.4f} wide_i64_ms={times['wide_i64_ms']:.4f} (the histogram "
+        f"kernel alone) prep_share_ms={times['prep_share_ms']:.4f} prep_ms="
+        f"{times['prep_ms']:.4f} (a call alone; at the external scale "
+        f"{times['prep_i64_ms']:.4f}; plain {times['prep_plain_ms']:.3f}; bound "
+        f"{times['prep_bound_ms']:.4f}, bytes)")
+    return {"fit": fit, "K": K, "F": F, "N": N, "nodes": k_nodes, "chunk_nodes": chunk,
+            "node_chunks": n_chunks, "features_per_cta": group, "max_abs_err": vs_plain[0],
+            **times}
 
 
 def check_mode_hist(mode: str, fit: str, K: int, F: int, N: int, k_nodes: int, seed: int,
@@ -1040,9 +1172,9 @@ def check_seg_hist_edges() -> None:
 
 
 # K1's and K3's external-scale int64 entries (the mesh's histograms): K1 at
-# the v92d CV's shape and every node count of its levels plus one level of
-# 64 nodes (two chunks of nodes), K3 at the v114d member's pair
-I64_SHAPES = (("K1", "v92d", 5, 222, 2444, (1, 2, 4, 8, 64)),
+# the v92d CV's shape and every node count of its levels plus depth 8's 64
+# and 128 nodes (the wide path), K3 at the v114d member's pair
+I64_SHAPES = (("K1", "v92d", 5, 222, 2444, (1, 2, 4, 8, 64, 128)),
               ("K3", "v114d_pair", SEG_LANES, SEG_F, 2444, (2,)))
 
 
@@ -1346,6 +1478,12 @@ def check_training_kernel_vs_plain(device) -> None:
         if not (same_k and same_plain):
             raise AssertionError(f"the {tag} fit with the kernel and with its plain version "
                                  f"disagree")
+
+
+def wide_calls(by_nodes: dict) -> int:
+    """K1 calls of ``hist_cuda.launches_by_nodes`` at levels wider than one
+    CTA holds: the wide path's, one prep launch each."""
+    return sum(n for k, n in by_nodes.items() if hist_cuda.hist_plan(k, N_BINS_TOT)[3] == 0)
 
 
 def forests_bits_equal(a, b) -> bool:
@@ -2070,7 +2208,7 @@ def run_families(trained: dict, ensemble: dict, runners: dict, dev) -> dict:
     keep = [i for i, n in enumerate(names224) if n not in SHIFT_FEATURES]
     X, X_te = X224[:, keep], X224_te[:, keep]
     w, win = out.adversarial.sample_weights, out.winner
-    rows, k1_all = {}, 0
+    rows, k1_all, k1_wide = {}, 0, 0
 
     # ---- the LM families on both splits ----
     fams = {}
@@ -2148,7 +2286,7 @@ def run_families(trained: dict, ensemble: dict, runners: dict, dev) -> dict:
         cv = train_cv(*args, **kwargs)
         torch.cuda.synchronize()
         trials_log.append((time.perf_counter() - t0, args[3], cv, hist_cuda.launches,
-                           dict(hist_cuda.launches_by_nodes)))
+                           dict(hist_cuda.launches_by_nodes), hist_cuda.prep_launches))
         return cv
 
     hpo.train_cv = timed_cv
@@ -2160,21 +2298,23 @@ def run_families(trained: dict, ensemble: dict, runners: dict, dev) -> dict:
         hpo_s = time.perf_counter() - t0
     finally:
         hpo.train_cv = train_cv
-    for i, (secs, p, cv, k1, by_nodes) in enumerate(trials_log):
+    for i, (secs, p, cv, k1, by_nodes, prep) in enumerate(trials_log):
         want_k1 = cv.rounds_run * p.max_depth
         log(f"  trial {i + 1}{' (tpe)' if i >= HPO_STARTUP else ''}: "
             + ", ".join(f"{k}={getattr(p, k):.4g}" for k in hpo.DEFAULT_SPACE)
             + f"; {secs:.3f} s, rounds {cv.rounds_run}; OOF F1 {cv.best_f1:.4f} @ "
             f"{cv.best_threshold:.3f}; K1 launches {k1} (rounds x depth predicts {want_k1}) "
             f"by level width {by_nodes}")
-        if k1 != want_k1:
-            raise AssertionError(f"HPO trial {i + 1}: K1 launches disagree with rounds x depth")
+        if k1 != want_k1 or prep != wide_calls(by_nodes):
+            raise AssertionError(f"HPO trial {i + 1}: K1 launches disagree with rounds x depth "
+                                 f"or its prep kernel's with the wide levels")
         k1_all += k1
+        k1_wide += prep
     log(f"  TPE: {len(trials)} trials in {hpo_s:.3f} s; best OOF F1 {trials[0].oof_f1:.4f} "
         f"at max_depth {trials[0].params.max_depth}")
     rows["hpo"] = {"s": hpo_s, "trials": len(trials), "best_oof_f1": trials[0].oof_f1,
                    "best": {k: getattr(trials[0].params, k) for k in hpo.DEFAULT_SPACE},
-                   "depths": [p.max_depth for _, p, _, _, _ in trials_log]}
+                   "depths": [p.max_depth for _, p, _, _, _, _ in trials_log]}
 
     # ---- depth 8: the top of DEFAULT_SPACE, with and without subtraction ----
     p8 = V34A_PARAMS._replace(n_rounds=HPO_ROUNDS, max_depth=8)
@@ -2188,12 +2328,15 @@ def run_families(trained: dict, ensemble: dict, runners: dict, dev) -> dict:
         secs = time.perf_counter() - t0
         by_nodes = dict(hist_cuda.launches_by_nodes)
         k1_all += hist_cuda.launches
+        k1_wide += hist_cuda.prep_launches
         log(f"  depth 8, hist_subtract={sub}: {secs:.3f} s; rounds {cv.rounds_run}; OOF F1 "
             f"{cv.best_f1:.4f} @ {cv.best_threshold:.3f}; K1 launches {hist_cuda.launches} by "
             f"level width {by_nodes} (rounds x depth predicts {8 * cv.rounds_run}; "
-            f"{cv.rounds_run} at {width} nodes)")
+            f"{cv.rounds_run} at {width} nodes); the wide path's prep kernel "
+            f"{hist_cuda.prep_launches} (levels beyond one CTA {wide_calls(by_nodes)})")
         if (hist_cuda.launches != 8 * cv.rounds_run or by_nodes.get(width) != cv.rounds_run
-                or max(by_nodes) != width):
+                or max(by_nodes) != width
+                or hist_cuda.prep_launches != wide_calls(by_nodes)):
             raise AssertionError(f"depth 8 (hist_subtract={sub}): K1 launches disagree")
         forests[sub] = [m.forest for m in cv.models]
         split = torch.stack([~f.is_leaf & (f.split_bin >= 0) for f in forests[sub]])
@@ -2202,7 +2345,7 @@ def run_families(trained: dict, ensemble: dict, runners: dict, dev) -> dict:
         log(f"    its deepest split level: {deepest} (0 = the root)")
         rows[f"depth8_{'subtract' if sub else 'direct'}"] = {
             "s": secs, "rounds": cv.rounds_run, "oof_f1": cv.best_f1, "k1": hist_cuda.launches,
-            f"k1_at_{width}_nodes": by_nodes[width]}
+            f"k1_at_{width}_nodes": by_nodes[width], "k1_wide": hist_cuda.prep_launches}
     # the two fits differ where float32 subtraction (parent - left) rounds
     # a right child's sums otherwise than its direct sum and that decides a
     # near tie: counted, not held (their splits agree in most slots)
@@ -2275,8 +2418,9 @@ def run_families(trained: dict, ensemble: dict, runners: dict, dev) -> dict:
         if len(X_new) == 0 or not on_seg.all() or not (yo[len(y):] == 1).all():
             raise AssertionError(f"{name}: a synthetic row is off its minority segment")
         rows[name] = {"s": secs, "rows": len(yo), "synthetic": len(X_new)}
-    log(f"families: K1 launches {k1_all}")
-    return {"k1": k1_all, "rows": rows,
+    log(f"families: K1 launches {k1_all}, {k1_wide} of them on the wide path (HPO and depth "
+        f"8's CVs)")
+    return {"k1": k1_all, "k1_wide": k1_wide, "rows": rows,
             "families": {f: {"columns": len(v[2]), **v[3]} for f, v in fams.items()}}
 
 
@@ -2814,6 +2958,11 @@ MESH_ROUNDS, MESH_LG_ROUNDS, MESH_CHUNK = 50, 10, 2048
 # the histogram modes' v92d CVs on the two gloo ranks: each round
 # all-reduces 2x (K5) and 3x (K4) K1's int64 bytes through pinned host memory
 MESH_MODE_ROUNDS = 15
+# (g): a depth-8 CV without subtraction (every level built: 64 and 128
+# nodes through K1's wide path) on the world-size-1 NCCL mesh, this many
+# rounds; min_child_weight 1e-3 lets its trees reach the last level
+MESH_DEPTH8_PARAMS = V34A_PARAMS._replace(n_rounds=10, max_depth=8, hist_subtract=False,
+                                          min_child_weight=1e-3)
 # a sharded forest against the single-device one (tests/test_sharded_training.py:35-45,
 # :107-122): leaf values, eval history; the extraction's bars
 # (tests/test_sharded_pipeline.py:42-56) and Bazin's share of close lanes
@@ -2830,6 +2979,12 @@ def mesh_v92(mesh, X224, y, names, X224_te, mode="i8full"):
     return run_v92(X224, y, names, X224_te, params=V34A_PARAMS._replace(hist_dtype=mode),
                    adv_params=ADV_PARAMS._replace(hist_dtype=mode), variants=V92D_ONLY,
                    mesh=mesh)
+
+
+def mesh_depth8(mesh, X, y, w):
+    """The v92d matrix's CV at MESH_DEPTH8_PARAMS on ``mesh``."""
+    return train_cv(X, y, None, MESH_DEPTH8_PARAMS, sample_weight=w, threshold_grid=V92D_GRID,
+                    mesh=mesh)
 
 
 def mesh_ranks(mesh, X, y, w, packed, meta):
@@ -2981,10 +3136,38 @@ def run_mesh(trained: dict, mode_runs: dict, workspace, dev) -> dict:
             raise AssertionError(f"(e) [{mode}] the world-size-1 mesh differs from the "
                                  f"single-device run")
 
-    # (b), (c) two gloo ranks on this card
+    # (g) depth 8 without subtraction at world size 1 over NCCL: K1's
+    # external-scale entry through the wide path at 64 and 128 nodes, against
+    # the single-device CV
     keep = [i for i, n in enumerate(names224) if n not in SHIFT_FEATURES]
     X = _finite_or_nan(X224[:, keep])
     w = out.adversarial.sample_weights
+    hist_cuda.reset_launches()
+    t0 = time.perf_counter()
+    cv8 = launch(mesh_depth8, 1, (X, y, w), device=dev, spawn=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ext, prep, f32 = hist_cuda.i64_launches, hist_cuda.prep_launches, hist_cuda.launches
+    n_wide = wide_calls({2 ** d: 1 for d in range(8)})  # wide levels of the tree
+    ref8 = train_cv(X, y, None, MESH_DEPTH8_PARAMS, sample_weight=w, threshold_grid=V92D_GRID,
+                    device=dev)
+    same = (len(cv8.models) == len(ref8.models)
+            and all(forests_bits_equal(a.forest, b.forest) and np.array_equal(
+                a.eval_history, b.eval_history) for a, b in zip(cv8.models, ref8.models)))
+    deep = sum(int((~m.forest.is_leaf[..., 127:] & (m.forest.split_bin[..., 127:] >= 0)).sum())
+               for m in cv8.models)
+    res["ws1_depth8"] = {"s": secs, "rounds": cv8.rounds_run, "i64_launches": ext,
+                         "wide_launches": prep}
+    log(f"  (g) depth 8 without subtraction on a world-size-1 NCCL mesh, {cv8.rounds_run} "
+        f"rounds: {secs:.3f} s; forests and eval histories bit for bit the single-device CV's: "
+        f"{same}; {deep} splits on the last level; K1's external-scale launches {ext} (rounds x "
+        f"depth predicts {8 * cv8.rounds_run}), {prep} of them on the wide path ({n_wide} "
+        f"levels a tree: {n_wide * cv8.rounds_run}), float32 K1 {f32}")
+    if (not same or deep == 0 or ext != 8 * cv8.rounds_run or prep != n_wide * cv8.rounds_run
+            or f32 or default_mesh() is not None):
+        raise AssertionError("(g) the depth-8 CV on the world-size-1 mesh differs")
+
+    # (b), (c) two gloo ranks on this card
     tr_u, _ = unify_time_padding(tr_packed, te_packed)
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
@@ -3293,6 +3476,9 @@ def main() -> int:
         family_hist = [check_hist(fit, K, F, N, k, seed=2900 + 17 * i + k)
                        for i, (fit, K, F, N, nodes) in enumerate(FAMILY_HIST_SHAPES)
                        for k in sorted(set(nodes))]
+        wide_hist = [check_wide_hist(fit, K, F, N, k, seed=3100 + 17 * i + k)
+                     for i, (fit, K, F, N, nodes) in enumerate(WIDE_HIST_SHAPES) for k in nodes]
+        wide_hist.append(check_wide_hist(*WIDE_RAGGED, seed=3299, ragged=True))
         name, K, F, N, nodes = POLICY_SEG_SHAPE
         policy_seg = check_seg_hist(name, K, F, N, nodes, seed=4100, inactive=0.0, missing=0.0)
         seg_results = [check_seg_hist(name, SEG_LANES, SEG_F, N, nodes, seed=4000 + i,
@@ -3476,6 +3662,44 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
         })
+    # K1's wide path (levels wider than one CTA holds) at depth 8's 128
+    # nodes: the float32 entry with the families phase's wide launches (HPO's
+    # depth-8 trials and the depth-8 CVs), its external-scale twin with the
+    # mesh phase's (g), and the prep kernel that both launch once a call; the
+    # wrapper's times are K1's (prep and histogram kernel), wide_ms the
+    # histogram kernel alone
+    w128 = next(r for r in wide_hist if (r["fit"], r["nodes"]) == ("depth8", 128))
+    f128 = next(r for r in family_hist if r["nodes"] == 128)
+    i128 = next(r for r in i64_results if (r["kernel"], r["nodes"]) == ("K1", 128))
+    wide_keys = ("fit", "K", "F", "N", "nodes", "chunk_nodes", "node_chunks",
+                 "features_per_cta", "max_abs_err", "launch_ms", "wide_ms", "wide_i64_ms",
+                 "prep_share_ms", "prep_ms", "prep_i64_ms", "prep_plain_ms", "prep_bound_ms")
+    kernels.append({
+        "name": "hist_wide", "route": "cuda", "source": "mallorn_tpu_torch/csrc/hist.cu",
+        "replaces": "mallorn_tpu/ops/hist_pallas.py:508", "launches": families["k1_wide"],
+        "max_abs_err": f128["max_abs_err"], "ms": f128["ms"], "launch_ms": f128["launch_ms"],
+        "wide_ms": w128["wide_ms"], "plain_ms": f128["plain_ms"], "bound_ms": f128["bound_ms"],
+        "bound_by": f128["bound_by"], "library_ms": f128["library_ms"],
+        "shape": [f128["K"], f128["F"], f128["N"], 128],
+        "family_shapes": [{k: r[k] for k in shape_keys} for r in family_hist],
+        "shapes": [{k: r[k] for k in wide_keys} for r in wide_hist]})
+    kernels.append({
+        "name": "hist_wide_i64", "route": "cuda", "source": "mallorn_tpu_torch/csrc/hist.cu",
+        "replaces": "mallorn_tpu/ops/hist_pallas.py:508",
+        "launches": mesh["ws1_depth8"]["wide_launches"], "max_abs_err": 0.0, "ms": i128["ms"],
+        "launch_ms": i128["launch_ms"], "wide_ms": w128["wide_i64_ms"],
+        "plain_ms": i128["plain_ms"], "bound_ms": i128["bound_ms"], "bound_by": i128["bound_by"],
+        "library_ms": i128["library_ms"], "shape": [i128["K"], i128["F"], i128["N"], 128]})
+    kernels.append({
+        "name": "hist_prep", "route": "cuda", "source": "mallorn_tpu_torch/csrc/hist.cu",
+        "replaces": "mallorn_tpu/ops/hist_pallas.py:508 (K1's wide path: rows grouped by "
+                    "chunk of nodes, the folds' maxima)",
+        "launches": families["k1_wide"] + mesh["ws1_depth8"]["wide_launches"],
+        "max_abs_err": 0.0, "ms": w128["prep_ms"], "share_of_launch_ms": w128["prep_share_ms"],
+        "external_scale_ms": w128["prep_i64_ms"],
+        "plain_ms": w128["prep_plain_ms"], "bound_ms": w128["prep_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shape": [w128["K"], w128["N"], 128, w128["chunk_nodes"]]})
     # K1's and K3's launches under a mesh, on their float32 rows: the mesh
     # phase's external-scale launches at world size 1 over NCCL in this
     # process and on each gloo rank (the hist_i64 / seg_hist_i64 rows'

@@ -1,7 +1,9 @@
 // (grad, hess) histograms of the GBDT, batched over folds or lanes: the
 // depthwise level histogram (K1) and the leaf-wise segment histogram (K3),
-// one kernel template (group_hist_kernel<kLevel, kChunked, kExternal>), and the depthwise fit's
-// two histogram modes (K4 / K5, mode_hist_kernel<kInt8, kExternal>, further
+// one kernel template (group_hist_kernel<kLevel, kExternal>), K1's path for
+// a level wider than one CTA holds (wide_prep_kernel and
+// wide_hist_kernel<kExternal>, further down), and the depthwise fit's two
+// histogram modes (K4 / K5, mode_hist_kernel<kInt8, kExternal>, further
 // down), all shared-memory integer histograms.
 //
 // K1 (group_hist_kernel<true, .>) replaces mallorn_tpu/ops/hist_pallas.py:
@@ -68,14 +70,9 @@
 //   K1, by level; hist_cuda.seg_hist_layout for K3), so that deep levels
 //   take a smaller G than the root and a small grid a smaller G than a
 //   large one;
-// - K1's level of more nodes than one CTA's histograms hold (54 at 257
-//   bins) is split into equal chunks of at most that many nodes on the
-//   grid's z axis (hist_cuda.hist_plan), as K4 / K5 split theirs: a CTA
-//   counts the rows whose node lies in its chunk and writes the chunk's
-//   [F, chunk, n_bins, 2] slice. Integer sums, so a chunked launch gives
-//   the bits of an unchunked one; a level that fits is one chunk, the
-//   grid's z extent 1, and runs the unchunked instantiation (kChunked
-//   false: no chunk offsets in its row walk);
+// - K1's level of 17 nodes or more, or of more than one CTA's histograms
+//   hold (54 at 257 bins), takes the wide path below (hist_cuda.hist_plan
+//   picks it);
 // - the fold's scale found in the kernel: the CTA reads the fold's (g, h)
 //   once, keeps max |g|, max |h| (exact in any order) and a flag for any
 //   non-finite value (fmaxf drops NaN; an infinity must give NaN too);
@@ -212,8 +209,8 @@ __device__ __forceinline__ float from_fixed(unsigned long long a, double inv) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K3 (group_hist_kernel<kLevel, kChunked, kExternal>; the design is in the header
-// above)
+// K1 and K3 (group_hist_kernel<kLevel, kExternal>; the design is in the
+// header above)
 
 constexpr int kSegThreads = 256;
 constexpr int kSegWarps = kSegThreads / 32;
@@ -298,39 +295,27 @@ __device__ __forceinline__ void add_fixed(unsigned* words, int plane, int c, lon
   if (hh) atomicAdd(words + 3 * plane + c, hh);
 }
 
-// One CTA per (fold k, features f0 .. f0 + group - 1, chunk of ids) =
-// (blockIdx.y, blockIdx.x, blockIdx.z); tile_rows a multiple of
-// kSegThreads. ids are K1's node ids (kLevel: a row is active for a node
-// in this CTA's chunk [id0, id0 + z_ids) of [0, id_limit = k_nodes), its
-// base is (node - id0) * n_bins and a bin counts in [0, n_bins); the CTA
-// writes the chunk's [chunk nodes, n_bins, 2] slice of the k_nodes n_bins
-// = n_seg segments) or K3's segment bases (one chunk: z_ids = id_limit =
-// n_seg, a row is active for a base in [0, n_seg), a bin counts in
-// [0, n_seg - base); n_bins unused). kChunked false: one chunk, id0 = 0
-// and n_seg = n_seg_out at compile time. kExternal: the lane's scale comes
+// One CTA per (fold k, features f0 .. f0 + group - 1) = (blockIdx.y,
+// blockIdx.x); tile_rows a multiple of kSegThreads. ids are K1's node ids
+// (kLevel: a row is active for a node in [0, n_ids = k_nodes), its base is
+// node * n_bins and a bin counts in [0, n_bins)) or K3's segment bases
+// (n_ids = n_seg: a row is active for a base in [0, n_seg), a bin counts in
+// [0, n_seg - base); n_bins unused). kExternal: the lane's scale comes
 // from ext_max[k] (max |g|, max |h| of every rank's rows) and log2n (of the
-// global row count), and out is int64 [.., n_seg_out, 2] (raw sums);
-// otherwise the CTA finds the scale from its fold's rows and out is
-// float32.
-template <bool kLevel, bool kChunked, bool kExternal>
+// global row count), and out is int64 [.., n_seg, 2] (raw sums); otherwise
+// the CTA finds the scale from its fold's rows and out is float32.
+template <bool kLevel, bool kExternal>
 __global__ void __launch_bounds__(kSegThreads)
 group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ ids,
                   const float2* __restrict__ gh, void* __restrict__ out, int F, int N,
-                  int n_seg_out, int id_limit, int z_ids, int n_bins, int group, int tile_rows,
-                  int log2n, const float2* __restrict__ ext_max) {
-  static_assert(kLevel || !kChunked, "K3 runs one chunk");
+                  int n_seg, int n_ids, int n_bins, int group, int tile_rows, int log2n,
+                  const float2* __restrict__ ext_max) {
   extern __shared__ uint4 smem[];
   const int k = blockIdx.y;
   const int f0 = blockIdx.x * group;
   const int n_f = min(group, F - f0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R = tile_rows;
-  // this CTA's ids, [id0, id0 + n_ids), and its segments, [seg0, seg0 + n_seg)
-  // of the n_seg_out in out: all of them where the grid has one chunk
-  const int id0 = kChunked ? blockIdx.z * z_ids : 0;
-  const int n_ids = kChunked ? min(z_ids, id_limit - id0) : id_limit;
-  const int n_seg = kChunked ? n_ids * n_bins : n_seg_out;
-  const size_t seg0 = kChunked ? static_cast<size_t>(id0) * n_bins : 0;
 
   // the carve-up of seg_smem_bytes
   const int plane = group * n_seg;  // words per plane; feature g's at g * n_seg
@@ -436,11 +421,8 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
       int cnt = 0;
       for (int j = 0; j < per_warp; j += 32) {
         const int i = w0 + j + lane;
-        // the id relative to the chunk (K3: id0 = 0); the unsigned compare
-        // also drops ids below it
-        const int id = i < rows ? static_cast<int>(static_cast<unsigned>(t_ids[i]) -
-                                                   static_cast<unsigned>(id0))
-                                : -1;
+        // the unsigned compare also drops negative ids
+        const int id = i < rows ? t_ids[i] : -1;
         const bool act = static_cast<unsigned>(id) < static_cast<unsigned>(n_ids);
         const unsigned mask = __ballot_sync(0xffffffffu, act);
         if (act) {
@@ -481,8 +463,8 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
   if (kExternal) {
     for (int g = 0; g < n_f; ++g) {
       const int c0 = g * n_seg;
-      longlong2* o = reinterpret_cast<longlong2*>(out) +
-                     (static_cast<size_t>(k) * F + f0 + g) * n_seg_out + seg0;
+      longlong2* o =
+          reinterpret_cast<longlong2*>(out) + (static_cast<size_t>(k) * F + f0 + g) * n_seg;
       for (int s = tid; s < n_seg; s += kSegThreads) {
         const int c = c0 + s;
         o[s] = finite ? make_longlong2(
@@ -510,8 +492,7 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
   };
   for (int g = 0; g < n_f; ++g) {
     const int c0 = g * n_seg;
-    float* o = reinterpret_cast<float*>(out) +
-               ((static_cast<size_t>(k) * F + f0 + g) * n_seg_out + seg0) * 2;
+    float* o = reinterpret_cast<float*>(out) + (static_cast<size_t>(k) * F + f0 + g) * n_seg * 2;
     const int head = (reinterpret_cast<uintptr_t>(o) & 15) ? 1 : 0;  // o is 8-byte aligned
     const int n_pairs = (n_seg - head) >> 1;
     for (int p = tid; p < n_pairs; p += kSegThreads) {
@@ -533,59 +514,403 @@ int ceil_log2(int n) {
 
 constexpr int kMaxDevices = 64;
 
+// Raises fn's dynamic shared-memory limit to smem on the current device
+// only when smem exceeds what it was last given there (a driver call per
+// launch otherwise): limits only grow, under the caller's lock, so every
+// launch runs under a limit at least its own.
+int grant_smem(const void* fn, size_t smem, std::mutex& lock, size_t (&granted)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::lock_guard<std::mutex> hold(lock);
+  if (dev >= kMaxDevices || smem > granted[dev]) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) granted[dev] = smem;
+  }
+  return 0;
+}
+
 // K1's and K3's launch at a layout the wrapper picked (hist_cuda.hist_plan
 // or seg_hist_layout); refuses one that does not fit. n_seg is the
-// segments per (fold, feature) of out, cta_seg those of one CTA: K1's
-// z_ids nodes of n_bins (grid z = ceil(id_limit / z_ids) chunks of nodes,
-// kChunked where there is more than one), K3's n_seg (z_ids = id_limit,
-// one chunk). The kernel's dynamic
-// shared-memory limit is raised only when this launch needs more than the
-// instantiation was last given on the current device (a driver call per
-// launch otherwise): limits only grow, under a lock, so every launch runs
-// under a limit at least its own. kExternal: ext_max [K, 2] and log2n come
-// from the caller (log2n of a global row count, at least ceil(log2 N) and
-// at most 62) and out is int64; otherwise out is float32 and the kernel
-// takes log2n = ceil(log2 N).
-template <bool kLevel, bool kChunked, bool kExternal>
+// segments per (fold, feature) of out and of one CTA: K1's n_ids = k_nodes
+// nodes of n_bins, K3's n_seg (n_ids = n_seg). kExternal: ext_max [K, 2]
+// and log2n come from the caller (log2n of a global row count, at least
+// ceil(log2 N) and at most 62) and out is int64; otherwise out is float32
+// and the kernel takes log2n = ceil(log2 N).
+template <bool kLevel, bool kExternal>
 int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, void* out, int K,
-                 int F, int N, int n_seg, int id_limit, int z_ids, int n_bins, int group,
-                 int tile_rows, const float* ext_max, int log2n, void* stream) {
+                 int F, int N, int n_seg, int n_ids, int n_bins, int group, int tile_rows,
+                 const float* ext_max, int log2n, void* stream) {
   static std::mutex lock;
   static size_t granted[kMaxDevices] = {};
   if (K <= 0 || F <= 0 || n_seg <= 0) return 0;
-  if (z_ids < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long cta_seg = kChunked ? static_cast<long long>(z_ids) * n_bins : n_seg;
-  const int n_chunks = (id_limit + z_ids - 1) / z_ids;
-  if (N < 0 || K > 65535 || cta_seg > 65535 || n_chunks > 65535 || (n_chunks > 1) != kChunked ||
-      group < 1 || tile_rows < kSegThreads || tile_rows % kSegThreads ||
-      tile_rows > kSegMaxTileRows)
+  if (N < 0 || K > 65535 || n_seg > 65535 || group < 1 || tile_rows < kSegThreads ||
+      tile_rows % kSegThreads || tile_rows > kSegMaxTileRows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!kExternal) {
     log2n = ceil_log2(N);
   } else if (ext_max == nullptr || log2n < ceil_log2(N) || log2n > 62) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = seg_smem_bytes(static_cast<int>(cta_seg), group, tile_rows);
+  const size_t smem = seg_smem_bytes(n_seg, group, tile_rows);
   if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  {
-    std::lock_guard<std::mutex> hold(lock);
-    if (dev >= kMaxDevices || smem > granted[dev]) {
-      err = cudaFuncSetAttribute(group_hist_kernel<kLevel, kChunked, kExternal>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (dev < kMaxDevices) granted[dev] = smem;
+  const int err = grant_smem(reinterpret_cast<const void*>(group_hist_kernel<kLevel, kExternal>),
+                             smem, lock, granted);
+  if (err) return err;
+  group_hist_kernel<kLevel, kExternal>
+      <<<dim3((F + group - 1) / group, K), kSegThreads, smem,
+          static_cast<cudaStream_t>(stream)>>>(binned, ids, reinterpret_cast<const float2*>(gh),
+                                               out, F, N, n_seg, n_ids, n_bins, group, tile_rows,
+                                               log2n, reinterpret_cast<const float2*>(ext_max));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// K1's wide path: a level of more nodes than one CTA's histograms hold
+// (more than 54 of 257 bins: depth 7-8's last levels), and any level of 17
+// nodes or more, where it is also the faster (hist_cuda.WIDE_FROM_NODES),
+// in two kernels, the row grouping (wide_prep_kernel) and the histograms
+// (wide_hist_kernel<kExternal>). The contract is K1's (the header); the
+// sums are the same int64 fixed point at the same scale, so the output is
+// the one-CTA kernel's and build_histograms_fixed's bit for bit.
+//
+// Bound on an H100 SXM (data sheet: 3.35 TB/s at 700 W): the output. At
+// K = 5, F = 222, 257 bins it is 146 MB at 64 nodes and 292 MB at 128
+// (float32 (g, h) per cell; twice that in the external scale's int64):
+// 0.044 / 0.087 ms, against 5.4 MB of bins, ids and (g, h) in.
+//
+// What held the design before (each chunk of <= 54 nodes ran the one-CTA
+// kernel on the grid's z axis): every chunk's CTA read its fold's whole
+// (g, h) for the scale and staged every row tile, then dropped the rows of
+// the other chunks (two in three at 128 nodes; with subtraction every right
+// child too); a chunk of 32-43 nodes took 132-177 KB of shared memory, one
+// CTA per SM, whose epilogue overlapped nothing. This design:
+// - wide_prep_kernel, one CTA per fold: a first pass over the fold's rows
+//   counts each chunk's active rows (their offsets: an exclusive scan) and,
+//   at the fold's own scale, reduces its max |g|, max |h| and non-finite
+//   flag into the [K, 2] maxima of hist_cuda.lane_maxabs (+inf in a lane
+//   with NaN or inf), the one-CTA kernel's scale bit for bit; a second pass
+//   lists each active row once, in row order within its chunk (a warp's
+//   rows of one chunk ranked by __match_any_sync, the warps' counts scanned
+//   per chunk: no atomics, the same lists on every launch), as (row, node
+//   in the chunk) beside its q at the scale (the external scale's: the
+//   caller's maxima). Rows whose node is outside [0, k_nodes) join no list;
+// - wide_hist_kernel, one CTA per (fold, group of G features, chunk of
+//   nodes) (grid (ceil(F / G), K, n_chunks)), walks its chunk's list alone:
+//   a thread per entry reads (row, node) and q, 24 bytes of neighbouring
+//   entries, gathers the row's G bins (rows in order, so a warp's gathers
+//   share sectors; a fold's bins of one feature, 2N bytes, stay in L2 across
+//   the chunks' CTAs) and adds q with add_fixed's pairs of 32-bit atomics
+//   into the four word planes (G [chunk nodes n_bins, 2] int64 histograms:
+//   45 KB at G = 1 and 11 nodes, so several CTAs share an SM and one CTA's
+//   epilogue overlaps the others' walks);
+// - the epilogue converts each cell once (or writes the raw int64 sums)
+//   and writes 16-byte streaming stores (st.global.cs): the output is
+//   larger than L2 and is read next by another kernel.
+// G and the nodes per chunk come from hist_cuda.wide_plan (WIDE_LAYOUTS,
+// from tools/time_hist.py --layouts).
+
+constexpr int kPrepThreads = 1024;
+constexpr int kPrepWarps = kPrepThreads / 32;
+constexpr int kWideMaxChunks = 1024;  // chunks of nodes per level at most
+constexpr int kWideThreads = 256;
+constexpr int kWideMaxGroup = 4;
+
+// the prep kernel's shared memory: each chunk's cursor and each warp's
+// position in it
+size_t prep_smem_bytes(int n_chunks) {
+  return 4 * static_cast<size_t>(n_chunks) * (1 + kPrepWarps);
+}
+
+// One CTA per fold k. entries [K, N] int2 (row, node - the chunk's first
+// node) and q [K, N] longlong2: fold k's active rows grouped by chunk of
+// chunk_nodes nodes, in row order within a chunk (chunk c's at
+// [offsets[k, c], offsets[k, c + 1])), q zero in a lane that is not
+// finite; offsets [K, n_chunks + 1]. ext_max null: the fold's own scale,
+// its maxima written to maxabs [K, 2]; else the caller's maxima ext_max
+// [K, 2] (maxabs unwritten).
+__global__ void __launch_bounds__(kPrepThreads)
+wide_prep_kernel(const int32_t* __restrict__ ids, const float2* __restrict__ gh, int N,
+                 int k_nodes, int chunk_nodes, int n_chunks, int log2n,
+                 const float2* __restrict__ ext_max, int2* __restrict__ entries,
+                 longlong2* __restrict__ q_out, int32_t* __restrict__ offsets,
+                 float2* __restrict__ maxabs) {
+  extern __shared__ int prep_smem[];
+  int* cursor = prep_smem;               // [n_chunks]
+  int* warp_pos = prep_smem + n_chunks;  // [kPrepWarps, n_chunks]
+  __shared__ float2 red_max[kPrepWarps];
+  __shared__ int red_bad[kPrepWarps];
+  __shared__ float2 fold_max;
+  const int k = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int32_t* row_ids = ids + static_cast<size_t>(k) * N;
+  const float2* v = gh + static_cast<size_t>(k) * N;
+  for (int c = tid; c < n_chunks; c += kPrepThreads) cursor[c] = 0;
+  __syncthreads();
+
+  // the chunks' counts, and the fold's maxima (exact in any order)
+  float mg = 0.0f, mh = 0.0f;
+  bool bad = false;
+  for (int r = tid; r < N; r += kPrepThreads) {
+    const int id = row_ids[r];
+    if (static_cast<unsigned>(id) < static_cast<unsigned>(k_nodes))
+      atomicAdd(cursor + id / chunk_nodes, 1);
+    if (ext_max == nullptr) {
+      const float2 x = v[r];
+      mg = fmaxf(mg, fabsf(x.x));
+      mh = fmaxf(mh, fabsf(x.y));
+      bad = bad || !(isfinite(x.x) && isfinite(x.y));
     }
   }
-  group_hist_kernel<kLevel, kChunked, kExternal>
-      <<<dim3((F + group - 1) / group, K, n_chunks), kSegThreads, smem,
-          static_cast<cudaStream_t>(stream)>>>(binned, ids, reinterpret_cast<const float2*>(gh),
-                                               out, F, N, n_seg, id_limit, z_ids, n_bins, group,
-                                               tile_rows, log2n,
-                                               reinterpret_cast<const float2*>(ext_max));
+  if (ext_max == nullptr) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, o));
+      mh = fmaxf(mh, __shfl_xor_sync(0xffffffffu, mh, o));
+    }
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 0) {
+      red_max[warp] = make_float2(mg, mh);
+      red_bad[warp] = bad;
+    }
+  }
+  __syncthreads();
+
+  // the offsets: an exclusive scan of the counts, which become the chunks'
+  // cursors (one thread: a level has few chunks); the fold's maxima
+  if (tid == 0) {
+    int32_t* off = offsets + static_cast<size_t>(k) * (n_chunks + 1);
+    int total = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int n = cursor[c];
+      off[c] = cursor[c] = total;
+      total += n;
+    }
+    off[n_chunks] = total;
+    if (ext_max == nullptr) {
+      for (int w = 0; w < kPrepWarps; ++w) {
+        mg = fmaxf(mg, red_max[w].x);
+        mh = fmaxf(mh, red_max[w].y);
+        bad = bad || red_bad[w];
+      }
+      const float inf = __int_as_float(0x7f800000);
+      fold_max = bad ? make_float2(inf, inf) : make_float2(mg, mh);
+      maxabs[k] = fold_max;
+    } else {
+      fold_max = ext_max[k];
+    }
+  }
+  __syncthreads();
+  const float2 m = fold_max;
+  const bool finite = isfinite(m.x) && isfinite(m.y);
+  const double sg = exp2_exact(fixed_exponent(m.x, log2n));
+  const double sh = exp2_exact(fixed_exponent(m.y, log2n));
+
+  // the lists, kPrepThreads rows at a time: a row's place is its chunk's
+  // cursor, plus the rows of that chunk in the warps before its own, plus
+  // those in its warp's lanes before its own
+  int2* fold_entries = entries + static_cast<size_t>(k) * N;
+  longlong2* fold_q = q_out + static_cast<size_t>(k) * N;
+  const unsigned below = (1u << lane) - 1u;
+  for (int r0 = 0; r0 < N; r0 += kPrepThreads) {
+    for (int i = tid; i < kPrepWarps * n_chunks; i += kPrepThreads) warp_pos[i] = 0;
+    __syncthreads();
+    const int r = r0 + tid;
+    const int id = r < N ? row_ids[r] : -1;
+    const int c = static_cast<unsigned>(id) < static_cast<unsigned>(k_nodes) ? id / chunk_nodes
+                                                                             : -1;
+    const unsigned same = __match_any_sync(0xffffffffu, c);
+    if (c >= 0 && (same & below) == 0) warp_pos[warp * n_chunks + c] = __popc(same);
+    __syncthreads();
+    for (int cc = tid; cc < n_chunks; cc += kPrepThreads) {
+      int run = cursor[cc];
+      for (int w = 0; w < kPrepWarps; ++w) {
+        const int n = warp_pos[w * n_chunks + cc];
+        warp_pos[w * n_chunks + cc] = run;
+        run += n;
+      }
+      cursor[cc] = run;
+    }
+    __syncthreads();
+    if (c >= 0) {
+      const int pos = warp_pos[warp * n_chunks + c] + __popc(same & below);
+      fold_entries[pos] = make_int2(r, id - c * chunk_nodes);
+      longlong2 q = make_longlong2(0, 0);
+      if (finite) {
+        const float2 x = v[r];
+        q = make_longlong2(__double2ll_rn(__dmul_rn(static_cast<double>(x.x), sg)),
+                           __double2ll_rn(__dmul_rn(static_cast<double>(x.y), sh)));
+      }
+      fold_q[pos] = q;
+    }
+    __syncthreads();  // warp_pos is read before the next rows clear it
+  }
+}
+
+// the wide kernel's shared memory: the G int64 [chunk_nodes n_bins, 2]
+// histograms as four planes of 32-bit words (hist_cuda._wide_smem_bytes
+// repeats it; the CPU tests hold the two equal)
+size_t wide_smem_bytes(int chunk_nodes, int n_bins, int group) {
+  return 16 * static_cast<size_t>(group) * chunk_nodes * n_bins;
+}
+
+// One CTA per (fold k, features f0 .. f0 + group - 1, chunk of nodes) =
+// (blockIdx.y, blockIdx.x, blockIdx.z): the chunk's nodes [node0, node0 +
+// chunk_nodes) of k_nodes, its rows the prep's list. maxabs [K, 2] and
+// log2n: the scale of the prep's q (the fold's own, or kExternal the
+// caller's; a lane whose maxima are not finite adds nothing). out [K, F,
+// k_nodes, n_bins, 2]: float32 (NaN in a lane that is not finite), or
+// kExternal the raw int64 sums (zeros there).
+template <bool kExternal>
+__global__ void __launch_bounds__(kWideThreads)
+wide_hist_kernel(const int16_t* __restrict__ binned, const int2* __restrict__ entries,
+                 const longlong2* __restrict__ q, const int32_t* __restrict__ offsets,
+                 const float2* __restrict__ maxabs, void* __restrict__ out, int F, int N,
+                 int k_nodes, int n_bins, int chunk_nodes, int n_chunks, int group, int log2n) {
+  extern __shared__ uint4 smem[];
+  const int k = blockIdx.y;
+  const int f0 = blockIdx.x * group;
+  const int n_f = min(group, F - f0);
+  const int node0 = blockIdx.z * chunk_nodes;
+  const int n_seg = min(chunk_nodes, k_nodes - node0) * n_bins;
+  const int plane = group * n_seg;  // words per plane; feature g's at g * n_seg
+  const int tid = threadIdx.x;
+  unsigned* words = reinterpret_cast<unsigned*>(smem);
+  for (int i = tid; i < plane; i += kWideThreads) smem[i] = make_uint4(0u, 0u, 0u, 0u);
+
+  const float2 m = maxabs[k];
+  const bool finite = isfinite(m.x) && isfinite(m.y);
+  const int32_t* off = offsets + static_cast<size_t>(k) * (n_chunks + 1) + blockIdx.z;
+  const int e0 = off[0], e1 = off[1];
+  __syncthreads();  // the histograms zeroed
+
+  if (finite) {
+    const int2* fold_entries = entries + static_cast<size_t>(k) * N;
+    const longlong2* fold_q = q + static_cast<size_t>(k) * N;
+    const int16_t* bins = binned + (static_cast<size_t>(k) * F + f0) * N;
+    for (int e = e0 + tid; e < e1; e += kWideThreads) {
+      const int2 en = fold_entries[e];
+      // every bin first, then the adds: the loads in flight together
+      int b[kWideMaxGroup];
+#pragma unroll
+      for (int g = 0; g < kWideMaxGroup; ++g)
+        b[g] = g < n_f ? bins[static_cast<size_t>(g) * N + en.x] : -1;
+      const longlong2 qe = fold_q[e];
+      const int base = en.y * n_bins;
+#pragma unroll
+      for (int g = 0; g < kWideMaxGroup; ++g)
+        if (static_cast<unsigned>(b[g]) < static_cast<unsigned>(n_bins))
+          add_fixed(words, plane, g * n_seg + base + b[g], qe);
+    }
+  }
+  __syncthreads();  // every add is in
+
+  // the chunk's cells of feature f0 + g: one contiguous run of n_seg in out
+  const size_t n_seg_out = static_cast<size_t>(k_nodes) * n_bins;
+  const size_t seg0 = static_cast<size_t>(node0) * n_bins;
+  auto sums = [&](int c) {
+    return make_longlong2(
+        static_cast<long long>(static_cast<unsigned long long>(words[plane + c]) << 32 | words[c]),
+        static_cast<long long>(static_cast<unsigned long long>(words[3 * plane + c]) << 32 |
+                               words[2 * plane + c]));
+  };
+  if (kExternal) {  // the raw int64 sums, one cell per 16-byte store (zeros if not finite)
+    for (int g = 0; g < n_f; ++g) {
+      longlong2* o = reinterpret_cast<longlong2*>(out) +
+                     (static_cast<size_t>(k) * F + f0 + g) * n_seg_out + seg0;
+      for (int s = tid; s < n_seg; s += kWideThreads)
+        __stcs(o + s, finite ? sums(g * n_seg + s) : make_longlong2(0, 0));
+    }
+    return;
+  }
+  // one conversion per sum, two cells per float4 store
+  const double inv_g = exp2_exact(-fixed_exponent(m.x, log2n));  // 1 / S, exact
+  const double inv_h = exp2_exact(-fixed_exponent(m.y, log2n));
+  auto cell = [&](int c) {
+    if (!finite) return make_float2(__int_as_float(0x7fc00000), __int_as_float(0x7fc00000));
+    const longlong2 a = sums(c);
+    return make_float2(from_fixed(static_cast<unsigned long long>(a.x), inv_g),
+                       from_fixed(static_cast<unsigned long long>(a.y), inv_h));
+  };
+  for (int g = 0; g < n_f; ++g) {
+    const int c0 = g * n_seg;
+    float* o = reinterpret_cast<float*>(out) +
+               ((static_cast<size_t>(k) * F + f0 + g) * n_seg_out + seg0) * 2;
+    const int head = (reinterpret_cast<uintptr_t>(o) & 15) ? 1 : 0;  // o is 8-byte aligned
+    const int n_pairs = (n_seg - head) >> 1;
+    for (int p = tid; p < n_pairs; p += kWideThreads) {
+      const int s = head + 2 * p;
+      const float2 x = cell(c0 + s), y = cell(c0 + s + 1);
+      __stcs(reinterpret_cast<float4*>(o + 2 * s), make_float4(x.x, x.y, y.x, y.y));
+    }
+    if (tid == 0 && head) __stcs(reinterpret_cast<float2*>(o), cell(c0));
+    if (tid == kWideThreads - 1 && ((n_seg - head) & 1))
+      __stcs(reinterpret_cast<float2*>(o + 2 * (n_seg - 1)), cell(c0 + n_seg - 1));
+  }
+}
+
+int wide_chunks(int k_nodes, int chunk_nodes) { return (k_nodes + chunk_nodes - 1) / chunk_nodes; }
+
+// The prep kernel's launch; refuses more than kWideMaxChunks chunks.
+// ext_max null: the folds' own scale (log2n = ceil(log2 N)), their maxima
+// written to maxabs; else the caller's maxima and log2n (of a global row
+// count, at least ceil(log2 N) and at most 62).
+int launch_wide_prep(const int32_t* ids, const float* gh, int2* entries, long long* q,
+                     int32_t* offsets, const float* ext_max, float* maxabs, int K, int N,
+                     int k_nodes, int chunk_nodes, int log2n, void* stream) {
+  static std::mutex lock;
+  static size_t granted[kMaxDevices] = {};
+  if (K <= 0) return 0;
+  if (N < 0 || k_nodes < 1 || chunk_nodes < 1 ||
+      wide_chunks(k_nodes, chunk_nodes) > kWideMaxChunks ||
+      (ext_max == nullptr) == (maxabs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ext_max == nullptr) {
+    log2n = ceil_log2(N);
+  } else if (log2n < ceil_log2(N) || log2n > 62) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_chunks = wide_chunks(k_nodes, chunk_nodes);
+  const size_t smem = prep_smem_bytes(n_chunks);
+  const int err = grant_smem(reinterpret_cast<const void*>(wide_prep_kernel), smem, lock, granted);
+  if (err) return err;
+  wide_prep_kernel<<<K, kPrepThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      ids, reinterpret_cast<const float2*>(gh), N, k_nodes, chunk_nodes, n_chunks, log2n,
+      reinterpret_cast<const float2*>(ext_max), entries, reinterpret_cast<longlong2*>(q),
+      offsets, reinterpret_cast<float2*>(maxabs));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide kernel's launch; refuses a layout that does not fit. log2n as
+// launch_wide_prep's (the caller's when kExternal, else ceil(log2 N)).
+template <bool kExternal>
+int launch_wide(const int16_t* binned, const int2* entries, const long long* q,
+                const int32_t* offsets, const float* maxabs, void* out, int K, int F, int N,
+                int k_nodes, int n_bins, int chunk_nodes, int group, int log2n, void* stream) {
+  static std::mutex lock;
+  static size_t granted[kMaxDevices] = {};
+  if (K <= 0 || F <= 0) return 0;
+  const int n_chunks = chunk_nodes < 1 ? 0 : wide_chunks(k_nodes, chunk_nodes);
+  if (N < 0 || K > 65535 || k_nodes < 1 || n_bins < 1 || chunk_nodes < 1 ||
+      n_chunks > kWideMaxChunks || group < 1 || group > kWideMaxGroup || maxabs == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!kExternal) {
+    log2n = ceil_log2(N);
+  } else if (log2n < ceil_log2(N) || log2n > 62) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = wide_smem_bytes(chunk_nodes, n_bins, group);
+  if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = grant_smem(reinterpret_cast<const void*>(wide_hist_kernel<kExternal>), smem,
+                             lock, granted);
+  if (err) return err;
+  wide_hist_kernel<kExternal><<<dim3((F + group - 1) / group, K, n_chunks), kWideThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      binned, entries, reinterpret_cast<const longlong2*>(q), offsets,
+      reinterpret_cast<const float2*>(maxabs), out, F, N, k_nodes, n_bins, chunk_nodes, n_chunks,
+      group, log2n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -831,30 +1156,56 @@ extern "C" int mallorn_seg_hist(const int16_t* binned, const int32_t* seg_base,
                                 const float* gh, void* out, int K, int F, int N, int n_seg,
                                 int group, int tile_rows, const float* maxabs, int log2n,
                                 void* stream) {
-  const auto launch =
-      maxabs ? launch_group<false, false, true> : launch_group<false, false, false>;
-  return launch(binned, seg_base, gh, out, K, F, N, n_seg, n_seg, n_seg, 0, group, tile_rows,
-                maxabs, log2n, stream);
+  const auto launch = maxabs ? launch_group<false, true> : launch_group<false, false>;
+  return launch(binned, seg_base, gh, out, K, F, N, n_seg, n_seg, 0, group, tile_rows, maxabs,
+                log2n, stream);
 }
 
-// K1: group features per CTA, tile_rows rows per staged tile and
-// chunk_nodes nodes per CTA (hist_cuda.hist_plan; chunk_nodes = k_nodes is
-// one chunk); refuses a layout that does not fit, or more chunks than the
-// grid's z axis takes (65,535). maxabs and log2n as mallorn_seg_hist's:
-// out float32 or int64 [K, F, k_nodes, n_bins_tot, 2]
+// K1 at a level one CTA holds: group features per CTA and tile_rows rows
+// per staged tile (hist_cuda.hist_plan); refuses a layout that does not
+// fit (a wider level takes mallorn_hist_group_rows and mallorn_hist_wide).
+// maxabs and log2n as mallorn_seg_hist's: out float32 or int64 [K, F,
+// k_nodes, n_bins_tot, 2]
 extern "C" int mallorn_hist(const int16_t* binned, const int32_t* node_q, const float* gh,
                             void* out, int K, int F, int N, int k_nodes, int n_bins_tot,
-                            int group, int tile_rows, int chunk_nodes, const float* maxabs,
-                            int log2n, void* stream) {
+                            int group, int tile_rows, const float* maxabs, int log2n,
+                            void* stream) {
   if (k_nodes <= 0 || n_bins_tot <= 0) return 0;
   const long long n_seg = static_cast<long long>(k_nodes) * n_bins_tot;
-  if (n_seg > 0x7fffffffLL || chunk_nodes < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bool chunked = chunk_nodes < k_nodes;
-  const auto launch =
-      maxabs ? (chunked ? launch_group<true, true, true> : launch_group<true, false, true>)
-             : (chunked ? launch_group<true, true, false> : launch_group<true, false, false>);
-  return launch(binned, node_q, gh, out, K, F, N, static_cast<int>(n_seg), k_nodes,
-                chunk_nodes, n_bins_tot, group, tile_rows, maxabs, log2n, stream);
+  if (n_seg > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = maxabs ? launch_group<true, true> : launch_group<true, false>;
+  return launch(binned, node_q, gh, out, K, F, N, static_cast<int>(n_seg), k_nodes, n_bins_tot,
+                group, tile_rows, maxabs, log2n, stream);
+}
+
+// K1's wide path, the row grouping: node_q [K, N] int32, gh [K, N, 2]
+// float32 -> entries [K, N] int2 (each fold's rows of node ids in [0,
+// k_nodes) grouped by chunk of chunk_nodes nodes, in row order within a
+// chunk, as (row, node - the chunk's first node)), q [K, N, 2] int64 (their
+// fixed-point (g, h)) and offsets [K, n_chunks + 1] int32. external 0: the
+// folds' own scale, maxabs [K, 2] float32 written (max |g|, max |h| per
+// fold, +inf in a fold with a non-finite value); external 1: maxabs [K, 2]
+// and log2n as mallorn_seg_hist's, read. Refuses more than 1,024 chunks
+extern "C" int mallorn_hist_group_rows(const int32_t* node_q, const float* gh, int2* entries,
+                                       long long* q, int32_t* offsets, float* maxabs, int K,
+                                       int N, int k_nodes, int chunk_nodes, int external,
+                                       int log2n, void* stream) {
+  return launch_wide_prep(node_q, gh, entries, q, offsets, external ? maxabs : nullptr,
+                          external ? nullptr : maxabs, K, N, k_nodes, chunk_nodes, log2n, stream);
+}
+
+// K1's wide path, the histograms: group features and chunk_nodes nodes
+// per CTA (hist_cuda.wide_plan) over the entries, q and offsets of
+// mallorn_hist_group_rows at the same chunk_nodes and maxabs. external 0:
+// out float32 [K, F, k_nodes, n_bins_tot, 2]; external 1: log2n as
+// mallorn_seg_hist's, out the raw int64 sums
+extern "C" int mallorn_hist_wide(const int16_t* binned, const int2* entries, const long long* q,
+                                 const int32_t* offsets, const float* maxabs, void* out, int K,
+                                 int F, int N, int k_nodes, int n_bins_tot, int chunk_nodes,
+                                 int group, int external, int log2n, void* stream) {
+  const auto launch = external ? launch_wide<true> : launch_wide<false>;
+  return launch(binned, entries, q, offsets, maxabs, out, K, F, N, k_nodes, n_bins_tot,
+                chunk_nodes, group, log2n, stream);
 }
 
 // K4: digits [K, N, 6] bf16, maxabs [K, 6] float32 (max |digit| per

@@ -65,17 +65,28 @@ non-finite flag), stages the rows in tiles with asynchronous copies,
 compacts each tile's active rows once, computes q once per row and adds it
 into its G histograms as pairs of 32-bit atomics. G and the tile come from
 the shape: ``hist_layout`` (K1, by level) and ``seg_hist_layout`` (K3).
-A K1 level wider than one CTA's histograms hold (54 nodes at 257 bins) is
-split into chunks of nodes over the grid's z axis (``hist_plan``).
 The wrappers allocate ``out`` and launch, nothing else; ``launch_hist_kernel``
 and ``launch_seg_kernel`` are the launches alone, of either scale (the
 external one given ``maxabs`` and ``log2n``: one C entry per kernel,
 ``mallorn_hist`` / ``mallorn_seg_hist``, with a nullable ``maxabs``).
+
+A K1 level of 17 nodes or more (``WIDE_FROM_NODES``: depth 6-8's last
+levels), or wider than one CTA's histograms hold, takes the wide path
+(``hist_plan`` picks it, ``wide_plan`` lays it out; its section below): a
+prep kernel groups each fold's active rows by chunk of nodes once a level
+and finds the folds' maxima (``launch_group_rows``, plain version
+``group_rows_plain``), then one CTA per (fold, group of G features, chunk of
+nodes) walks its chunk's row list alone (``launch_wide_kernel``; its
+arithmetic in plain PyTorch, ``build_histograms_wide_fixed``). Same scale,
+same integer sums: the output is ``build_histograms_fixed``'s
+(``build_histograms_i64_fixed``'s) bit for bit. ``launches`` and
+``launches_by_nodes`` count one per K1 call on either path,
+``prep_launches`` the prep kernel's launches.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -83,9 +94,9 @@ from mallorn_tpu_torch.utils import cuda_build
 
 # the shared memory a CTA may take on an H100. K1 and K3 hold their group's
 # histograms, staged row tiles and active list in it (``_group_layout``:
-# at most SEG_MAX_SEGMENTS = 14,004 segments, 54 nodes at 257 bins; K1
-# splits a wider level into chunks of nodes, ``hist_plan``), K4 / K5 one
-# (fold, feature, <= 8 nodes) histogram
+# at most SEG_MAX_SEGMENTS = 14,004 segments, 54 nodes at 257 bins; K1's
+# wide path holds a chunk of nodes' histograms alone), K4 / K5 one (fold,
+# feature, <= 8 nodes) histogram
 SMEM_BYTES = 232448
 
 launches = 0
@@ -97,13 +108,14 @@ i64_launches = 0  # K1's external-scale entry
 seg_i64_launches = 0  # K3's
 bf16_i64_launches = 0  # K4's
 i8_sums_launches = 0  # K5's
+prep_launches = 0  # K1's row grouping (the wide path's prep kernel, both scales)
 
 
 def reset_launches() -> None:
     global launches, seg_launches, bf16_launches, i8_launches, i64_launches, seg_i64_launches
-    global bf16_i64_launches, i8_sums_launches
+    global bf16_i64_launches, i8_sums_launches, prep_launches
     launches = seg_launches = bf16_launches = i8_launches = 0
-    i64_launches = seg_i64_launches = bf16_i64_launches = i8_sums_launches = 0
+    i64_launches = seg_i64_launches = bf16_i64_launches = i8_sums_launches = prep_launches = 0
     launches_by_nodes.clear()
 
 
@@ -300,37 +312,27 @@ def hist_layout(k_nodes: int, n_bins_tot: int):
     """(features per CTA G, rows per tile, shared-memory bytes) of a K1 CTA
     that holds ``k_nodes`` x ``n_bins_tot`` segments: HIST_LAYOUTS' entry
     for the level, shrunk as ``_group_layout`` does until the CTA fits.
-    Raises beyond SEG_MAX_SEGMENTS segments (54 nodes at 257 bins); a
-    wider level is split into chunks of nodes (``hist_plan``)."""
+    Raises beyond SEG_MAX_SEGMENTS segments (54 nodes at 257 bins);
+    ``hist_plan`` sends such a level, and any of WIDE_FROM_NODES nodes or
+    more, down the wide path."""
     levels = sorted(HIST_LAYOUTS)
     level = next((c for c in levels if c >= k_nodes), levels[-1])
     return _group_layout(f"build_histograms ({k_nodes} nodes x {n_bins_tot} bins)",
                          k_nodes * n_bins_tot, *HIST_LAYOUTS[level])
 
 
-GRID_Z_MAX = 65535  # CUDA's limit on a grid's z extent
-
-
 def hist_plan(k_nodes: int, n_bins_tot: int):
     """(nodes per CTA, chunks, G, rows per tile, shared-memory bytes) of a
-    K1 launch: a level that one CTA holds (at most SEG_MAX_SEGMENTS //
-    n_bins_tot nodes, 54 at 257 bins) is one chunk at ``hist_layout``;
-    a wider one is split into the fewest equal chunks of at most that many
-    nodes (the last may be smaller) on the grid's z axis, each CTA at the
-    chunk's ``hist_layout``. Raises where one node's bins exceed a CTA or
-    the chunks exceed the grid's z axis."""
-    name = f"build_histograms ({k_nodes} nodes x {n_bins_tot} bins)"
-    per_cta = SEG_MAX_SEGMENTS // max(int(n_bins_tot), 1)
-    if k_nodes < 1 or n_bins_tot < 1 or per_cta < 1:
-        raise ValueError(f"{name}: the kernel takes 1 to {SEG_MAX_SEGMENTS} bins a node "
-                         f"and at least one node")
-    n_chunks = -(-k_nodes // per_cta)
-    if n_chunks > GRID_Z_MAX:
-        raise ValueError(f"{name}: {n_chunks} chunks of {per_cta} nodes exceed the grid's "
-                         f"z axis ({GRID_Z_MAX}); the kernel takes at most "
-                         f"{GRID_Z_MAX * per_cta} nodes at {n_bins_tot} bins")
-    chunk = -(-k_nodes // n_chunks)
-    return (chunk, -(-k_nodes // chunk)) + hist_layout(chunk, n_bins_tot)
+    K1 call: a level of fewer than WIDE_FROM_NODES nodes that one CTA holds
+    is one chunk at ``hist_layout``, the one-CTA kernel; any other takes the
+    wide path at ``wide_plan``, its chunks of nodes and G, with 0 rows per
+    tile (no tiles: each CTA walks its chunk's row list). Raises as
+    ``wide_plan`` does."""
+    if (1 <= k_nodes < WIDE_FROM_NODES and n_bins_tot >= 1
+            and k_nodes * n_bins_tot <= SEG_MAX_SEGMENTS):
+        return (k_nodes, 1) + hist_layout(k_nodes, n_bins_tot)
+    chunk, n_chunks, group, smem = wide_plan(k_nodes, n_bins_tot)
+    return chunk, n_chunks, group, 0, smem
 
 
 def seg_hist_layout(n_seg: int):
@@ -348,20 +350,24 @@ def seg_hist_layout(n_seg: int):
 def launch_hist_kernel(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                        out: torch.Tensor, k_nodes: int, n_bins_tot: int,
                        maxabs: Optional[torch.Tensor] = None, log2n: int = 0) -> None:
-    """One launch of K1 on inputs the wrapper checked, at
-    ``hist_plan(k_nodes, n_bins_tot)``; writes ``out`` [K, F, k_nodes,
-    n_bins_tot, 2]: float32 at the folds' own scale, or, given ``maxabs``
-    [K, 2] and ``log2n``, the int64 sums at that external scale. Counts
-    nothing."""
+    """One K1 call on inputs the wrapper checked, at ``hist_plan(k_nodes,
+    n_bins_tot)``: the one-CTA kernel, or the wide path's prep and
+    histogram kernels; writes ``out`` [K, F, k_nodes, n_bins_tot, 2]:
+    float32 at the folds' own scale, or, given ``maxabs`` [K, 2] and
+    ``log2n``, the int64 sums at that external scale. Counts nothing."""
     K, F, N = binned.shape
     chunk, _, group, rows, _ = hist_plan(k_nodes, n_bins_tot)
+    if rows == 0:
+        grouped = launch_group_rows(node_q, gh, k_nodes, chunk, maxabs, log2n)
+        launch_wide_kernel(binned, grouped, out, k_nodes, n_bins_tot, chunk, group,
+                           None if maxabs is None else log2n)
+        return
     lib = cuda_build.load()
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.mallorn_hist(binned.data_ptr(), node_q.data_ptr(), gh.data_ptr(),
                               out.data_ptr(), K, F, N, k_nodes, n_bins_tot, group, rows,
-                              chunk, None if maxabs is None else maxabs.data_ptr(), log2n,
-                              stream)
+                              None if maxabs is None else maxabs.data_ptr(), log2n, stream)
     cuda_build.check(rc, "mallorn_hist")
 
 
@@ -392,19 +398,20 @@ def build_histograms_i64(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.T
     finite; ``lane_maxabs``) and ``n_rows`` (the global row count). Zeros
     in a lane that is not finite. A CPU tensor runs the plain twin
     ``build_histograms_i64_fixed``."""
-    global i64_launches
+    global i64_launches, prep_launches
     if binned.device.type == "cpu":
         return build_histograms_i64_fixed(binned, node_q, gh, k_nodes, n_bins_tot,
                                           maxabs, n_rows)
     _check_cuda_inputs("build_histograms_i64", binned, node_q, gh)
     log2n = _check_external("build_histograms_i64", gh, maxabs, n_rows)
-    hist_plan(k_nodes, n_bins_tot)
+    wide = hist_plan(k_nodes, n_bins_tot)[3] == 0
     K, F, _ = binned.shape
     out = torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.int64, device=binned.device)
     if K == 0 or F == 0:
         return out
     launch_hist_kernel(binned, node_q, gh, out, k_nodes, n_bins_tot, maxabs, log2n)
     i64_launches += 1
+    prep_launches += wide
     return out
 
 
@@ -412,11 +419,11 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
                      k_nodes: int, n_bins_tot: int) -> torch.Tensor:
     """[K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess) histograms from
     int16 bins [K, F, N], int32 node ids [K, N] and float32 (g, h) [K, N, 2]."""
-    global launches
+    global launches, prep_launches
     if binned.device.type == "cpu":
         return build_histograms_plain(binned, node_q, gh, k_nodes, n_bins_tot)
     _check_cuda_inputs("build_histograms", binned, node_q, gh)
-    hist_plan(k_nodes, n_bins_tot)  # refuses a level beyond the grid's z axis
+    wide = hist_plan(k_nodes, n_bins_tot)[3] == 0  # refuses a level the kernels do not take
     K, F, _ = binned.shape
     out = torch.empty(K, F, k_nodes, n_bins_tot, 2, dtype=torch.float32, device=binned.device)
     if K == 0 or F == 0:
@@ -424,7 +431,192 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
     launch_hist_kernel(binned, node_q, gh, out, k_nodes, n_bins_tot)
     launches += 1
     launches_by_nodes[k_nodes] = launches_by_nodes.get(k_nodes, 0) + 1
+    prep_launches += wide
     return out
+
+
+# ---------------------------------------------------------------------------
+# K1's wide path (csrc/hist.cu wide_prep_kernel and wide_hist_kernel; its
+# note says more)
+# ---------------------------------------------------------------------------
+# A wide level is bound by its output (K = 5, F = 222, 257 bins: 146 MB at
+# 64 nodes, 292 MB at 128). A prep kernel groups each fold's active rows by
+# chunk of nodes once a level (the lists and their offsets) and finds the
+# folds' max |g|, max |h|; one CTA per (fold, G features, chunk) then walks
+# its chunk's list alone, so a chunk may be small enough for several CTAs
+# to share an SM.
+
+WIDE_THREADS = 256  # threads per CTA of the wide kernel (csrc/hist.cu kWideThreads)
+WIDE_MAX_GROUP = 4  # features per CTA at most (kWideMaxGroup)
+WIDE_MAX_CHUNKS = 1024  # chunks of nodes per level at most (kWideMaxChunks)
+# levels of at least this many nodes take the wide path, as does any level
+# one CTA cannot hold: at 17-54 nodes of the v92d CV's shape the wide path
+# was the faster in every sweep (tools/time_hist.py --layouts, NVIDIA H100
+# 80GB HBM3 at 700 W); 1-16 nodes, every shipped configuration's levels,
+# keep the one-CTA kernel
+WIDE_FROM_NODES = 17
+# the wide kernel's (features per CTA G, nodes per chunk) by level (a level
+# between two entries takes the larger's, a wider one the last): from
+# ``tools/time_hist.py --layouts`` at K = 5, F = 222, N = 2,444 (G = 1-4,
+# 6-22 nodes per chunk): one feature of 11 nodes was the fastest or within
+# 7% of it at 64 and 128 nodes in every sweep; at 17-54 nodes the sweep's
+# calls are bound by the host, every layout of one feature within 0.06-0.08
+# ms on an NVIDIA H100 80GB HBM3 at 700 W, 6 nodes the fastest at 17
+WIDE_LAYOUTS = {17: (1, 6), 128: (1, 11)}
+
+
+def _wide_smem_bytes(chunk_nodes: int, n_bins_tot: int, group: int) -> int:
+    """The wide kernel's shared memory per CTA (csrc/hist.cu
+    ``wide_smem_bytes``): G int64 [chunk_nodes n_bins_tot, 2] histograms."""
+    return 16 * group * chunk_nodes * n_bins_tot
+
+
+def wide_plan(k_nodes: int, n_bins_tot: int, layout=None):
+    """(nodes per chunk, chunks, G, shared-memory bytes) of K1's wide path:
+    ``layout`` (G, nodes per chunk), by default WIDE_LAYOUTS' entry for the
+    level, with G halved and then the nodes cut while a CTA would exceed
+    SMEM_BYTES, the nodes at most ``k_nodes``; the level in the fewest
+    chunks of at most that many nodes, equal but for the last. Raises where
+    one node's bins exceed a CTA or the chunks exceed WIDE_MAX_CHUNKS."""
+    name = f"build_histograms ({k_nodes} nodes x {n_bins_tot} bins)"
+    max_bins = SMEM_BYTES // _wide_smem_bytes(1, 1, 1)
+    if k_nodes < 1 or not 1 <= n_bins_tot <= max_bins:
+        raise ValueError(f"{name}: the kernels take 1 to {max_bins} bins a node and at least "
+                         f"one node")
+    if layout is None:
+        levels = sorted(WIDE_LAYOUTS)
+        layout = WIDE_LAYOUTS[next((c for c in levels if c >= k_nodes), levels[-1])]
+    group, nodes = layout
+    if not (1 <= group <= WIDE_MAX_GROUP and nodes >= 1):
+        raise ValueError(f"{name}: layout {layout} is not (1 to {WIDE_MAX_GROUP} features, "
+                         f"at least one node)")
+    while group > 1 and _wide_smem_bytes(nodes, n_bins_tot, group) > SMEM_BYTES:
+        group //= 2
+    nodes = min(nodes, k_nodes, SMEM_BYTES // _wide_smem_bytes(1, n_bins_tot, group))
+    n_chunks = -(-k_nodes // nodes)
+    if n_chunks > WIDE_MAX_CHUNKS:
+        raise ValueError(f"{name}: {n_chunks} chunks of {nodes} nodes exceed the "
+                         f"{WIDE_MAX_CHUNKS} the row grouping takes")
+    chunk = -(-k_nodes // n_chunks)
+    return chunk, n_chunks, group, _wide_smem_bytes(chunk, n_bins_tot, group)
+
+
+class GroupedRows(NamedTuple):
+    """The prep kernel's output: each fold's active rows grouped by chunk
+    of nodes, in row order within a chunk (chunk c's at [offsets[k, c],
+    offsets[k, c + 1])), with their fixed-point (g, h) at the scale of
+    ``maxabs``."""
+    entries: torch.Tensor  # [K, N, 2] int32: (row, node - the chunk's first node)
+    q: torch.Tensor  # [K, N, 2] int64: the row's q (0 in a lane that is not finite)
+    offsets: torch.Tensor  # [K, n_chunks + 1] int32
+    maxabs: torch.Tensor  # [K, 2] float32: the folds' own maxima (lane_maxabs) or the caller's
+
+
+def group_rows_plain(node_q: torch.Tensor, gh: torch.Tensor, k_nodes: int, chunk_nodes: int,
+                     maxabs: Optional[torch.Tensor] = None,
+                     n_rows: Optional[int] = None) -> GroupedRows:
+    """The prep kernel's function in plain PyTorch: each fold's rows whose
+    node id lies in [0, ``k_nodes``) grouped by chunk of ``chunk_nodes``
+    nodes, in row order within a chunk, as (row, node in the chunk), and
+    their q at the folds' own scale (``lane_maxabs`` and N) or, given
+    ``maxabs`` and ``n_rows``, at that external scale; entries of -1 and q
+    of 0 after the lists (the kernel leaves them unwritten)."""
+    K, N = node_q.shape
+    dev = node_q.device
+    n_chunks = -(-k_nodes // chunk_nodes)
+    nq = node_q.long()
+    active = (nq >= 0) & (nq < k_nodes)
+    chunk = torch.where(active, nq.clamp(min=0) // chunk_nodes, n_chunks)
+    order = torch.sort(chunk * N + torch.arange(N, device=dev), dim=1).indices
+    counts = torch.zeros(K, n_chunks + 1, dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, chunk, torch.ones_like(chunk))
+    offsets = torch.cat([torch.zeros(K, 1, dtype=torch.int64, device=dev),
+                         counts[:, :n_chunks].cumsum(dim=1)], dim=1)
+    listed = torch.arange(N, device=dev) < offsets[:, -1:]
+    local = nq.gather(1, order) - chunk.gather(1, order) * chunk_nodes
+    entries = torch.where(listed[..., None], torch.stack([order, local], dim=-1), -1)
+    m = lane_maxabs(gh) if maxabs is None else maxabs
+    q, _, _ = _fixed_point(gh, m, N if n_rows is None else n_rows)
+    q = torch.where(listed[..., None], q.gather(1, order[..., None].expand(K, N, 2)), 0)
+    return GroupedRows(entries.to(torch.int32), q, offsets.to(torch.int32), m)
+
+
+def build_histograms_wide_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
+                                k_nodes: int, n_bins_tot: int, chunk_nodes: int,
+                                maxabs: Optional[torch.Tensor] = None,
+                                n_rows: Optional[int] = None) -> torch.Tensor:
+    """The wide path's arithmetic in plain PyTorch: the rows grouped by
+    chunk with their q (``group_rows_plain``, at the folds' own scale or at
+    that of ``maxabs`` and ``n_rows``), and per fold and chunk the int64
+    sums of its listed rows' q into the chunk's cells. Returns them
+    converted once (float32, NaN in a fold that is not finite:
+    ``build_histograms_fixed`` bit for bit) or, given ``maxabs``, raw (zeros
+    in such a lane: ``build_histograms_i64_fixed`` bit for bit)."""
+    _check_shapes(binned, node_q, gh)
+    K, F, N = binned.shape
+    grouped = group_rows_plain(node_q, gh, k_nodes, chunk_nodes, maxabs, n_rows)
+    n_cells = k_nodes * n_bins_tot
+    cells = torch.zeros(K, F, n_cells + 1, 2, dtype=torch.int64, device=gh.device)  # + a sink
+    f_off = torch.arange(F, device=gh.device)[:, None] * (n_cells + 1)
+    off = grouped.offsets.tolist()
+    for k in range(K):
+        for c in range(len(off[k]) - 1):
+            en = grouped.entries[k, off[k][c]:off[k][c + 1]].long()
+            b = binned[k][:, en[:, 0]].long()
+            local = en[:, 1] * n_bins_tot + b  # the chunk's own cells
+            seg = torch.where((b >= 0) & (b < n_bins_tot), c * chunk_nodes * n_bins_tot + local,
+                              n_cells)
+            q = grouped.q[k, off[k][c]:off[k][c + 1]]
+            cells[k].view(-1, 2).index_add_(0, (f_off + seg).reshape(-1),
+                                            q[None].expand(F, -1, 2).reshape(-1, 2))
+    out = cells[:, :, :n_cells].reshape(K, F, k_nodes, n_bins_tot, 2)
+    if maxabs is not None:
+        return out
+    scale, finite = fixed_scale(grouped.maxabs, N)
+    return _from_fixed(out, scale, finite)
+
+
+def launch_group_rows(node_q: torch.Tensor, gh: torch.Tensor, k_nodes: int, chunk_nodes: int,
+                      maxabs: Optional[torch.Tensor] = None, log2n: int = 0) -> GroupedRows:
+    """One launch of the prep kernel on checked CUDA inputs: what
+    ``group_rows_plain`` gives, bit for bit over the lists (their tails
+    unwritten), at the folds' own scale or, given ``maxabs`` [K, 2] and
+    ``log2n``, at that external scale. Counts nothing."""
+    K, N = node_q.shape
+    n_chunks = -(-k_nodes // chunk_nodes)
+    dev = node_q.device
+    entries = torch.empty(K, N, 2, dtype=torch.int32, device=dev)
+    q = torch.empty(K, N, 2, dtype=torch.int64, device=dev)
+    offsets = torch.empty(K, n_chunks + 1, dtype=torch.int32, device=dev)
+    external = maxabs is not None
+    m = maxabs if external else torch.empty(K, 2, dtype=torch.float32, device=dev)
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mallorn_hist_group_rows(node_q.data_ptr(), gh.data_ptr(), entries.data_ptr(),
+                                         q.data_ptr(), offsets.data_ptr(), m.data_ptr(), K, N,
+                                         k_nodes, chunk_nodes, int(external), log2n, stream)
+    cuda_build.check(rc, "mallorn_hist_group_rows")
+    return GroupedRows(entries, q, offsets, m)
+
+
+def launch_wide_kernel(binned: torch.Tensor, grouped: GroupedRows, out: torch.Tensor,
+                       k_nodes: int, n_bins_tot: int, chunk_nodes: int, group: int,
+                       log2n: Optional[int] = None) -> None:
+    """One launch of the wide kernel on checked inputs and the prep's
+    ``grouped`` rows at ``chunk_nodes``: float32 ``out`` at the folds' own
+    scale, or, given ``log2n`` (the prep's), the int64 sums at the external
+    scale of ``grouped.maxabs``. Counts nothing."""
+    K, F, N = binned.shape
+    lib = cuda_build.load()
+    with torch.cuda.device(binned.device):
+        stream = torch.cuda.current_stream(binned.device).cuda_stream
+        rc = lib.mallorn_hist_wide(binned.data_ptr(), grouped.entries.data_ptr(),
+                                   grouped.q.data_ptr(), grouped.offsets.data_ptr(),
+                                   grouped.maxabs.data_ptr(), out.data_ptr(), K, F, N, k_nodes,
+                                   n_bins_tot, chunk_nodes, group, int(log2n is not None),
+                                   log2n or 0, stream)
+    cuda_build.check(rc, "mallorn_hist_wide")
 
 
 # ---------------------------------------------------------------------------

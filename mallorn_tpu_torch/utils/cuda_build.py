@@ -138,8 +138,12 @@ def load() -> ctypes.CDLL:
             lib.mallorn_chol.restype = ctypes.c_int
             lib.mallorn_chol_tiled.argtypes = [p, p, p, i, i, ctypes.POINTER(i), p]
             lib.mallorn_chol_tiled.restype = ctypes.c_int
-            lib.mallorn_hist.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p, i, p]
+            lib.mallorn_hist.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, i, p]
             lib.mallorn_hist.restype = ctypes.c_int
+            lib.mallorn_hist_group_rows.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.mallorn_hist_group_rows.restype = ctypes.c_int
+            lib.mallorn_hist_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+            lib.mallorn_hist_wide.restype = ctypes.c_int
             lib.mallorn_seg_hist.argtypes = [p, p, p, p, i, i, i, i, i, i, p, i, p]
             lib.mallorn_seg_hist.restype = ctypes.c_int
             lib.mallorn_hist_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]

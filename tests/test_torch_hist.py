@@ -14,14 +14,14 @@ version with no launch counted. The CUDA kernel itself is held against
 the plain version on the card (the ``cuda`` cases below: bit for bit
 ``build_histograms_fixed`` and two launches equal and counted, at 1, 17,
 2,443 and 8,143 rows, F = 222 with a ragged last feature group, 1, 8 and
-16 nodes, and 64 and 128 nodes in chunks of nodes on the grid's z axis; a
-chunked launch bit for bit the one-chunk launch; K1's rule for node ids
-and bins out of range, NaN and inf folds beside finite ones, an
-all-inactive fold; and ``chip_smoke.py``). On the CPU also the chunking
-rule (``hist_plan``: a level of at most 54 nodes is the parent's one
-chunk, a wider one the fewest chunks that fit, refused beyond the grid's
-z axis) and its arithmetic (the fixed-point histogram of a level is its
-chunks' side by side). The
+16 nodes, and 64 and 128 nodes through the wide path; K1's rule for node
+ids and bins out of range, NaN and inf folds beside finite ones, an
+all-inactive fold; and ``chip_smoke.py``). On the CPU also the rule
+between the two paths (``hist_plan``: a level of at most 16 nodes that one
+CTA holds is one chunk on the one-CTA kernel, any other the wide path's
+chunks of nodes, refused beyond the row grouping's chunks) and its
+arithmetic (the fixed-point histogram of a level is its chunks' side by
+side). The wide path itself: ``tests/test_torch_hist_wide.py``. The
 machine with the card has no JAX, so this file imports the JAX package
 inside the test that uses it and runs there as
 ``pytest --noconftest -m cuda tests/test_torch_hist.py``.
@@ -149,29 +149,41 @@ def test_hist_layout_refuses_beyond_its_limit(k_nodes):
         hist_layout(k_nodes, NBT)
 
 
-@pytest.mark.parametrize("k_nodes", [1, 8, 16, 54])
+@pytest.mark.parametrize("k_nodes", [1, 8, 12, 16])
 def test_hist_plan_takes_a_level_that_fits_as_one_chunk(k_nodes):
-    # the parent's launch: one chunk of every node, the grid's z extent 1
+    # below WIDE_FROM_NODES (17) nodes, the one-CTA kernel: one chunk of
+    # every node at hist_layout
+    assert k_nodes < hist_cuda.WIDE_FROM_NODES
     assert hist_cuda.hist_plan(k_nodes, NBT) == (k_nodes, 1) + hist_layout(k_nodes, NBT)
 
 
-@pytest.mark.parametrize("k_nodes", [55, 64, 128, 1000])
-def test_hist_plan_splits_a_wider_level_into_chunks(k_nodes):
-    c = _kernel_smem_bytes()
+@pytest.mark.parametrize("k_nodes", [17, 32, 54, 55, 64, 128, 1000])
+def test_hist_plan_takes_the_wide_path_from_17_nodes(k_nodes):
+    # no row tiles (0 rows): the wide kernel at wide_plan's chunks and G
     chunk, n_chunks, group, rows, smem = hist_cuda.hist_plan(k_nodes, NBT)
+    assert rows == 0 and (chunk, n_chunks, group, smem) == hist_cuda.wide_plan(k_nodes, NBT)
     assert chunk <= 54 and (n_chunks - 1) * chunk < k_nodes <= n_chunks * chunk
-    assert n_chunks == -(-k_nodes // 54)  # the fewest chunks that fit
-    assert (group, rows, smem) == hist_layout(chunk, NBT)
-    assert c["seg_smem_bytes"](chunk * NBT, group, rows) == smem <= SMEM_BYTES
+    assert smem == hist_cuda._wide_smem_bytes(chunk, NBT, group) <= SMEM_BYTES
 
 
-def test_hist_plan_refuses_beyond_the_grid_z_axis():
-    top = hist_cuda.GRID_Z_MAX * 54
-    assert hist_cuda.hist_plan(top, NBT)[1] == hist_cuda.GRID_Z_MAX
-    with pytest.raises(ValueError, match="z axis"):
+def test_hist_plan_takes_the_wide_path_where_one_cta_cannot_hold_a_level():
+    # 16 nodes of 1,000 bins exceed one CTA's SEG_MAX_SEGMENTS segments
+    assert 16 * 1000 > SEG_MAX_SEGMENTS
+    assert hist_cuda.hist_plan(16, 1000)[3] == 0
+
+
+def test_hist_plan_refuses_beyond_the_row_grouping():
+    # the prep kernel's cursors take WIDE_MAX_CHUNKS chunks; a node's bins
+    # must fit one CTA
+    nodes = hist_cuda.wide_plan(10 ** 4, NBT)[0]
+    top = hist_cuda.WIDE_MAX_CHUNKS * nodes
+    assert hist_cuda.hist_plan(top, NBT)[1] == hist_cuda.WIDE_MAX_CHUNKS
+    with pytest.raises(ValueError, match="chunks"):
         hist_cuda.hist_plan(top + 1, NBT)
-    with pytest.raises(ValueError, match=str(SEG_MAX_SEGMENTS)):
-        hist_cuda.hist_plan(1, SEG_MAX_SEGMENTS + 1)
+    max_bins = SMEM_BYTES // 16
+    assert hist_cuda.hist_plan(1, max_bins)[3] == 0
+    with pytest.raises(ValueError, match=str(max_bins)):
+        hist_cuda.hist_plan(1, max_bins + 1)
 
 
 @pytest.mark.parametrize("k_nodes", [64, 128])
@@ -283,30 +295,9 @@ def test_kernel_bit_for_bit_at_the_fits_width(k_nodes):
 @pytest.mark.parametrize("k_nodes", [64, 128])
 def test_kernel_bit_for_bit_wider_than_one_cta(k_nodes):
     # depth 8's last level with subtraction (64 nodes) and without (128):
-    # two and three chunks of nodes on the grid's z axis
+    # the wide path
     _cuda_or_skip()
     _kernel_equals_fixed(*_level(5, 222, 2444, k_nodes, seed=80 + k_nodes), k_nodes)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("chunk", [1, 5, 16])
-def test_kernel_chunked_launch_equals_one_chunk(chunk):
-    """A 16-node level launched in chunks of ``chunk`` nodes gives the bits
-    of the one-chunk launch (which is the wrapper's)."""
-    _cuda_or_skip()
-    from mallorn_tpu_torch.utils import cuda_build
-
-    binned, node_q, gh = (torch.as_tensor(a).cuda() for a in _level(3, 37, 2443, 16, seed=90))
-    want = build_histograms(binned, node_q, gh, 16, NBT)
-    out = torch.full_like(want, float("nan"))
-    group, rows, _ = hist_layout(chunk, NBT)
-    lib = cuda_build.load()
-    cuda_build.check(lib.mallorn_hist(binned.data_ptr(), node_q.data_ptr(), gh.data_ptr(),
-                                      out.data_ptr(), 3, 37, 2443, 16, NBT, group, rows, chunk,
-                                      None, 0, torch.cuda.current_stream().cuda_stream),
-                     "mallorn_hist")
-    torch.cuda.synchronize()
-    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda

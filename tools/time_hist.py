@@ -3,7 +3,7 @@
 checkouts on one CUDA card, in turns, and holds their outputs bit for bit
 equal.
 
-    python3 tools/time_hist.py [--layouts] DIR [DIR ...]
+    python3 tools/time_hist.py [--layouts] [--fits] DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository: ``.`` for this one,
 or an unpacked ``git archive`` of another commit in a gitignored folder
@@ -12,17 +12,34 @@ given, so ``.scratch_parent . . .scratch_parent`` times two commits in
 turns. Every process builds its checkout's CUDA sources and takes the same
 seeded inputs: ``chip_smoke.py``'s K1 shapes (``HIST_SHAPES``: the
 selection, adversarial, v92d and ensemble fits at every node count of
-their levels, with its seeds) and its ragged shape (2,443 rows, 30% of
-rows inactive). Per shape it times, by CUDA events over 50 calls, the
-wrapper and the launch alone: the checkout's
-``hist_cuda.launch_hist_kernel``, or, in a checkout from before that
-function, its entry point of that time, which took the folds' max |g|,
-|h| from the caller (computed once, untimed). With ``--layouts``, each
-checkout that has ``hist_layout`` also times the launch alone with G = 1,
-2, 4, 8 features per CTA and 256-, 512- and 1,024-row tiles (those that
-fit) at 1, 2, 4, 8 and 16 nodes, at the v92d fit's shape (K = 5, F = 222,
-N = 2,444), the adversarial fit's (N = 8,143) and the ensemble's (K = 25,
-F = 224), each layout's output held bit for bit to the wrapper's.
+their levels, with its seeds), its ragged shape (2,443 rows, 30% of rows
+inactive) and depth 8's last levels (``WIDE_SHAPES``: K = 5, F = 222,
+N = 2,444 at 64 and 128 nodes, wider than one CTA holds). Per shape it
+times, by CUDA events over 50 calls, the wrapper and the launch alone:
+the checkout's ``hist_cuda.launch_hist_kernel``, or, in a checkout from
+before that function, its entry point of that time, which took the folds'
+max |g|, |h| from the caller (computed once, untimed). At the wide shapes
+it also times the external-scale entry (``build_histograms_i64`` and its
+launch alone at the folds' own maxima), and, in a checkout with the wide
+path (``wide_plan``), its prep kernel and histogram kernel alone; and once
+per run each wide shape's bound (bytes: bins, ids and (g, h) in, the
+output out, over 3.35 TB/s) and one ``scatter_add_`` over every (fold,
+feature, node, bin) cell (a yardstick the port never calls). With
+``--layouts``, each checkout that has ``hist_layout`` also times the launch
+alone with G = 1, 2, 4, 8 features per CTA and 256-, 512- and 1,024-row
+tiles (those that fit) at 1, 2, 4, 8 and 16 nodes, at the v92d fit's shape
+(K = 5, F = 222, N = 2,444), the adversarial fit's (N = 8,143) and the
+ensemble's (K = 25, F = 224), and each with ``wide_plan`` the wide path
+(prep and histogram kernel) with G = 1, 2, 4 and 6-22 nodes per chunk
+(those that fit) at 17-128 nodes of the v92d CV's shape, beside the
+one-CTA kernel at the levels it holds (in two passes, the mean), each
+layout's output held bit for bit to the wrapper's. With ``--fits``, each
+checkout also trains depth-8 CVs (``train_cv``: 5 folds, 100 rounds,
+min_child_weight 1e-3, with and without subtraction, so their last levels
+run K1 at 64 and 128 nodes) on one seeded synthetic matrix of the v92d CV's
+width (3,054 x 222, NaNs included) and reports each CV's forests' sha256,
+rounds, OOF F1 and K1 launches by level width, which must agree across the
+checkouts.
 
 Prints one line per run and shape, the card's name and power limit, and
 last one JSON object of every run. Exits non-zero with no CUDA device or
@@ -45,6 +62,16 @@ HIST_SHAPES = (("selection", 5, 307, 2444, (1, 2, 4, 8)),
                ("v92d", 5, 222, 2444, (1, 2, 4, 8)),
                ("kaggle", 25, 224, 2444, (1, 2, 4, 8)))
 RAGGED = ("ragged", 5, 222, 2443, 4, 2999, 0.3)
+# chip_smoke.py's FAMILY_HIST_SHAPES (depth 8's last level with and without
+# subtraction), seeds 2900 + k
+WIDE_SHAPES = (("depth8", 5, 222, 2444, (64, 128)),)
+# the wide path's layout sweep at the v92d CV's shape: levels (those of at
+# most 54 nodes also on the one-CTA kernel, to place the switch between the
+# two paths), features per CTA and nodes per chunk
+WIDE_SWEEP_LEVELS = (17, 24, 32, 43, 54, 64, 100, 128)
+WIDE_SWEEP_GROUPS = (1, 2, 4)
+WIDE_SWEEP_NODES = (6, 8, 11, 16, 22)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the layout sweep: (name, K, F, N), node counts, G and tile rows
 SWEEP_SHAPES = (("v92d", 5, 222, 2444), ("adversarial", 5, 222, 8143), ("kaggle", 25, 224, 2444))
 SWEEP_NODES = (1, 2, 4, 8, 16)
@@ -57,7 +84,13 @@ def shapes():
     out = [(f"{fit} nodes={k}", K, F, N, k, 2000 + 17 * i + k, 0.0)
            for i, (fit, K, F, N, nodes) in enumerate(HIST_SHAPES) for k in nodes]
     name, K, F, N, k, seed, inactive = RAGGED
-    return out + [(f"{name} nodes={k}", K, F, N, k, seed, inactive)]
+    out.append((f"{name} nodes={k}", K, F, N, k, seed, inactive))
+    return out + [(f"{fit} nodes={k}", K, F, N, k, 2900 + k, 0.0)
+                  for fit, K, F, N, nodes in WIDE_SHAPES for k in nodes]
+
+
+def wide_names():
+    return [f"{fit} nodes={k}" for fit, _, _, _, nodes in WIDE_SHAPES for k in nodes]
 
 
 def hist_inputs(torch, K: int, F: int, N: int, k_nodes: int, seed: int, inactive: float = 0.0):
@@ -73,7 +106,7 @@ def hist_inputs(torch, K: int, F: int, N: int, k_nodes: int, seed: int, inactive
     return binned.contiguous(), node_q.to(torch.int32).contiguous(), gh
 
 
-def time_checkout(layouts: bool) -> dict:
+def time_checkout(layouts: bool, fits: bool = False) -> dict:
     """Times the K1 of the checkout first on ``sys.path``."""
     import torch
     from mallorn_tpu_torch.ops import hist_cuda
@@ -117,10 +150,148 @@ def time_checkout(layouts: bool) -> dict:
                                                                 N_BINS_TOT)),
             "launch_ms": ms(launch),
             "sha256": hashlib.sha256(want.cpu().numpy().tobytes()).hexdigest()}
-        if hasattr(hist_cuda, "hist_layout"):
+        if hasattr(hist_cuda, "hist_plan"):
+            res[name]["layout"] = list(hist_cuda.hist_plan(k_nodes, N_BINS_TOT)[:4])
+        elif hasattr(hist_cuda, "hist_layout"):
             res[name]["layout"] = list(hist_cuda.hist_layout(k_nodes, N_BINS_TOT)[:2])
+        if name in wide_names():
+            res[name].update(time_wide(torch, hist_cuda, ms, binned, node_q, gh, k_nodes))
     if layouts and hasattr(hist_cuda, "hist_layout"):
         res["sweep"] = sweep(torch, hist_cuda, cuda_build, stream, ms)
+    if layouts and hasattr(hist_cuda, "wide_plan"):
+        res["wide_sweep"] = wide_sweep(torch, hist_cuda, ms)
+    if fits:
+        res["fits"] = depth8_fits(torch, hist_cuda)
+    return res
+
+
+def depth8_fits(torch, hist_cuda) -> dict:
+    """Depth-8 CVs with and without subtraction on a seeded synthetic
+    matrix: each one's forests' sha256, rounds, OOF F1, seconds and K1
+    launches by level width."""
+    import time
+
+    import numpy as np
+
+    from mallorn_tpu_torch.train.cv import train_cv
+    from mallorn_tpu_torch.trees.gbdt import V34A_PARAMS
+
+    rng = np.random.default_rng(2025)
+    X = rng.normal(size=(3054, 222)).astype(np.float32)
+    X[rng.random(X.shape) < 0.05] = np.nan
+    logit = np.nan_to_num(X[:, :8]) @ rng.normal(size=8) - 2.5
+    y = (rng.random(3054) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    res = {}
+    for sub in (True, False):
+        p = V34A_PARAMS._replace(n_rounds=100, max_depth=8, hist_subtract=sub,
+                                 min_child_weight=1e-3)
+        hist_cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cv = train_cv(X, y, None, p, device="cuda")
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for m in cv.models:
+            for t in m.forest:
+                h.update(t.cpu().numpy().tobytes())
+        res[f"subtract={sub}"] = {
+            "sha256": h.hexdigest(), "rounds": cv.rounds_run, "oof_f1": cv.best_f1,
+            "s": time.perf_counter() - t0, "k1": hist_cuda.launches,
+            "k1_by_nodes": {str(k): v for k, v in sorted(hist_cuda.launches_by_nodes.items())}}
+    return res
+
+
+def time_wide(torch, hist_cuda, ms, binned, node_q, gh, k_nodes) -> dict:
+    """At a wide shape: the external-scale entry and its launch alone (at the
+    folds' own maxima), the prep and histogram kernels alone where the
+    checkout has them, the bound and one scatter_add_."""
+    K, F, N = binned.shape
+    m = hist_cuda.lane_maxabs(gh)
+    log2n = hist_cuda._log2_ceil(N)
+    want = hist_cuda.build_histograms_i64(binned, node_q, gh, k_nodes, N_BINS_TOT, m, N)
+    out = torch.empty_like(want)
+    hist_cuda.launch_hist_kernel(binned, node_q, gh, out, k_nodes, N_BINS_TOT, m, log2n)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError(f"nodes={k_nodes}: the external launch alone disagrees")
+    res = {"i64_wrapper_ms": ms(lambda: hist_cuda.build_histograms_i64(
+               binned, node_q, gh, k_nodes, N_BINS_TOT, m, N)),
+           "i64_launch_ms": ms(lambda: hist_cuda.launch_hist_kernel(
+               binned, node_q, gh, out, k_nodes, N_BINS_TOT, m, log2n)),
+           "i64_sha256": hashlib.sha256(want.cpu().numpy().tobytes()).hexdigest()}
+    if hasattr(hist_cuda, "wide_plan"):
+        chunk, _, group, _ = hist_cuda.wide_plan(k_nodes, N_BINS_TOT)
+        own = hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk)
+        ext = hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk, m, log2n)
+        f32 = torch.empty(K, F, k_nodes, N_BINS_TOT, 2, device="cuda")
+        res["prep_ms"] = ms(lambda: hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk))
+        res["prep_i64_ms"] = ms(lambda: hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk,
+                                                                    m, log2n))
+        res["wide_ms"] = ms(lambda: hist_cuda.launch_wide_kernel(
+            binned, own, f32, k_nodes, N_BINS_TOT, chunk, group))
+        res["wide_i64_ms"] = ms(lambda: hist_cuda.launch_wide_kernel(
+            binned, ext, out, k_nodes, N_BINS_TOT, chunk, group, log2n))
+    # the bound (bytes; float32 and int64 out) and one scatter_add_
+    n_in = K * F * N * 2 + K * N * 4 + K * N * 8
+    n_cells = K * F * k_nodes * N_BINS_TOT
+    res["bound_ms"] = (n_in + n_cells * 8) / HBM_BYTES_PER_S * 1e3
+    res["i64_bound_ms"] = (n_in + K * 8 + n_cells * 16) / HBM_BYTES_PER_S * 1e3
+    nq = node_q.long()
+    kf = torch.arange(K * F, device="cuda").view(K, F, 1) * k_nodes
+    seg = (kf + nq[:, None, :]) * N_BINS_TOT + binned.long()
+    seg = torch.where(((nq >= 0) & (nq < k_nodes))[:, None, :], seg, n_cells)
+    idx = seg.reshape(-1, 1).expand(-1, 2)
+    vals = gh[:, None, :, :].expand(K, F, N, 2).reshape(-1, 2)
+    sink = torch.zeros(n_cells + 1, 2, device="cuda")
+    res["library_ms"] = ms(lambda: sink.scatter_add_(0, idx, vals), reps=20)
+    return res
+
+
+def wide_sweep(torch, hist_cuda, ms) -> dict:
+    """The wide path's launch alone (prep + histogram kernel) at every
+    layout of WIDE_SWEEP_GROUPS x WIDE_SWEEP_NODES that fits, and the
+    one-CTA kernel's launch alone where the level fits one CTA, at each of
+    WIDE_SWEEP_LEVELS at the v92d CV's shape: two passes, the second in
+    reverse order, 100 calls each; the mean of the two, each output held
+    bit for bit to the wrapper's."""
+    _, K, F, N, _ = WIDE_SHAPES[0]
+    res = {}
+    for k_nodes in WIDE_SWEEP_LEVELS:
+        binned, node_q, gh = hist_inputs(torch, K, F, N, k_nodes, 2900 + k_nodes)
+        want = hist_cuda.build_histograms(binned, node_q, gh, k_nodes, N_BINS_TOT)
+        out = torch.empty_like(want)
+        launches = {}
+        if k_nodes * N_BINS_TOT <= hist_cuda.SEG_MAX_SEGMENTS:
+            group, rows, _ = hist_cuda.hist_layout(k_nodes, N_BINS_TOT)
+            lib = hist_cuda.cuda_build.load()
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def one_cta(group=group, rows=rows):
+                hist_cuda.cuda_build.check(lib.mallorn_hist(
+                    binned.data_ptr(), node_q.data_ptr(), gh.data_ptr(), out.data_ptr(), K, F,
+                    N, k_nodes, N_BINS_TOT, group, rows, None, 0, stream), "mallorn_hist")
+            launches["one_cta"] = one_cta
+        for group in WIDE_SWEEP_GROUPS:
+            for n in WIDE_SWEEP_NODES:
+                if hist_cuda._wide_smem_bytes(n, N_BINS_TOT, group) > hist_cuda.SMEM_BYTES:
+                    continue
+                chunk, _, g, _ = hist_cuda.wide_plan(k_nodes, N_BINS_TOT, (group, n))
+
+                def wide(chunk=chunk, g=g):
+                    grouped = hist_cuda.launch_group_rows(node_q, gh, k_nodes, chunk)
+                    hist_cuda.launch_wide_kernel(binned, grouped, out, k_nodes, N_BINS_TOT,
+                                                 chunk, g)
+                launches[f"G{g}_C{chunk}"] = wide
+        for name, launch in launches.items():
+            out.fill_(float("nan"))
+            launch()
+            torch.cuda.synchronize()
+            if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"nodes={k_nodes} {name}: disagrees with the wrapper")
+        first = {name: ms(launch, reps=100) for name, launch in launches.items()}
+        second = {name: ms(launch, reps=100) for name, launch in reversed(launches.items())}
+        res[f"K={K} F={F} N={N} nodes={k_nodes}"] = {
+            name: (first[name] + second[name]) / 2 for name in launches}
     return res
 
 
@@ -140,9 +311,11 @@ def sweep(torch, hist_cuda, cuda_build, stream, ms) -> dict:
                     if hist_cuda._seg_smem_bytes(n_seg, group, rows) > hist_cuda.SMEM_BYTES:
                         continue
 
-                    # a checkout with hist_plan takes nodes per CTA (here all),
-                    # one with the external-scale entry a null maxabs and log2n
-                    chunk = (k_nodes,) if hasattr(hist_cuda, "hist_plan") else ()
+                    # a checkout whose hist_plan chunked wide levels on the
+                    # grid's z axis takes nodes per CTA (here all), one with the
+                    # external-scale entry a null maxabs and log2n
+                    chunk = ((k_nodes,) if hasattr(hist_cuda, "hist_plan")
+                             and not hasattr(hist_cuda, "wide_plan") else ())
                     if hasattr(hist_cuda, "build_histograms_i64"):
                         chunk += (None, 0)
 
@@ -163,8 +336,8 @@ def sweep(torch, hist_cuda, cuda_build, stream, ms) -> dict:
 
 
 def main(argv) -> int:
-    layouts = "--layouts" in argv
-    dirs = [a for a in argv if a != "--layouts"]
+    layouts, fits = "--layouts" in argv, "--fits" in argv
+    dirs = [a for a in argv if a not in ("--layouts", "--fits")]
     if not dirs:
         print(__doc__, file=sys.stderr)
         return 2
@@ -176,7 +349,7 @@ def main(argv) -> int:
     for d in dirs:
         root = Path(d).resolve()
         got = subprocess.run([sys.executable, __file__, "--child", str(root)]
-                             + (["--layouts"] if layouts else []),
+                             + (["--layouts"] if layouts else []) + (["--fits"] if fits else []),
                              capture_output=True, text=True, timeout=900, cwd=root)
         if got.returncode != 0:
             print(f"time_hist: {d} failed:\n{got.stderr[-4000:]}", file=sys.stderr)
@@ -184,19 +357,32 @@ def main(argv) -> int:
         res = json.loads(got.stdout.strip().splitlines()[-1])
         runs.append({"dir": d, "shapes": res})
         for name, r in res.items():
-            if name == "sweep":
+            if name in ("sweep", "wide_sweep", "fits"):
                 continue
-            layout = f" layout(G, rows)={tuple(r['layout'])}" if "layout" in r else ""
+            layout = f" layout={tuple(r['layout'])}" if "layout" in r else ""
+            extra = " ".join(f"{k}={v:.4f}" for k, v in r.items()
+                             if k.endswith("_ms") and k not in ("launch_ms", "wrapper_ms"))
             print(f"{d} {name}: launch_ms={r['launch_ms']:.4f} "
-                  f"wrapper_ms={r['wrapper_ms']:.4f}{layout}", flush=True)
-        for shape, times in res.get("sweep", {}).items():
-            best = min(times, key=times.get)
-            print(f"{d} sweep {shape}: best {best} " +
-                  " ".join(f"{k}={v:.4f}" for k, v in times.items()), flush=True)
+                  f"wrapper_ms={r['wrapper_ms']:.4f}{layout} {extra}".rstrip(), flush=True)
+        for key in ("sweep", "wide_sweep"):
+            for shape, times in res.get(key, {}).items():
+                best = min(times, key=times.get)
+                print(f"{d} {key} {shape}: best {best} " +
+                      " ".join(f"{k}={v:.4f}" for k, v in times.items()), flush=True)
+        for fit, r in res.get("fits", {}).items():
+            print(f"{d} depth-8 CV {fit}: {r['s']:.3f} s, rounds {r['rounds']}, OOF F1 "
+                  f"{r['oof_f1']:.4f}, K1 {r['k1']} by width {r['k1_by_nodes']}, forests "
+                  f"sha256 {r['sha256'][:16]}", flush=True)
+    if fits and len({json.dumps({f: {k: v for k, v in r.items() if k != "s"}
+                                 for f, r in run["shapes"]["fits"].items()}, sort_keys=True)
+                     for run in runs}) != 1:
+        print("time_hist: the checkouts' depth-8 CVs differ", file=sys.stderr)
+        return 1
     for name, *_ in shapes():
-        if len({r["shapes"][name]["sha256"] for r in runs}) != 1:
-            print(f"time_hist: the checkouts' outputs differ at {name}", file=sys.stderr)
-            return 1
+        for sha in ("sha256", "i64_sha256"):
+            if len({r["shapes"][name].get(sha) for r in runs}) != 1:
+                print(f"time_hist: the checkouts' outputs differ at {name}", file=sys.stderr)
+                return 1
     if len(runs) > 1:
         print("outputs bit for bit equal across the checkouts at every shape")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -209,6 +395,6 @@ def main(argv) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.path.insert(0, sys.argv[2])
-        print(json.dumps(time_checkout("--layouts" in sys.argv[3:])))
+        print(json.dumps(time_checkout("--layouts" in sys.argv[3:], "--fits" in sys.argv[3:])))
         sys.exit(0)
     sys.exit(main(sys.argv[1:]))
