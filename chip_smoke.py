@@ -89,6 +89,17 @@ Phases, each printing its wall time on its own line:
    a symmetric fit (K1), a leaf-wise DART fit (K3) and a 3-class fit
    (K1, its classes as lanes), each twice with the kernel and once with
    its fixed-point arithmetic: each set of forests bit for bit equal;
+   then the bins phase (``run_bins``): every histogram kernel beyond 256
+   bins, where a CTA holds a window of a node's bins or of a call's
+   segments (``BINS_SHAPES``: K4 / K5 at 8 nodes x 1,025 bins, 1 x 8,193
+   and 2 x 32,768, K1's wide path at 32 x 16,385, K3 at a pair of 8,193),
+   each entry twice, bit for bit its plain twin, its windows a call
+   counted, with its times; fits on the same fixture at 1,024 bins
+   (float32, "int8", "i8bf16"), 8,192 (both modes, and leaf-wise with 31
+   leaves) and 16,384 (depth 7), each bit for bit its kernel's plain
+   twin, their launches and calls in windows counted from 0; and the
+   8,192- and 16,384-bin fits on a world-size-1 NCCL mesh, bit for bit
+   (the external-scale entries in windows);
 8. training: the 10,178-object v92d workload of ``.bench_data_v2.npz``
    (``train_v92d``: features of both splits, the top-120 selection CV,
    assembly, adversarial weights, the 5-fold v92d CV, the threshold sweep)
@@ -431,6 +442,17 @@ MODE_SUMS = {
 # their shapes: the v92d CV's deepest level and the multiclass v62 head's
 # (5 folds x 4 classes as 20 lanes, 224 columns) at 8 nodes
 MODE_SUM_SHAPES = (("v92d", 5, 222, 2444, 8), ("multiclass", 20, 224, 2444, 8))
+# the "bins" phase: every histogram kernel beyond 256 bins, where a CTA
+# holds a window of a node's bins (K1's wide path, K4, K5) or of a call's
+# segments (K3): (kernel, K, F, N, nodes, bins a node; K3 a pair of nodes);
+# the first shape of each kernel is its row's. K4 / K5 at the v92d CV's
+# deepest level with 1,024 bins (fewer nodes a CTA, one window) and at one
+# and two nodes of 8,193 and 32,768 bins (windows)
+BINS_SHAPES = (("K4", 5, 16, 2444, 1, 8193), ("K4", 5, 222, 2444, 8, 1025),
+               ("K4", 5, 16, 2444, 2, 32768),
+               ("K5", 5, 16, 2444, 1, 8193), ("K5", 5, 222, 2444, 8, 1025),
+               ("K5", 5, 16, 2444, 2, 32768),
+               ("K1", 5, 16, 2444, 32, 16385), ("K3", 5, 16, 2444, 2, 8193))
 
 
 def log(msg: str) -> None:
@@ -1356,6 +1378,16 @@ def check_mode_sums(mode: str, fit: str, K: int, F: int, N: int, nodes: int, see
     return res
 
 
+def small_fixture():
+    """The 600 x 30 training fixture (10% NaN) of the kernel-against-plain
+    fits, and its scale_pos_weight."""
+    rng = np.random.default_rng(SEED)
+    X = rng.normal(size=(600, 30)).astype(np.float32)
+    y = (0.8 * X[:, 3] - 0.5 * X[:, 11] + 0.5 * rng.normal(size=600) > 0.6).astype(np.float32)
+    X[rng.random(X.shape) < 0.1] = np.nan
+    return X, y, float((y == 0).sum() / (y == 1).sum())
+
+
 def check_training_kernel_vs_plain(device) -> None:
     """A small fit with K1 twice and once with the kernel's arithmetic in
     plain PyTorch (``build_histograms_fixed``): the three forests must be
@@ -1363,13 +1395,9 @@ def check_training_kernel_vs_plain(device) -> None:
     atomics in a varying order, so its last bits, and the exact ties they
     decide, change from run to run: its fit is reported, not held to
     identity."""
-    rng = np.random.default_rng(SEED)
-    X = rng.normal(size=(600, 30)).astype(np.float32)
-    y = (0.8 * X[:, 3] - 0.5 * X[:, 11] + 0.5 * rng.normal(size=600) > 0.6).astype(np.float32)
-    X[rng.random(X.shape) < 0.1] = np.nan
+    X, y, spw = small_fixture()
     p = GBDTParams(n_rounds=20, max_depth=5, learning_rate=0.1, subsample=0.8,
                    colsample_bytree=0.8)
-    spw = float((y == 0).sum() / (y == 1).sum())
 
     def fit(hist_fn):
         return train_gbdt(X, y, p, scale_pos_weight=spw, device=device,
@@ -1478,6 +1506,231 @@ def check_training_kernel_vs_plain(device) -> None:
         if not (same_k and same_plain):
             raise AssertionError(f"the {tag} fit with the kernel and with its plain version "
                                  f"disagree")
+
+
+def bins_inputs(K: int, F: int, N: int, k_nodes: int, nbt: int, seed: int):
+    """``hist_inputs`` over ``nbt`` bins a node: int16 bins [K, F, N] (every
+    7th row in the missing bin), int32 node ids [K, N] in [0, k_nodes],
+    float32 (g, h) [K, N, 2]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    binned = torch.randint(0, nbt, (K, F, N), generator=g, device="cuda").to(torch.int16)
+    binned[:, :, ::7] = nbt - 1
+    node_q = torch.randint(0, k_nodes + 1, (K, N), generator=g, device="cuda").to(torch.int32)
+    p = torch.rand(K, N, generator=g, device="cuda")
+    y = (torch.rand(K, N, generator=g, device="cuda") < 0.1).float()
+    w = 0.5 + 1.5 * torch.rand(K, N, generator=g, device="cuda")
+    gh = torch.stack([w * (p - y), w * p * (1 - p)], dim=-1).contiguous()
+    return binned.contiguous(), node_q.contiguous(), gh
+
+
+def bins_kernel(kernel: str, k_nodes: int, nbt: int):
+    """(float32 entry, its bit-for-bit twin, external entry, its twin, the
+    external scale of (g, h), launch counters (float32, external), windows
+    a call, bytes a cell out (float32, external), adds per active (row,
+    feature) (float32, external), the TPU kernel) of one windowed kernel:
+    K4 / K5 at ``k_nodes`` nodes of ``nbt`` bins, K1's wide path, or K3 on
+    a pair of nodes (n_seg = 2 nbt). Every entry takes (binned, ids, gh)."""
+    if kernel in ("K4", "K5"):
+        int8 = kernel == "K5"
+        lv = (k_nodes, nbt)
+        windows = hist_cuda.mode_plan(k_nodes, nbt, int8)[1]
+        if int8:
+            return (lambda b, i, g: hist_cuda.build_histograms_i8(b, i, g, *lv),
+                    lambda b, i, g: hist_cuda.build_histograms_i8_plain(b, i, g, *lv),
+                    lambda b, i, g, m: hist_cuda.build_histograms_i8_sums(b, i, g, *lv, m,
+                                                                          g.shape[1]),
+                    lambda b, i, g, m: hist_cuda.build_histograms_i8_sums_fixed(
+                        b, i, g, *lv, m, g.shape[1]),
+                    lambda g: hist_cuda.amax_of(hist_cuda.amax_parts(g)),
+                    ("i8_launches", "i8_sums_launches"), windows, (8, 32), (8, 8),
+                    "mallorn_tpu/ops/hist_pallas.py:368")
+        return (lambda b, i, g: hist_cuda.build_histograms_bf16(b, i, g, *lv),
+                lambda b, i, g: hist_cuda.build_histograms_bf16_fixed(b, i, g, *lv),
+                lambda b, i, g, m: hist_cuda.build_histograms_bf16_i64(b, i, g, *lv, m,
+                                                                       g.shape[1]),
+                lambda b, i, g, m: hist_cuda.build_histograms_bf16_i64_fixed(
+                    b, i, g, *lv, m, g.shape[1]),
+                hist_cuda.digit_maxabs, ("bf16_launches", "bf16_i64_launches"), windows,
+                (8, 48), (6, 6), "mallorn_tpu/ops/hist_pallas.py:202")
+    if kernel == "K1":
+        lv = (k_nodes, nbt)
+        if hist_cuda.hist_plan(k_nodes, nbt)[3] != 0:
+            raise AssertionError(f"K1 at {k_nodes} x {nbt}: hist_plan did not pick the wide path")
+        return (lambda b, i, g: hist_cuda.build_histograms(b, i, g, *lv),
+                lambda b, i, g: hist_cuda.build_histograms_fixed(b, i, g, *lv),
+                lambda b, i, g, m: hist_cuda.build_histograms_i64(b, i, g, *lv, m, g.shape[1]),
+                lambda b, i, g, m: hist_cuda.build_histograms_i64_fixed(b, i, g, *lv, m,
+                                                                        g.shape[1]),
+                hist_cuda.lane_maxabs, ("launches", "i64_launches"),
+                hist_cuda.wide_windows(nbt)[0], (8, 16), (2, 2),
+                "mallorn_tpu/ops/hist_pallas.py:508")
+    n_seg = 2 * nbt  # K3: ids are segment bases (node x nbt)
+    return (lambda b, i, g: hist_cuda.build_seg_histograms(b, i * nbt, g, n_seg),
+            lambda b, i, g: hist_cuda.build_seg_histograms_fixed(b, i * nbt, g, n_seg),
+            lambda b, i, g, m: hist_cuda.build_seg_histograms_i64(b, i * nbt, g, n_seg, m,
+                                                                  g.shape[1]),
+            lambda b, i, g, m: hist_cuda.build_seg_histograms_i64_fixed(b, i * nbt, g, n_seg, m,
+                                                                        g.shape[1]),
+            hist_cuda.lane_maxabs, ("seg_launches", "seg_i64_launches"),
+            hist_cuda.seg_hist_plan(n_seg)[0], (8, 16), (2, 2),
+            "mallorn_tpu/ops/hist_pallas.py:42")
+
+
+def check_bins(kernel: str, K: int, F: int, N: int, k_nodes: int, nbt: int, seed: int) -> dict:
+    """One kernel at a bin count beyond 256 (``bins_kernel``), in both
+    entries: each launched twice, bit for bit equal and bit for bit its
+    plain twin, its windows a call counted in ``hist_cuda.windows_by_call``
+    as its plan says; times (the wrapper, the twin, one ``scatter_add_``
+    yardstick, the bound) of each entry."""
+    (entry, twin, ext, ext_twin, scale_of, counters, windows, cell_bytes, adds,
+     replaces) = bins_kernel(kernel, k_nodes, nbt)
+    binned, node_q, gh = bins_inputs(K, F, N, k_nodes, nbt, seed)  # K3: k_nodes = 2, a pair
+    m = scale_of(gh)
+    hist_cuda.reset_launches()
+    a, b = entry(binned, node_q, gh), entry(binned, node_q, gh)
+    e1, e2 = ext(binned, node_q, gh, m), ext(binned, node_q, gh, m)
+    torch.cuda.synchronize()
+    seen = dict(hist_cuda.windows_by_call)
+    want_seen = {c: {windows: 2} for c in counters} if windows > 1 else {}
+    t32 = twin(binned, node_q, gh)
+    twin_equal = bits_equal(a, t32)
+    ext_equal = torch.equal(e1, ext_twin(binned, node_q, gh, m))
+    repeat = bits_equal(a, b) and torch.equal(e1, e2)
+    tag = f"{kernel} K={K} F={F} N={N} nodes={k_nodes} bins={nbt}"
+    log(f"  {tag}: {windows} window(s) a call (counted {seen}); float32 entry bit for bit its "
+        f"twin {twin_equal}, external entry bit for bit its twin {ext_equal}; two launches of "
+        f"each bit for bit equal {repeat}")
+    if not (twin_equal and ext_equal and repeat and seen == want_seen):
+        raise AssertionError(f"{tag} failed its checks")
+    # the yardstick: one scatter_add_ into every (lane, feature, node, bin)
+    # cell, float32 (g, h) for the float32 entry (set-up untimed)
+    nq = node_q.long()
+    active = (nq >= 0) & (nq < k_nodes)
+    n_cells = K * F * k_nodes * nbt
+    kf = torch.arange(K * F, device="cuda").view(K, F, 1) * (k_nodes * nbt)
+    idx = torch.where(active[:, None, :], kf + nq[:, None, :] * nbt + binned.long(),
+                      n_cells).reshape(-1, 1).expand(-1, 2)
+    vals = gh[:, None, :, :].expand(K, F, N, 2).reshape(-1, 2)
+    sink = torch.zeros(n_cells + 1, 2, device="cuda")
+    res = {"kernel": kernel, "K": K, "F": F, "N": N, "nodes": k_nodes, "bins": nbt,
+           "windows": windows, "max_abs_err": float((a - t32).abs().nan_to_num().max()),
+           "replaces": replaces, "counters": counters,
+           "library_ms": cuda_ms(lambda: sink.scatter_add_(0, idx, vals), reps=10)}
+    n_in = K * F * N * 2 + K * N * 4 + K * N * 8
+    n_act = float(active.sum()) * F
+    for key, fn, args, ob, n_add in (("", entry, (), cell_bytes[0], adds[0]),
+                                     ("i64_", ext, (m,), cell_bytes[1], adds[1])):
+        res[f"{key}ms"] = cuda_ms(lambda: fn(binned, node_q, gh, *args), reps=10)
+        res[f"{key}plain_ms"] = cuda_ms(lambda: (twin if not key else ext_twin)(
+            binned, node_q, gh, *args), reps=2, warmup=1)
+        # bins, ids and (g, h) in once, the cells out once; the adds the
+        # active (row, feature) pairs need
+        t_bytes = (n_in + n_cells * ob) / HBM_BYTES_PER_S * 1e3
+        t_ops = n_add * n_act / F32_FLOP_PER_S * 1e3
+        res[f"{key}bound_ms"] = max(t_bytes, t_ops)
+        res[f"{key}bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"  {tag} times: kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.3f} "
+        f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}); external kernel_ms="
+        f"{res['i64_ms']:.4f} plain_ms={res['i64_plain_ms']:.3f} bound_ms="
+        f"{res['i64_bound_ms']:.4f} ({res['i64_bound_by']}); library_ms="
+        f"{res['library_ms']:.4f} (one scatter_add_, a yardstick the port never calls)")
+    return res
+
+
+def bins_mesh_fits(mesh, X, y, spw, fits):
+    """``train_gbdt_sharded`` on ``mesh`` at each of ``fits``' params, and
+    the windows a call of every external-scale entry they launched."""
+    from mallorn_tpu_torch.parallel.sharded_train import train_gbdt_sharded
+
+    hist_cuda.reset_launches()
+    models = [train_gbdt_sharded(mesh, X, y, p, scale_pos_weight=spw) for _, p, _, _ in fits]
+    torch.cuda.synchronize()
+    return [m.forest for m in models], dict(hist_cuda.windows_by_call)
+
+
+def run_bins(dev) -> dict:
+    """The "bins" phase: every histogram kernel beyond 256 bins a node at
+    BINS_SHAPES (``check_bins``), then the main path at those bin counts on
+    the 600 x 30 fixture, the counts set to 0 just before: depthwise fits at
+    1,024 bins (depth 5, 20 rounds) in float32 (K1), "int8" (K5) and
+    "i8bf16" (K4), the two modes again at 8,192 bins (K4 and K5 in
+    windows), a leaf-wise fit at 8,192 (31 leaves, 10 rounds; K3 in
+    windows) and a depthwise fit at 16,384 (depth 7, 5 rounds: every level
+    through K1's wide path in windows, up to 32 nodes built); each forest
+    bit for bit the one its kernel's plain twin builds. Then the 16,384-,
+    8,192-bin fits on a world-size-1 NCCL mesh (the external-scale entries
+    in windows), bit for bit the single-device forests."""
+    from mallorn_tpu_torch.parallel.mesh import launch
+
+    checks = [check_bins(*shape, seed=12000 + i) for i, shape in enumerate(BINS_SHAPES)]
+    X, y, spw = small_fixture()
+    base = GBDTParams(n_rounds=20, max_depth=5, learning_rate=0.1, subsample=0.8,
+                      colsample_bytree=0.8)
+    lg = base._replace(grow_policy="lossguide", max_leaves=31, max_depth=12, n_rounds=10)
+    deep = base._replace(n_bins=16384, max_depth=7, n_rounds=5)
+    # (tag, params, the argument the twin goes in, the twin)
+    fits = [("depthwise 16,384 bins, depth 7", deep, "hist_fn", hist_cuda.build_histograms_fixed),
+            ("int8 8,192 bins, depth 3", base._replace(n_bins=8192, max_depth=3, n_rounds=5,
+                                                        hist_dtype="int8"),
+             "hist_fn", hist_cuda.build_histograms_i8_plain),
+            ("i8bf16 8,192 bins, depth 3", base._replace(n_bins=8192, max_depth=3, n_rounds=5,
+                                                          hist_dtype="i8bf16"),
+             "hist_fn", hist_cuda.build_histograms_bf16_fixed),
+            ("leaf-wise 8,192 bins, 31 leaves", lg._replace(n_bins=8192), "seg_hist_fn",
+             hist_cuda.build_seg_histograms_fixed),
+            ("float32 1,024 bins", base._replace(n_bins=1024), "hist_fn",
+             hist_cuda.build_histograms_fixed),
+            ("int8 1,024 bins", base._replace(n_bins=1024, hist_dtype="int8"), "hist_fn",
+             hist_cuda.build_histograms_i8_plain),
+            ("i8bf16 1,024 bins", base._replace(n_bins=1024, hist_dtype="i8bf16"), "hist_fn",
+             hist_cuda.build_histograms_bf16_fixed)]
+    hist_cuda.reset_launches()
+    t0 = time.perf_counter()
+    forests = [train_gbdt(X, y, p, scale_pos_weight=spw, device=dev).forest
+               for _, p, _, _ in fits]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = {c: getattr(hist_cuda, c) for c in ("launches", "prep_launches", "seg_launches",
+                                                   "bf16_launches", "i8_launches")}
+    windowed = {c: sum(w.values()) for c, w in hist_cuda.windows_by_call.items()}
+    log(f"  the main path at 1,024-16,384 bins: {len(fits)} fits in {fit_s:.3f} s; launches "
+        f"{counts}; calls in windows {dict(hist_cuda.windows_by_call)}")
+    for (tag, p, arg, twin), f in zip(fits, forests):
+        same = forests_bits_equal(f, train_gbdt(X, y, p, scale_pos_weight=spw, device=dev,
+                                                **{arg: twin}).forest)
+        n_split = int((~f.is_leaf & (f.split_bin >= 0)).sum())
+        top = int(f.split_bin.max())
+        log(f"  {tag}: {n_split} splits (highest split bin {top}); bit for bit the fit with its "
+            f"kernel's plain twin: {same}")
+        if not same:
+            raise AssertionError(f"the {tag} fit with the kernel and with its plain twin "
+                                 f"disagree")
+    # rounds x depth for the depthwise fits, 31 per leaf-wise round; every
+    # windowed kernel launched in windows on this path
+    want = {"launches": 5 * 7 + 20 * 5, "bf16_launches": 5 * 3 + 20 * 5,
+            "i8_launches": 5 * 3 + 20 * 5, "seg_launches": 31 * 10, "prep_launches": 5 * 7}
+    want_windowed = {"launches": 5 * 7, "bf16_launches": 5 * 3, "i8_launches": 5 * 3,
+                     "seg_launches": 30 * 10}
+    if counts != want or windowed != want_windowed:
+        raise AssertionError(f"the bins fits launched {counts} ({windowed} in windows), "
+                             f"expected {want} ({want_windowed})")
+    # the external-scale entries in windows: the first four fits on one rank
+    t0 = time.perf_counter()
+    mesh_forests, mesh_windows = launch(bins_mesh_fits, 1, (X, y, spw, fits[:4]), device=dev,
+                                        spawn=False)
+    mesh_s = time.perf_counter() - t0
+    same = [forests_bits_equal(a, type(b)(*[t.to(dev) for t in b]))
+            for a, b in zip(forests, mesh_forests)]
+    mesh_windowed = {c: sum(w.values()) for c, w in mesh_windows.items()}
+    log(f"  world-size-1 NCCL mesh, the first four fits: {mesh_s:.3f} s; bit for bit the "
+        f"single-device forests {same}; external-scale calls in windows {mesh_windows}")
+    want_mesh = {"i64_launches": 5 * 7, "i8_sums_launches": 5 * 3, "bf16_i64_launches": 5 * 3,
+                 "seg_i64_launches": 30 * 10}
+    if not all(same) or mesh_windowed != want_mesh:
+        raise AssertionError(f"the mesh's bins fits: bit for bit {same}, calls in windows "
+                             f"{mesh_windowed}, expected {want_mesh}")
+    return {"checks": checks, "windowed": windowed, "mesh_windowed": mesh_windowed,
+            "fit_s": fit_s, "mesh_s": mesh_s}
 
 
 def wide_calls(by_nodes: dict) -> int:
@@ -3503,6 +3756,9 @@ def main() -> int:
     with Phase("kernel against plain in training"):
         check_training_kernel_vs_plain(dev)
 
+    with Phase("bins"):
+        bins = run_bins(dev)
+
     with Phase("training"):
         trained = run_training(dev)
 
@@ -3749,6 +4005,32 @@ def main() -> int:
                                           "plain_ms", "bound_ms", "bound_by", "library_ms")}
                        for q in (r, rm)],
         })
+    # every histogram kernel beyond 256 bins (the bins phase): each kernel's
+    # first BINS_SHAPES shape, the float32 entry with the bins fits' calls in
+    # windows, the external-scale entry with the mesh fits'; every shape's
+    # numbers beside it
+    bins_keys = ("K", "F", "N", "nodes", "bins", "windows", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "i64_ms", "i64_plain_ms", "i64_bound_ms", "i64_bound_by",
+                 "library_ms")
+    for kernel, names in (("K4", ("hist_bf16_bins", "hist_bf16_i64_bins")),
+                          ("K5", ("hist_i8_bins", "hist_i8_sums_bins")),
+                          ("K1", ("hist_wide_bins", "hist_wide_i64_bins")),
+                          ("K3", ("seg_hist_bins", "seg_hist_i64_bins"))):
+        rs = [r for r in bins["checks"] if r["kernel"] == kernel]
+        r = rs[0]
+        for name, key, counter, n_launches in (
+                (names[0], "", r["counters"][0], bins["windowed"].get(r["counters"][0], 0)),
+                (names[1], "i64_", r["counters"][1],
+                 bins["mesh_windowed"].get(r["counters"][1], 0))):
+            kernels.append({
+                "name": name, "route": "cuda", "source": "mallorn_tpu_torch/csrc/hist.cu",
+                "replaces": r["replaces"], "launches": n_launches,
+                "max_abs_err": r["max_abs_err"] if not key else 0.0, "ms": r[f"{key}ms"],
+                "plain_ms": r[f"{key}plain_ms"], "bound_ms": r[f"{key}bound_ms"],
+                "bound_by": r[f"{key}bound_by"], "library_ms": r["library_ms"],
+                "shape": [r["K"], r["F"], r["N"], r["nodes"], r["bins"]],
+                "windows": r["windows"], "counter": counter,
+                "shapes": [{k: q[k] for k in bins_keys} for q in rs]})
     # the factor-only Cholesky's rows: the blocked kernel at the GP's batch
     # and T = 160, the cluster kernel at B = 64, T = 400, the tiled kernel at
     # B = 64, T = 1024

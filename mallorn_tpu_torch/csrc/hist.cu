@@ -73,6 +73,12 @@
 // - K1's level of 17 nodes or more, or of more than one CTA's histograms
 //   hold (54 at 257 bins), takes the wide path below (hist_cuda.hist_plan
 //   picks it);
+// - K3's call of more segments than one CTA holds (SEG_MAX_SEGMENTS, 14,004)
+//   takes windows of at most that many on the grid's z axis
+//   (hist_cuda.seg_hist_plan, up to 65,536 segments): a window's CTA
+//   stages every row tile, compacts only the rows whose base lies before
+//   the window's end, and adds only the (row, feature) items whose segment
+//   falls in the window; K1 never windows here;
 // - the fold's scale found in the kernel: the CTA reads the fold's (g, h)
 //   once, keeps max |g|, max |h| (exact in any order) and a flag for any
 //   non-finite value (fmaxf drops NaN; an infinity must give NaN too);
@@ -143,15 +149,17 @@ __device__ __forceinline__ double fixed_scale(float maxabs, int log2n) {
 // The row walk of K4 and K5 (K1 and K3 stage their rows in tiles, below):
 // all kBlock threads stride the N rows and call add(s, r) for each row r
 // whose segment
-// s = (ids[r] - id0) * id_scale + bins[r] lies in [0, n_seg), with
-// (ids[r] - id0) * id_scale in [0, n_seg) and the bin in [0, n_bins).
+// s = (ids[r] - id0) * id_scale + bins[r] - bin0 lies in [0, n_seg), with
+// (ids[r] - id0) * id_scale in [0, n_seg) and the bin in the window
+// [bin0, bin0 + n_bins).
 template <int kBlock, typename Add>
 __device__ __forceinline__ void for_each_row(const int16_t* __restrict__ bins,
                                              const int32_t* __restrict__ ids, int N, int id0,
-                                             int id_scale, int n_bins, int n_seg, Add add) {
+                                             int id_scale, int bin0, int n_bins, int n_seg,
+                                             Add add) {
   for (int r = threadIdx.x; r < N; r += kBlock) {
     const long long base = (static_cast<long long>(ids[r]) - id0) * id_scale;
-    const int bin = bins[r];
+    const int bin = bins[r] - bin0;
     if (base < 0 || base >= n_seg ||
         static_cast<unsigned>(bin) >= static_cast<unsigned>(n_bins))
       continue;
@@ -171,8 +179,8 @@ template <int C, int kBlock, typename Load>
 __device__ __forceinline__ bool accumulate_fixed(uint4* smem, const float* __restrict__ maxabs,
                                                  int log2n, const int16_t* __restrict__ bins,
                                                  const int32_t* __restrict__ ids, int N, int id0,
-                                                 int id_scale, int n_bins, int n_seg, Load load,
-                                                 double (&inv)[C]) {
+                                                 int id_scale, int bin0, int n_bins, int n_seg,
+                                                 Load load, double (&inv)[C]) {
   static_assert(C % 2 == 0, "the histogram is zeroed as whole uint4s");
   unsigned long long* acc = reinterpret_cast<unsigned long long*>(smem);
   for (int i = threadIdx.x; i < n_seg * C / 2; i += kBlock) smem[i] = make_uint4(0u, 0u, 0u, 0u);
@@ -189,7 +197,7 @@ __device__ __forceinline__ bool accumulate_fixed(uint4* smem, const float* __res
   __syncthreads();
 
   if (finite) {
-    for_each_row<kBlock>(bins, ids, N, id0, id_scale, n_bins, n_seg, [&](int s, int r) {
+    for_each_row<kBlock>(bins, ids, N, id0, id_scale, bin0, n_bins, n_seg, [&](int s, int r) {
       float x[C];
       load(r, x);
 #pragma unroll
@@ -295,30 +303,39 @@ __device__ __forceinline__ void add_fixed(unsigned* words, int plane, int c, lon
   if (hh) atomicAdd(words + 3 * plane + c, hh);
 }
 
-// One CTA per (fold k, features f0 .. f0 + group - 1) = (blockIdx.y,
-// blockIdx.x); tile_rows a multiple of kSegThreads. ids are K1's node ids
-// (kLevel: a row is active for a node in [0, n_ids = k_nodes), its base is
-// node * n_bins and a bin counts in [0, n_bins)) or K3's segment bases
-// (n_ids = n_seg: a row is active for a base in [0, n_seg), a bin counts in
-// [0, n_seg - base); n_bins unused). kExternal: the lane's scale comes
-// from ext_max[k] (max |g|, max |h| of every rank's rows) and log2n (of the
-// global row count), and out is int64 [.., n_seg, 2] (raw sums); otherwise
-// the CTA finds the scale from its fold's rows and out is float32.
+// One CTA per (fold k, features f0 .. f0 + group - 1, window of segments)
+// = (blockIdx.y, blockIdx.x, blockIdx.z); tile_rows a multiple of
+// kSegThreads. ids are K1's node ids (kLevel: a row is active for a node in
+// [0, n_ids = k_nodes), its base is node * n_bins and a bin counts in [0,
+// n_bins); one window of all n_seg segments) or K3's segment bases (n_ids
+// = n_seg: a row is active for a base in [0, n_seg), a bin counts in [0,
+// n_seg - base); n_bins unused; the CTA holds the window [s0, s0 + window)
+// of the segments, s0 = blockIdx.z window, and adds only the (row,
+// feature) items whose segment base + bin lies in it). kExternal: the
+// lane's scale comes from ext_max[k] (max |g|, max |h| of every rank's
+// rows) and log2n (of the global row count), and out is int64 [.., n_seg,
+// 2] (raw sums); otherwise the CTA finds the scale from its fold's rows and
+// out is float32.
 template <bool kLevel, bool kExternal>
 __global__ void __launch_bounds__(kSegThreads)
 group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ ids,
                   const float2* __restrict__ gh, void* __restrict__ out, int F, int N,
-                  int n_seg, int n_ids, int n_bins, int group, int tile_rows, int log2n,
-                  const float2* __restrict__ ext_max) {
+                  int n_seg, int n_ids, int n_bins, int window, int group, int tile_rows,
+                  int log2n, const float2* __restrict__ ext_max) {
   extern __shared__ uint4 smem[];
   const int k = blockIdx.y;
   const int f0 = blockIdx.x * group;
   const int n_f = min(group, F - f0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R = tile_rows;
+  // the CTA's segments [s0, s0 + n_cells): K1's all of them
+  const int s0 = kLevel ? 0 : blockIdx.z * window;
+  const int n_cells = kLevel ? n_seg : min(window, n_seg - s0);
+  // a row whose base lies at or past the window's end adds nothing here
+  const int n_act = kLevel ? n_ids : min(n_ids, s0 + n_cells);
 
   // the carve-up of seg_smem_bytes
-  const int plane = group * n_seg;  // words per plane; feature g's at g * n_seg
+  const int plane = group * n_cells;  // words per plane; feature g's at g * n_cells
   unsigned* words = reinterpret_cast<unsigned*>(smem);
   char* stage0 = reinterpret_cast<char*>(smem) + 16 * static_cast<size_t>(plane);
   const size_t stage_bytes = seg_stage_bytes(group, R);
@@ -423,7 +440,7 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
         const int i = w0 + j + lane;
         // the unsigned compare also drops negative ids
         const int id = i < rows ? t_ids[i] : -1;
-        const bool act = static_cast<unsigned>(id) < static_cast<unsigned>(n_ids);
+        const bool act = static_cast<unsigned>(id) < static_cast<unsigned>(n_act);
         const unsigned mask = __ballot_sync(0xffffffffu, act);
         if (act) {
           const int pos = cnt + __popc(mask & ((1u << lane) - 1u));
@@ -448,8 +465,14 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
         const int16_t* t_bins = reinterpret_cast<const int16_t*>(
             st + bins_off + g * bin_bytes + ((bins_mis + 2u * static_cast<unsigned>(N) * g) & 15u));
         const int bin = t_bins[i];
-        if (static_cast<unsigned>(bin) < static_cast<unsigned>(kLevel ? n_bins : n_seg - base)) {
-          add_fixed(words, plane, g * n_seg + base + bin, list_q[e]);
+        if (kLevel) {
+          if (static_cast<unsigned>(bin) < static_cast<unsigned>(n_bins))
+            add_fixed(words, plane, g * n_cells + base + bin, list_q[e]);
+        } else {
+          const int c = base + bin - s0;  // the segment's cell in the window
+          if (static_cast<unsigned>(bin) < static_cast<unsigned>(n_seg - base) &&
+              static_cast<unsigned>(c) < static_cast<unsigned>(n_cells))
+            add_fixed(words, plane, g * n_cells + c, list_q[e]);
         }
       }
       __syncwarp();  // the list is free again
@@ -462,10 +485,10 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
   // 16-byte store (zeros where the lane is not finite)
   if (kExternal) {
     for (int g = 0; g < n_f; ++g) {
-      const int c0 = g * n_seg;
-      longlong2* o =
-          reinterpret_cast<longlong2*>(out) + (static_cast<size_t>(k) * F + f0 + g) * n_seg;
-      for (int s = tid; s < n_seg; s += kSegThreads) {
+      const int c0 = g * n_cells;
+      longlong2* o = reinterpret_cast<longlong2*>(out) +
+                     (static_cast<size_t>(k) * F + f0 + g) * n_seg + s0;
+      for (int s = tid; s < n_cells; s += kSegThreads) {
         const int c = c0 + s;
         o[s] = finite ? make_longlong2(
                             static_cast<long long>(
@@ -491,18 +514,19 @@ group_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict_
     return make_float2(from_fixed(a_g, inv_g), from_fixed(a_h, inv_h));
   };
   for (int g = 0; g < n_f; ++g) {
-    const int c0 = g * n_seg;
-    float* o = reinterpret_cast<float*>(out) + (static_cast<size_t>(k) * F + f0 + g) * n_seg * 2;
+    const int c0 = g * n_cells;
+    float* o = reinterpret_cast<float*>(out) +
+               ((static_cast<size_t>(k) * F + f0 + g) * n_seg + s0) * 2;
     const int head = (reinterpret_cast<uintptr_t>(o) & 15) ? 1 : 0;  // o is 8-byte aligned
-    const int n_pairs = (n_seg - head) >> 1;
+    const int n_pairs = (n_cells - head) >> 1;
     for (int p = tid; p < n_pairs; p += kSegThreads) {
       const int s = head + 2 * p;
       const float2 x = cell(c0 + s), y = cell(c0 + s + 1);
       *reinterpret_cast<float4*>(o + 2 * s) = make_float4(x.x, x.y, y.x, y.y);
     }
     if (tid == 0 && head) *reinterpret_cast<float2*>(o) = cell(c0);
-    if (tid == kSegThreads - 1 && ((n_seg - head) & 1))
-      *reinterpret_cast<float2*>(o + 2 * (n_seg - 1)) = cell(c0 + n_seg - 1);
+    if (tid == kSegThreads - 1 && ((n_cells - head) & 1))
+      *reinterpret_cast<float2*>(o + 2 * (n_cells - 1)) = cell(c0 + n_cells - 1);
   }
 }
 
@@ -533,37 +557,41 @@ int grant_smem(const void* fn, size_t smem, std::mutex& lock, size_t (&granted)[
 }
 
 // K1's and K3's launch at a layout the wrapper picked (hist_cuda.hist_plan
-// or seg_hist_layout); refuses one that does not fit. n_seg is the
-// segments per (fold, feature) of out and of one CTA: K1's n_ids = k_nodes
-// nodes of n_bins, K3's n_seg (n_ids = n_seg). kExternal: ext_max [K, 2]
+// or seg_hist_plan); refuses one that does not fit. n_seg is the segments
+// per (fold, feature) of out: K1's n_ids = k_nodes nodes of n_bins, K3's
+// n_seg (n_ids = n_seg); window the segments of one CTA (K1: all n_seg;
+// K3: grid z takes ceil(n_seg / window) windows). At most 65,536 segments:
+// a row's list entry keeps its base in 16 bits. kExternal: ext_max [K, 2]
 // and log2n come from the caller (log2n of a global row count, at least
 // ceil(log2 N) and at most 62) and out is int64; otherwise out is float32
 // and the kernel takes log2n = ceil(log2 N).
 template <bool kLevel, bool kExternal>
 int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, void* out, int K,
-                 int F, int N, int n_seg, int n_ids, int n_bins, int group, int tile_rows,
-                 const float* ext_max, int log2n, void* stream) {
+                 int F, int N, int n_seg, int n_ids, int n_bins, int window, int group,
+                 int tile_rows, const float* ext_max, int log2n, void* stream) {
   static std::mutex lock;
   static size_t granted[kMaxDevices] = {};
   if (K <= 0 || F <= 0 || n_seg <= 0) return 0;
-  if (N < 0 || K > 65535 || n_seg > 65535 || group < 1 || tile_rows < kSegThreads ||
-      tile_rows % kSegThreads || tile_rows > kSegMaxTileRows)
+  if (N < 0 || K > 65535 || n_seg > 65536 || window < 1 || window > n_seg ||
+      (kLevel && window != n_seg) || (n_seg + window - 1) / window > 65535 || group < 1 ||
+      tile_rows < kSegThreads || tile_rows % kSegThreads || tile_rows > kSegMaxTileRows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!kExternal) {
     log2n = ceil_log2(N);
   } else if (ext_max == nullptr || log2n < ceil_log2(N) || log2n > 62) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = seg_smem_bytes(n_seg, group, tile_rows);
+  const size_t smem = seg_smem_bytes(window, group, tile_rows);
   if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
   const int err = grant_smem(reinterpret_cast<const void*>(group_hist_kernel<kLevel, kExternal>),
                              smem, lock, granted);
   if (err) return err;
   group_hist_kernel<kLevel, kExternal>
-      <<<dim3((F + group - 1) / group, K), kSegThreads, smem,
-          static_cast<cudaStream_t>(stream)>>>(binned, ids, reinterpret_cast<const float2*>(gh),
-                                               out, F, N, n_seg, n_ids, n_bins, group, tile_rows,
-                                               log2n, reinterpret_cast<const float2*>(ext_max));
+      <<<dim3((F + group - 1) / group, K, (n_seg + window - 1) / window), kSegThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(binned, ids, reinterpret_cast<const float2*>(gh),
+                                              out, F, N, n_seg, n_ids, n_bins, window, group,
+                                              tile_rows, log2n,
+                                              reinterpret_cast<const float2*>(ext_max));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -610,7 +638,11 @@ int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, voi
 //   and writes 16-byte streaming stores (st.global.cs): the output is
 //   larger than L2 and is read next by another kernel.
 // G and the nodes per chunk come from hist_cuda.wide_plan (WIDE_LAYOUTS,
-// from tools/time_hist.py --layouts).
+// from tools/time_hist.py --layouts). A node of more bins than a CTA holds
+// for one feature (14,528) is a chunk of its own, its bins split into
+// equal windows (hist_cuda.wide_windows), each a CTA on the grid's z axis
+// (chunk n_windows + window) that walks its chunk's list and adds the
+// entries whose bin lies in its window.
 
 constexpr int kPrepThreads = 1024;
 constexpr int kPrepWarps = kPrepThreads / 32;
@@ -756,9 +788,12 @@ size_t wide_smem_bytes(int chunk_nodes, int n_bins, int group) {
   return 16 * static_cast<size_t>(group) * chunk_nodes * n_bins;
 }
 
-// One CTA per (fold k, features f0 .. f0 + group - 1, chunk of nodes) =
-// (blockIdx.y, blockIdx.x, blockIdx.z): the chunk's nodes [node0, node0 +
-// chunk_nodes) of k_nodes, its rows the prep's list. maxabs [K, 2] and
+// One CTA per (fold k, features f0 .. f0 + group - 1, chunk of nodes and
+// window of bins) = (blockIdx.y, blockIdx.x, blockIdx.z = chunk n_windows
+// + window): the chunk's nodes [node0, node0 + chunk_nodes) of k_nodes,
+// its rows the prep's list, of which it adds only those whose bin lies in
+// its window [bin0, bin0 + window_bins) (n_windows > 1 only with one node
+// per chunk, so that the CTA's cells are one run of out). maxabs [K, 2] and
 // log2n: the scale of the prep's q (the fold's own, or kExternal the
 // caller's; a lane whose maxima are not finite adds nothing). out [K, F,
 // k_nodes, n_bins, 2]: float32 (NaN in a lane that is not finite), or
@@ -768,13 +803,17 @@ __global__ void __launch_bounds__(kWideThreads)
 wide_hist_kernel(const int16_t* __restrict__ binned, const int2* __restrict__ entries,
                  const longlong2* __restrict__ q, const int32_t* __restrict__ offsets,
                  const float2* __restrict__ maxabs, void* __restrict__ out, int F, int N,
-                 int k_nodes, int n_bins, int chunk_nodes, int n_chunks, int group, int log2n) {
+                 int k_nodes, int n_bins, int chunk_nodes, int n_chunks, int n_windows,
+                 int window_bins, int group, int log2n) {
   extern __shared__ uint4 smem[];
   const int k = blockIdx.y;
   const int f0 = blockIdx.x * group;
   const int n_f = min(group, F - f0);
-  const int node0 = blockIdx.z * chunk_nodes;
-  const int n_seg = min(chunk_nodes, k_nodes - node0) * n_bins;
+  const int chunk = blockIdx.z / n_windows;
+  const int bin0 = (blockIdx.z - chunk * n_windows) * window_bins;
+  const int nb = min(window_bins, n_bins - bin0);  // the window's bins
+  const int node0 = chunk * chunk_nodes;
+  const int n_seg = min(chunk_nodes, k_nodes - node0) * nb;
   const int plane = group * n_seg;  // words per plane; feature g's at g * n_seg
   const int tid = threadIdx.x;
   unsigned* words = reinterpret_cast<unsigned*>(smem);
@@ -782,7 +821,7 @@ wide_hist_kernel(const int16_t* __restrict__ binned, const int2* __restrict__ en
 
   const float2 m = maxabs[k];
   const bool finite = isfinite(m.x) && isfinite(m.y);
-  const int32_t* off = offsets + static_cast<size_t>(k) * (n_chunks + 1) + blockIdx.z;
+  const int32_t* off = offsets + static_cast<size_t>(k) * (n_chunks + 1) + chunk;
   const int e0 = off[0], e1 = off[1];
   __syncthreads();  // the histograms zeroed
 
@@ -796,20 +835,20 @@ wide_hist_kernel(const int16_t* __restrict__ binned, const int2* __restrict__ en
       int b[kWideMaxGroup];
 #pragma unroll
       for (int g = 0; g < kWideMaxGroup; ++g)
-        b[g] = g < n_f ? bins[static_cast<size_t>(g) * N + en.x] : -1;
+        b[g] = g < n_f ? bins[static_cast<size_t>(g) * N + en.x] - bin0 : -1;
       const longlong2 qe = fold_q[e];
-      const int base = en.y * n_bins;
+      const int base = en.y * nb;
 #pragma unroll
       for (int g = 0; g < kWideMaxGroup; ++g)
-        if (static_cast<unsigned>(b[g]) < static_cast<unsigned>(n_bins))
+        if (static_cast<unsigned>(b[g]) < static_cast<unsigned>(nb))
           add_fixed(words, plane, g * n_seg + base + b[g], qe);
     }
   }
   __syncthreads();  // every add is in
 
-  // the chunk's cells of feature f0 + g: one contiguous run of n_seg in out
+  // the CTA's cells of feature f0 + g: one contiguous run of n_seg in out
   const size_t n_seg_out = static_cast<size_t>(k_nodes) * n_bins;
-  const size_t seg0 = static_cast<size_t>(node0) * n_bins;
+  const size_t seg0 = static_cast<size_t>(node0) * n_bins + bin0;
   auto sums = [&](int c) {
     return make_longlong2(
         static_cast<long long>(static_cast<unsigned long long>(words[plane + c]) << 32 | words[c]),
@@ -883,34 +922,40 @@ int launch_wide_prep(const int32_t* ids, const float* gh, int2* entries, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wide kernel's launch; refuses a layout that does not fit. log2n as
+// The wide kernel's launch; refuses a layout that does not fit: window_bins
+// bins a CTA (all n_bins, or with one node per chunk a window of them:
+// grid z takes n_chunks ceil(n_bins / window_bins) CTAs). log2n as
 // launch_wide_prep's (the caller's when kExternal, else ceil(log2 N)).
 template <bool kExternal>
 int launch_wide(const int16_t* binned, const int2* entries, const long long* q,
                 const int32_t* offsets, const float* maxabs, void* out, int K, int F, int N,
-                int k_nodes, int n_bins, int chunk_nodes, int group, int log2n, void* stream) {
+                int k_nodes, int n_bins, int chunk_nodes, int window_bins, int group, int log2n,
+                void* stream) {
   static std::mutex lock;
   static size_t granted[kMaxDevices] = {};
   if (K <= 0 || F <= 0) return 0;
   const int n_chunks = chunk_nodes < 1 ? 0 : wide_chunks(k_nodes, chunk_nodes);
+  const int n_windows = window_bins < 1 ? 0 : (n_bins + window_bins - 1) / window_bins;
   if (N < 0 || K > 65535 || k_nodes < 1 || n_bins < 1 || chunk_nodes < 1 ||
-      n_chunks > kWideMaxChunks || group < 1 || group > kWideMaxGroup || maxabs == nullptr)
+      n_chunks > kWideMaxChunks || window_bins < 1 || window_bins > n_bins ||
+      (n_windows > 1 && chunk_nodes != 1) || n_chunks * n_windows > 65535 || group < 1 ||
+      group > kWideMaxGroup || maxabs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!kExternal) {
     log2n = ceil_log2(N);
   } else if (log2n < ceil_log2(N) || log2n > 62) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = wide_smem_bytes(chunk_nodes, n_bins, group);
+  const size_t smem = wide_smem_bytes(chunk_nodes, window_bins, group);
   if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
   const int err = grant_smem(reinterpret_cast<const void*>(wide_hist_kernel<kExternal>), smem,
                              lock, granted);
   if (err) return err;
-  wide_hist_kernel<kExternal><<<dim3((F + group - 1) / group, K, n_chunks), kWideThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  wide_hist_kernel<kExternal><<<dim3((F + group - 1) / group, K, n_chunks * n_windows),
+                                kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       binned, entries, reinterpret_cast<const longlong2*>(q), offsets,
       reinterpret_cast<const float2*>(maxabs), out, F, N, k_nodes, n_bins, chunk_nodes, n_chunks,
-      group, log2n);
+      n_windows, window_bins, group, log2n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -938,6 +983,15 @@ int launch_wide(const int16_t* binned, const int2* entries, const long long* q,
 // channels with shared-memory integer atomics (a zero digit adds
 // nothing and is skipped). Integer sums are exact and order-free, so two
 // launches give the same bits.
+//
+// Wide bins (hist_cuda.mode_plan): a group holds the most of 1-8 nodes
+// whose [nodes, n_bins_tot, C] cells fit a CTA (8 up to 604 bins for K4,
+// 907 for K5, so every 257-bin level keeps the grid above); where one
+// node's bins do not fit (K4 beyond 4,842, K5 beyond 7,264) the group is
+// one node and its bins are split into equal windows, each a CTA of its own
+// (grid z = node groups x windows) that walks all the fold's rows and adds
+// those whose bin lies in its window. The sums stay exact, so a windowed
+// launch gives the one-window launch's bits; a window re-reads the rows.
 //
 // K5: C = 8 int32 cells, the digits themselves (g's four, then h's); 8
 // nodes x 257 bins take 65,792 B. |digit| <= 64, so a cell is exact up to
@@ -997,7 +1051,7 @@ int launch_wide(const int16_t* binned, const int2* entries, const long long* q,
 // fastest for both modes at the v92d CV's deepest level on an H100 (at one
 // node, K4 is faster with 256)
 constexpr int kModeThreads = 512;
-constexpr int kModeNodes = 8;  // nodes per CTA
+constexpr int kModeNodes = 8;  // nodes per CTA at most (hist_cuda.MODE_NODES)
 
 template <bool kInt8>
 struct ModeTraits;
@@ -1014,23 +1068,32 @@ struct ModeTraits<true> {  // K5
   using Cell = int;
 };
 
+// One CTA per (feature f, fold k, group of node_group nodes and window of
+// window_bins bins) = (blockIdx.x, blockIdx.y, blockIdx.z = group
+// n_windows + window); n_windows > 1 only with one node per group, so that
+// the CTA's cells are one run of out (hist_cuda.mode_plan).
 template <bool kInt8, bool kExternal>
 __global__ void __launch_bounds__(kModeThreads)
 mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__ nodes,
                  const void* __restrict__ digits, const float* __restrict__ scale,
-                 void* __restrict__ out, int F, int N, int k_nodes, int n_bins_tot, int log2n) {
+                 void* __restrict__ out, int F, int N, int k_nodes, int n_bins_tot,
+                 int node_group, int n_windows, int window_bins, int log2n) {
   constexpr int C = ModeTraits<kInt8>::kChannels;
   extern __shared__ uint4 smem[];
   const int f = blockIdx.x;
   const int k = blockIdx.y;
-  const int node0 = blockIdx.z * kModeNodes;
-  const int n_nodes = min(kModeNodes, k_nodes - node0);
-  const int n_seg = n_nodes * n_bins_tot;
+  const int grp = blockIdx.z / n_windows;
+  const int bin0 = (blockIdx.z - grp * n_windows) * window_bins;
+  const int nb = min(window_bins, n_bins_tot - bin0);  // the window's bins
+  const int node0 = grp * node_group;
+  const int n_nodes = min(node_group, k_nodes - node0);
+  const int n_seg = n_nodes * nb;
   const int16_t* b = binned + (static_cast<size_t>(k) * F + f) * N;
   const int32_t* nd = nodes + static_cast<size_t>(k) * N;
-  // the group's first (node, bin) cell of out; its cells are one contiguous
+  // the CTA's first (node, bin) cell of out; its cells are one contiguous
   // run of n_seg: float32 (g, h) pairs, or kExternal's C raw sums each
-  const size_t cell0 = ((static_cast<size_t>(k) * F + f) * k_nodes + node0) * n_bins_tot;
+  const size_t cell0 =
+      ((static_cast<size_t>(k) * F + f) * k_nodes + node0) * n_bins_tot + bin0;
   float* o = static_cast<float*>(out) + cell0 * 2;
   const int n_out = n_seg * 2;  // output cell i = (node, bin) * 2 + channel
 
@@ -1041,7 +1104,7 @@ mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__
       smem[i] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
     const uint2* w = static_cast<const uint2*>(digits) + static_cast<size_t>(k) * N;
-    for_each_row<kModeThreads>(b, nd, N, node0, n_bins_tot, n_bins_tot, n_seg,
+    for_each_row<kModeThreads>(b, nd, N, node0, nb, bin0, nb, n_seg,
                                [&](int s, int r) {
                                  const uint2 d = w[r];
                                  int* cell = acc + s * C;
@@ -1077,7 +1140,7 @@ mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__
     const uint32_t* w = static_cast<const uint32_t*>(digits) + static_cast<size_t>(k) * N * 3;
     double inv[C];
     const bool finite = accumulate_fixed<C, kModeThreads>(
-        smem, scale + C * k, log2n, b, nd, N, node0, n_bins_tot, n_bins_tot, n_seg,
+        smem, scale + C * k, log2n, b, nd, N, node0, nb, bin0, nb, n_seg,
         [&](int r, float(&x)[C]) {
 #pragma unroll
           for (int j = 0; j < 3; ++j) {
@@ -1111,16 +1174,19 @@ mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__
 // cell is exact up to 2^25 rows, the most an external launch may count
 constexpr int kMaxLog2RowsI8 = 25;
 
-// The mode kernel's launch. kExternal: scale is the caller's (K4: every
-// rank's max |digit| [K, 6]; K5: unread, the digits were quantized at the
-// global s) and log2n that of the global row count (at least ceil(log2 N);
-// at most 62 for K4, 25 for K5), and out is the raw integer sums [K, F,
-// k_nodes, n_bins_tot, C] (K4 int64, K5 int32); otherwise out is float32
-// [.., 2] and log2n = ceil(log2 N).
+// The mode kernel's launch at the plan the wrapper picked
+// (hist_cuda.mode_plan): node_group nodes per CTA (1 to kModeNodes) and
+// window_bins bins per CTA (all n_bins_tot, or with one node per CTA a
+// window of them); refuses a plan that does not fit. kExternal: scale is
+// the caller's (K4: every rank's max |digit| [K, 6]; K5: unread, the
+// digits were quantized at the global s) and log2n that of the global row
+// count (at least ceil(log2 N); at most 62 for K4, 25 for K5), and out is
+// the raw integer sums [K, F, k_nodes, n_bins_tot, C] (K4 int64, K5
+// int32); otherwise out is float32 [.., 2] and log2n = ceil(log2 N).
 template <bool kInt8, bool kExternal>
 int launch_mode(const int16_t* binned, const int32_t* nodes, const void* digits,
                 const float* scale, void* out, int K, int F, int N, int k_nodes,
-                int n_bins_tot, int log2n, void* stream) {
+                int n_bins_tot, int node_group, int window_bins, int log2n, void* stream) {
   using Tr = ModeTraits<kInt8>;
   if (K <= 0 || F <= 0 || k_nodes <= 0 || n_bins_tot <= 0) return 0;
   if (!kExternal) {
@@ -1128,37 +1194,43 @@ int launch_mode(const int16_t* binned, const int32_t* nodes, const void* digits,
   } else if (log2n < ceil_log2(N) || log2n > (kInt8 ? kMaxLog2RowsI8 : 62)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int group = k_nodes < kModeNodes ? k_nodes : kModeNodes;
+  if (node_group < 1 || node_group > kModeNodes || node_group > k_nodes || window_bins < 1 ||
+      window_bins > n_bins_tot)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_windows = (n_bins_tot + window_bins - 1) / window_bins;
   const size_t smem =
-      static_cast<size_t>(group) * n_bins_tot * Tr::kChannels * sizeof(typename Tr::Cell);
-  const int node_groups = (k_nodes + kModeNodes - 1) / kModeNodes;
-  if (smem > static_cast<size_t>(kMaxSmemBytes) || K > 65535 || node_groups > 65535)
+      static_cast<size_t>(node_group) * window_bins * Tr::kChannels * sizeof(typename Tr::Cell);
+  const long long grid_z =
+      static_cast<long long>((k_nodes + node_group - 1) / node_group) * n_windows;
+  if (smem > static_cast<size_t>(kMaxSmemBytes) || K > 65535 || grid_z > 65535 ||
+      (n_windows > 1 && node_group != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(mode_hist_kernel<kInt8, kExternal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mode_hist_kernel<kInt8, kExternal><<<dim3(F, K, node_groups), kModeThreads, smem,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      binned, nodes, digits, scale, out, F, N, k_nodes, n_bins_tot, log2n);
+  mode_hist_kernel<kInt8, kExternal><<<dim3(F, K, static_cast<unsigned>(grid_z)), kModeThreads,
+                                       smem, static_cast<cudaStream_t>(stream)>>>(
+      binned, nodes, digits, scale, out, F, N, k_nodes, n_bins_tot, node_group, n_windows,
+      window_bins, log2n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K3: group features per CTA and tile_rows rows per staged tile
-// (hist_cuda.seg_hist_layout); refuses a layout that does not fit.
-// maxabs null: the lane's own scale, out float32 [K, F, n_seg, 2]. maxabs
-// [K, 2] float32 (every rank's max |g|, max |h| per lane, +inf where not
-// finite) with log2n (ceil(log2) of the global row count): the external
+// K3: window segments, group features per CTA and tile_rows rows per
+// staged tile (hist_cuda.seg_hist_plan); refuses a layout that does not
+// fit. maxabs null: the lane's own scale, out float32 [K, F, n_seg, 2].
+// maxabs [K, 2] float32 (every rank's max |g|, max |h| per lane, +inf where
+// not finite) with log2n (ceil(log2) of the global row count): the external
 // scale, out int64 [K, F, n_seg, 2] (the raw sums)
 extern "C" int mallorn_seg_hist(const int16_t* binned, const int32_t* seg_base,
                                 const float* gh, void* out, int K, int F, int N, int n_seg,
-                                int group, int tile_rows, const float* maxabs, int log2n,
-                                void* stream) {
+                                int window, int group, int tile_rows, const float* maxabs,
+                                int log2n, void* stream) {
   const auto launch = maxabs ? launch_group<false, true> : launch_group<false, false>;
-  return launch(binned, seg_base, gh, out, K, F, N, n_seg, n_seg, 0, group, tile_rows, maxabs,
-                log2n, stream);
+  return launch(binned, seg_base, gh, out, K, F, N, n_seg, n_seg, 0, window, group, tile_rows,
+                maxabs, log2n, stream);
 }
 
 // K1 at a level one CTA holds: group features per CTA and tile_rows rows
@@ -1175,7 +1247,7 @@ extern "C" int mallorn_hist(const int16_t* binned, const int32_t* node_q, const 
   if (n_seg > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const auto launch = maxabs ? launch_group<true, true> : launch_group<true, false>;
   return launch(binned, node_q, gh, out, K, F, N, static_cast<int>(n_seg), k_nodes, n_bins_tot,
-                group, tile_rows, maxabs, log2n, stream);
+                static_cast<int>(n_seg), group, tile_rows, maxabs, log2n, stream);
 }
 
 // K1's wide path, the row grouping: node_q [K, N] int32, gh [K, N, 2]
@@ -1194,42 +1266,47 @@ extern "C" int mallorn_hist_group_rows(const int32_t* node_q, const float* gh, i
                           external ? nullptr : maxabs, K, N, k_nodes, chunk_nodes, log2n, stream);
 }
 
-// K1's wide path, the histograms: group features and chunk_nodes nodes
-// per CTA (hist_cuda.wide_plan) over the entries, q and offsets of
-// mallorn_hist_group_rows at the same chunk_nodes and maxabs. external 0:
-// out float32 [K, F, k_nodes, n_bins_tot, 2]; external 1: log2n as
-// mallorn_seg_hist's, out the raw int64 sums
+// K1's wide path, the histograms: group features, chunk_nodes nodes and
+// window_bins bins per CTA (hist_cuda.wide_plan, wide_windows) over the
+// entries, q and offsets of mallorn_hist_group_rows at the same chunk_nodes
+// and maxabs. external 0: out float32 [K, F, k_nodes, n_bins_tot, 2];
+// external 1: log2n as mallorn_seg_hist's, out the raw int64 sums
 extern "C" int mallorn_hist_wide(const int16_t* binned, const int2* entries, const long long* q,
                                  const int32_t* offsets, const float* maxabs, void* out, int K,
                                  int F, int N, int k_nodes, int n_bins_tot, int chunk_nodes,
-                                 int group, int external, int log2n, void* stream) {
+                                 int window_bins, int group, int external, int log2n,
+                                 void* stream) {
   const auto launch = external ? launch_wide<true> : launch_wide<false>;
   return launch(binned, entries, q, offsets, maxabs, out, K, F, N, k_nodes, n_bins_tot,
-                chunk_nodes, group, log2n, stream);
+                chunk_nodes, window_bins, group, log2n, stream);
 }
 
-// K4: digits [K, N, 6] bf16, maxabs [K, 6] float32 (max |digit| per
+// K4: node_group nodes and window_bins bins per CTA (hist_cuda.mode_plan);
+// digits [K, N, 6] bf16, maxabs [K, 6] float32 (max |digit| per
 // channel). external 0: the fold's own maxima and ceil(log2 N), out float32
 // [K, F, k_nodes, n_bins_tot, 2]; external 1: every rank's maxima and log2n
 // of the global row count, out the raw int64 sums [K, F, k_nodes,
 // n_bins_tot, 6] (zeros in a lane whose maxima are not finite)
 extern "C" int mallorn_hist_bf16(const int16_t* binned, const int32_t* nodes,
                                  const void* digits, const float* maxabs, void* out, int K,
-                                 int F, int N, int k_nodes, int n_bins_tot, int external,
-                                 int log2n, void* stream) {
+                                 int F, int N, int k_nodes, int n_bins_tot, int node_group,
+                                 int window_bins, int external, int log2n, void* stream) {
   const auto launch = external ? launch_mode<false, true> : launch_mode<false, false>;
-  return launch(binned, nodes, digits, maxabs, out, K, F, N, k_nodes, n_bins_tot, log2n, stream);
+  return launch(binned, nodes, digits, maxabs, out, K, F, N, k_nodes, n_bins_tot, node_group,
+                window_bins, log2n, stream);
 }
 
-// K5: digits [K, N, 8] int8, scale [K, 2] float32 (s per channel).
+// K5: node_group nodes and window_bins bins per CTA (hist_cuda.mode_plan);
+// digits [K, N, 8] int8, scale [K, 2] float32 (s per channel).
 // external 0: out float32 [K, F, k_nodes, n_bins_tot, 2]; external 1: the
 // digits were quantized at every rank's s (scale unread), out the raw
 // int32 digit sums [K, F, k_nodes, n_bins_tot, 8], refused beyond 2^25
 // global rows (log2n)
 extern "C" int mallorn_hist_i8(const int16_t* binned, const int32_t* nodes,
                                const void* digits, const float* scale, void* out, int K,
-                               int F, int N, int k_nodes, int n_bins_tot, int external,
-                               int log2n, void* stream) {
+                               int F, int N, int k_nodes, int n_bins_tot, int node_group,
+                               int window_bins, int external, int log2n, void* stream) {
   const auto launch = external ? launch_mode<true, true> : launch_mode<true, false>;
-  return launch(binned, nodes, digits, scale, out, K, F, N, k_nodes, n_bins_tot, log2n, stream);
+  return launch(binned, nodes, digits, scale, out, K, F, N, k_nodes, n_bins_tot, node_group,
+                window_bins, log2n, stream);
 }

@@ -21,7 +21,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from mallorn_tpu_torch.trees.binning import BinSpec
+from mallorn_tpu_torch.trees.binning import BinSpec, check_n_bins
 from mallorn_tpu_torch.trees.gbdt import Forest, GBDTModel, GBDTParams, LGForest
 from mallorn_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -103,7 +103,7 @@ def load_model(path, device: DeviceLike = None) -> GBDTModel:
                                    z["is_leaf"], z["leaf_value"], dev)
         edges = torch.as_tensor(np.asarray(z["edges"], np.float32)).to(dev)
         return GBDTModel(forest=forest,
-                         bin_spec=BinSpec(edges=edges, n_bins=int(z["n_bins"])),
+                         bin_spec=BinSpec(edges=edges, n_bins=check_n_bins(z["n_bins"])),
                          params=params_from_dict(json.loads(str(z["params"]))),
                          best_iteration=int(z["best_iteration"]),
                          importance_gain=np.asarray(z["importance_gain"]),

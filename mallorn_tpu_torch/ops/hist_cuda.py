@@ -82,6 +82,17 @@ same integer sums: the output is ``build_histograms_fixed``'s
 (``build_histograms_i64_fixed``'s) bit for bit. ``launches`` and
 ``launches_by_nodes`` count one per K1 call on either path,
 ``prep_launches`` the prep kernel's launches.
+
+Every kernel takes up to MAX_NODE_BINS (32,768) bins a node, the most
+int16 bin ids hold. Where a CTA cannot hold a node's bins (K1's wide path
+beyond 14,528, K4 beyond 4,842, K5 beyond 7,264) or a call's segments (K3
+beyond SEG_MAX_SEGMENTS), each CTA holds a window of them, the windows on
+the grid's z axis beside the node groups or chunks, and adds only the rows
+whose bin (K3: segment base + bin) falls in it (``wide_windows``,
+``mode_plan``, ``seg_hist_plan``). Integer sums do not depend on the
+tiling, so a windowed launch is its twin's bit for bit; each window
+re-reads its rows. The counters count calls; ``windows_by_call`` records
+the windows of each call that took more than one.
 """
 
 from __future__ import annotations
@@ -96,8 +107,14 @@ from mallorn_tpu_torch.utils import cuda_build
 # histograms, staged row tiles and active list in it (``_group_layout``:
 # at most SEG_MAX_SEGMENTS = 14,004 segments, 54 nodes at 257 bins; K1's
 # wide path holds a chunk of nodes' histograms alone), K4 / K5 one (fold,
-# feature, <= 8 nodes) histogram
+# feature, <= 8 nodes) histogram. Where a node's bins (K1's wide path, K4,
+# K5) or a call's segments (K3) exceed one CTA, each CTA holds a window of
+# them (grid z takes the windows) and adds only the rows that fall in it
 SMEM_BYTES = 232448
+# bins a node (n_bins_tot) every histogram kernel takes: 32,767 value bins
+# and the missing bin, the most int16 bin ids hold (trees.binning.MAX_N_BINS)
+MAX_NODE_BINS = 32768
+MAX_GRID_Z = 65535  # CTAs on a grid's z axis at most
 
 launches = 0
 launches_by_nodes: dict = {}  # K1's launches per k_nodes
@@ -109,6 +126,9 @@ seg_i64_launches = 0  # K3's
 bf16_i64_launches = 0  # K4's
 i8_sums_launches = 0  # K5's
 prep_launches = 0  # K1's row grouping (the wide path's prep kernel, both scales)
+# {counter name: {windows: calls}} of the calls whose launch took more than
+# one window of bins or segments (the counters above count calls)
+windows_by_call: dict = {}
 
 
 def reset_launches() -> None:
@@ -117,6 +137,20 @@ def reset_launches() -> None:
     launches = seg_launches = bf16_launches = i8_launches = 0
     i64_launches = seg_i64_launches = bf16_i64_launches = i8_sums_launches = prep_launches = 0
     launches_by_nodes.clear()
+    windows_by_call.clear()
+
+
+def _note_windows(counter: str, windows: int) -> None:
+    if windows > 1:
+        calls = windows_by_call.setdefault(counter, {})
+        calls[windows] = calls.get(windows, 0) + 1
+
+
+def _windows(n: int, max_per_cta: int):
+    """(windows, per window) of n cells in the fewest equal windows (the
+    last may be shorter) of at most ``max_per_cta``."""
+    windows = -(-n // max_per_cta)
+    return windows, -(-n // windows)
 
 
 def _check_shapes(binned, node_q, gh):
@@ -336,11 +370,29 @@ def hist_plan(k_nodes: int, n_bins_tot: int):
 
 
 def seg_hist_layout(n_seg: int):
-    """(features per CTA G, rows per tile, shared-memory bytes) of K3 at
-    ``n_seg`` segments: SEG_GROUP and SEG_TILE_ROWS, shrunk as
+    """(features per CTA G, rows per tile, shared-memory bytes) of a K3 CTA
+    that holds ``n_seg`` segments: SEG_GROUP and SEG_TILE_ROWS, shrunk as
     ``_group_layout`` does until the CTA fits. Raises beyond
     SEG_MAX_SEGMENTS."""
     return _group_layout("build_seg_histograms", n_seg, SEG_GROUP, SEG_TILE_ROWS)
+
+
+# segments a K3 call takes: a pair of nodes of MAX_NODE_BINS bins (a row's
+# list entry keeps its segment base in 16 bits)
+SEG_MAX_TOTAL = 2 * MAX_NODE_BINS
+
+
+def seg_hist_plan(n_seg: int):
+    """(windows, segments per window, G, rows per tile, shared-memory bytes)
+    of a K3 call of ``n_seg`` segments: up to SEG_MAX_SEGMENTS one window
+    (one CTA per (lane, G features)), beyond it the fewest equal windows of
+    at most that many, each a CTA of its own, at ``seg_hist_layout`` of a
+    window. Raises beyond SEG_MAX_TOTAL."""
+    if not 1 <= n_seg <= SEG_MAX_TOTAL:
+        raise ValueError(f"build_seg_histograms: {n_seg} segments; the kernel takes 1 to "
+                         f"{SEG_MAX_TOTAL}")
+    windows, window = _windows(n_seg, SEG_MAX_SEGMENTS)
+    return (windows, window) + seg_hist_layout(window)
 
 
 # ---------------------------------------------------------------------------
@@ -412,6 +464,7 @@ def build_histograms_i64(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.T
     launch_hist_kernel(binned, node_q, gh, out, k_nodes, n_bins_tot, maxabs, log2n)
     i64_launches += 1
     prep_launches += wide
+    _note_windows("i64_launches", wide_windows(n_bins_tot)[0] if wide else 1)
     return out
 
 
@@ -432,6 +485,7 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
     launches += 1
     launches_by_nodes[k_nodes] = launches_by_nodes.get(k_nodes, 0) + 1
     prep_launches += wide
+    _note_windows("launches", wide_windows(n_bins_tot)[0] if wide else 1)
     return out
 
 
@@ -471,18 +525,27 @@ def _wide_smem_bytes(chunk_nodes: int, n_bins_tot: int, group: int) -> int:
     return 16 * group * chunk_nodes * n_bins_tot
 
 
+def wide_windows(n_bins_tot: int):
+    """(windows, bins per window) of the wide kernel at ``n_bins_tot`` bins
+    a node: one window while one feature's node fits a CTA (14,528 bins),
+    else the fewest equal windows that do, one node per chunk."""
+    return _windows(n_bins_tot, SMEM_BYTES // _wide_smem_bytes(1, 1, 1))
+
+
 def wide_plan(k_nodes: int, n_bins_tot: int, layout=None):
     """(nodes per chunk, chunks, G, shared-memory bytes) of K1's wide path:
     ``layout`` (G, nodes per chunk), by default WIDE_LAYOUTS' entry for the
     level, with G halved and then the nodes cut while a CTA would exceed
     SMEM_BYTES, the nodes at most ``k_nodes``; the level in the fewest
-    chunks of at most that many nodes, equal but for the last. Raises where
-    one node's bins exceed a CTA or the chunks exceed WIDE_MAX_CHUNKS."""
+    chunks of at most that many nodes, equal but for the last. A node wider
+    than a CTA (``wide_windows``) is a chunk of its own, G = 1, each CTA a
+    window of its bins (the bytes are a window's). Raises beyond
+    MAX_NODE_BINS bins a node or WIDE_MAX_CHUNKS chunks."""
     name = f"build_histograms ({k_nodes} nodes x {n_bins_tot} bins)"
-    max_bins = SMEM_BYTES // _wide_smem_bytes(1, 1, 1)
-    if k_nodes < 1 or not 1 <= n_bins_tot <= max_bins:
-        raise ValueError(f"{name}: the kernels take 1 to {max_bins} bins a node and at least "
-                         f"one node")
+    if k_nodes < 1 or not 1 <= n_bins_tot <= MAX_NODE_BINS:
+        raise ValueError(f"{name}: the kernels take 1 to {MAX_NODE_BINS} bins a node and at "
+                         f"least one node")
+    windows, window = wide_windows(n_bins_tot)
     if layout is None:
         levels = sorted(WIDE_LAYOUTS)
         layout = WIDE_LAYOUTS[next((c for c in levels if c >= k_nodes), levels[-1])]
@@ -490,15 +553,17 @@ def wide_plan(k_nodes: int, n_bins_tot: int, layout=None):
     if not (1 <= group <= WIDE_MAX_GROUP and nodes >= 1):
         raise ValueError(f"{name}: layout {layout} is not (1 to {WIDE_MAX_GROUP} features, "
                          f"at least one node)")
-    while group > 1 and _wide_smem_bytes(nodes, n_bins_tot, group) > SMEM_BYTES:
+    while group > 1 and _wide_smem_bytes(nodes, window, group) > SMEM_BYTES:
         group //= 2
-    nodes = min(nodes, k_nodes, SMEM_BYTES // _wide_smem_bytes(1, n_bins_tot, group))
+    nodes = min(nodes, k_nodes, SMEM_BYTES // _wide_smem_bytes(1, window, group))
+    if windows > 1:
+        nodes = 1
     n_chunks = -(-k_nodes // nodes)
     if n_chunks > WIDE_MAX_CHUNKS:
         raise ValueError(f"{name}: {n_chunks} chunks of {nodes} nodes exceed the "
                          f"{WIDE_MAX_CHUNKS} the row grouping takes")
     chunk = -(-k_nodes // n_chunks)
-    return chunk, n_chunks, group, _wide_smem_bytes(chunk, n_bins_tot, group)
+    return chunk, n_chunks, group, _wide_smem_bytes(chunk, window, group)
 
 
 class GroupedRows(NamedTuple):
@@ -604,18 +669,20 @@ def launch_wide_kernel(binned: torch.Tensor, grouped: GroupedRows, out: torch.Te
                        k_nodes: int, n_bins_tot: int, chunk_nodes: int, group: int,
                        log2n: Optional[int] = None) -> None:
     """One launch of the wide kernel on checked inputs and the prep's
-    ``grouped`` rows at ``chunk_nodes``: float32 ``out`` at the folds' own
-    scale, or, given ``log2n`` (the prep's), the int64 sums at the external
-    scale of ``grouped.maxabs``. Counts nothing."""
+    ``grouped`` rows at ``chunk_nodes``, in ``wide_windows``' windows of
+    bins: float32 ``out`` at the folds' own scale, or, given ``log2n`` (the
+    prep's), the int64 sums at the external scale of ``grouped.maxabs``.
+    Counts nothing."""
     K, F, N = binned.shape
+    window = wide_windows(n_bins_tot)[1]
     lib = cuda_build.load()
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.mallorn_hist_wide(binned.data_ptr(), grouped.entries.data_ptr(),
                                    grouped.q.data_ptr(), grouped.offsets.data_ptr(),
                                    grouped.maxabs.data_ptr(), out.data_ptr(), K, F, N, k_nodes,
-                                   n_bins_tot, chunk_nodes, group, int(log2n is not None),
-                                   log2n or 0, stream)
+                                   n_bins_tot, chunk_nodes, window, group,
+                                   int(log2n is not None), log2n or 0, stream)
     cuda_build.check(rc, "mallorn_hist_wide")
 
 
@@ -707,16 +774,16 @@ def launch_seg_kernel(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch.Te
                       out: torch.Tensor, n_seg: int, maxabs: Optional[torch.Tensor] = None,
                       log2n: int = 0) -> None:
     """One launch of K3 on inputs the wrapper checked, at
-    ``seg_hist_layout(n_seg)``; writes ``out`` [K, F, n_seg, 2]: float32,
+    ``seg_hist_plan(n_seg)``; writes ``out`` [K, F, n_seg, 2]: float32,
     or int64 at the external scale of ``maxabs`` and ``log2n`` (as
     ``launch_hist_kernel``). Counts nothing."""
     K, F, N = binned.shape
-    group, rows, _ = seg_hist_layout(n_seg)
+    _, window, group, rows, _ = seg_hist_plan(n_seg)
     lib = cuda_build.load()
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.mallorn_seg_hist(binned.data_ptr(), seg_base.data_ptr(), gh.data_ptr(),
-                                  out.data_ptr(), K, F, N, n_seg, group, rows,
+                                  out.data_ptr(), K, F, N, n_seg, window, group, rows,
                                   None if maxabs is None else maxabs.data_ptr(), log2n, stream)
     cuda_build.check(rc, "mallorn_seg_hist")
 
@@ -729,13 +796,14 @@ def build_seg_histograms(binned: torch.Tensor, seg_base: torch.Tensor, gh: torch
     if binned.device.type == "cpu":
         return build_seg_histograms_plain(binned, seg_base, gh, n_seg)
     _check_seg_cuda_inputs("build_seg_histograms", binned, seg_base, gh)
-    seg_hist_layout(n_seg)  # refuses n_seg beyond the kernel's shared memory
+    windows = seg_hist_plan(n_seg)[0]  # refuses n_seg beyond SEG_MAX_TOTAL
     K, F, _ = binned.shape
     out = torch.empty(K, F, n_seg, 2, dtype=torch.float32, device=binned.device)
     if K == 0 or F == 0:
         return out
     launch_seg_kernel(binned, seg_base, gh, out, n_seg)
     seg_launches += 1
+    _note_windows("seg_launches", windows)
     return out
 
 
@@ -750,13 +818,14 @@ def build_seg_histograms_i64(binned: torch.Tensor, seg_base: torch.Tensor, gh: t
         return build_seg_histograms_i64_fixed(binned, seg_base, gh, n_seg, maxabs, n_rows)
     _check_seg_cuda_inputs("build_seg_histograms_i64", binned, seg_base, gh)
     log2n = _check_external("build_seg_histograms_i64", gh, maxabs, n_rows)
-    seg_hist_layout(n_seg)
+    windows = seg_hist_plan(n_seg)[0]
     K, F, _ = binned.shape
     out = torch.empty(K, F, n_seg, 2, dtype=torch.int64, device=binned.device)
     if K == 0 or F == 0:
         return out
     launch_seg_kernel(binned, seg_base, gh, out, n_seg, maxabs, log2n)
     seg_i64_launches += 1
+    _note_windows("seg_i64_launches", windows)
     return out
 
 
@@ -819,7 +888,7 @@ def build_seg_histograms_i64(binned: torch.Tensor, seg_base: torch.Tensor, gh: t
 # ``build_histograms_plain(..., gh.double())``.
 
 Q_BITS = 26  # hist_pallas._Q_BITS
-MODE_NODES = 8  # nodes per CTA of the mode kernel (grid z takes the rest)
+MODE_NODES = 8  # nodes per CTA of the mode kernel at most (grid z takes the rest)
 MODE_CELL_BYTES = {False: 6 * 8, True: 8 * 4}  # per (node, bin): K4, K5
 # K5's external entry sums digits (|digit| <= 64) in int32: exact up to
 # 2^25 global rows (csrc/hist.cu kMaxLog2RowsI8)
@@ -1007,6 +1076,32 @@ def from_bf16_sums(acc: torch.Tensor, maxabs: torch.Tensor, n_rows: int) -> torc
     return torch.where(finite.reshape(-1, *(1,) * (out.dim() - 1)), out, torch.nan)
 
 
+def mode_plan(k_nodes: int, n_bins_tot: int, int8: bool):
+    """(nodes per CTA G, windows, bins per window, shared-memory bytes) of
+    the mode kernel (K5 if ``int8``, else K4) at a level of ``k_nodes``
+    nodes of ``n_bins_tot`` bins: G the most of 1 to MODE_NODES nodes (at
+    most ``k_nodes``) whose G x n_bins_tot cells fit a CTA, one window of
+    all the bins; where one node's cells do not fit (K4 beyond 4,842 bins,
+    K5 beyond 7,264), G = 1 and the bins in the fewest equal windows that
+    do. Grid z takes ceil(k_nodes / G) x windows CTAs. Raises beyond
+    MAX_NODE_BINS bins or MAX_GRID_Z CTAs on z (csrc/hist.cu launch_mode
+    refuses the same)."""
+    name = f"{'build_histograms_i8' if int8 else 'build_histograms_bf16'} " \
+           f"({k_nodes} nodes x {n_bins_tot} bins)"
+    if k_nodes < 1 or not 1 <= n_bins_tot <= MAX_NODE_BINS:
+        raise ValueError(f"{name}: the kernel takes 1 to {MAX_NODE_BINS} bins a node and at "
+                         f"least one node")
+    cell = MODE_CELL_BYTES[int8]
+    group = min(k_nodes, MODE_NODES)
+    while group > 1 and group * n_bins_tot * cell > SMEM_BYTES:
+        group -= 1
+    windows, window = _windows(n_bins_tot, SMEM_BYTES // cell)
+    if -(-k_nodes // group) * windows > MAX_GRID_Z:
+        raise ValueError(f"{name}: {-(-k_nodes // group) * windows} CTAs on the grid's z axis "
+                         f"exceed {MAX_GRID_Z}")
+    return group, windows, window, group * window * cell
+
+
 def launch_inputs(int8: bool, gh: torch.Tensor, maxabs: Optional[torch.Tensor] = None):
     """(digits, scale) the mode kernel takes for float32 (g, h) [K, N, 2]:
     K5 (``int8``) ``quantize_gh_i8``'s [K, N, 8] int8 digits and [K, 2]
@@ -1028,19 +1123,21 @@ def launch_inputs(int8: bool, gh: torch.Tensor, maxabs: Optional[torch.Tensor] =
 def launch_mode_kernel(int8: bool, binned: torch.Tensor, node_q: torch.Tensor,
                        digits: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
                        k_nodes: int, n_bins_tot: int, log2n: Optional[int] = None) -> None:
-    """One launch of the mode kernel (K5 if ``int8``, else K4) on inputs the
-    wrappers checked and ``launch_inputs`` prepared; writes ``out``
-    [K, F, k_nodes, n_bins_tot, 2] float32, or, given ``log2n`` (of the
-    global row count), the external launch's raw sums (K5 int32 [.., 8],
-    K4 int64 [.., 6]). Counts nothing."""
+    """One launch of the mode kernel (K5 if ``int8``, else K4) at
+    ``mode_plan`` on inputs the wrappers checked and ``launch_inputs``
+    prepared; writes ``out`` [K, F, k_nodes, n_bins_tot, 2] float32, or,
+    given ``log2n`` (of the global row count), the external launch's raw
+    sums (K5 int32 [.., 8], K4 int64 [.., 6]). Counts nothing."""
     K, F, N = binned.shape
+    group, _, window, _ = mode_plan(k_nodes, n_bins_tot, int8)
     fn_name = "mallorn_hist_i8" if int8 else "mallorn_hist_bf16"
     lib = cuda_build.load()
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = getattr(lib, fn_name)(binned.data_ptr(), node_q.data_ptr(), digits.data_ptr(),
                                    scale.data_ptr(), out.data_ptr(), K, F, N, k_nodes,
-                                   n_bins_tot, int(log2n is not None), log2n or 0, stream)
+                                   n_bins_tot, group, window, int(log2n is not None),
+                                   log2n or 0, stream)
     cuda_build.check(rc, fn_name)
 
 
@@ -1054,9 +1151,6 @@ def _mode_hist(int8: bool, name: str, binned, node_q, gh, k_nodes, n_bins_tot,
     external = maxabs is not None
     log2n = (_check_external(name, gh, maxabs, n_rows, 2 if int8 else 6,
                              I8_SUMS_MAX_LOG2_ROWS if int8 else 62) if external else None)
-    if min(k_nodes, MODE_NODES) * n_bins_tot * MODE_CELL_BYTES[int8] > SMEM_BYTES:
-        raise ValueError(f"{name}: {n_bins_tot} bins exceed the kernel's shared memory "
-                         f"({SMEM_BYTES} bytes per CTA)")
     K, F, _ = binned.shape
     if external:
         channels, dtype = (8, torch.int32) if int8 else (6, torch.int64)
@@ -1065,16 +1159,22 @@ def _mode_hist(int8: bool, name: str, binned, node_q, gh, k_nodes, n_bins_tot,
     out = torch.empty(K, F, k_nodes, n_bins_tot, channels, dtype=dtype, device=binned.device)
     if out.numel() == 0:
         return out
+    windows = mode_plan(k_nodes, n_bins_tot, int8)[1]  # refuses a level it cannot lay out
     digits, scale = launch_inputs(int8, gh, maxabs)
     launch_mode_kernel(int8, binned, node_q, digits, scale, out, k_nodes, n_bins_tot, log2n)
     if external and int8:
         i8_sums_launches += 1
+        counter = "i8_sums_launches"
     elif external:
         bf16_i64_launches += 1
+        counter = "bf16_i64_launches"
     elif int8:
         i8_launches += 1
+        counter = "i8_launches"
     else:
         bf16_launches += 1
+        counter = "bf16_launches"
+    _note_windows(counter, windows)
     return out
 
 

@@ -19,6 +19,21 @@ import torch
 from mallorn_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
+# the most value bins a fit takes: bin ids, the missing bin n_bins
+# included, are int16 on every histogram kernel (ops/hist_cuda.py), so
+# 32,768 bins would wrap the missing bin negative
+MAX_N_BINS = 32767
+
+
+def check_n_bins(n_bins: int) -> int:
+    """``n_bins`` as an int; raises beyond MAX_N_BINS."""
+    if int(n_bins) > MAX_N_BINS:
+        raise ValueError(f"n_bins = {n_bins}: the port takes at most {MAX_N_BINS} value bins, "
+                         f"because bin ids, the missing bin n_bins included, are int16 on "
+                         f"every histogram kernel")
+    return int(n_bins)
+
+
 class BinSpec(NamedTuple):
     edges: torch.Tensor  # [F, n_bins-1] f32 ascending split points (inf-padded)
     n_bins: int  # number of value bins; bin id n_bins is "missing"
@@ -34,7 +49,9 @@ def fit_bins(X: np.ndarray, n_bins: int = 256,
     """Per-feature quantile edges from the finite values of X [N, F].
 
     +-inf is clamped to +-1e10 first; a non-uniform ``sample_weight``
-    gives weighted quantiles (inverted weighted CDF)."""
+    gives weighted quantiles (inverted weighted CDF). Raises for more than
+    MAX_N_BINS bins."""
+    n_bins = check_n_bins(n_bins)
     X = np.clip(np.asarray(X, dtype=np.float64), -1e10, 1e10)
     qs = np.linspace(0, 1, n_bins + 1)[1:-1]
     weighted = (sample_weight is not None
@@ -88,7 +105,8 @@ def fit_bins_folds(X: np.ndarray, fold_idx: Sequence[np.ndarray], n_bins: int = 
     sample_weights)]``: a stable global sort restricted to a fold's rows is
     that fold's own stable sort, so each fold pays a boolean gather and a
     cumsum. Memoised on a digest of the inputs; treat the specs as
-    read-only."""
+    read-only. Raises for more than MAX_N_BINS bins."""
+    n_bins = check_n_bins(n_bins)
     X = np.asarray(X, dtype=np.float64)
     dev = resolve_device(device)
     key = _fold_bins_key(X, fold_idx, n_bins, sample_weights, dev)

@@ -81,8 +81,8 @@ import torch
 from mallorn_tpu_torch.ops import hist_cuda
 from mallorn_tpu_torch.trees import objectives, xla_cpu
 from mallorn_tpu_torch.trees.binning import (BinSpec, apply_bins,
-                                             apply_bins_folds_gather, fit_bins,
-                                             fit_bins_folds)
+                                             apply_bins_folds_gather, check_n_bins,
+                                             fit_bins, fit_bins_folds)
 from mallorn_tpu_torch.utils import prng
 from mallorn_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -628,8 +628,10 @@ def level_hist_fn(p: GBDTParams) -> HistFn:
 
 
 def _check_params(p: GBDTParams) -> None:
-    """Raise on a metric or policy the port does not know, and on the
-    combinations the JAX package refuses."""
+    """Raise on a metric or policy the port does not know, on more bins
+    than the int16 bin ids hold, and on the combinations the JAX package
+    refuses."""
+    check_n_bins(p.n_bins)
     if p.eval_metric not in VAL_METRICS:
         raise ValueError(f"eval_metric {p.eval_metric!r}: the port evaluates "
                          f"{tuple(VAL_METRICS)}")
@@ -1091,7 +1093,10 @@ def predict_margin_models(models: Sequence[GBDTModel], X) -> torch.Tensor:
     """Margins [K, N] ([K, N, C] for multiclass models) of K same-config
     fold models on one float matrix [N, F], or on one matrix per fold (a
     sequence of [N_k, F], padded to the longest with NaN rows), each fold
-    binning with its own edges, in row chunks."""
+    binning with its own edges, in row chunks. A matrix narrower than the
+    models' edges gets NaN columns up to their width, as the JAX package
+    pads X for a fold model trained with ``pad_features_to`` (on a TPU, F
+    rounded up to a multiple of 32)."""
     p = models[0].params
     forest = stack_forests([m.forest for m in models])
     n_trees = torch.tensor([m.n_trees for m in models])
@@ -1100,6 +1105,10 @@ def predict_margin_models(models: Sequence[GBDTModel], X) -> torch.Tensor:
         n_max = max(x.shape[0] for x in X)
         X = torch.stack([torch.cat([x, x.new_full((n_max - x.shape[0], x.shape[1]),
                                                   float("nan"))]) for x in X])
+    f_model = models[0].bin_spec.edges.shape[0]
+    if X.shape[-1] < f_model:  # a model trained with inert feature padding (a TPU's 32)
+        X = torch.cat([X, X.new_full((*X.shape[:-1], f_model - X.shape[-1]), float("nan"))],
+                      dim=-1)
     out = []
     for s in range(0, X.shape[-2], PREDICT_CHUNK):
         Xc = X[..., s:s + PREDICT_CHUNK, :]
@@ -1110,15 +1119,24 @@ def predict_margin_models(models: Sequence[GBDTModel], X) -> torch.Tensor:
     return torch.cat(out, dim=1)
 
 
-def predict_proba(model: GBDTModel, X, n_trees: Optional[int] = None) -> torch.Tensor:
-    """[N] sigmoid probabilities, or [N, C] softmax ones for a multiclass
-    model, on a float matrix [N, F]; ``n_trees`` overrides the model's
-    best-iteration truncation."""
+def predict_margin(model: GBDTModel, X, n_trees: Optional[int] = None) -> torch.Tensor:
+    """[N] raw margins ([N, C] for a multiclass model) on a float matrix
+    [N, F] (numpy, or a tensor on the model's device): the model's
+    ``best_iteration + 1`` trees if it early-stopped, else all of them;
+    ``n_trees`` overrides that truncation. A matrix narrower than the
+    model's edges is NaN-padded to their width."""
     if n_trees is not None:
         model = model._replace(best_iteration=n_trees - 1)
     if not torch.is_tensor(X):
         X = torch.as_tensor(np.asarray(X, np.float32), device=model.bin_spec.edges.device)
-    m = predict_margin_models([model], X)[0]
+    return predict_margin_models([model], X)[0]
+
+
+def predict_proba(model: GBDTModel, X, n_trees: Optional[int] = None) -> torch.Tensor:
+    """[N] sigmoid probabilities, or [N, C] softmax ones for a multiclass
+    model, on a float matrix [N, F]; ``n_trees`` overrides the model's
+    best-iteration truncation."""
+    m = predict_margin(model, X, n_trees)
     if model.params.num_class >= 2:
         return torch.softmax(m, dim=-1)
     return torch.sigmoid(m)

@@ -11,10 +11,15 @@ so there it adds in XLA:CPU's order and takes XLA:CPU's exp:
 
 - ``node_totals`` (sum over features and bins): XLA splits each reduced
   axis longer than 32 into zero-padded windows of 32 (padding split low /
-  high), adds each window sequentially (feature-major), then adds the
-  window sums sequentially;
-- ``bin_cumsum`` (cumulative sum over 256 bins): sequential sums within
-  16 blocks of 16, plus the sequential prefix of the block totals;
+  high), adds each window sequentially (feature-major), then reduces the
+  window sums by the same rule: sequentially (feature-major) once neither
+  axis of them is longer than 32 (up to 1,024 bins), else in windows
+  again;
+- ``bin_cumsum`` (cumulative sum over the bins, any count): sequential
+  sums within blocks of 16 (the last block short), then each block's
+  offset added, the inclusive prefix of the block totals by the same rule
+  (recursively: sequential up to 16 totals). At 256 bins that is 16 blocks
+  of 16 plus the sequential prefix of their totals;
 - ``row_sums`` (per-leaf sums over rows, a one-hot matrix product in the
   JAX package): sequential over rows up to 384 rows (and for any N with at
   most 2 leaves), else sequential within two halves of ``ceil(N / 2)``
@@ -57,32 +62,49 @@ def _windows(n: int):
     return 32, lo, padded - n - lo
 
 
+def _window_sum(a: np.ndarray) -> np.ndarray:
+    """[K, C, F, B] -> [K, C]: XLA:CPU's sum over the last two axes."""
+    K, C, F, B = a.shape
+    wf, lf, hf = _windows(F)
+    wb, lb, hb = _windows(B)
+    a = np.pad(a, ((0, 0), (0, 0), (lf, hf), (lb, hb)))
+    nf, nb = a.shape[2] // wf, a.shape[3] // wb
+    # [K, C, nf, nb, wf * wb], each window's elements feature-major
+    w = a.reshape(K, C, nf, wf, nb, wb).transpose(0, 1, 2, 4, 3, 5).reshape(K, C, nf, nb, -1)
+    part = np.cumsum(w, axis=-1, dtype=np.float32)[..., -1]  # sequential float32
+    if nf > 32 or nb > 32:  # the window sums are reduced by the same rule
+        return _window_sum(part)
+    return np.cumsum(part.reshape(K, C, -1), axis=-1, dtype=np.float32)[..., -1]
+
+
 def node_totals(x: torch.Tensor) -> torch.Tensor:
     """[K, F, C, B] -> [K, C]: the sum over features and bins."""
     if x.device.type != "cpu":
         return x.sum(dim=(1, 3))
-    a = x.numpy()
-    K, F, C, B = a.shape
-    wf, lf, hf = _windows(F)
-    wb, lb, hb = _windows(B)
-    a = np.pad(a, ((0, 0), (lf, hf), (0, 0), (lb, hb)))
-    nf, nb = a.shape[1] // wf, a.shape[3] // wb
-    # [K, C, nf, nb, wf * wb], each window's elements feature-major
-    w = a.reshape(K, nf, wf, C, nb, wb).transpose(0, 3, 1, 4, 2, 5).reshape(K, C, nf, nb, -1)
-    part = np.cumsum(w, axis=-1, dtype=np.float32)[..., -1]  # sequential float32
-    tot = np.cumsum(part.reshape(K, C, -1), axis=-1, dtype=np.float32)[..., -1]
-    return torch.from_numpy(np.ascontiguousarray(tot))
+    return torch.from_numpy(np.ascontiguousarray(_window_sum(x.numpy().transpose(0, 2, 1, 3))))
+
+
+def _block_cumsum(a: np.ndarray) -> np.ndarray:
+    """XLA:CPU's inclusive cumsum over the last axis of ``a``."""
+    L = a.shape[-1]
+    if L <= 16:
+        return np.cumsum(a, axis=-1, dtype=a.dtype)
+    nb = -(-L // 16)
+    padded = np.zeros((*a.shape[:-1], nb * 16), a.dtype)
+    padded[..., :L] = a
+    inner = np.cumsum(padded.reshape(*a.shape[:-1], nb, 16), axis=-1, dtype=a.dtype)
+    totals = inner[..., 15].copy()
+    totals[..., -1] = inner[..., -1, (L - 1) % 16]  # the short tail block's own total
+    prefix = _block_cumsum(totals)  # [..., nb] inclusive
+    inner[..., 1:, :] += prefix[..., :-1, None]
+    return inner.reshape(*a.shape[:-1], nb * 16)[..., :L]
 
 
 def bin_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Cumulative sum over the last axis (256 bins on the CPU path)."""
-    if x.device.type != "cpu" or x.shape[-1] != 256:
+    """Cumulative sum over the last axis (the bins, any count)."""
+    if x.device.type != "cpu":
         return torch.cumsum(x, dim=-1)
-    blocks = x.numpy().reshape(*x.shape[:-1], 16, 16)
-    inner = np.cumsum(blocks, axis=-1, dtype=blocks.dtype)  # sequential within a block
-    prefix = np.zeros(inner.shape[:-1], blocks.dtype)  # [..., 16] block offsets
-    prefix[..., 1:] = np.cumsum(inner[..., :-1, 15], axis=-1, dtype=blocks.dtype)
-    return torch.from_numpy((inner + prefix[..., None]).reshape(x.shape))
+    return torch.from_numpy(np.ascontiguousarray(_block_cumsum(x.numpy())))
 
 
 def row_sums(x: torch.Tensor) -> torch.Tensor:

@@ -142,13 +142,13 @@ def load() -> ctypes.CDLL:
             lib.mallorn_hist.restype = ctypes.c_int
             lib.mallorn_hist_group_rows.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
             lib.mallorn_hist_group_rows.restype = ctypes.c_int
-            lib.mallorn_hist_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+            lib.mallorn_hist_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
             lib.mallorn_hist_wide.restype = ctypes.c_int
-            lib.mallorn_seg_hist.argtypes = [p, p, p, p, i, i, i, i, i, i, p, i, p]
+            lib.mallorn_seg_hist.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, i, p]
             lib.mallorn_seg_hist.restype = ctypes.c_int
-            lib.mallorn_hist_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+            lib.mallorn_hist_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
             lib.mallorn_hist_bf16.restype = ctypes.c_int
-            lib.mallorn_hist_i8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+            lib.mallorn_hist_i8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
             lib.mallorn_hist_i8.restype = ctypes.c_int
             lib.mallorn_cuda_error_string.argtypes = [i]
             lib.mallorn_cuda_error_string.restype = ctypes.c_char_p

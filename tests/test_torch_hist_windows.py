@@ -1,0 +1,233 @@
+"""The histogram kernels at every bin count up to MAX_NODE_BINS (32,768)
+bins a node: their plans on the CPU, their windowed launches on the card.
+
+Where one CTA cannot hold a node's bins (K4 beyond 4,842, K5 beyond 7,264,
+K1's wide path beyond 14,528) or a call's segments (K3 beyond 14,004),
+each CTA holds a window of them and adds only the rows that fall in it
+(``ops/hist_cuda.py`` ``mode_plan``, ``wide_windows`` / ``wide_plan``,
+``seg_hist_plan``; grid z takes the windows). On the CPU, for a sampled
+grid of bin counts and levels: every (node, bin) cell, or segment, belongs
+to exactly one CTA; every CTA fits SMEM_BYTES; grid z stays within 65,535;
+a level that one CTA held before keeps its plan. On the card (``cuda``
+cases, ``python -m pytest -q --noconftest -m cuda
+tests/test_torch_hist_windows.py``): each windowed launch, in the float32
+and the external-scale entry, bit for bit its plain twin and its own
+second launch, with its windows counted in ``hist_cuda.windows_by_call``.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mallorn_tpu_torch.ops import hist_cuda
+from mallorn_tpu_torch.ops.hist_cuda import MAX_GRID_Z, MAX_NODE_BINS, SMEM_BYTES
+
+BIN_COUNTS = [2, 3, 17, 257, 605, 606, 908, 909, 1025, 4842, 4843, 7264, 7265, 8193,
+              14528, 14529, 16385, 29057, MAX_NODE_BINS]
+NODE_COUNTS = [1, 2, 3, 7, 8, 9, 17, 54, 128]
+
+
+def _covered_once(cells: np.ndarray) -> bool:
+    return bool((cells == 1).all())
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("n_bins_tot", BIN_COUNTS)
+def test_mode_plan_covers_every_cell_once(n_bins_tot, int8):
+    cell = hist_cuda.MODE_CELL_BYTES[int8]
+    for k_nodes in NODE_COUNTS:
+        group, windows, window, smem = hist_cuda.mode_plan(k_nodes, n_bins_tot, int8)
+        assert 1 <= group <= min(k_nodes, hist_cuda.MODE_NODES)
+        assert windows == 1 or group == 1  # a CTA's cells are one run of out
+        assert smem == group * window * cell <= SMEM_BYTES
+        # the most nodes that fit, and windows only where one node does not
+        assert group == min(k_nodes, hist_cuda.MODE_NODES, max(1, SMEM_BYTES // (n_bins_tot * cell)))
+        assert (windows > 1) == (n_bins_tot * cell > SMEM_BYTES)
+        z = -(-k_nodes // group) * windows
+        assert z <= MAX_GRID_Z
+        cells = np.zeros((k_nodes, n_bins_tot), np.int8)
+        for bz in range(z):  # the kernel's own index arithmetic
+            grp, w = divmod(bz, windows)
+            node0, bin0 = grp * group, w * window
+            nb = min(window, n_bins_tot - bin0)
+            cells[node0:node0 + min(group, k_nodes - node0), bin0:bin0 + nb] += 1
+        assert _covered_once(cells), (k_nodes, n_bins_tot)
+
+
+@pytest.mark.parametrize("n_bins_tot", BIN_COUNTS)
+def test_wide_plan_covers_every_cell_once(n_bins_tot):
+    for k_nodes in NODE_COUNTS + [1024]:
+        chunk, n_chunks, group, smem = hist_cuda.wide_plan(k_nodes, n_bins_tot)
+        windows, window = hist_cuda.wide_windows(n_bins_tot)
+        assert windows == 1 or chunk == 1
+        assert smem == hist_cuda._wide_smem_bytes(chunk, window, group) <= SMEM_BYTES
+        assert n_chunks <= hist_cuda.WIDE_MAX_CHUNKS and n_chunks * windows <= MAX_GRID_Z
+        cells = np.zeros((k_nodes, n_bins_tot), np.int8)
+        for bz in range(n_chunks * windows):
+            c, w = divmod(bz, windows)
+            node0, bin0 = c * chunk, w * window
+            cells[node0:node0 + min(chunk, k_nodes - node0),
+                  bin0:bin0 + min(window, n_bins_tot - bin0)] += 1
+        assert _covered_once(cells), (k_nodes, n_bins_tot)
+
+
+@pytest.mark.parametrize("n_seg", [1, 257, 514, 14004, 14005, 2 * 7003, 2 * 8193, 28009,
+                                   2 * 16385, hist_cuda.SEG_MAX_TOTAL])
+def test_seg_hist_plan_covers_every_segment_once(n_seg):
+    windows, window, group, rows, smem = hist_cuda.seg_hist_plan(n_seg)
+    assert (windows > 1) == (n_seg > hist_cuda.SEG_MAX_SEGMENTS) and windows <= MAX_GRID_Z
+    assert (group, rows, smem) == hist_cuda.seg_hist_layout(window)
+    assert smem == hist_cuda._seg_smem_bytes(window, group, rows) <= SMEM_BYTES
+    segs = np.zeros(n_seg, np.int8)
+    for bz in range(windows):
+        s0 = bz * window
+        segs[s0:s0 + min(window, n_seg - s0)] += 1
+    assert _covered_once(segs)
+
+
+def test_plans_refuse_what_no_launch_takes():
+    for int8 in (False, True):
+        with pytest.raises(ValueError, match=str(MAX_NODE_BINS)):
+            hist_cuda.mode_plan(1, MAX_NODE_BINS + 1, int8)
+    with pytest.raises(ValueError, match="65535"):  # 65,536 node groups of one window
+        hist_cuda.mode_plan(8 * (MAX_GRID_Z + 1), 257, True)
+    with pytest.raises(ValueError, match=str(MAX_NODE_BINS)):
+        hist_cuda.wide_plan(2, MAX_NODE_BINS + 1)
+    with pytest.raises(ValueError, match="chunks"):  # one node a chunk beyond 14,528 bins
+        hist_cuda.wide_plan(hist_cuda.WIDE_MAX_CHUNKS + 1, 14529)
+    for n_seg in (0, hist_cuda.SEG_MAX_TOTAL + 1):
+        with pytest.raises(ValueError, match=str(hist_cuda.SEG_MAX_TOTAL)):
+            hist_cuda.seg_hist_plan(n_seg)
+
+
+def test_257_bin_plans_are_unchanged():
+    # the plans every shipped configuration runs, as before the windows
+    for k_nodes in (1, 2, 3, 4, 8, 16, 17, 128):
+        group = min(k_nodes, 8)
+        assert hist_cuda.mode_plan(k_nodes, 257, False) == (group, 1, 257, group * 257 * 48)
+        assert hist_cuda.mode_plan(k_nodes, 257, True) == (group, 1, 257, group * 257 * 32)
+    assert hist_cuda.wide_plan(17, 257) == (6, 3, 1, 24672)
+    assert hist_cuda.wide_plan(64, 257) == (11, 6, 1, 45232)
+    assert hist_cuda.wide_plan(128, 257) == (11, 12, 1, 45232)
+    assert hist_cuda.wide_windows(257) == (1, 257)
+    assert hist_cuda.seg_hist_plan(257) == (1, 257, 4, 512, 39264)
+    assert hist_cuda.seg_hist_plan(514) == (1, 514, 4, 512, 55712)
+
+
+def test_kernel_source_takes_the_plans_limits():
+    # the launchers refuse by their own constants; they must be the plans'
+    src = (Path(hist_cuda.__file__).resolve().parents[1] / "csrc" / "hist.cu").read_text()
+    assert int(re.search(r"constexpr int kModeNodes = (\d+);", src)[1]) == hist_cuda.MODE_NODES
+    assert int(re.search(r"constexpr int kMaxSmemBytes = (\d+);", src)[1]) == SMEM_BYTES
+    assert "n_seg > 65536" in src and hist_cuda.SEG_MAX_TOTAL == 65536
+
+
+def test_windows_are_counted_per_call():
+    hist_cuda.reset_launches()
+    hist_cuda._note_windows("bf16_launches", 1)
+    hist_cuda._note_windows("bf16_launches", 3)
+    hist_cuda._note_windows("bf16_launches", 3)
+    assert hist_cuda.windows_by_call == {"bf16_launches": {3: 2}}
+    hist_cuda.reset_launches()
+    assert hist_cuda.windows_by_call == {}
+
+
+# ---------------------------------------------------------------------------
+# the card
+# ---------------------------------------------------------------------------
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+
+
+def _level(K, F, N, k_nodes, n_bins_tot, seed):
+    """binned [K, F, N] over every bin (a crowded missing bin), node ids
+    [K, N] (k_nodes = inactive, some -1), gh [K, N, 2] on the card."""
+    rng = np.random.default_rng(seed)
+    binned = rng.integers(0, n_bins_tot, size=(K, F, N)).astype(np.int16)
+    binned[:, :, ::7] = n_bins_tot - 1
+    node_q = rng.integers(0, k_nodes + 1, size=(K, N)).astype(np.int32)
+    node_q[:, 1::13] = -1
+    gh = np.stack([rng.normal(size=(K, N)), rng.uniform(0.01, 0.25, (K, N))], -1)
+    return [torch.from_numpy(a).cuda() for a in (binned, node_q, gh.astype(np.float32))]
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _twice_equal(fn, twin, counter, windows):
+    hist_cuda.reset_launches()
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert getattr(hist_cuda, counter) == 2
+    assert hist_cuda.windows_by_call.get(counter, {}) == ({windows: 2} if windows > 1 else {})
+    assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(_bits(a), _bits(twin))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_nodes,n_bins_tot", [(8, 1025), (1, 8193), (2, MAX_NODE_BINS)])
+def test_mode_kernels_in_windows_equal_their_twins(k_nodes, n_bins_tot):
+    _cuda_or_skip()
+    K, F, N = 2, 3, 3000
+    binned, node_q, gh = _level(K, F, N, k_nodes, n_bins_tot, seed=n_bins_tot)
+    lv = (binned, node_q, gh, k_nodes, n_bins_tot)
+    w4 = hist_cuda.mode_plan(k_nodes, n_bins_tot, False)[1]
+    w5 = hist_cuda.mode_plan(k_nodes, n_bins_tot, True)[1]
+    assert (w4 > 1, w5 > 1) == ((n_bins_tot > 4842), (n_bins_tot > 7264))
+    _twice_equal(lambda: hist_cuda.build_histograms_bf16(*lv),
+                 hist_cuda.build_histograms_bf16_fixed(*lv), "bf16_launches", w4)
+    _twice_equal(lambda: hist_cuda.build_histograms_i8(*lv),
+                 hist_cuda.build_histograms_i8_plain(*lv), "i8_launches", w5)
+    m = hist_cuda.digit_maxabs(gh)
+    a = hist_cuda.amax_of(hist_cuda.amax_parts(gh))
+    _twice_equal(lambda: hist_cuda.build_histograms_bf16_i64(*lv, m, N),
+                 hist_cuda.build_histograms_bf16_i64_fixed(*lv, m, N), "bf16_i64_launches", w4)
+    _twice_equal(lambda: hist_cuda.build_histograms_i8_sums(*lv, a, N),
+                 hist_cuda.build_histograms_i8_sums_fixed(*lv, a, N), "i8_sums_launches", w5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_nodes,n_bins_tot", [(2, 16385), (3, MAX_NODE_BINS)])
+def test_wide_path_in_windows_equals_its_twins(k_nodes, n_bins_tot):
+    _cuda_or_skip()
+    K, F, N = 2, 3, 3000
+    binned, node_q, gh = _level(K, F, N, k_nodes, n_bins_tot, seed=k_nodes)
+    assert hist_cuda.hist_plan(k_nodes, n_bins_tot)[3] == 0  # the wide path
+    windows = hist_cuda.wide_windows(n_bins_tot)[0]
+    assert windows > 1
+    lv = (binned, node_q, gh, k_nodes, n_bins_tot)
+    _twice_equal(lambda: hist_cuda.build_histograms(*lv), hist_cuda.build_histograms_fixed(*lv),
+                 "launches", windows)
+    m = hist_cuda.lane_maxabs(gh)
+    _twice_equal(lambda: hist_cuda.build_histograms_i64(*lv, m, N),
+                 hist_cuda.build_histograms_i64_fixed(*lv, m, N), "i64_launches", windows)
+    assert hist_cuda.prep_launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbt", [8193, MAX_NODE_BINS])
+def test_seg_kernel_in_windows_equals_its_twins(nbt):
+    _cuda_or_skip()
+    K, F, N = 3, 5, 2500
+    n_seg = 2 * nbt
+    rng = np.random.default_rng(nbt)
+    binned = rng.integers(0, nbt, size=(K, F, N)).astype(np.int16)
+    seg_base = rng.choice([0, nbt, n_seg], size=(K, N)).astype(np.int32)  # a pair, inactive
+    gh = np.stack([rng.normal(size=(K, N)), rng.uniform(0.01, 0.25, (K, N))], -1)
+    binned, seg_base, gh = (torch.from_numpy(a).cuda()
+                            for a in (binned, seg_base, gh.astype(np.float32)))
+    windows = hist_cuda.seg_hist_plan(n_seg)[0]
+    assert windows > 1
+    args = (binned, seg_base, gh, n_seg)
+    _twice_equal(lambda: hist_cuda.build_seg_histograms(*args),
+                 hist_cuda.build_seg_histograms_fixed(*args), "seg_launches", windows)
+    m = hist_cuda.lane_maxabs(gh)
+    _twice_equal(lambda: hist_cuda.build_seg_histograms_i64(*args, m, N),
+                 hist_cuda.build_seg_histograms_i64_fixed(*args, m, N), "seg_i64_launches",
+                 windows)

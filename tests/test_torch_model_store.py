@@ -183,3 +183,37 @@ def test_heap_forests_round_trip_port_to_jax(heap_models, tmp_path):
                                       getattr(tm.forest, name).numpy(), err_msg=name)
     np.testing.assert_allclose(np.asarray(J.predict_proba(back, X)), _port_proba(tm, X),
                                rtol=0, atol=1e-6)
+
+
+def test_padded_fold_models_from_a_tpu_predict_through_the_port(tmp_path):
+    """A fold CV trained with ``pad_features_to=32`` (as the JAX package
+    pads features on a TPU) carries edges for 32 columns; the port NaN-pads
+    a 10-column matrix to the models' width in ``predict_proba_folds``,
+    ``predict_proba`` and ``predict_margin``, as the JAX package does."""
+    from mallorn_tpu.trees import gbdt as J
+    from mallorn_tpu_torch.trees import gbdt as T
+    from mallorn_tpu_torch.trees import predict_margin
+
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(400, 10)).astype(np.float32)
+    y = (X[:, 1] + 0.8 * X[:, 6] + 0.5 * rng.normal(size=400) > 0.2).astype(np.float32)
+    X[rng.random(X.shape) < 0.1] = np.nan
+    folds = [dict(X=X[idx], y=y[idx], X_val=X[va], y_val=y[va], spw=1.0)
+             for idx, va in ((np.arange(0, 300), np.arange(300, 400)),
+                             (np.arange(100, 400), np.arange(0, 100)))]
+    jms = J.train_gbdt_folds(folds, J.GBDTParams(n_rounds=12, max_depth=3, learning_rate=0.3),
+                             early_stopping_rounds=4, pad_features_to=32)
+    assert jms[0].bin_spec.edges.shape[0] == 32
+    jstore.save_cv_models(tmp_path, jms, 0.5, [f"c{i}" for i in range(32)])
+    tms, _ = tstore.load_cv_models(tmp_path, device="cpu")
+    assert tms[0].bin_spec.edges.shape[0] == 32
+    np.testing.assert_allclose(T.predict_proba_folds(tms, X),
+                               np.asarray(predict_proba_folds(jms, X)), rtol=0, atol=1e-6)
+    for jm, tm in zip(jms, tms):
+        np.testing.assert_allclose(T.predict_proba(tm, X).numpy(),
+                                   np.asarray(J.predict_proba(jm, X)), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(predict_margin(tm, X).numpy(),
+                                   np.asarray(J.predict_margin(jm, X)), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(predict_margin(tm, X, n_trees=3).numpy(),
+                                   np.asarray(J.predict_margin(jm, X, n_trees=3)), rtol=0,
+                                   atol=1e-6)

@@ -295,6 +295,9 @@ def test_kernel_at_the_segment_limit():
     gh = rng.normal(size=(2, 500, 2)).astype(np.float32)
     assert seg_hist_layout(SEG_MAX_SEGMENTS)[2] == SMEM_BYTES
     _kernel_equals_fixed(binned, seg_base, gh, SEG_MAX_SEGMENTS)
+    # one segment more takes two windows of segments, the same sums
+    assert hist_cuda.seg_hist_plan(SEG_MAX_SEGMENTS + 1)[0] == 2
+    _kernel_equals_fixed(binned, seg_base, gh, SEG_MAX_SEGMENTS + 1)
     with pytest.raises(ValueError):
         build_seg_histograms(*(torch.as_tensor(a).cuda() for a in (binned, seg_base, gh)),
-                             SEG_MAX_SEGMENTS + 1)
+                             hist_cuda.SEG_MAX_TOTAL + 1)

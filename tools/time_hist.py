@@ -39,7 +39,10 @@ min_child_weight 1e-3, with and without subtraction, so their last levels
 run K1 at 64 and 128 nodes) on one seeded synthetic matrix of the v92d CV's
 width (3,054 x 222, NaNs included) and reports each CV's forests' sha256,
 rounds, OOF F1 and K1 launches by level width, which must agree across the
-checkouts.
+checkouts. In a checkout with the histogram modes' ``launch_mode_kernel``,
+it also times K4 and K5 (the wrapper and the launch alone on prepared
+digits) at the v92d CV's deepest level (8 nodes; ``chip_smoke.py``'s seed
+6,042), held bit for bit equal across the checkouts too.
 
 Prints one line per run and shape, the card's name and power limit, and
 last one JSON object of every run. Exits non-zero with no CUDA device or
@@ -87,6 +90,15 @@ def shapes():
     out.append((f"{name} nodes={k}", K, F, N, k, seed, inactive))
     return out + [(f"{fit} nodes={k}", K, F, N, k, 2900 + k, 0.0)
                   for fit, K, F, N, nodes in WIDE_SHAPES for k in nodes]
+
+
+# K4 and K5 at the v92d CV's deepest level, chip_smoke.py's mode check
+# there (seed 6000 + 17 x 2 + 8)
+MODE_SHAPE = ("v92d", 5, 222, 2444, 8, 6042)
+
+
+def mode_names():
+    return [f"{kernel} {MODE_SHAPE[0]} nodes={MODE_SHAPE[4]}" for kernel in ("K4", "K5")]
 
 
 def wide_names():
@@ -156,6 +168,26 @@ def time_checkout(layouts: bool, fits: bool = False) -> dict:
             res[name]["layout"] = list(hist_cuda.hist_layout(k_nodes, N_BINS_TOT)[:2])
         if name in wide_names():
             res[name].update(time_wide(torch, hist_cuda, ms, binned, node_q, gh, k_nodes))
+    if hasattr(hist_cuda, "launch_mode_kernel"):
+        _, K, F, N, k_nodes, seed = MODE_SHAPE
+        binned, node_q, gh = hist_inputs(torch, K, F, N, k_nodes, seed)
+        for name, int8 in zip(mode_names(), (False, True)):
+            wrapper = hist_cuda.build_histograms_i8 if int8 else hist_cuda.build_histograms_bf16
+            want = wrapper(binned, node_q, gh, k_nodes, N_BINS_TOT)
+            digits, scale = hist_cuda.launch_inputs(int8, gh)
+            out = torch.empty_like(want)
+
+            def launch():
+                hist_cuda.launch_mode_kernel(int8, binned, node_q, digits, scale, out, k_nodes,
+                                             N_BINS_TOT)
+            launch()
+            torch.cuda.synchronize()
+            if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"{name}: the launch alone disagrees with the wrapper")
+            res[name] = {
+                "wrapper_ms": ms(lambda: wrapper(binned, node_q, gh, k_nodes, N_BINS_TOT)),
+                "launch_ms": ms(launch),
+                "sha256": hashlib.sha256(want.cpu().numpy().tobytes()).hexdigest()}
     if layouts and hasattr(hist_cuda, "hist_layout"):
         res["sweep"] = sweep(torch, hist_cuda, cuda_build, stream, ms)
     if layouts and hasattr(hist_cuda, "wide_plan"):
@@ -378,7 +410,7 @@ def main(argv) -> int:
                      for run in runs}) != 1:
         print("time_hist: the checkouts' depth-8 CVs differ", file=sys.stderr)
         return 1
-    for name, *_ in shapes():
+    for name in [s[0] for s in shapes()] + mode_names():
         for sha in ("sha256", "i64_sha256"):
             if len({r["shapes"][name].get(sha) for r in runs}) != 1:
                 print(f"time_hist: the checkouts' outputs differ at {name}", file=sys.stderr)
