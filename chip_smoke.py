@@ -62,9 +62,11 @@ Phases, each printing its wall time on its own line:
    digits) bit for bit equal to its fixed-point twin and within rtol 1e-5 /
    atol 1e-4 of the float64 oracle, at every K1 shape, the ragged one and
    17 nodes,
-   two launches of each bit for bit equal, with the same times, the
-   launch alone on prepared digits (``kernel_only_ms``) and the distance
-   from the float64 oracle (``max_abs_err_f64``); then K1's and K3's
+   two launches of each bit for bit equal, with the same times (``ms``:
+   the level a fit calls on the tree's prepared digits, ``mode_hist``),
+   the launch alone on the prep kernel's digits (``kernel_only_ms``), the
+   (g, h) entry, prep and level in one call (``gh_entry_ms``) and the
+   distance from the float64 oracle (``max_abs_err_f64``); then K1's and K3's
    external-scale int64 entries (the mesh's histograms) at the v92d CV's
    shape (1, 2, 4, 8 and 64 nodes) and the v114d pair, the rows in two
    halves at one global scale: each half bit for bit its int64 twin, the
@@ -77,7 +79,12 @@ Phases, each printing its wall time on its own line:
    bit for bit its plain twin, the halves adding up to the whole launch,
    the converted total the mode's float32 launch bit for bit (NaN at the
    same cells: a NaN g makes K5's g channel NaN, every K4 cell of its
-   lane), with the same times;
+   lane), with the same times; then K4 / K5's prep kernel (the digits of a
+   tree, ``hist_cuda.prepare_digits``) at 5, 25 and 50 lanes of 2,444
+   rows with a zero lane and a NaN / inf lane, each instantiation in both
+   entries (the lanes' own scale, a mesh's) twice, bit for bit its plain
+   version run on the card, with its times (the wrapper, the launch alone,
+   the external entry, the plain version) and its bound;
 7. kernel against plain in training: a 600 x 30 fixture (NaNs, subsample
    and colsample 0.8, 20 rounds of depth 5) fitted with K1 twice and once
    with the kernel's fixed-point arithmetic in plain PyTorch, and the same
@@ -94,7 +101,10 @@ Phases, each printing its wall time on its own line:
    segments (``BINS_SHAPES``: K4 / K5 at 8 nodes x 1,025 bins, 1 x 8,193
    and 2 x 32,768, K1's wide path at 32 x 16,385, K3 at a pair of 8,193),
    each entry twice, bit for bit its plain twin, its windows a call
-   counted, with its times; fits on the same fixture at 1,024 bins
+   counted, with its times (K4 / K5 also the level on prepared digits and
+   the launch alone; the yardsticks the zeroed output and one
+   ``scatter_add_``, float32 for the float32 entry and int64 of the
+   external entry's integer values for it); fits on the same fixture at 1,024 bins
    (float32, "int8", "i8bf16"), 8,192 (both modes, and leaf-wise with 31
    leaves) and 16,384 (depth 7), each bit for bit its kernel's plain
    twin, their launches and calls in windows counted from 0; and the
@@ -108,7 +118,8 @@ Phases, each printing its wall time on its own line:
    then the histogram modes: the same workload with
    ``hist_dtype="int8"`` (K5) and ``"i8bf16"`` (K4) in all three fits,
    each with its stage seconds, OOF F1 (gate 0.633) and test F1, the mode
-   kernel's launches equal to rounds x depth and no K1 launch;
+   kernel's launches equal to rounds x depth, its digits' prep kernel
+   launched once a tree (rounds) and no K1 launch;
 9. serving the trained model: the v92d winner saved with
    ``save_cv_models``, loaded back and served over the test split through
    ``V92dServer`` at that split's ``serving_config``; the served
@@ -255,10 +266,11 @@ Phases, each printing its wall time on its own line:
    at full width (222 columns, 5 folds, the v92d rounds and depth) on the
    histogram modes phase's inputs of that mode, its forests and eval
    histories bit for bit that phase's, OOF F1 >= 0.633, the mode's
-   external-scale entry launched rounds x depth times and no float32
-   histogram kernel; (f) on the two gloo ranks of (b), the v92d CV at 15
-   rounds in each mode, bit for bit its single-device fit, each rank's
-   launches and integer bytes all-reduced per round; (g) a depth-8 CV
+   external-scale entry launched rounds x depth times, the prep kernel
+   once a tree and no float32 histogram kernel; (f) on the two gloo ranks
+   of (b), the v92d CV at 15 rounds in each mode, bit for bit its
+   single-device fit, each rank's launches (the prep kernel's once a tree)
+   and integer bytes all-reduced per round; (g) a depth-8 CV
    without subtraction (10 rounds) on the world-size-1 NCCL mesh, its
    forests and eval histories bit for bit the single-device CV's, K1's
    external-scale launches = rounds x depth, 3 x rounds of them (the 32-,
@@ -442,6 +454,10 @@ MODE_SUMS = {
 # their shapes: the v92d CV's deepest level and the multiclass v62 head's
 # (5 folds x 4 classes as 20 lanes, 224 columns) at 8 nodes
 MODE_SUM_SHAPES = (("v92d", 5, 222, 2444, 8), ("multiclass", 20, 224, 2444, 8))
+# K4 / K5's prep kernel (the digits of a tree, once a tree): the lanes of
+# the v92d CV (5 folds), the ensemble's members (25) and the seed ensemble
+# (50) at the padded fold rows; the first is its rows' shape
+DIGIT_PREP_SHAPES = ((5, 2444), (25, 2444), (50, 2444))
 # the "bins" phase: every histogram kernel beyond 256 bins, where a CTA
 # holds a window of a node's bins (K1's wide path, K4, K5) or of a call's
 # segments (K3): (kernel, K, F, N, nodes, bins a node; K3 a pair of nodes);
@@ -1028,8 +1044,11 @@ def check_mode_hist(mode: str, fit: str, K: int, F: int, N: int, k_nodes: int, s
     binned, node_q, gh = hist_inputs(K, F, N, k_nodes, seed, inactive)
     a = kernel(binned, node_q, gh, k_nodes, N_BINS_TOT)
     b = kernel(binned, node_q, gh, k_nodes, N_BINS_TOT)
+    # what a fit's level calls: the mode kernel on the tree's prepared digits
+    dg = hist_cuda.prepare_digits(int8, gh)
+    c = hist_cuda.mode_hist(binned, node_q, dg, k_nodes, N_BINS_TOT)
     torch.cuda.synchronize()
-    repeat_equal = bool(torch.equal(a, b))
+    repeat_equal = bool(torch.equal(a, b)) and bool(torch.equal(a, c))
     plain = plain_fn(binned, node_q, gh, k_nodes, N_BINS_TOT)
     plain_equal = bool(torch.equal(a, plain))
     f64 = hist_cuda.build_histograms_plain(binned, node_q, gh.double(), k_nodes, N_BINS_TOT)
@@ -1050,22 +1069,27 @@ def check_mode_hist(mode: str, fit: str, K: int, F: int, N: int, k_nodes: int, s
             f"atol={HIST_TOL[1]:g}) {'ok' if vs_f64[2] else 'FAIL'}; vs the float32 "
             f"index_add_ version: max_abs={f32[0]:.3e}")
         ok = plain_equal and vs_f64[2]
-    log(f"  {tag} two launches bit for bit equal: {repeat_equal}")
+    log(f"  {tag} two launches bit for bit equal, and the launch on the prep kernel's "
+        f"digits: {repeat_equal}")
     if not (ok and repeat_equal):
         raise AssertionError(f"{name} {tag} failed its checks")
-    # the launch alone, on the digits and scales the wrapper would prepare
-    digits, scale = hist_cuda.launch_inputs(int8, gh)
+    # the launch alone, on the prep kernel's digits and scales
     out = torch.empty_like(a)
     kernel_only_ms = cuda_ms(lambda: hist_cuda.launch_mode_kernel(
-        int8, binned, node_q, digits, scale, out, k_nodes, N_BINS_TOT), reps=50)
+        int8, binned, node_q, dg.digits, dg.scale, out, k_nodes, N_BINS_TOT), reps=50)
     torch.cuda.synchronize()
     if not torch.equal(out, a):
         raise AssertionError(f"{name} {tag}: the launch alone disagrees with the wrapper")
-    log(f"  {tag} kernel_only_ms={kernel_only_ms:.4f} (the launch on prepared digits)")
+    # the (g, h) entry: the prep and the level in one call
+    gh_entry_ms = cuda_ms(lambda: kernel(binned, node_q, gh, k_nodes, N_BINS_TOT), reps=50)
+    log(f"  {tag} kernel_only_ms={kernel_only_ms:.4f} (the launch on prepared digits); "
+        f"gh_entry_ms={gh_entry_ms:.4f} (prep + level in one call)")
+    # ms: the level call a fit makes on the tree's prepared digits
     return {"fit": fit, "K": K, "F": F, "N": N, "nodes": k_nodes,
             "max_abs_err": vs_plain[0], "max_abs_err_f64": vs_f64[0],
-            "kernel_only_ms": kernel_only_ms,
-            **hist_times(tag, kernel, plain_fn, binned, node_q, gh, k_nodes)}
+            "kernel_only_ms": kernel_only_ms, "gh_entry_ms": gh_entry_ms,
+            **hist_times(tag, lambda b_, q_, g_, k_, t_: hist_cuda.mode_hist(b_, q_, dg, k_, t_),
+                         plain_fn, binned, node_q, gh, k_nodes)}
 
 
 def seg_inputs(K: int, F: int, N: int, n_nodes: int, seed: int, inactive: float = 0.0,
@@ -1332,15 +1356,21 @@ def check_mode_sums(mode: str, fit: str, K: int, F: int, N: int, nodes: int, see
         f"the NaN lane as on one device {nan_lane}; the other lanes finite {others_finite}")
     if not (twin_equal and adds_up and f32_equal and nan_lane and others_finite):
         raise AssertionError(f"{tag} failed its checks")
-    digits, sc = hist_cuda.launch_inputs(int8, gh, scale)
+    dg = hist_cuda.prepare_digits(int8, gh, scale)
+    digits, sc = dg
     out = torch.empty_like(whole)
     log2n = hist_cuda._log2_ceil(N)
     launch_ms = cuda_ms(lambda: hist_cuda.launch_mode_kernel(
         int8, binned, node_q, digits, sc, out, nodes, N_BINS_TOT, log2n), reps=50)
     torch.cuda.synchronize()
-    if not torch.equal(out, whole):
+    if not (torch.equal(out, whole)
+            and torch.equal(hist_cuda.mode_hist(binned, node_q, dg, nodes, N_BINS_TOT, N), whole)):
         raise AssertionError(f"{tag}: the launch alone disagrees with the wrapper")
-    ms = cuda_ms(lambda: entry(binned, node_q, gh, nodes, N_BINS_TOT, scale, N), reps=50)
+    # ms: a mesh's level call on the tree's prepared digits; gh_entry_ms the
+    # (g, h) entry (prep and level in one call)
+    ms = cuda_ms(lambda: hist_cuda.mode_hist(binned, node_q, dg, nodes, N_BINS_TOT, N), reps=50)
+    gh_entry_ms = cuda_ms(lambda: entry(binned, node_q, gh, nodes, N_BINS_TOT, scale, N),
+                          reps=50)
     plain_ms = cuda_ms(lambda: twin(binned, node_q, gh, nodes, N_BINS_TOT, scale, N), reps=3,
                        warmup=1)
     # the yardstick: one int64 scatter_add_ of the rows' C integer digit
@@ -1368,13 +1398,66 @@ def check_mode_sums(mode: str, fit: str, K: int, F: int, N: int, nodes: int, see
     n_ops = float(C) * F * float(active.sum())
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
     res = {"mode": mode, "fit": fit, "K": K, "F": F, "N": N, "nodes": nodes,
-           "max_abs_err": 0.0, "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+           "max_abs_err": 0.0, "ms": ms, "launch_ms": launch_ms, "gh_entry_ms": gh_entry_ms,
+           "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    log(f"  {tag} times: kernel_ms={ms:.4f} launch_ms={launch_ms:.4f} plain_ms={plain_ms:.3f} "
+    log(f"  {tag} times: kernel_ms={ms:.4f} launch_ms={launch_ms:.4f} gh_entry_ms="
+        f"{gh_entry_ms:.4f} plain_ms={plain_ms:.3f} "
         f"library_ms={library_ms:.4f} (one int64 scatter_add_ of the {C} digit values, a "
         f"yardstick the port never calls) bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: "
         f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M adds)")
+    return res
+
+
+def digits_bits_equal(a, b) -> bool:
+    """Two ``hist_cuda.ModeDigits`` equal bit for bit: digits and scale."""
+    view = torch.int16 if a.digits.dtype == torch.bfloat16 else a.digits.dtype
+    return (a.digits.dtype == b.digits.dtype
+            and torch.equal(a.digits.view(view), b.digits.view(view))
+            and bits_equal(a.scale, b.scale))
+
+
+def check_digit_prep(K: int, N: int, seed: int) -> dict:
+    """K4 / K5's prep kernel (``hist_cuda.prepare_digits``) on K lanes of N
+    rows of training-shaped (g, h), lane K - 2 all zeros, lane K - 1 with a
+    NaN g and an inf h: each instantiation in both entries (the lanes' own
+    scale; a mesh's: K5's ``amax``, K4's maxima), twice, bit for bit its
+    plain version (``launch_inputs``) run on the card, digits and scales.
+    Times (the wrapper, the launch alone, the external entry, the plain
+    version) and the bound (bytes: (g, h) in, the digits and scales out)."""
+    _, _, gh = hist_inputs(K, 1, N, 1, seed)
+    gh[K - 2] = 0.0
+    gh[K - 1, N // 3, 0] = float("nan")
+    gh[K - 1, N // 2, 1] = float("inf")
+    res = {"K": K, "N": N}
+    for int8, key in ((True, "i8"), (False, "bf16")):
+        ext = (hist_cuda.amax_of(hist_cuda.amax_parts(gh)) if int8
+               else hist_cuda.digit_maxabs(gh)).contiguous()
+        same = []
+        for m in (None, ext):
+            want = hist_cuda.launch_inputs(int8, gh, m)
+            got = [hist_cuda.prepare_digits(int8, gh, m) for _ in range(2)]
+            torch.cuda.synchronize()
+            same.append(all(digits_bits_equal(g, want) for g in got))
+        tag = f"digit_prep_{key} K={K} N={N}"
+        nan_lane = bool(torch.isnan(got[0].scale[K - 1]).any() if int8
+                        else torch.isinf(got[0].scale[K - 1]).all())
+        log(f"  {tag}: bit for bit its plain version on the card at the lanes' own scale "
+            f"{same[0]} and at a mesh's {same[1]} (each twice); the non-finite lane's scale "
+            f"{got[0].scale[K - 1].tolist()}")
+        if not (all(same) and nan_lane):
+            raise AssertionError(f"{tag} failed its checks")
+        ms = cuda_ms(lambda: hist_cuda.prepare_digits(int8, gh), reps=100)
+        launch_ms = cuda_ms(lambda: hist_cuda.launch_digit_prep(int8, gh), reps=100)
+        ext_ms = cuda_ms(lambda: hist_cuda.prepare_digits(int8, gh, ext), reps=100)
+        plain_ms = cuda_ms(lambda: hist_cuda.launch_inputs(int8, gh), reps=20)
+        n_bytes = K * N * 8 + K * N * (8 if int8 else 12) + K * (2 if int8 else 6) * 4
+        res[key] = {"ms": ms, "launch_ms": launch_ms, "external_ms": ext_ms,
+                    "plain_ms": plain_ms, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+        log(f"  {tag} times: kernel_ms={ms:.4f} launch_ms={launch_ms:.4f} external_ms="
+            f"{ext_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={res[key]['bound_ms']:.5f} (bytes: "
+            f"{n_bytes / 1e6:.3f} MB)")
     return res
 
 
@@ -1602,20 +1685,53 @@ def check_bins(kernel: str, K: int, F: int, N: int, k_nodes: int, nbt: int, seed
         f"each bit for bit equal {repeat}")
     if not (twin_equal and ext_equal and repeat and seen == want_seen):
         raise AssertionError(f"{tag} failed its checks")
-    # the yardstick: one scatter_add_ into every (lane, feature, node, bin)
-    # cell, float32 (g, h) for the float32 entry (set-up untimed)
+    # the yardsticks: the zeroed output and one scatter_add_ into every
+    # (lane, feature, node, bin) cell (the kernels write every cell of it):
+    # float32 (g, h) for the float32 entry, the external entry's integer
+    # values (K5 its 8 digits, K4 its 6 digits' fixed point, K1 / K3 (g, h)'s
+    # fixed point) in int64 for it (the ids and values are set-up, untimed)
     nq = node_q.long()
     active = (nq >= 0) & (nq < k_nodes)
     n_cells = K * F * k_nodes * nbt
     kf = torch.arange(K * F, device="cuda").view(K, F, 1) * (k_nodes * nbt)
-    idx = torch.where(active[:, None, :], kf + nq[:, None, :] * nbt + binned.long(),
-                      n_cells).reshape(-1, 1).expand(-1, 2)
+    cell = torch.where(active[:, None, :], kf + nq[:, None, :] * nbt + binned.long(),
+                       n_cells).reshape(-1, 1)
     vals = gh[:, None, :, :].expand(K, F, N, 2).reshape(-1, 2)
-    sink = torch.zeros(n_cells + 1, 2, device="cuda")
+    if kernel in ("K4", "K5"):
+        dg = hist_cuda.prepare_digits(kernel == "K5", gh, m)
+        ints = (dg.digits.long() if kernel == "K5"
+                else hist_cuda._fixed_point(dg.digits.float(), m, N)[0])
+    else:
+        ints = hist_cuda._fixed_point(gh, m, N)[0]
+    C = ints.shape[2]
+    ivals = ints[:, None].expand(K, F, N, C).reshape(-1, C)
     res = {"kernel": kernel, "K": K, "F": F, "N": N, "nodes": k_nodes, "bins": nbt,
            "windows": windows, "max_abs_err": float((a - t32).abs().nan_to_num().max()),
            "replaces": replaces, "counters": counters,
-           "library_ms": cuda_ms(lambda: sink.scatter_add_(0, idx, vals), reps=10)}
+           "library_ms": cuda_ms(lambda: torch.zeros(n_cells + 1, 2, device="cuda").scatter_add_(
+               0, cell.expand(-1, 2), vals), reps=10),
+           "i64_library_ms": cuda_ms(lambda: torch.zeros(
+               n_cells + 1, C, dtype=torch.int64, device="cuda").scatter_add_(
+               0, cell.expand(-1, C), ivals), reps=10)}
+    if kernel in ("K4", "K5"):
+        # a fit's level call on the tree's prepared digits, and the launch
+        # alone (the float32 entry; the external one at the mesh's scale)
+        int8 = kernel == "K5"
+        own = hist_cuda.prepare_digits(int8, gh)
+        out32 = torch.empty_like(a)
+        out_i = torch.empty_like(e1)
+        log2n = hist_cuda._log2_ceil(N)
+        res["level_ms"] = cuda_ms(lambda: hist_cuda.mode_hist(binned, node_q, own, k_nodes, nbt),
+                                  reps=10)
+        res["launch_ms"] = cuda_ms(lambda: hist_cuda.launch_mode_kernel(
+            int8, binned, node_q, own.digits, own.scale, out32, k_nodes, nbt), reps=10)
+        res["i64_level_ms"] = cuda_ms(lambda: hist_cuda.mode_hist(
+            binned, node_q, dg, k_nodes, nbt, N), reps=10)
+        res["i64_launch_ms"] = cuda_ms(lambda: hist_cuda.launch_mode_kernel(
+            int8, binned, node_q, dg.digits, dg.scale, out_i, k_nodes, nbt, log2n), reps=10)
+        torch.cuda.synchronize()
+        if not (bits_equal(out32, a) and torch.equal(out_i, e1)):
+            raise AssertionError(f"{kernel} at {k_nodes} x {nbt}: the launch alone disagrees")
     n_in = K * F * N * 2 + K * N * 4 + K * N * 8
     n_act = float(active.sum()) * F
     for key, fn, args, ob, n_add in (("", entry, (), cell_bytes[0], adds[0]),
@@ -1629,11 +1745,14 @@ def check_bins(kernel: str, K: int, F: int, N: int, k_nodes: int, nbt: int, seed
         t_ops = n_add * n_act / F32_FLOP_PER_S * 1e3
         res[f"{key}bound_ms"] = max(t_bytes, t_ops)
         res[f"{key}bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    level = " ".join(f"{k}={res[k]:.4f}" for k in ("level_ms", "launch_ms", "i64_level_ms",
+                                                    "i64_launch_ms") if k in res)
     log(f"  {tag} times: kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.3f} "
         f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}); external kernel_ms="
         f"{res['i64_ms']:.4f} plain_ms={res['i64_plain_ms']:.3f} bound_ms="
         f"{res['i64_bound_ms']:.4f} ({res['i64_bound_by']}); library_ms="
-        f"{res['library_ms']:.4f} (one scatter_add_, a yardstick the port never calls)")
+        f"{res['library_ms']:.4f}, external {res['i64_library_ms']:.4f} (zeros + one "
+        f"scatter_add_, yardsticks the port never calls) {level}".rstrip())
     return res
 
 
@@ -1691,7 +1810,8 @@ def run_bins(dev) -> dict:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = {c: getattr(hist_cuda, c) for c in ("launches", "prep_launches", "seg_launches",
-                                                   "bf16_launches", "i8_launches")}
+                                                   "bf16_launches", "i8_launches",
+                                                   "digit_prep_launches")}
     windowed = {c: sum(w.values()) for c, w in hist_cuda.windows_by_call.items()}
     log(f"  the main path at 1,024-16,384 bins: {len(fits)} fits in {fit_s:.3f} s; launches "
         f"{counts}; calls in windows {dict(hist_cuda.windows_by_call)}")
@@ -1705,10 +1825,12 @@ def run_bins(dev) -> dict:
         if not same:
             raise AssertionError(f"the {tag} fit with the kernel and with its plain twin "
                                  f"disagree")
-    # rounds x depth for the depthwise fits, 31 per leaf-wise round; every
-    # windowed kernel launched in windows on this path
+    # rounds x depth for the depthwise fits, 31 per leaf-wise round, the
+    # modes' digits once a tree (round); every windowed kernel launched in
+    # windows on this path
     want = {"launches": 5 * 7 + 20 * 5, "bf16_launches": 5 * 3 + 20 * 5,
-            "i8_launches": 5 * 3 + 20 * 5, "seg_launches": 31 * 10, "prep_launches": 5 * 7}
+            "i8_launches": 5 * 3 + 20 * 5, "seg_launches": 31 * 10, "prep_launches": 5 * 7,
+            "digit_prep_launches": 2 * (5 + 20)}
     want_windowed = {"launches": 5 * 7, "bf16_launches": 5 * 3, "i8_launches": 5 * 3,
                      "seg_launches": 30 * 10}
     if counts != want or windowed != want_windowed:
@@ -1839,19 +1961,22 @@ def run_mode_training(mode: str, trained: dict, dev) -> dict:
     counts = {c: getattr(hist_cuda, c)
               for c in ("launches", "bf16_launches", "i8_launches", "seg_launches")}
     launches = counts.pop(counter)
+    preps = hist_cuda.digit_prep_launches
     log(f"[{mode}] training stages (s): "
         + ", ".join(f"{k}={v:.3f}" for k, v in out.timings.items()))
     depth = {"selection": V34A_PARAMS.max_depth, "adversarial": ADV_PARAMS.max_depth,
              "v92d": V34A_PARAMS.max_depth}
     want = sum(out.rounds_run[k] * depth[k] for k in depth)
+    trees = sum(out.rounds_run[k] for k in depth)  # a batched fit's round is one tree call
     win = out.winner
     log(f"[{mode}] rounds run: " + ", ".join(f"{k}={v}" for k, v in out.rounds_run.items())
-        + f"; {name} launches {launches} (rounds x depth predicts {want}); other "
-        f"histogram kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
+        + f"; {name} launches {launches} (rounds x depth predicts {want}); the digits' prep "
+        f"kernel {preps} (one a tree: {trees}); other histogram kernels: "
+        + ", ".join(f"{k}={v}" for k, v in counts.items()))
     log(f"[{mode}] v92d OOF F1 {win.best_f1:.4f} @ {win.best_threshold:.3f}; fold F1 "
         + ", ".join(f"{f:.4f}" for f in win.fold_f1s)
         + f"; TEST F1 under shift {out.test_f1:.4f}; adversarial AUC {out.adversarial.auc:.4f}")
-    if launches != want or launches == 0 or any(counts.values()):
+    if launches != want or launches == 0 or preps != trees or any(counts.values()):
         raise AssertionError(f"[{mode}] the histogram launch counts disagree with the prediction")
     oof, test = win.oof_preds, win.test_preds
     if (oof.shape != (tr_packed.n_objects,) or test.shape != (te_packed.n_objects,)
@@ -1861,8 +1986,8 @@ def run_mode_training(mode: str, trained: dict, dev) -> dict:
         f"{'ok' if win.best_f1 >= F1_GATE else 'FAIL'}")
     if win.best_f1 < F1_GATE:
         raise AssertionError(f"[{mode}] v92d OOF F1 {win.best_f1:.4f} below the gate {F1_GATE}")
-    return {"launches": launches, "oof_f1": win.best_f1, "total_s": out.timings["total"],
-            "out": out}
+    return {"launches": launches, "prep_launches": preps, "oof_f1": win.best_f1,
+            "total_s": out.timings["total"], "out": out}
 
 
 def agreement(got: np.ndarray, want: np.ndarray) -> float:
@@ -3264,7 +3389,8 @@ def mesh_ranks(mesh, X, y, w, packed, meta):
                      chol_cuda.launches + chol_cuda.cluster_launches + chol_cuda.large_launches,
                      hist_bytes, sum(b for _, _, b in calls), len(calls),
                      hist_cuda.bf16_i64_launches + hist_cuda.i8_sums_launches,
-                     hist_cuda.bf16_launches + hist_cuda.i8_launches]
+                     hist_cuda.bf16_launches + hist_cuda.i8_launches,
+                     hist_cuda.digit_prep_launches]
 
     cv, c_cv = counted(lambda: train_cv(
         X, y, None, V34A_PARAMS._replace(n_rounds=MESH_ROUNDS), sample_weight=w,
@@ -3370,22 +3496,26 @@ def run_mesh(trained: dict, mode_runs: dict, workspace, dev) -> dict:
         secs = time.perf_counter() - t0
         ext = getattr(hist_cuda, counter)
         f32 = hist_cuda.launches + hist_cuda.bf16_launches + hist_cuda.i8_launches
+        preps = hist_cuda.digit_prep_launches
         want = (ADV_PARAMS.max_depth * mo.rounds_run["adversarial"]
                 + V34A_PARAMS.max_depth * mo.rounds_run["v92d"])
+        trees = mo.rounds_run["adversarial"] + mo.rounds_run["v92d"]
         same = (len(vm.winner.models) == len(mo.winner.models)
                 and all(forests_bits_equal(a.forest, b.forest)
                         for a, b in zip(vm.winner.models, mo.winner.models))
                 and all(np.array_equal(a.eval_history, b.eval_history)
                         for a, b in zip(vm.winner.models, mo.winner.models)))
-        res["ws1_modes"][mode] = {"s": secs, "launches": ext, "oof_f1": vm.winner.best_f1}
+        res["ws1_modes"][mode] = {"s": secs, "launches": ext, "prep_launches": preps,
+                                  "oof_f1": vm.winner.best_f1}
         log(f"  (e) [{mode}] run_v92 on a world-size-1 NCCL mesh, {len(vm.feature_names)} "
             f"columns, {len(vm.winner.models)} folds: {secs:.3f} s; v92d forests and eval histories bit "
             f"for bit the histogram modes phase's: {same}; OOF F1 {vm.winner.best_f1:.4f} "
             f"(single-device {mo.winner.best_f1:.4f}, gate {F1_GATE}); adversarial AUC "
             f"{vm.adversarial.auc:.4f} ({mo.adversarial.auc:.4f}); {row} launches {ext} "
-            f"(rounds x depth predicts {want}), float32 histogram launches {f32}")
+            f"(rounds x depth predicts {want}), the digits' prep kernel {preps} (one a tree: "
+            f"{trees}), float32 histogram launches {f32}")
         if (not same or vm.winner.best_f1 != mo.winner.best_f1 or vm.winner.best_f1 < F1_GATE
-                or ext != want or f32 or default_mesh() is not None):
+                or ext != want or preps != trees or f32 or default_mesh() is not None):
             raise AssertionError(f"(e) [{mode}] the world-size-1 mesh differs from the "
                                  f"single-device run")
 
@@ -3495,16 +3625,18 @@ def run_mesh(trained: dict, mode_runs: dict, workspace, dev) -> dict:
             f"{ref.best_f1:.4f}")
         for rank in range(2):
             log(f"    rank {rank}: {row} launches {int(pr[rank, st, 8])} ({rounds} rounds x "
-                f"{V34A_PARAMS.max_depth} predicts {want}), float32 histogram launches "
+                f"{V34A_PARAMS.max_depth} predicts {want}), the digits' prep kernel "
+                f"{int(pr[rank, st, 10])} (one a tree: {rounds}), float32 histogram launches "
                 f"{int(pr[rank, st, 9] + pr[rank, st, 3])}; integer bytes all-reduced per "
                 f"round {pr[rank, st, 5] / rounds:,.0f}; {int(pr[rank, st, 7])} collectives")
         bits = forests_close(f"[{mode}] v92d CV", got.models, ref.models)
         log(f"  (f) [{mode}] every sharded forest and eval history bit for bit the "
             f"single-device one: {bits}")
-        if (not bits or (pr[:, st, 8] != want).any() or (pr[:, st, [3, 9]] != 0).any()
-                or got.best_f1 != ref.best_f1):
+        if (not bits or (pr[:, st, 8] != want).any() or (pr[:, st, 10] != rounds).any()
+                or (pr[:, st, [3, 9]] != 0).any() or got.best_f1 != ref.best_f1):
             raise AssertionError(f"(f) [{mode}] the two-rank CV differs from single-device")
         res["mode_ranks"][mode] = {"launches": pr[:, st, 8].astype(int).tolist(),
+                                   "prep_launches": pr[:, st, 10].astype(int).tolist(),
                                    "bytes_per_round": float(pr[0, st, 5] / rounds)}
 
     # (d) the command line on the mesh
@@ -3752,6 +3884,8 @@ def main() -> int:
         mode_sum_results = {mode: [check_mode_sums(mode, fit, K, F, N, k, seed=9500 + 17 * i)
                                    for i, (fit, K, F, N, k) in enumerate(MODE_SUM_SHAPES)]
                             for mode in MODES}
+        prep_results = [check_digit_prep(K, N, seed=9700 + i)
+                        for i, (K, N) in enumerate(DIGIT_PREP_SHAPES)]
 
     with Phase("kernel against plain in training"):
         check_training_kernel_vs_plain(dev)
@@ -3978,7 +4112,8 @@ def main() -> int:
                          else "mallorn_tpu/ops/hist_pallas.py:202"),
             "launches": mode_runs[mode]["launches"],
             "max_abs_err": r["max_abs_err"], "max_abs_err_f64": r["max_abs_err_f64"],
-            "ms": r["ms"], "kernel_only_ms": r["kernel_only_ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "kernel_only_ms": r["kernel_only_ms"],
+            "gh_entry_ms": r["gh_entry_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
         })
@@ -3996,6 +4131,7 @@ def main() -> int:
             "launches": mesh["ws1_modes"][mode]["launches"]
             + sum(mesh["mode_ranks"][mode]["launches"]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "launch_ms": r["launch_ms"],
+            "gh_entry_ms": r["gh_entry_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
             "mesh_launches": {"world_size_1_nccl": mesh["ws1_modes"][mode]["launches"],
@@ -4005,13 +4141,36 @@ def main() -> int:
                                           "plain_ms", "bound_ms", "bound_by", "library_ms")}
                        for q in (r, rm)],
         })
+    # K4 / K5's prep kernel, one instantiation each: its launches once a
+    # tree in the histogram modes' training run, the v92d CV's 5 lanes;
+    # every prep shape's numbers beside it
+    for key, mode in (("i8", "int8"), ("bf16", "i8bf16")):
+        r = prep_results[0]
+        kernels.append({
+            "name": f"digit_prep_{key}", "route": "cuda",
+            "source": "mallorn_tpu_torch/csrc/hist.cu",
+            "replaces": ("mallorn_tpu/ops/hist_pallas.py:346 (quantize_gh_i8, K5's input, "
+                         "once a round: mallorn_tpu/trees/gbdt.py:844)" if key == "i8" else
+                         "mallorn_tpu/ops/hist_pallas.py:181 (split_gh_digits, K4's input, "
+                         "once a round: mallorn_tpu/trees/gbdt.py:844)"),
+            "launches": mode_runs[mode]["prep_launches"], "max_abs_err": 0.0,
+            "ms": r[key]["ms"], "launch_ms": r[key]["launch_ms"],
+            "external_ms": r[key]["external_ms"], "plain_ms": r[key]["plain_ms"],
+            "bound_ms": r[key]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "shape": [r["K"], r["N"]],
+            "mesh_launches": {"world_size_1_nccl": mesh["ws1_modes"][mode]["prep_launches"],
+                              "two_gloo_ranks": mesh["mode_ranks"][mode]["prep_launches"]},
+            "shapes": [dict({k: q[key][k] for k in ("ms", "launch_ms", "external_ms",
+                                                    "plain_ms", "bound_ms")},
+                            K=q["K"], N=q["N"]) for q in prep_results]})
     # every histogram kernel beyond 256 bins (the bins phase): each kernel's
     # first BINS_SHAPES shape, the float32 entry with the bins fits' calls in
     # windows, the external-scale entry with the mesh fits'; every shape's
     # numbers beside it
     bins_keys = ("K", "F", "N", "nodes", "bins", "windows", "ms", "plain_ms", "bound_ms",
                  "bound_by", "i64_ms", "i64_plain_ms", "i64_bound_ms", "i64_bound_by",
-                 "library_ms")
+                 "library_ms", "i64_library_ms", "level_ms", "launch_ms", "i64_level_ms",
+                 "i64_launch_ms")
     for kernel, names in (("K4", ("hist_bf16_bins", "hist_bf16_i64_bins")),
                           ("K5", ("hist_i8_bins", "hist_i8_sums_bins")),
                           ("K1", ("hist_wide_bins", "hist_wide_i64_bins")),
@@ -4022,15 +4181,21 @@ def main() -> int:
                 (names[0], "", r["counters"][0], bins["windowed"].get(r["counters"][0], 0)),
                 (names[1], "i64_", r["counters"][1],
                  bins["mesh_windowed"].get(r["counters"][1], 0))):
-            kernels.append({
+            # ms: the call a fit makes (K4 / K5: the level on the tree's
+            # prepared digits; their (g, h) entry's time is gh_entry_ms)
+            row = {
                 "name": name, "route": "cuda", "source": "mallorn_tpu_torch/csrc/hist.cu",
                 "replaces": r["replaces"], "launches": n_launches,
-                "max_abs_err": r["max_abs_err"] if not key else 0.0, "ms": r[f"{key}ms"],
+                "max_abs_err": r["max_abs_err"] if not key else 0.0,
+                "ms": r.get(f"{key}level_ms", r[f"{key}ms"]),
                 "plain_ms": r[f"{key}plain_ms"], "bound_ms": r[f"{key}bound_ms"],
-                "bound_by": r[f"{key}bound_by"], "library_ms": r["library_ms"],
+                "bound_by": r[f"{key}bound_by"], "library_ms": r[f"{key}library_ms"],
                 "shape": [r["K"], r["F"], r["N"], r["nodes"], r["bins"]],
                 "windows": r["windows"], "counter": counter,
-                "shapes": [{k: q[k] for k in bins_keys} for q in rs]})
+                "shapes": [{k: q[k] for k in bins_keys if k in q} for q in rs]}
+            if f"{key}launch_ms" in r:
+                row.update(launch_ms=r[f"{key}launch_ms"], gh_entry_ms=r[f"{key}ms"])
+            kernels.append(row)
     # the factor-only Cholesky's rows: the blocked kernel at the GP's batch
     # and T = 160, the cluster kernel at B = 64, T = 400, the tiled kernel at
     # B = 64, T = 1024

@@ -4,7 +4,8 @@
 // a level wider than one CTA holds (wide_prep_kernel and
 // wide_hist_kernel<kExternal>, further down), and the depthwise fit's two
 // histogram modes (K4 / K5, mode_hist_kernel<kInt8, kExternal>, further
-// down), all shared-memory integer histograms.
+// down), all shared-memory integer histograms; and K4 / K5's digits,
+// prepared once a tree (digit_prep_kernel<kInt8>, last).
 //
 // K1 (group_hist_kernel<true, .>) replaces mallorn_tpu/ops/hist_pallas.py:
 // _fullhot_kernel (the Pallas kernel behind build_histograms_fullhot), with
@@ -1216,6 +1217,186 @@ int launch_mode(const int16_t* binned, const int32_t* nodes, const void* digits,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K4 / K5's digits, prepared once a tree (digit_prep_kernel<kInt8>): the
+// counterpart of the JAX package's once-a-round preparation,
+// mallorn_tpu/trees/gbdt.py _binlane_for, which runs
+// mallorn_tpu/ops/hist_pallas.py quantize_gh_i8 (K5) or split_gh_digits
+// (K4) on the round's (g, h) and hands the result to every level's
+// Pallas kernel. It replaces no Pallas kernel: on the TPU that preparation
+// is XLA's. The tree's (g, h) do not change from level to level, so the
+// digits and scales are the same at every level, and each level's
+// mode_hist_kernel launch takes them.
+//
+// K5 (kInt8): per lane and channel s = max(max |x|, 1e-30) over the lane's
+// rows, NaN kept (fmaxf drops a NaN; torch's amax, which the plain version
+// takes, keeps it; torch's abs makes it 0x7FFFFFFF on the card, and so
+// does abs_like_torch), or, given ext [K, 2] (a mesh's max |x| over every
+// rank's rows), s = max(ext, 1e-30); q = round_half_even((x / s) 2^26) by
+// an IEEE division and product and rintf, converted to int32 as
+// static_cast does (NaN -> 0, as torch's cast on the card gives), and the
+// balanced base-128 digits of q + 64 (1 + 128 + 128^2): d_j = ((u >> 7 j)
+// & 127) - 64 for j < 3, d3 = u >> 21; out digits [K, N, 8] int8 (g's four,
+// then h's) and scale [K, 2] (s).
+// K4: d0 = bf16_rn(x), r = x - d0, d1 = bf16_rn(r), d2 = bf16_rn(r - d1),
+// each cast cvt.rn.bf16.f32 (what torch's cast runs on the card, a NaN
+// 0x7FFF) and each difference an IEEE subtraction; out digits [K, N, 6]
+// bf16 (g's three, then h's) and, unless the caller has the maxima (ext
+// non-null), scale [K, 6] the max |digit| per channel over the lane's rows
+// with hist_cuda.lane_maxabs's rule: +inf in every channel of a lane that
+// holds a non-finite digit.
+// Each is bit for bit hist_cuda.launch_inputs (quantize_gh_i8, or
+// split_gh_digits and lane_maxabs) run on the card.
+//
+// One CTA per lane (K = 5-50 lanes of ~2,444 rows in the fits): a first
+// pass reduces the lane's maxima (K5; K4 folds it into its one pass), a
+// second writes each row's digits, one 8-byte store (K5) or three 4-byte
+// stores (K4) a row. Bound on an H100: (g, h) in (8 B a row) and the
+// digits out (8 / 12 B a row), 0.20 / 0.24 MB at K = 5, N = 2,444: ~0.06 us
+// at 3.35 TB/s, far below one launch's latency; the kernel takes 0.0042 /
+// 0.0053 ms there on an H100 80GB HBM3 at 700 W (tools/time_hist.py's
+// device time), once a tree.
+
+constexpr int kDigitThreads = 1024;
+constexpr int kDigitWarps = kDigitThreads / 32;
+
+// the larger of a and b, a NaN kept if either is one
+__device__ __forceinline__ float max_keep_nan(float a, float b) {
+  return (isnan(a) || a >= b) ? a : b;
+}
+
+// |x| as torch's abs gives it on the card (PTX abs.f32): a NaN becomes the
+// canonical 0x7FFFFFFF, whatever its payload (a bit mask would keep it)
+__device__ __forceinline__ float abs_like_torch(float x) {
+  return isnan(x) ? __int_as_float(0x7fffffff) : fabsf(x);
+}
+
+__device__ __forceinline__ unsigned short bf16_rn(float x) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
+  return h;
+}
+
+__device__ __forceinline__ float bf16_value(unsigned short h) {
+  return __uint_as_float(static_cast<unsigned>(h) << 16);
+}
+
+// K5's four int8 digits of x at scale s, byte j digit j
+__device__ __forceinline__ uint32_t i8_digits(float x, float s) {
+  const float q = rintf(__fmul_rn(__fdiv_rn(x, s), 67108864.0f));  // 2^26
+  // q + 64 (1 + 128 + 128^2), wrapping as torch's int32 add does
+  const uint32_t u = static_cast<uint32_t>(static_cast<int>(q)) + 1056832u;
+  uint32_t w = static_cast<uint32_t>(static_cast<int>(u) >> 21) << 24;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) w |= ((((u >> (7 * j)) & 127u) - 64u) & 0xFFu) << (8 * j);
+  return w;
+}
+
+// each of the C values reduced by op over the CTA's threads, the result
+// in every thread
+template <int C, typename Op>
+__device__ __forceinline__ void cta_reduce(float (&v)[C], Op op) {
+  __shared__ float part[kDigitWarps][C];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v[c] = op(v[c], __shfl_xor_sync(0xffffffffu, v[c], o));
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) part[warp][c] = v[c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    v[c] = part[0][c];
+    for (int w = 1; w < kDigitWarps; ++w) v[c] = op(v[c], part[w][c]);
+  }
+}
+
+// One CTA per lane k = blockIdx.x; gh [K, N] float2; ext null or [K, 2]
+// (K5) / [K, 6] (K4, unread: its presence skips the maxima)
+template <bool kInt8>
+__global__ void __launch_bounds__(kDigitThreads)
+digit_prep_kernel(const float2* __restrict__ gh, void* __restrict__ digits,
+                  float* __restrict__ scale, const float* __restrict__ ext, int N) {
+  const int k = blockIdx.x;
+  const float2* v = gh + static_cast<size_t>(k) * N;
+  if constexpr (kInt8) {
+    float m[2] = {0.0f, 0.0f};
+    if (ext == nullptr) {
+      for (int r = threadIdx.x; r < N; r += kDigitThreads) {
+        const float2 x = v[r];
+        m[0] = max_keep_nan(m[0], abs_like_torch(x.x));
+        m[1] = max_keep_nan(m[1], abs_like_torch(x.y));
+      }
+      cta_reduce(m, [](float a, float b) { return max_keep_nan(a, b); });
+    } else {
+      m[0] = ext[2 * k];
+      m[1] = ext[2 * k + 1];
+    }
+    // torch.clamp(min=1e-30) keeps a NaN
+    const float sg = isnan(m[0]) ? m[0] : fmaxf(m[0], 1e-30f);
+    const float sh = isnan(m[1]) ? m[1] : fmaxf(m[1], 1e-30f);
+    if (threadIdx.x == 0) {
+      scale[2 * k] = sg;
+      scale[2 * k + 1] = sh;
+    }
+    uint2* out = static_cast<uint2*>(digits) + static_cast<size_t>(k) * N;
+    for (int r = threadIdx.x; r < N; r += kDigitThreads) {
+      const float2 x = v[r];
+      out[r] = make_uint2(i8_digits(x.x, sg), i8_digits(x.y, sh));
+    }
+  } else {
+    // six digits a row as three words: word j holds digits 2 j (low half)
+    // and 2 j + 1 of g's d0 d1 d2, h's d0 d1 d2
+    uint32_t* out = static_cast<uint32_t*>(digits) + static_cast<size_t>(k) * N * 3;
+    // each channel's max |digit|, then 1 where a digit is not finite
+    float m[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int r = threadIdx.x; r < N; r += kDigitThreads) {
+      const float2 x = v[r];
+      unsigned short d[6];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float xc = c ? x.y : x.x;
+        d[3 * c] = bf16_rn(xc);
+        const float res = __fsub_rn(xc, bf16_value(d[3 * c]));
+        d[3 * c + 1] = bf16_rn(res);
+        d[3 * c + 2] = bf16_rn(__fsub_rn(res, bf16_value(d[3 * c + 1])));
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        out[3 * static_cast<size_t>(r) + j] = d[2 * j] | static_cast<uint32_t>(d[2 * j + 1]) << 16;
+      if (ext == nullptr) {
+#pragma unroll
+        for (int c = 0; c < 6; ++c) {
+          const float a = fabsf(bf16_value(d[c]));
+          if (!isfinite(a)) m[6] = 1.0f;
+          m[c] = fmaxf(m[c], a);
+        }
+      }
+    }
+    if (ext == nullptr) {
+      cta_reduce(m, [](float a, float b) { return fmaxf(a, b); });
+      if (threadIdx.x < 6)
+        scale[6 * k + threadIdx.x] = m[6] != 0.0f ? __int_as_float(0x7f800000) : m[threadIdx.x];
+    }
+  }
+}
+
+// The prep kernel's launch: K5 always writes scale; K4 writes it only
+// without ext
+template <bool kInt8>
+int launch_digit_prep(const float* gh, void* digits, float* scale, const float* ext, int K, int N,
+                      void* stream) {
+  if (K <= 0) return 0;
+  if (N < 0 || (scale == nullptr && (kInt8 || ext == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  digit_prep_kernel<kInt8><<<K, kDigitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(gh), digits, scale, ext, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K3: window segments, group features per CTA and tile_rows rows per
@@ -1309,4 +1490,16 @@ extern "C" int mallorn_hist_i8(const int16_t* binned, const int32_t* nodes,
   const auto launch = external ? launch_mode<true, true> : launch_mode<true, false>;
   return launch(binned, nodes, digits, scale, out, K, F, N, k_nodes, n_bins_tot, node_group,
                 window_bins, log2n, stream);
+}
+
+// K4 / K5's digits of a tree (digit_prep_kernel): gh [K, N, 2] float32 ->
+// int8 1: digits [K, N, 8] int8 and scale [K, 2] float32 s, at the lanes'
+// own max |x| or, given ext [K, 2] (every rank's), at that; int8 0: digits
+// [K, N, 6] bf16 and, without ext, scale [K, 6] float32 max |digit| (+inf in
+// a lane with a non-finite digit); given ext (the caller's maxima), scale
+// may be null and is not written
+extern "C" int mallorn_digit_prep(const float* gh, void* digits, float* scale, const float* ext,
+                                  int K, int N, int int8, void* stream) {
+  const auto launch = int8 ? launch_digit_prep<true> : launch_digit_prep<false>;
+  return launch(gh, digits, scale, ext, K, N, stream);
 }

@@ -6,7 +6,9 @@ the depthwise level histogram (K1, ``build_histograms``) and the leaf-wise
 segment histogram (K3, ``build_seg_histograms``), one kernel template,
 and the depthwise fit's two histogram modes (K4, ``build_histograms_bf16``,
 and K5, ``build_histograms_i8``, one kernel template;
-``GBDTParams.hist_dtype``), each in its own section below.
+``GBDTParams.hist_dtype``; their digits prepared once a tree by a prep
+kernel, ``prepare_digits``, and each level launched on them,
+``mode_hist``), each in its own section below.
 
 K1 is the counterpart of
 ``mallorn_tpu/ops/hist_pallas.py:build_histograms_fullhot`` (Pallas body
@@ -40,8 +42,8 @@ skipped like an inactive row.
   width), ``seg_launches`` K3's,
   ``bf16_launches`` K4's and ``i8_launches`` K5's, ``i64_launches``,
   ``seg_i64_launches``, ``bf16_i64_launches`` and ``i8_sums_launches``
-  the external-scale entries' of K1, K3, K4 and K5 (plain calls do not
-  count).
+  the external-scale entries' of K1, K3, K4 and K5, ``digit_prep_launches``
+  K4 / K5's prep kernel's (plain calls do not count).
 
 K1 and K3 also have an external-scale entry for a fit whose rows are
 split over ranks (``parallel.sharded_train``): ``build_histograms_i64``
@@ -126,6 +128,7 @@ seg_i64_launches = 0  # K3's
 bf16_i64_launches = 0  # K4's
 i8_sums_launches = 0  # K5's
 prep_launches = 0  # K1's row grouping (the wide path's prep kernel, both scales)
+digit_prep_launches = 0  # K4 / K5's digits (the prep kernel, once a tree)
 # {counter name: {windows: calls}} of the calls whose launch took more than
 # one window of bins or segments (the counters above count calls)
 windows_by_call: dict = {}
@@ -133,9 +136,10 @@ windows_by_call: dict = {}
 
 def reset_launches() -> None:
     global launches, seg_launches, bf16_launches, i8_launches, i64_launches, seg_i64_launches
-    global bf16_i64_launches, i8_sums_launches, prep_launches
+    global bf16_i64_launches, i8_sums_launches, prep_launches, digit_prep_launches
     launches = seg_launches = bf16_launches = i8_launches = 0
     i64_launches = seg_i64_launches = bf16_i64_launches = i8_sums_launches = prep_launches = 0
+    digit_prep_launches = 0
     launches_by_nodes.clear()
     windows_by_call.clear()
 
@@ -858,14 +862,25 @@ def build_seg_histograms_i64(binned: torch.Tensor, seg_base: torch.Tensor, gh: t
 # K1's device body, ``accumulate_fixed``) and its epilogue writes
 # the float32 (g, h) histograms: K5's recombination in the order above,
 # K4's one conversion per digit sum, then (S0 + S1) + S2. Integer sums are
-# exact, so two launches agree bit for bit. The wrappers prepare the
-# digits row-major ([K, N, 8] int8 or [K, N, 6] bf16) and their scales
-# (``launch_inputs``), then launch (``launch_mode_kernel``).
+# exact, so two launches agree bit for bit.
+#
+# The digits enter as the TPU kernels take them: row-major ([K, N, 8] int8
+# or [K, N, 6] bf16) with their scales (``ModeDigits``), prepared once a
+# tree, as the JAX package's ``_binlane_for`` prepares them once a round
+# (``mallorn_tpu/trees/gbdt.py:844``): a tree's (g, h) are fixed across its
+# levels, so each level's launch takes the same digits. A fit calls
+# ``prepare_digits`` before a tree's levels (one launch of the prep kernel,
+# ``csrc/hist.cu`` ``digit_prep_kernel``, counted in
+# ``digit_prep_launches``; its plain version is ``launch_inputs``) and
+# ``mode_hist`` at each level (``launch_mode_kernel``, the launch alone).
+# The (g, h) entries (``build_histograms_bf16``, ``build_histograms_i8``
+# and their external-scale twins) prepare and launch in one call.
 #
 # The external-scale entries serve a fit whose rows are split over ranks
 # (``parallel.sharded_train``), as K1's ``build_histograms_i64`` does: one
 # scale for every rank's rows, raw integer sums, an all-reduce, one
-# conversion. K5's ``build_histograms_i8_sums`` quantizes (g, h) at the s of
+# conversion (``mode_hist`` given ``n_rows``, on digits prepared at that
+# scale). K5's ``build_histograms_i8_sums`` quantizes (g, h) at the s of
 # every rank's rows (``amax``: ``x.abs().amax`` over them, which the ranks
 # reach by max-reducing ``amax_parts`` and decoding with ``amax_of``) and
 # returns the int32 digit sums [K, F, k_nodes, n_bins_tot, 8] (at most 2^25
@@ -981,15 +996,59 @@ def _recombine_i8(P: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.stack([channel(0), channel(4)], dim=-1) * s
 
 
+class ModeDigits(NamedTuple):
+    """K4 / K5's inputs of one tree, prepared once from its float32 (g, h)
+    [K, N, 2] (``prepare_digits``) and taken by every level's launch."""
+    digits: torch.Tensor  # [K, N, 8] int8 (K5) or [K, N, 6] bf16 (K4), row-major
+    scale: torch.Tensor  # [K, 2] float32 s (K5) or [K, 6] float32 max |digit| (K4)
+
+
+def launch_inputs(int8: bool, gh: torch.Tensor,
+                  maxabs: Optional[torch.Tensor] = None) -> ModeDigits:
+    """The prep kernel's plain version: K5 (``int8``) ``quantize_gh_i8``'s
+    [K, N, 8] int8 digits and [K, 2] scales s; K4 ``split_gh_digits``'
+    [K, N, 6] bf16 digits and their [K, 6] float32 max |digit| per lane and
+    channel (``lane_maxabs``: +inf in every channel of a lane with a
+    non-finite digit). ``maxabs``, a mesh's global scale: K5's ``amax``
+    [K, 2] (the digits at its s), K4's [K, 6] maxima (returned as the
+    scale)."""
+    if int8:
+        return ModeDigits(*quantize_gh_i8(gh, maxabs))
+    digits = split_gh_digits(gh)
+    return ModeDigits(digits, lane_maxabs(digits.float()) if maxabs is None else maxabs)
+
+
+def mode_hist_plain(binned: torch.Tensor, node_q: torch.Tensor, dg: ModeDigits, k_nodes: int,
+                    n_bins_tot: int, n_rows: Optional[int] = None) -> torch.Tensor:
+    """``mode_hist`` in plain PyTorch on prepared digits. K5 (int8 digits):
+    int64 ``index_add_`` sums of the 8 digit columns, recombined in float32
+    (bit for bit the kernel's and the JAX package's
+    ``build_histograms_binlane_i8``), or given ``n_rows`` the int32 digit
+    sums. K4 (bf16 digits): three float32 ``index_add_`` histograms, one per
+    digit, summed (S0 + S1) + S2 (within the JAX package's histogram bar of
+    the kernel's fixed point; ``build_histograms_bf16_fixed`` is that
+    arithmetic), or given ``n_rows`` the int64 fixed-point digit sums at the
+    scale of ``dg.scale`` and ``n_rows`` (the kernel's bit for bit)."""
+    if dg.digits.dtype == torch.int8:
+        P = _segment_sums(binned, node_q, dg.digits.long(), k_nodes, n_bins_tot)
+        if n_rows is not None:
+            return P.to(torch.int32)
+        return _recombine_i8(P.transpose(3, 4), dg.scale)
+    d = dg.digits.float()
+    if n_rows is not None:
+        q, _, _ = _fixed_point(d, dg.scale, n_rows)
+        return _segment_sums(binned, node_q, q, k_nodes, n_bins_tot)
+    S = [_segment_sums(binned, node_q, d[..., [i, 3 + i]], k_nodes, n_bins_tot) for i in range(3)]
+    return (S[0] + S[1]) + S[2]
+
+
 def build_histograms_i8_plain(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                               k_nodes: int, n_bins_tot: int) -> torch.Tensor:
-    """K5's arithmetic in plain PyTorch: the digits, int64 ``index_add_``
-    sums of the 8 digit columns, the float32 recombination. Bit for bit the
-    kernel's, and the JAX package's ``build_histograms_binlane_i8``."""
+    """K5's arithmetic in plain PyTorch from (g, h): the digits
+    (``launch_inputs``), then ``mode_hist_plain``. Bit for bit the kernel's,
+    and the JAX package's ``build_histograms_binlane_i8``."""
     _check_shapes(binned, node_q, gh)
-    digits, scale = quantize_gh_i8(gh)
-    P = _segment_sums(binned, node_q, digits.long(), k_nodes, n_bins_tot)
-    return _recombine_i8(P.transpose(3, 4), scale)
+    return mode_hist_plain(binned, node_q, launch_inputs(True, gh), k_nodes, n_bins_tot)
 
 
 def build_histograms_i8_sums_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
@@ -1003,8 +1062,8 @@ def build_histograms_i8_sums_fixed(binned: torch.Tensor, node_q: torch.Tensor, g
     _check_shapes(binned, node_q, gh)
     _check_external("build_histograms_i8_sums_fixed", gh, amax, n_rows, 2,
                     I8_SUMS_MAX_LOG2_ROWS)
-    digits, _ = quantize_gh_i8(gh, amax)
-    return _segment_sums(binned, node_q, digits.long(), k_nodes, n_bins_tot).to(torch.int32)
+    return mode_hist_plain(binned, node_q, launch_inputs(True, gh, amax), k_nodes, n_bins_tot,
+                           n_rows)
 
 
 def from_i8_sums(P: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
@@ -1016,14 +1075,11 @@ def from_i8_sums(P: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
 
 def build_histograms_bf16_plain(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                                 k_nodes: int, n_bins_tot: int) -> torch.Tensor:
-    """K4's arithmetic in plain PyTorch with float32 sums: the digits, three
-    float32 ``index_add_`` histograms (one per digit), summed
-    (S0 + S1) + S2."""
+    """K4's arithmetic in plain PyTorch with float32 sums from (g, h): the
+    digits (``launch_inputs``), then ``mode_hist_plain``'s three float32
+    ``index_add_`` histograms (one per digit), summed (S0 + S1) + S2."""
     _check_shapes(binned, node_q, gh)
-    d = split_gh_digits(gh).float()
-    S = [_segment_sums(binned, node_q, d[..., [i, 3 + i]], k_nodes, n_bins_tot)
-         for i in range(3)]
-    return (S[0] + S[1]) + S[2]
+    return mode_hist_plain(binned, node_q, launch_inputs(False, gh), k_nodes, n_bins_tot)
 
 
 def bf16_digit_sums_fixed(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
@@ -1061,8 +1117,8 @@ def build_histograms_bf16_i64_fixed(binned: torch.Tensor, node_q: torch.Tensor,
     finite: equal to ``build_histograms_bf16_i64`` bit for bit."""
     _check_shapes(binned, node_q, gh)
     _check_external("build_histograms_bf16_i64_fixed", gh, maxabs, n_rows, 6)
-    q, _, _ = _fixed_point(split_gh_digits(gh).float(), maxabs, n_rows)
-    return _segment_sums(binned, node_q, q, k_nodes, n_bins_tot)
+    return mode_hist_plain(binned, node_q, launch_inputs(False, gh, maxabs), k_nodes, n_bins_tot,
+                           n_rows)
 
 
 def from_bf16_sums(acc: torch.Tensor, maxabs: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -1102,32 +1158,100 @@ def mode_plan(k_nodes: int, n_bins_tot: int, int8: bool):
     return group, windows, window, group * window * cell
 
 
-def launch_inputs(int8: bool, gh: torch.Tensor, maxabs: Optional[torch.Tensor] = None):
-    """(digits, scale) the mode kernel takes for float32 (g, h) [K, N, 2]:
-    K5 (``int8``) ``quantize_gh_i8``'s [K, N, 8] int8 digits and [K, 2]
-    scales s; K4 ``split_gh_digits``' [K, N, 6] bf16 digits and their
-    [K, 6] float32 max |digit| per fold. ``maxabs``, an external launch's:
-    K5's ``amax`` [K, 2] (the digits at its s), K4's [K, 6] maxima
-    (returned as the scale)."""
-    if int8:
-        return quantize_gh_i8(gh, maxabs)
-    digits = split_gh_digits(gh)
+def _check_scale(name: str, scale: torch.Tensor, K: int, channels: int, dev) -> None:
+    if tuple(scale.shape) != (K, channels) or scale.dtype != torch.float32:
+        raise ValueError(f"{name}: the scale must be [K, {channels}] float32, got "
+                         f"{tuple(scale.shape)} {scale.dtype}")
+    if scale.device != dev or not scale.is_contiguous():
+        raise ValueError(f"{name}: the scale must be contiguous on {dev}")
+
+
+def launch_digit_prep(int8: bool, gh: torch.Tensor,
+                      maxabs: Optional[torch.Tensor] = None) -> ModeDigits:
+    """One launch of the prep kernel (csrc/hist.cu ``digit_prep_kernel``) on
+    checked CUDA inputs: ``launch_inputs``' digits and scale, bit for bit
+    that plain version run on the card (K4 given ``maxabs`` returns it as
+    the scale). Counts nothing."""
+    K, N, _ = gh.shape
+    dev = gh.device
+    digits = torch.empty(K, N, 8 if int8 else 6, dtype=torch.int8 if int8 else torch.bfloat16,
+                         device=dev)
+    external = maxabs is not None
+    written = int8 or not external  # K4 given its maxima writes no scale
+    scale = torch.empty(K, 2 if int8 else 6, dtype=torch.float32, device=dev) if written else maxabs
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mallorn_digit_prep(gh.data_ptr(), digits.data_ptr(),
+                                    scale.data_ptr() if written else None,
+                                    maxabs.data_ptr() if external else None, K, N, int(int8),
+                                    stream)
+    cuda_build.check(rc, "mallorn_digit_prep")
+    return ModeDigits(digits, scale)
+
+
+def prepare_digits(int8: bool, gh: torch.Tensor,
+                   maxabs: Optional[torch.Tensor] = None) -> ModeDigits:
+    """K5's (``int8``) or K4's digits and scales of float32 (g, h) [K, N, 2],
+    made once a tree: a depthwise fit calls it before a tree's levels
+    (``trees.gbdt.LevelHist``), as the JAX package's ``_binlane_for`` does
+    once a round. A CUDA tensor takes one launch of the prep kernel
+    (``launch_digit_prep``, counted in ``digit_prep_launches``), a CPU
+    tensor its plain version ``launch_inputs``. ``maxabs``: a mesh's global
+    scale, K5's ``amax`` [K, 2] (every rank's max |x|, ``amax_of``) or K4's
+    [K, 6] maxima (every rank's, ``digit_maxabs``)."""
+    global digit_prep_launches
+    if gh.device.type == "cpu":
+        return launch_inputs(int8, gh, maxabs)
+    name = "prepare_digits"
+    if gh.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {gh.device}")
+    if gh.dim() != 3 or gh.shape[2] != 2 or gh.dtype != torch.float32 or not gh.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous float32 (g, h) [K, N, 2], got "
+                         f"{tuple(gh.shape)} {gh.dtype}")
     if maxabs is not None:
-        return digits, maxabs
-    K, N, _ = digits.shape
-    maxabs = digits.abs().amax(dim=1).float() if N else torch.zeros(
-        K, 6, dtype=torch.float32, device=gh.device)
-    return digits, maxabs
+        _check_scale(name, maxabs, gh.shape[0], 2 if int8 else 6, gh.device)
+    out = launch_digit_prep(int8, gh, maxabs)
+    digit_prep_launches += 1
+    return out
+
+
+def _check_mode_inputs(name: str, binned, node_q, dg: ModeDigits) -> bool:
+    """What the mode kernel takes: CUDA tensors on one device, int16 bins
+    [K, F, N], int32 node ids [K, N], ``prepare_digits``' digits and scale,
+    contiguous. Returns whether the digits are K5's (int8)."""
+    if binned.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {binned.device}")
+    int8 = dg.digits.dtype == torch.int8
+    if binned.dim() != 3 or node_q.dim() != 2 or dg.digits.dim() != 3:
+        raise ValueError(f"{name}: expected binned [K, F, N], node_q [K, N], digits [K, N, C]; got "
+                         f"{tuple(binned.shape)}, {tuple(node_q.shape)}, {tuple(dg.digits.shape)}")
+    K, _, N = binned.shape
+    want = (torch.int8, 8) if int8 else (torch.bfloat16, 6)
+    if (dg.digits.dtype, dg.digits.shape[2]) != want:
+        raise TypeError(f"{name}: digits must be [K, N, 8] int8 or [K, N, 6] bf16, got "
+                        f"{tuple(dg.digits.shape)} {dg.digits.dtype}")
+    if tuple(node_q.shape) != (K, N) or tuple(dg.digits.shape[:2]) != (K, N):
+        raise ValueError(f"{name}: binned, node_q and the digits disagree on folds or rows")
+    if (binned.dtype, node_q.dtype) != (torch.int16, torch.int32):
+        raise TypeError(f"{name}: expected int16 bins and int32 node ids; got {binned.dtype}, "
+                        f"{node_q.dtype}")
+    if not (binned.is_contiguous() and node_q.is_contiguous() and dg.digits.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if not (node_q.device == dg.digits.device == binned.device):
+        raise ValueError(f"{name}: inputs on different devices")
+    _check_scale(name, dg.scale, K, 2 if int8 else 6, binned.device)
+    return int8
 
 
 def launch_mode_kernel(int8: bool, binned: torch.Tensor, node_q: torch.Tensor,
                        digits: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
                        k_nodes: int, n_bins_tot: int, log2n: Optional[int] = None) -> None:
     """One launch of the mode kernel (K5 if ``int8``, else K4) at
-    ``mode_plan`` on inputs the wrappers checked and ``launch_inputs``
-    prepared; writes ``out`` [K, F, k_nodes, n_bins_tot, 2] float32, or,
-    given ``log2n`` (of the global row count), the external launch's raw
-    sums (K5 int32 [.., 8], K4 int64 [.., 6]). Counts nothing."""
+    ``mode_plan`` on checked inputs and prepared digits; writes ``out``
+    [K, F, k_nodes, n_bins_tot, 2] float32, or, given ``log2n`` (of the
+    global row count), the external launch's raw sums (K5 int32 [.., 8], K4
+    int64 [.., 6]). Counts nothing."""
     K, F, N = binned.shape
     group, _, window, _ = mode_plan(k_nodes, n_bins_tot, int8)
     fn_name = "mallorn_hist_i8" if int8 else "mallorn_hist_bf16"
@@ -1141,16 +1265,28 @@ def launch_mode_kernel(int8: bool, binned: torch.Tensor, node_q: torch.Tensor,
     cuda_build.check(rc, fn_name)
 
 
-def _mode_hist(int8: bool, name: str, binned, node_q, gh, k_nodes, n_bins_tot,
-               maxabs: Optional[torch.Tensor] = None, n_rows: int = 0) -> torch.Tensor:
-    """K5 (``int8``) or K4 on CUDA tensors: check, prepare, launch, count.
-    Given ``maxabs`` (K5's ``amax`` [K, 2], K4's [K, 6] maxima) and
-    ``n_rows``, the external launch: raw integer sums at that scale."""
+def mode_hist(binned: torch.Tensor, node_q: torch.Tensor, dg: ModeDigits, k_nodes: int,
+              n_bins_tot: int, n_rows: Optional[int] = None) -> torch.Tensor:
+    """One level of K5 (``dg``'s digits int8) or K4 (bf16) on a tree's
+    prepared digits (``prepare_digits``): [K, F, k_nodes, n_bins_tot, 2]
+    float32 (g, h) histograms from int16 bins [K, F, N] and int32 node ids
+    [K, N], or, given ``n_rows`` (the global row count of a fit split over
+    ranks, the digits prepared at every rank's scale), the raw integer sums
+    of these rows (K5 int32 [.., 8], at most 2^25 global rows; K4 int64
+    [.., 6], zeros in a lane that is not finite). A CPU tensor runs
+    ``mode_hist_plain``."""
     global bf16_launches, i8_launches, bf16_i64_launches, i8_sums_launches
-    _check_cuda_inputs(name, binned, node_q, gh)
-    external = maxabs is not None
-    log2n = (_check_external(name, gh, maxabs, n_rows, 2 if int8 else 6,
-                             I8_SUMS_MAX_LOG2_ROWS if int8 else 62) if external else None)
+    if binned.device.type == "cpu":
+        return mode_hist_plain(binned, node_q, dg, k_nodes, n_bins_tot, n_rows)
+    int8 = _check_mode_inputs("mode_hist", binned, node_q, dg)
+    external = n_rows is not None
+    log2n = None
+    if external:
+        log2n = _log2_ceil(n_rows)
+        if n_rows < binned.shape[2] or log2n > (I8_SUMS_MAX_LOG2_ROWS if int8 else 62):
+            raise ValueError(f"mode_hist: n_rows = {n_rows} must count at least this call's "
+                             f"{binned.shape[2]} rows and at most "
+                             f"2^{I8_SUMS_MAX_LOG2_ROWS if int8 else 62}")
     K, F, _ = binned.shape
     if external:
         channels, dtype = (8, torch.int32) if int8 else (6, torch.int64)
@@ -1160,8 +1296,7 @@ def _mode_hist(int8: bool, name: str, binned, node_q, gh, k_nodes, n_bins_tot,
     if out.numel() == 0:
         return out
     windows = mode_plan(k_nodes, n_bins_tot, int8)[1]  # refuses a level it cannot lay out
-    digits, scale = launch_inputs(int8, gh, maxabs)
-    launch_mode_kernel(int8, binned, node_q, digits, scale, out, k_nodes, n_bins_tot, log2n)
+    launch_mode_kernel(int8, binned, node_q, dg.digits, dg.scale, out, k_nodes, n_bins_tot, log2n)
     if external and int8:
         i8_sums_launches += 1
         counter = "i8_sums_launches"
@@ -1180,51 +1315,55 @@ def _mode_hist(int8: bool, name: str, binned, node_q, gh, k_nodes, n_bins_tot,
 
 def build_histograms_bf16(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                           k_nodes: int, n_bins_tot: int) -> torch.Tensor:
-    """K4: [K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess) histograms
-    summed as bf16 digits, from int16 bins [K, F, N], int32 node ids
-    [K, N] and float32 (g, h) [K, N, 2]."""
+    """K4 from (g, h): [K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess)
+    histograms summed as bf16 digits, from int16 bins [K, F, N], int32 node
+    ids [K, N] and float32 (g, h) [K, N, 2]: the digits prepared
+    (``prepare_digits``), then one level (``mode_hist``). A fit prepares
+    once a tree instead (``trees.gbdt.HIST_DTYPE_FNS``)."""
     if binned.device.type == "cpu":
         return build_histograms_bf16_plain(binned, node_q, gh, k_nodes, n_bins_tot)
-    return _mode_hist(False, "build_histograms_bf16", binned, node_q, gh, k_nodes, n_bins_tot)
+    return mode_hist(binned, node_q, prepare_digits(False, gh), k_nodes, n_bins_tot)
 
 
 def build_histograms_i8(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                         k_nodes: int, n_bins_tot: int) -> torch.Tensor:
-    """K5: [K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess) histograms
-    of the int8 fixed-point digits, from int16 bins [K, F, N], int32 node
-    ids [K, N] and float32 (g, h) [K, N, 2]."""
+    """K5 from (g, h): [K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess)
+    histograms of the int8 fixed-point digits, from int16 bins [K, F, N],
+    int32 node ids [K, N] and float32 (g, h) [K, N, 2]: the digits prepared
+    (``prepare_digits``), then one level (``mode_hist``)."""
     if binned.device.type == "cpu":
         return build_histograms_i8_plain(binned, node_q, gh, k_nodes, n_bins_tot)
-    return _mode_hist(True, "build_histograms_i8", binned, node_q, gh, k_nodes, n_bins_tot)
+    return mode_hist(binned, node_q, prepare_digits(True, gh), k_nodes, n_bins_tot)
 
 
 def build_histograms_bf16_i64(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                               k_nodes: int, n_bins_tot: int, maxabs: torch.Tensor,
                               n_rows: int) -> torch.Tensor:
-    """K4's external-scale entry: the int64 fixed-point sums of the six
-    bf16 digits [K, F, k_nodes, n_bins_tot, 6] of these rows, each digit
-    channel at the scale of ``maxabs`` [K, 6] float32 (every rank's max
-    |digit| per lane, +inf where not finite; ``digit_maxabs``) and
+    """K4's external-scale entry from (g, h): the int64 fixed-point sums of
+    the six bf16 digits [K, F, k_nodes, n_bins_tot, 6] of these rows, each
+    digit channel at the scale of ``maxabs`` [K, 6] float32 (every rank's
+    max |digit| per lane, +inf where not finite; ``digit_maxabs``) and
     ``n_rows`` (the global row count). Zeros in a lane that is not finite.
     A CPU tensor runs the plain twin ``build_histograms_bf16_i64_fixed``."""
     if binned.device.type == "cpu":
         return build_histograms_bf16_i64_fixed(binned, node_q, gh, k_nodes, n_bins_tot,
                                                maxabs, n_rows)
-    return _mode_hist(False, "build_histograms_bf16_i64", binned, node_q, gh, k_nodes,
-                      n_bins_tot, maxabs, n_rows)
+    _check_external("build_histograms_bf16_i64", gh, maxabs, n_rows, 6)
+    return mode_hist(binned, node_q, prepare_digits(False, gh, maxabs), k_nodes, n_bins_tot,
+                     n_rows)
 
 
 def build_histograms_i8_sums(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tensor,
                              k_nodes: int, n_bins_tot: int, amax: torch.Tensor,
                              n_rows: int) -> torch.Tensor:
-    """K5's external-scale entry: the int32 sums of the eight int8 digits
-    [K, F, k_nodes, n_bins_tot, 8] of these rows, quantized at s =
-    max(``amax``, 1e-30) (``amax`` [K, 2] float32, the max |x| of every
+    """K5's external-scale entry from (g, h): the int32 sums of the eight
+    int8 digits [K, F, k_nodes, n_bins_tot, 8] of these rows, quantized at
+    s = max(``amax``, 1e-30) (``amax`` [K, 2] float32, the max |x| of every
     rank's rows, NaN and inf as ``x.abs().amax`` gives them; ``amax_of``),
     for ``n_rows`` <= 2^25 global rows. A CPU tensor runs the plain twin
     ``build_histograms_i8_sums_fixed``."""
     if binned.device.type == "cpu":
         return build_histograms_i8_sums_fixed(binned, node_q, gh, k_nodes, n_bins_tot, amax,
                                               n_rows)
-    return _mode_hist(True, "build_histograms_i8_sums", binned, node_q, gh, k_nodes, n_bins_tot,
-                      amax, n_rows)
+    _check_external("build_histograms_i8_sums", gh, amax, n_rows, 2, I8_SUMS_MAX_LOG2_ROWS)
+    return mode_hist(binned, node_q, prepare_digits(True, gh, amax), k_nodes, n_bins_tot, n_rows)

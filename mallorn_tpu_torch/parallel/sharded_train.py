@@ -20,10 +20,11 @@ hooks (``mesh_fit_fns``), one collective for each of the JAX package's
 - the histogram modes of a depthwise or symmetric fit take the same road
   through their own external-scale entries. "int8" (K5): each lane's
   max |g| and max |h| (NaN and inf kept apart: ``amax_parts``) are
-  max-reduced once a tree, every rank quantizes its rows at that global s,
-  and the ranks sum the raw int32 digit sums (32 bytes a (node, bin) cell),
-  recombined once. "bf16" / "i8bf16" (K4): each lane's max |digit| of the
-  six bf16 digit channels is max-reduced once a tree, and the ranks sum
+  max-reduced once a tree, every rank's prep kernel quantizes its rows at
+  that global s, once a tree, and the ranks sum the raw int32 digit sums
+  (32 bytes a (node, bin) cell), recombined once. "bf16" / "i8bf16" (K4):
+  each rank's prep kernel splits its rows into digits once a tree, their
+  max |digit| per lane and channel is max-reduced, and the ranks sum
   the raw int64 digit sums (48 bytes a cell), each channel converted once,
   then (S0 + S1) + S2. The JAX package takes these scales over each
   shard's own rows and psums float32 histograms; here they are global, so
@@ -60,8 +61,9 @@ from mallorn_tpu_torch.ops import hist_cuda
 from mallorn_tpu_torch.parallel.mesh import Mesh
 from mallorn_tpu_torch.trees import objectives
 from mallorn_tpu_torch.trees.binning import BinSpec, apply_bins, fit_bins
-from mallorn_tpu_torch.trees.gbdt import (GBDTModel, GBDTParams, _fit_impl, _models_from_fit,
-                                          _stack_folds, _train_tree, level_hist_fn)
+from mallorn_tpu_torch.trees.gbdt import (GBDTModel, GBDTParams, LevelHist, _fit_impl,
+                                          _models_from_fit, _stack_folds, _train_tree,
+                                          level_hist_fn)
 
 
 def gather_fn(mesh: Mesh, n: int) -> Callable:
@@ -94,44 +96,44 @@ def mesh_fit_fns(mesh: Mesh, n_rows: int, n_val: int = 0, hist_dtype: str = "i8f
     """(hist_fn, seg_hist_fn, gather_rows, gather_val) of a fit whose
     ``n_rows`` training and ``n_val`` validation rows (the single-device
     counts) are split over ``mesh``: the level histogram of ``hist_dtype``
-    (K1, K4 or K5) and K3 through their external-scale entries at the
-    global scale, reduced over the ranks, and the row gathers of the leaf
-    sums and the validation metrics. An unknown ``hist_dtype`` raises."""
+    (K1, K4 or K5) and K3, each a ``LevelHist`` whose prepare step reduces
+    the tree's global scale over the ranks (one max all-reduce a tree) and
+    whose levels run the kernel's external-scale entry at that scale,
+    reduced over the ranks; and the row gathers of the leaf sums and the
+    validation metrics. An unknown ``hist_dtype`` raises."""
     level_hist_fn(GBDTParams(hist_dtype=hist_dtype))
-    last = {}  # lane statistic -> (gh, its version, the statistic max-reduced)
 
-    def reduced(stat, gh):
-        # gh is the same tensor at every level of a tree and every step of
-        # a leaf-wise one: its lanes' maxima are reduced once a tree
-        got = last.get(stat)
-        if got is None or got[0] is not gh or got[1] != gh._version:
-            got = last[stat] = gh, gh._version, mesh.all_reduce(stat(gh).contiguous(), "max")
-        return got[2]
+    def lane_max(gh):  # K1 / K3: every rank's max |g|, max |h| per lane
+        return gh, mesh.all_reduce(hist_cuda.lane_maxabs(gh).contiguous(), "max")
 
-    def k1(binned_T, node_q, gh, k_nodes, n_bins_tot):
-        m = reduced(hist_cuda.lane_maxabs, gh)
+    def k1(binned_T, node_q, prepared, k_nodes, n_bins_tot):
+        gh, m = prepared
         s = hist_cuda.build_histograms_i64(binned_T, node_q, gh, k_nodes, n_bins_tot, m, n_rows)
         return hist_cuda.from_fixed_sums(mesh.all_reduce(s), m, n_rows)
 
-    def k4(binned_T, node_q, gh, k_nodes, n_bins_tot):
-        m = reduced(hist_cuda.digit_maxabs, gh)
-        s = hist_cuda.build_histograms_bf16_i64(binned_T, node_q, gh, k_nodes, n_bins_tot, m,
-                                                n_rows)
-        return hist_cuda.from_bf16_sums(mesh.all_reduce(s), m, n_rows)
-
-    def k5(binned_T, node_q, gh, k_nodes, n_bins_tot):
-        a = hist_cuda.amax_of(reduced(hist_cuda.amax_parts, gh))
-        s = hist_cuda.build_histograms_i8_sums(binned_T, node_q, gh, k_nodes, n_bins_tot, a,
-                                               n_rows)
-        return hist_cuda.from_i8_sums(mesh.all_reduce(s), a)
-
-    def seg_hist_fn(binned_T, seg_base, gh, n_seg):
-        m = reduced(hist_cuda.lane_maxabs, gh)
+    def k3(binned_T, seg_base, prepared, n_seg):
+        gh, m = prepared
         s = hist_cuda.build_seg_histograms_i64(binned_T, seg_base, gh, n_seg, m, n_rows)
         return hist_cuda.from_fixed_sums(mesh.all_reduce(s), m, n_rows)
 
-    hist_fn = {"i8full": k1, "bf16": k4, "i8bf16": k4, "int8": k5}[hist_dtype]
-    return hist_fn, seg_hist_fn, gather_fn(mesh, n_rows), gather_fn(mesh, n_val)
+    def k4_digits(gh):  # the rank's digits, at every rank's max |digit|
+        d = hist_cuda.prepare_digits(False, gh)
+        return d._replace(scale=mesh.all_reduce(d.scale, "max"))
+
+    def k5_digits(gh):  # the digits at s of every rank's max |g|, max |h|
+        a = hist_cuda.amax_of(mesh.all_reduce(hist_cuda.amax_parts(gh), "max"))
+        return hist_cuda.prepare_digits(True, gh, a)
+
+    def mode(binned_T, node_q, dg, k_nodes, n_bins_tot):
+        s = mesh.all_reduce(hist_cuda.mode_hist(binned_T, node_q, dg, k_nodes, n_bins_tot, n_rows))
+        if dg.digits.dtype == torch.int8:
+            return hist_cuda.from_i8_sums(s, dg.scale)
+        return hist_cuda.from_bf16_sums(s, dg.scale, n_rows)
+
+    prepare = {"i8full": lane_max, "bf16": k4_digits, "i8bf16": k4_digits,
+               "int8": k5_digits}[hist_dtype]
+    hist_fn = LevelHist(prepare, k1 if hist_dtype == "i8full" else mode)
+    return hist_fn, LevelHist(lane_max, k3), gather_fn(mesh, n_rows), gather_fn(mesh, n_val)
 
 
 def _block(a: np.ndarray, lo: int, hi: int, fill) -> np.ndarray:

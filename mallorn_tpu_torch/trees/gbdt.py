@@ -19,7 +19,8 @@ then one tree grown level by level. Each level builds (grad, hess)
 histograms over (fold, feature, node, bin) through a Hopper kernel of
 ``ops.hist_cuda`` chosen by ``GBDTParams.hist_dtype``: K1 (exact sums,
 "i8full", the default), K4 (bf16 digits, "bf16" / "i8bf16") or K5 (int8
-fixed-point digits, "int8"); from level 1 on only left children are built
+fixed-point digits, "int8"; K4's and K5's digits made once a tree by their
+prep kernel, a ``LevelHist``); from level 1 on only left children are built
 and a right child is its parent minus its sibling. The split search is an
 argmax over (feature, bin, default direction) per node, taking the first
 index on ties. Every tensor carries a leading fold axis K: the folds of a
@@ -59,7 +60,8 @@ the JAX package's own, computed on the host (``utils.prng``) once per fit.
 
 A mesh enters the fit through hooks of ``_fit_impl``, not a second fit
 (``parallel.sharded_train``): each rank passes its block of rows,
-``hist_fn`` / ``seg_hist_fn`` that all-reduce the exact integer sums of
+``hist_fn`` / ``seg_hist_fn`` (``LevelHist``s: the global scale reduced
+over the ranks once a tree) that all-reduce the exact integer sums of
 the level histogram's kernel (K1, or K4 / K5 in a histogram mode) and of
 K3 at one global scale, and ``gather_rows`` / ``gather_val``, which bring the
 few other row sums' terms to every rank in row order: the rows' terminal
@@ -88,14 +90,37 @@ from mallorn_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Objective = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                      tuple]
-HistFn = Callable[..., torch.Tensor]
-SegHistFn = Callable[..., torch.Tensor]
+
+
+class LevelHist(NamedTuple):
+    """A tree's histogram whose inputs are prepared once a tree:
+    ``prepare(gh)`` runs before the tree's first histogram, and each level
+    (each leaf-wise step) calls ``hist(binned_T, ids, prepared, ...)`` with
+    its result in the place of gh."""
+    prepare: Callable
+    hist: Callable[..., torch.Tensor]
+
+
+# a fit's histogram function: a callable taking (binned_T, ids, gh, ...)
+# at every level, or a LevelHist
+HistFn = Union[Callable[..., torch.Tensor], LevelHist]
+SegHistFn = HistFn
 GROW_POLICIES = ("depthwise", "lossguide", "symmetric")
-# the depthwise fit's level-histogram kernel per GBDTParams.hist_dtype
-HIST_DTYPE_FNS = {"i8full": hist_cuda.build_histograms,
-                  "bf16": hist_cuda.build_histograms_bf16,
-                  "i8bf16": hist_cuda.build_histograms_bf16,
-                  "int8": hist_cuda.build_histograms_i8}
+# the depthwise fit's level histogram per GBDTParams.hist_dtype: K1 on (g,
+# h), or K4 / K5 on the tree's digits, prepared once a tree by their prep
+# kernel (as the JAX package's _binlane_for, mallorn_tpu/trees/gbdt.py:844)
+_K4_LEVELS = LevelHist(functools.partial(hist_cuda.prepare_digits, False), hist_cuda.mode_hist)
+HIST_DTYPE_FNS = {"i8full": hist_cuda.build_histograms, "bf16": _K4_LEVELS, "i8bf16": _K4_LEVELS,
+                  "int8": LevelHist(functools.partial(hist_cuda.prepare_digits, True),
+                                    hist_cuda.mode_hist)}
+
+
+def _prepared(hist_fn: HistFn, gh: torch.Tensor):
+    """(the per-level function, what it takes in the place of gh) of one
+    tree: a LevelHist's prepare runs here, once, on the tree's gh."""
+    if isinstance(hist_fn, LevelHist):
+        return hist_fn.hist, hist_fn.prepare(gh)
+    return hist_fn, gh
 
 
 class GBDTParams(NamedTuple):
@@ -318,6 +343,7 @@ def _train_tree(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: torch.Tensor
     binned_T [K, F, N] int16, gh [K, N, 2] float32, col_mask [K, F] bool.
     Returns ((feature, split_bin, default_left, is_leaf, leaf_value), each
     [K, ...]; per-feature split gains [K, F]; final heap node [K, N])."""
+    level_hist, x = _prepared(hist_fn, gh)  # once a tree: gh is fixed across its levels
     K, n_f, n = binned_T.shape
     dev = binned_T.device
     depth = p.max_depth
@@ -352,7 +378,7 @@ def _train_tree(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: torch.Tensor
         else:
             k_nodes = n_nodes
             node_q = torch.where(in_level, local, n_nodes)
-        hist = hist_fn(binned_T, node_q.to(torch.int32), gh, k_nodes, n_bins_tot)
+        hist = level_hist(binned_T, node_q.to(torch.int32), x, k_nodes, n_bins_tot)
         if subtract:
             right = torch.where(prev_split[:, None, :, None, None], prev_hist - hist, 0.0)
             hist = torch.stack([hist, right], dim=3).reshape(K, n_f, n_nodes, n_bins_tot, 2)
@@ -434,6 +460,7 @@ def _train_tree_lossguide(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: to
     Returns ((feature, split_bin, default_left, is_leaf, left, right,
     leaf_value), each [K, M]; per-feature split gains [K, F]; final node
     [K, N])."""
+    seg_hist, x = _prepared(seg_hist_fn, gh)
     K, n_f, n = binned_T.shape
     dev = binned_T.device
     L = p.max_leaves
@@ -443,7 +470,7 @@ def _train_tree_lossguide(binned_T: torch.Tensor, gh: torch.Tensor, col_mask: to
     depth_cap = p.max_depth if p.max_depth > 0 else L
 
     def best(seg_base, n_nodes):
-        hist = seg_hist_fn(binned_T, seg_base, gh, n_nodes * nbt)
+        hist = seg_hist(binned_T, seg_base, x, n_nodes * nbt)
         return _best_splits(hist.view(K, n_f, n_nodes, nbt, 2), col_mask, p)
 
     g0, f0, b0, dl0, _, gt0, ht0 = best(torch.zeros(K, n, dtype=torch.int32, device=dev), 1)

@@ -150,6 +150,8 @@ def load() -> ctypes.CDLL:
             lib.mallorn_hist_bf16.restype = ctypes.c_int
             lib.mallorn_hist_i8.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
             lib.mallorn_hist_i8.restype = ctypes.c_int
+            lib.mallorn_digit_prep.argtypes = [p, p, p, p, i, i, i, p]
+            lib.mallorn_digit_prep.restype = ctypes.c_int
             lib.mallorn_cuda_error_string.argtypes = [i]
             lib.mallorn_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

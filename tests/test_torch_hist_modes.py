@@ -200,10 +200,14 @@ def test_launch_inputs_are_row_major_digits_and_their_scales():
 
 
 def test_hist_dtype_picks_the_kernel_and_unknown_modes_raise():
-    modes = {"i8full": hist_cuda.build_histograms, "bf16": hist_cuda.build_histograms_bf16,
-             "i8bf16": hist_cuda.build_histograms_bf16, "int8": hist_cuda.build_histograms_i8}
-    for mode, fn in modes.items():
-        assert T.level_hist_fn(T.GBDTParams(hist_dtype=mode)) is fn
+    """"i8full" is K1's wrapper on (g, h); each histogram mode a
+    ``LevelHist``: its digits prepared once a tree (K4's bf16, K5's int8),
+    then the mode kernel at every level."""
+    assert T.level_hist_fn(T.GBDTParams(hist_dtype="i8full")) is hist_cuda.build_histograms
+    for mode, int8 in (("bf16", False), ("i8bf16", False), ("int8", True)):
+        fn = T.level_hist_fn(T.GBDTParams(hist_dtype=mode))
+        assert isinstance(fn, T.LevelHist) and fn.hist is hist_cuda.mode_hist
+        assert fn.prepare.func is hist_cuda.prepare_digits and fn.prepare.args == (int8,)
     assert T.GBDTParams().hist_dtype == "i8full"
     X = np.random.default_rng(0).normal(size=(64, 4)).astype(np.float32)
     y = (X[:, 0] > 0).astype(np.float32)
@@ -214,8 +218,9 @@ def test_hist_dtype_picks_the_kernel_and_unknown_modes_raise():
 
 
 def test_a_fit_calls_only_its_modes_kernel(monkeypatch):
-    """Every level of a depthwise fit goes through the mode's wrapper; a
-    leaf-wise fit ignores the mode."""
+    """Every level of a depthwise fit goes through the mode's level
+    function, its digits prepared once a tree; a leaf-wise fit ignores the
+    mode."""
     calls = {}
 
     def counting(name, fn):
@@ -225,15 +230,18 @@ def test_a_fit_calls_only_its_modes_kernel(monkeypatch):
         return wrapped
 
     for mode in ("i8full", "bf16", "int8"):
-        monkeypatch.setitem(T.HIST_DTYPE_FNS, mode, counting(mode, T.HIST_DTYPE_FNS[mode]))
+        fn = T.HIST_DTYPE_FNS[mode]
+        fn = (T.LevelHist(counting(f"{mode} prepare", fn.prepare), counting(mode, fn.hist))
+              if isinstance(fn, T.LevelHist) else counting(mode, fn))
+        monkeypatch.setitem(T.HIST_DTYPE_FNS, mode, fn)
     X = np.random.default_rng(1).normal(size=(96, 5)).astype(np.float32)
     y = (X[:, 1] + 0.3 * X[:, 2] > 0).astype(np.float32)
     T.train_gbdt(X, y, T.GBDTParams(n_rounds=3, max_depth=3, hist_dtype="int8"), device="cpu")
-    assert calls == {"int8": 9}
+    assert calls == {"int8 prepare": 3, "int8": 9}
     lg = T.GBDTParams(n_rounds=3, max_depth=3, grow_policy="lossguide", max_leaves=4)
     a = T.train_gbdt(X, y, lg._replace(hist_dtype="int8"), device="cpu")
     b = T.train_gbdt(X, y, lg, device="cpu")
-    assert calls == {"int8": 9}
+    assert calls == {"int8 prepare": 3, "int8": 9}
     for x, z in zip(a.forest, b.forest):
         assert torch.equal(x, z)
 
@@ -244,7 +252,7 @@ def _gbdt_fixtures():
     return base
 
 
-@pytest.mark.parametrize("mode", ["int8", "i8bf16"])
+@pytest.mark.parametrize("mode", ["int8", "i8bf16", "bf16"])
 def test_train_gbdt_matches_jax_in_the_mode(mode):
     from mallorn_tpu.trees import gbdt as J
 
@@ -260,7 +268,7 @@ def test_train_gbdt_matches_jax_in_the_mode(mode):
     np.testing.assert_allclose(tm.val_margin, jm.val_margin, atol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["int8", "i8bf16"])
+@pytest.mark.parametrize("mode", ["int8", "i8bf16", "bf16"])
 def test_train_gbdt_folds_matches_jax_in_the_mode(mode):
     from mallorn_tpu.trees import gbdt as J
 

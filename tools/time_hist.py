@@ -39,10 +39,21 @@ min_child_weight 1e-3, with and without subtraction, so their last levels
 run K1 at 64 and 128 nodes) on one seeded synthetic matrix of the v92d CV's
 width (3,054 x 222, NaNs included) and reports each CV's forests' sha256,
 rounds, OOF F1 and K1 launches by level width, which must agree across the
-checkouts. In a checkout with the histogram modes' ``launch_mode_kernel``,
-it also times K4 and K5 (the wrapper and the launch alone on prepared
-digits) at the v92d CV's deepest level (8 nodes; ``chip_smoke.py``'s seed
-6,042), held bit for bit equal across the checkouts too.
+checkouts; with it, the v92d CV (V34A_PARAMS, early-stopped) on the same
+matrix in ``hist_dtype`` "int8" and "i8bf16", each one's forests' sha256,
+rounds, OOF F1, seconds and launches of the mode kernel (and of the
+digits' prep kernel where the checkout has it), which must agree across
+the checkouts but for the seconds and the prep launches. In a checkout
+with the histogram modes' ``launch_mode_kernel``, it also times K4 and K5
+at the v92d CV's deepest level (8 nodes; ``chip_smoke.py``'s seed 6,042)
+and at ``chip_smoke.py``'s windowed shapes (1 x 8,193, 8 x 1,025 and 2 x
+32,768 bins; its ``BINS_SHAPES`` seeds): the (g, h) wrapper, the call a
+fit makes per level (``fit_call_ms``: with ``prepare_digits``, the level
+on the tree's prepared digits; before it, the wrapper, which the fit
+called at every level), the launch alone on prepared digits and the prep
+alone, each output held bit for bit equal across the checkouts too; at
+the v92d shape also the device time alone of the mode kernel and of the
+prep kernel (``torch.profiler``), apart from the host's share of a call.
 
 Prints one line per run and shape, the card's name and power limit, and
 last one JSON object of every run. Exits non-zero with no CUDA device or
@@ -93,16 +104,43 @@ def shapes():
 
 
 # K4 and K5 at the v92d CV's deepest level, chip_smoke.py's mode check
-# there (seed 6000 + 17 x 2 + 8)
+# there (seed 6000 + 17 x 2 + 8), and at chip_smoke.py's windowed shapes
+# (BINS_SHAPES, seeds 12000 + i): (kernel, K, F, N, nodes, bins, seed)
 MODE_SHAPE = ("v92d", 5, 222, 2444, 8, 6042)
+MODE_BINS_SHAPES = (("K4", 5, 16, 2444, 1, 8193, 12000), ("K4", 5, 222, 2444, 8, 1025, 12001),
+                    ("K4", 5, 16, 2444, 2, 32768, 12002), ("K5", 5, 16, 2444, 1, 8193, 12003),
+                    ("K5", 5, 222, 2444, 8, 1025, 12004), ("K5", 5, 16, 2444, 2, 32768, 12005))
+
+
+def mode_shapes():
+    """(name, int8, K, F, N, nodes, bins, seed, windowed) of every K4 / K5
+    shape."""
+    _, K, F, N, k_nodes, seed = MODE_SHAPE
+    out = [(f"{kernel} {MODE_SHAPE[0]} nodes={k_nodes}", kernel == "K5", K, F, N, k_nodes,
+            N_BINS_TOT, seed, False) for kernel in ("K4", "K5")]
+    return out + [(f"{kernel} F={F} nodes={k} bins={b}", kernel == "K5", K, F, N, k, b, seed,
+                   True) for kernel, K, F, N, k, b, seed in MODE_BINS_SHAPES]
 
 
 def mode_names():
-    return [f"{kernel} {MODE_SHAPE[0]} nodes={MODE_SHAPE[4]}" for kernel in ("K4", "K5")]
+    return [m[0] for m in mode_shapes()]
 
 
 def wide_names():
     return [f"{fit} nodes={k}" for fit, _, _, _, nodes in WIDE_SHAPES for k in nodes]
+
+
+def bins_inputs(torch, K: int, F: int, N: int, k_nodes: int, nbt: int, seed: int):
+    """chip_smoke.py's ``bins_inputs``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    binned = torch.randint(0, nbt, (K, F, N), generator=g, device="cuda").to(torch.int16)
+    binned[:, :, ::7] = nbt - 1
+    node_q = torch.randint(0, k_nodes + 1, (K, N), generator=g, device="cuda").to(torch.int32)
+    p = torch.rand(K, N, generator=g, device="cuda")
+    y = (torch.rand(K, N, generator=g, device="cuda") < 0.1).float()
+    w = 0.5 + 1.5 * torch.rand(K, N, generator=g, device="cuda")
+    gh = torch.stack([w * (p - y), w * p * (1 - p)], dim=-1).contiguous()
+    return binned.contiguous(), node_q.contiguous(), gh
 
 
 def hist_inputs(torch, K: int, F: int, N: int, k_nodes: int, seed: int, inactive: float = 0.0):
@@ -169,32 +207,123 @@ def time_checkout(layouts: bool, fits: bool = False) -> dict:
         if name in wide_names():
             res[name].update(time_wide(torch, hist_cuda, ms, binned, node_q, gh, k_nodes))
     if hasattr(hist_cuda, "launch_mode_kernel"):
-        _, K, F, N, k_nodes, seed = MODE_SHAPE
-        binned, node_q, gh = hist_inputs(torch, K, F, N, k_nodes, seed)
-        for name, int8 in zip(mode_names(), (False, True)):
-            wrapper = hist_cuda.build_histograms_i8 if int8 else hist_cuda.build_histograms_bf16
-            want = wrapper(binned, node_q, gh, k_nodes, N_BINS_TOT)
-            digits, scale = hist_cuda.launch_inputs(int8, gh)
-            out = torch.empty_like(want)
-
-            def launch():
-                hist_cuda.launch_mode_kernel(int8, binned, node_q, digits, scale, out, k_nodes,
-                                             N_BINS_TOT)
-            launch()
-            torch.cuda.synchronize()
-            if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
-                raise AssertionError(f"{name}: the launch alone disagrees with the wrapper")
-            res[name] = {
-                "wrapper_ms": ms(lambda: wrapper(binned, node_q, gh, k_nodes, N_BINS_TOT)),
-                "launch_ms": ms(launch),
-                "sha256": hashlib.sha256(want.cpu().numpy().tobytes()).hexdigest()}
+        res.update(time_modes(torch, hist_cuda, ms))
     if layouts and hasattr(hist_cuda, "hist_layout"):
         res["sweep"] = sweep(torch, hist_cuda, cuda_build, stream, ms)
     if layouts and hasattr(hist_cuda, "wide_plan"):
         res["wide_sweep"] = wide_sweep(torch, hist_cuda, ms)
     if fits:
-        res["fits"] = depth8_fits(torch, hist_cuda)
+        res["fits"] = {**depth8_fits(torch, hist_cuda), **mode_fits(torch, hist_cuda)}
     return res
+
+
+def time_modes(torch, hist_cuda, ms) -> dict:
+    """K4 and K5 at ``mode_shapes()``: the (g, h) wrapper (what a checkout
+    from before ``prepare_digits`` called at every level), the call a fit
+    makes per level (``fit_call_ms``: in a checkout with ``prepare_digits``
+    the level on the tree's prepared digits, ``mode_hist``; before it, the
+    wrapper), the
+    launch alone on prepared digits, the prep alone where the checkout
+    has its kernel and, at the v92d shape, each kernel's device time
+    (``device_ms``); the output's sha256."""
+    res = {}
+    prep = getattr(hist_cuda, "prepare_digits", None)
+    for name, int8, K, F, N, k_nodes, nbt, seed, windowed in mode_shapes():
+        if windowed and not hasattr(hist_cuda, "mode_plan"):
+            continue
+        binned, node_q, gh = (bins_inputs(torch, K, F, N, k_nodes, nbt, seed) if windowed
+                              else hist_inputs(torch, K, F, N, k_nodes, seed))
+        wrapper = hist_cuda.build_histograms_i8 if int8 else hist_cuda.build_histograms_bf16
+        want = wrapper(binned, node_q, gh, k_nodes, nbt)
+        digits, scale = prep(int8, gh) if prep else hist_cuda.launch_inputs(int8, gh)
+        out = torch.empty_like(want)
+
+        def launch():
+            hist_cuda.launch_mode_kernel(int8, binned, node_q, digits, scale, out, k_nodes, nbt)
+        launch()
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{name}: the launch alone disagrees with the wrapper")
+        r = {"wrapper_ms": ms(lambda: wrapper(binned, node_q, gh, k_nodes, nbt)),
+             "launch_ms": ms(launch),
+             "sha256": hashlib.sha256(want.cpu().numpy().tobytes()).hexdigest()}
+        if prep:
+            dg = prep(int8, gh)
+            r["fit_call_ms"] = ms(lambda: hist_cuda.mode_hist(binned, node_q, dg, k_nodes, nbt))
+            r["prep_ms"] = ms(lambda: prep(int8, gh))
+        else:
+            r["fit_call_ms"] = r["wrapper_ms"]
+        if not windowed:  # the kernels' own device time, apart from the host's
+            timed = [("launch_device_ms", launch, "mode_hist_kernel")]
+            if prep:
+                timed.append(("prep_device_ms", lambda: prep(int8, gh), "digit_prep_kernel"))
+            for key, fn, kernel in timed:
+                t = device_ms(torch, fn, kernel)
+                if t is not None:
+                    r[key] = t
+        res[name] = r
+    return res
+
+
+def device_ms(torch, fn, kernel: str, reps: int = 50):
+    """Device time per call of ``fn`` in kernels whose name holds
+    ``kernel`` (``torch.profiler``, CUDA activity), or None where the
+    profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us else None
+
+
+def mode_fits(torch, hist_cuda) -> dict:
+    """The v92d CV (``train_cv`` at V34A_PARAMS: 5 folds, depth 5, early
+    stopping) in ``hist_dtype`` "int8" and "i8bf16" on ``depth8_fits``'
+    seeded synthetic matrix: each one's forests' sha256, rounds, OOF F1,
+    seconds, the mode kernel's launches and, where the checkout has it, the
+    digits' prep kernel's."""
+    import time
+
+    from mallorn_tpu_torch.train.cv import train_cv
+    from mallorn_tpu_torch.trees.gbdt import V34A_PARAMS
+
+    X, y = synthetic_matrix()
+    res = {}
+    for mode in ("int8", "i8bf16"):
+        hist_cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cv = train_cv(X, y, None, V34A_PARAMS._replace(hist_dtype=mode), device="cuda")
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for m in cv.models:
+            for t in m.forest:
+                h.update(t.cpu().numpy().tobytes())
+        res[f"v92d {mode}"] = {
+            "sha256": h.hexdigest(), "rounds": cv.rounds_run, "oof_f1": cv.best_f1,
+            "s": time.perf_counter() - t0,
+            "k1": hist_cuda.i8_launches if mode == "int8" else hist_cuda.bf16_launches,
+            "prep": getattr(hist_cuda, "digit_prep_launches", None)}
+    return res
+
+
+def synthetic_matrix():
+    """A seeded synthetic matrix of the v92d CV's width: 3,054 x 222, 5%
+    NaN, labels from a logistic of 8 columns."""
+    import numpy as np
+
+    rng = np.random.default_rng(2025)
+    X = rng.normal(size=(3054, 222)).astype(np.float32)
+    X[rng.random(X.shape) < 0.05] = np.nan
+    logit = np.nan_to_num(X[:, :8]) @ rng.normal(size=8) - 2.5
+    y = (rng.random(3054) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return X, y
 
 
 def depth8_fits(torch, hist_cuda) -> dict:
@@ -203,16 +332,10 @@ def depth8_fits(torch, hist_cuda) -> dict:
     launches by level width."""
     import time
 
-    import numpy as np
-
     from mallorn_tpu_torch.train.cv import train_cv
     from mallorn_tpu_torch.trees.gbdt import V34A_PARAMS
 
-    rng = np.random.default_rng(2025)
-    X = rng.normal(size=(3054, 222)).astype(np.float32)
-    X[rng.random(X.shape) < 0.05] = np.nan
-    logit = np.nan_to_num(X[:, :8]) @ rng.normal(size=8) - 2.5
-    y = (rng.random(3054) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    X, y = synthetic_matrix()
     res = {}
     for sub in (True, False):
         p = V34A_PARAMS._replace(n_rounds=100, max_depth=8, hist_subtract=sub,
@@ -402,17 +525,22 @@ def main(argv) -> int:
                 print(f"{d} {key} {shape}: best {best} " +
                       " ".join(f"{k}={v:.4f}" for k, v in times.items()), flush=True)
         for fit, r in res.get("fits", {}).items():
-            print(f"{d} depth-8 CV {fit}: {r['s']:.3f} s, rounds {r['rounds']}, OOF F1 "
-                  f"{r['oof_f1']:.4f}, K1 {r['k1']} by width {r['k1_by_nodes']}, forests "
-                  f"sha256 {r['sha256'][:16]}", flush=True)
-    if fits and len({json.dumps({f: {k: v for k, v in r.items() if k != "s"}
+            kind = f"depth-8 CV {fit}" if "k1_by_nodes" in r else f"{fit} CV"
+            launches = (f"K1 {r['k1']} by width {r['k1_by_nodes']}" if "k1_by_nodes" in r
+                        else f"mode kernel {r['k1']}, digits' prep kernel {r['prep']}")
+            print(f"{d} {kind}: {r['s']:.3f} s, rounds {r['rounds']}, OOF F1 "
+                  f"{r['oof_f1']:.4f}, {launches}, forests sha256 {r['sha256'][:16]}",
+                  flush=True)
+    # every checkout's CVs alike but for the seconds and the prep kernel's
+    # launches (a checkout from before it has none)
+    if fits and len({json.dumps({f: {k: v for k, v in r.items() if k not in ("s", "prep")}
                                  for f, r in run["shapes"]["fits"].items()}, sort_keys=True)
                      for run in runs}) != 1:
-        print("time_hist: the checkouts' depth-8 CVs differ", file=sys.stderr)
+        print("time_hist: the checkouts' CVs differ", file=sys.stderr)
         return 1
     for name in [s[0] for s in shapes()] + mode_names():
         for sha in ("sha256", "i64_sha256"):
-            if len({r["shapes"][name].get(sha) for r in runs}) != 1:
+            if len({r["shapes"].get(name, {}).get(sha) for r in runs}) != 1:
                 print(f"time_hist: the checkouts' outputs differ at {name}", file=sys.stderr)
                 return 1
     if len(runs) > 1:
