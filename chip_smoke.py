@@ -98,10 +98,11 @@ Phases, each printing its wall time on its own line:
    its fixed-point arithmetic: each set of forests bit for bit equal;
    then the bins phase (``run_bins``): every histogram kernel beyond 256
    bins, where a CTA holds a window of a node's bins or of a call's
-   segments (``BINS_SHAPES``: K4 / K5 at 8 nodes x 1,025 bins, 1 x 8,193
-   and 2 x 32,768, K1's wide path at 32 x 16,385, K3 at a pair of 8,193),
+   segments, or a node of its own (``BINS_SHAPES``: K4 / K5 at 8 nodes x
+   1,025 bins, 1 x 8,193 and 2 x 32,768, K1's wide path on its per-node
+   kernel at 32 x 16,385 and a crowded 2 x 16,385, K3 at a pair of 8,193),
    each entry twice, bit for bit its plain twin, its windows a call
-   counted, with its times (K4 / K5 also the level on prepared digits and
+   counted (K1: its per-node kernel calls), with its times (K4 / K5 also the level on prepared digits and
    the launch alone; the yardsticks the zeroed output and one
    ``scatter_add_``, float32 for the float32 entry and int64 of the
    external entry's integer values for it); fits on the same fixture at 1,024 bins
@@ -145,11 +146,13 @@ Phases, each printing its wall time on its own line:
 11. the runners, each once on its reference's matrix, reusing the
    training phase's features, selection, adversarial weights and winner
    and the ensemble phase's research family: ``run_baseline`` (127
-   statistical columns, a depth-6 and a 31-leaf CV), ``run_v34a`` (224
-   columns), and on the 222-column v92d matrix with the adversarial
-   weights ``run_label_smoothing`` (eps 0.05), ``run_distillation`` (the
-   winner's OOF as teacher), ``run_soft_pseudo`` and ``run_pseudo_label``
-   (the winner's test probabilities), ``run_mixup`` (3 seeds),
+   statistical columns, a depth-6 and a 31-leaf CV, the latter cut to
+   RUNNER_LG_ROUNDS rounds), ``run_v34a`` (224 columns), and on the
+   222-column v92d matrix with the adversarial weights, each cut to
+   RUNNER_ROUNDS rounds but the gated v104, ``run_label_smoothing`` (eps
+   0.05), ``run_distillation`` (the winner's OOF as teacher),
+   ``run_soft_pseudo`` and ``run_pseudo_label`` (the winner's test
+   probabilities), ``run_mixup`` (3 seeds),
    ``run_seed_ensemble`` (10 seeds x 5 folds, 50 lanes in one fit),
    ``run_easy_ensemble`` (10 models) and ``run_v115`` (+ 11 research
    columns), then ``ensembles.stack_oof`` over their OOFs and the
@@ -159,8 +162,8 @@ Phases, each printing its wall time on its own line:
    0.629 and the seed ensemble 0.633;
 12. the other tree policies and the multiclass head, on the runners'
    224-column v34a matrix: the symmetric v118 CV, the leaf-wise v110 CV
-   and its DART twin v111 (each cut to 300 of its 600 rounds; v111 runs all
-   300), the v119 stack over the runners'
+   and its DART twin v111 (each cut to 150 of its 600 rounds; v111 runs all
+   150), the v119 stack over the runners'
    v34a and v110 and v118 (``ensembles.stack_oof``), and v62: the train
    split regenerated with the port's generator and held column for column
    against ``.bench_data_v2.npz``, then ``run_v62`` on its spectral types
@@ -178,7 +181,7 @@ Phases, each printing its wall time on its own line:
    fits by Bazin's bar on their cost); the command line's backbone-plus-
    family experiments v55, v64, v30, v57 (dereddened twins), v45
    (categorical bins) and v105 (the top 30 interactions) on the 224-column
-   v34a matrix at 250 rounds, K1 launches = rounds x depth; an 8-trial
+   v34a matrix at 150 rounds, K1 launches = rounds x depth; an 8-trial
    TPE search on the v92d matrix at 100 rounds a trial (each trial's
    seconds, rounds and K1 launches), then depth 8 at 100 rounds with and
    without subtraction (K1 at 64 and 128 nodes, rounds x depth
@@ -251,7 +254,7 @@ Phases, each printing its wall time on its own line:
    this process, its v92d forests bit for bit the training phase's, K1's
    external-scale entry launched rounds x depth times and the float32
    entry never; (b) two gloo ranks both on this card (collectives through
-   pinned host memory): the v92d CV at 50 rounds and a v114d leaf-wise CV
+   pinned host memory): the v92d CV at 25 rounds and a v114d leaf-wise CV
    at 10 against their single-device fits (features and split bins equal,
    leaf values within rtol 2e-4 / atol 2e-5, eval history within rtol
    1e-4, best iterations equal; whether every forest is also bit for bit
@@ -268,7 +271,7 @@ Phases, each printing its wall time on its own line:
    histories bit for bit that phase's, OOF F1 >= 0.633, the mode's
    external-scale entry launched rounds x depth times, the prep kernel
    once a tree and no float32 histogram kernel; (f) on the two gloo ranks
-   of (b), the v92d CV at 15 rounds in each mode, bit for bit its
+   of (b), the v92d CV at 10 rounds in each mode, bit for bit its
    single-device fit, each rank's launches (the prep kernel's once a tree)
    and integer bytes all-reduced per round; (g) a depth-8 CV
    without subtraction (10 rounds) on the world-size-1 NCCL mesh, its
@@ -383,8 +386,8 @@ POLICY_HIST_SHAPES = (("symmetric", 5, 224, 2444, (1, 1, 2, 4, 8)),
                       ("multiclass", 20, 224, 2444, (1, 1, 2, 4, 8)))
 POLICY_SEG_SHAPE = ("v110_pair", 5, 224, 2444, 2)
 # the leaf-wise v110 CV and its DART twin v111 run this many of their 600
-# rounds (cut to pay for the mesh phase's histogram modes)
-POLICY_LG_ROUNDS = 300
+# rounds (cut to keep the script within its watchdog)
+POLICY_LG_ROUNDS = 150
 # K1 at depth 8, the top of HPO's space, on the v92d matrix: the last
 # level's 64 nodes (subtraction) and 128 (none), wider than one CTA holds
 # (the wide path)
@@ -415,6 +418,11 @@ F1_GATE = 0.633
 # (tools/probe_kaggle_scale.json: ensemble 0.6743, v114d 0.6781) less the
 # same fold-F1 std
 ENSEMBLE_F1_GATE, V114D_F1_GATE = 0.637, 0.641
+# the ungated runners' rounds (v102, v108, v97, v42, v106, v93, v115:
+# 300-600 at their references' parameters) and the baseline's leaf-wise
+# CV's (500, early stopped near 230), cut to keep the script within its
+# watchdog; the gated v34a and v104 run theirs in full
+RUNNER_ROUNDS, RUNNER_LG_ROUNDS = 200, 50
 # the runners' gates: v34a, the reference's own v34a OOF F1 (0.6667,
 # BASELINE.md:20) less the same std; the seed ensemble, v92d's model
 # averaged over 10 fold seeds, takes v92d's gate
@@ -451,6 +459,10 @@ MODE_SUMS = {
                hist_cuda.build_histograms_bf16_i64_fixed, 6,
                "mallorn_tpu/ops/hist_pallas.py:202"),
 }
+# the design the kernels line names for K4's rows
+K4_DESIGN = ("mode_hist_kernel<false, .>: each cell's six int64 fixed-point digit sums as "
+             "12 planes of 32-bit words, added by add_fixed<6> with native 32-bit shared "
+             "atomics and carries (no int64 compare-and-swap)")
 # their shapes: the v92d CV's deepest level and the multiclass v62 head's
 # (5 folds x 4 classes as 20 lanes, 224 columns) at 8 nodes
 MODE_SUM_SHAPES = (("v92d", 5, 222, 2444, 8), ("multiclass", 20, 224, 2444, 8))
@@ -459,16 +471,20 @@ MODE_SUM_SHAPES = (("v92d", 5, 222, 2444, 8), ("multiclass", 20, 224, 2444, 8))
 # (50) at the padded fold rows; the first is its rows' shape
 DIGIT_PREP_SHAPES = ((5, 2444), (25, 2444), (50, 2444))
 # the "bins" phase: every histogram kernel beyond 256 bins, where a CTA
-# holds a window of a node's bins (K1's wide path, K4, K5) or of a call's
-# segments (K3): (kernel, K, F, N, nodes, bins a node; K3 a pair of nodes);
-# the first shape of each kernel is its row's. K4 / K5 at the v92d CV's
-# deepest level with 1,024 bins (fewer nodes a CTA, one window) and at one
-# and two nodes of 8,193 and 32,768 bins (windows)
+# holds a window of a node's bins (K4, K5) or of a call's segments (K3), or
+# a node of its own (K1's wide path, the per-node kernel): (kernel, K, F, N,
+# nodes, bins a node; K3 a pair of nodes), and for K1 a crowded level,
+# whose node 0 holds all but 400 of a fold's rows (more than the per-node
+# kernel's slots: its bins in windows inside the CTA); the first shape of
+# each kernel is its row's. K4 / K5 at the v92d CV's deepest level with
+# 1,024 bins (fewer nodes a CTA, one window) and at one and two nodes of
+# 8,193 and 32,768 bins (windows)
 BINS_SHAPES = (("K4", 5, 16, 2444, 1, 8193), ("K4", 5, 222, 2444, 8, 1025),
                ("K4", 5, 16, 2444, 2, 32768),
                ("K5", 5, 16, 2444, 1, 8193), ("K5", 5, 222, 2444, 8, 1025),
                ("K5", 5, 16, 2444, 2, 32768),
-               ("K1", 5, 16, 2444, 32, 16385), ("K3", 5, 16, 2444, 2, 8193))
+               ("K1", 5, 16, 2444, 32, 16385), ("K1", 5, 16, 8143, 2, 16385, True),
+               ("K3", 5, 16, 2444, 2, 8193))
 
 
 def log(msg: str) -> None:
@@ -1636,16 +1652,19 @@ def bins_kernel(kernel: str, k_nodes: int, nbt: int):
                 hist_cuda.digit_maxabs, ("bf16_launches", "bf16_i64_launches"), windows,
                 (8, 48), (6, 6), "mallorn_tpu/ops/hist_pallas.py:202")
     if kernel == "K1":
+        # the wide path's per-node kernel: a CTA a node, no windows on the
+        # grid (a crowded node's windows are inside its CTA)
         lv = (k_nodes, nbt)
-        if hist_cuda.hist_plan(k_nodes, nbt)[3] != 0:
-            raise AssertionError(f"K1 at {k_nodes} x {nbt}: hist_plan did not pick the wide path")
+        if (hist_cuda.hist_plan(k_nodes, nbt)[3] != 0
+                or nbt <= hist_cuda.WIDE_NODE_FROM_BINS):
+            raise AssertionError(f"K1 at {k_nodes} x {nbt}: hist_plan did not pick the wide "
+                                 f"path's per-node kernel")
         return (lambda b, i, g: hist_cuda.build_histograms(b, i, g, *lv),
                 lambda b, i, g: hist_cuda.build_histograms_fixed(b, i, g, *lv),
                 lambda b, i, g, m: hist_cuda.build_histograms_i64(b, i, g, *lv, m, g.shape[1]),
                 lambda b, i, g, m: hist_cuda.build_histograms_i64_fixed(b, i, g, *lv, m,
                                                                         g.shape[1]),
-                hist_cuda.lane_maxabs, ("launches", "i64_launches"),
-                hist_cuda.wide_windows(nbt)[0], (8, 16), (2, 2),
+                hist_cuda.lane_maxabs, ("launches", "i64_launches"), 1, (8, 16), (2, 2),
                 "mallorn_tpu/ops/hist_pallas.py:508")
     n_seg = 2 * nbt  # K3: ids are segment bases (node x nbt)
     return (lambda b, i, g: hist_cuda.build_seg_histograms(b, i * nbt, g, n_seg),
@@ -1659,15 +1678,24 @@ def bins_kernel(kernel: str, k_nodes: int, nbt: int):
             "mallorn_tpu/ops/hist_pallas.py:42")
 
 
-def check_bins(kernel: str, K: int, F: int, N: int, k_nodes: int, nbt: int, seed: int) -> dict:
+def check_bins(kernel: str, K: int, F: int, N: int, k_nodes: int, nbt: int, crowded=False, *,
+               seed: int) -> dict:
     """One kernel at a bin count beyond 256 (``bins_kernel``), in both
     entries: each launched twice, bit for bit equal and bit for bit its
     plain twin, its windows a call counted in ``hist_cuda.windows_by_call``
-    as its plan says; times (the wrapper, the twin, one ``scatter_add_``
-    yardstick, the bound) of each entry."""
+    as its plan says (K1: its calls on the per-node kernel in
+    ``node_launches``); times (the wrapper, the twin, one ``scatter_add_``
+    yardstick, the bound) of each entry. ``crowded``: node 0 holds all but
+    400 of a fold's rows."""
     (entry, twin, ext, ext_twin, scale_of, counters, windows, cell_bytes, adds,
      replaces) = bins_kernel(kernel, k_nodes, nbt)
     binned, node_q, gh = bins_inputs(K, F, N, k_nodes, nbt, seed)  # K3: k_nodes = 2, a pair
+    if crowded:
+        node_q[:, :N - 400] = 0
+        most = int(max(torch.bincount(q[(q >= 0) & (q < k_nodes)].long()).max() for q in node_q))
+        if most <= hist_cuda.WIDE_NODE_SLOTS:
+            raise AssertionError(f"the crowded level's node holds {most} rows, within the "
+                                 f"per-node kernel's {hist_cuda.WIDE_NODE_SLOTS} slots")
     m = scale_of(gh)
     hist_cuda.reset_launches()
     a, b = entry(binned, node_q, gh), entry(binned, node_q, gh)
@@ -1675,15 +1703,18 @@ def check_bins(kernel: str, K: int, F: int, N: int, k_nodes: int, nbt: int, seed
     torch.cuda.synchronize()
     seen = dict(hist_cuda.windows_by_call)
     want_seen = {c: {windows: 2} for c in counters} if windows > 1 else {}
+    node_calls = hist_cuda.node_launches
     t32 = twin(binned, node_q, gh)
     twin_equal = bits_equal(a, t32)
     ext_equal = torch.equal(e1, ext_twin(binned, node_q, gh, m))
     repeat = bits_equal(a, b) and torch.equal(e1, e2)
-    tag = f"{kernel} K={K} F={F} N={N} nodes={k_nodes} bins={nbt}"
-    log(f"  {tag}: {windows} window(s) a call (counted {seen}); float32 entry bit for bit its "
-        f"twin {twin_equal}, external entry bit for bit its twin {ext_equal}; two launches of "
-        f"each bit for bit equal {repeat}")
-    if not (twin_equal and ext_equal and repeat and seen == want_seen):
+    tag = (f"{kernel} K={K} F={F} N={N} nodes={k_nodes} bins={nbt}"
+           + (" crowded" if crowded else ""))
+    log(f"  {tag}: {windows} window(s) a call (counted {seen}; per-node kernel calls "
+        f"{node_calls}); float32 entry bit for bit its twin {twin_equal}, external entry bit "
+        f"for bit its twin {ext_equal}; two launches of each bit for bit equal {repeat}")
+    if not (twin_equal and ext_equal and repeat and seen == want_seen
+            and node_calls == (4 if kernel == "K1" else 0)):
         raise AssertionError(f"{tag} failed its checks")
     # the yardsticks: the zeroed output and one scatter_add_ into every
     # (lane, feature, node, bin) cell (the kernels write every cell of it):
@@ -1706,6 +1737,7 @@ def check_bins(kernel: str, K: int, F: int, N: int, k_nodes: int, nbt: int, seed
     C = ints.shape[2]
     ivals = ints[:, None].expand(K, F, N, C).reshape(-1, C)
     res = {"kernel": kernel, "K": K, "F": F, "N": N, "nodes": k_nodes, "bins": nbt,
+           "crowded": crowded,
            "windows": windows, "max_abs_err": float((a - t32).abs().nan_to_num().max()),
            "replaces": replaces, "counters": counters,
            "library_ms": cuda_ms(lambda: torch.zeros(n_cells + 1, 2, device="cuda").scatter_add_(
@@ -1764,7 +1796,8 @@ def bins_mesh_fits(mesh, X, y, spw, fits):
     hist_cuda.reset_launches()
     models = [train_gbdt_sharded(mesh, X, y, p, scale_pos_weight=spw) for _, p, _, _ in fits]
     torch.cuda.synchronize()
-    return [m.forest for m in models], dict(hist_cuda.windows_by_call)
+    return ([m.forest for m in models], dict(hist_cuda.windows_by_call),
+            hist_cuda.node_launches)
 
 
 def run_bins(dev) -> dict:
@@ -1775,10 +1808,10 @@ def run_bins(dev) -> dict:
     "i8bf16" (K4), the two modes again at 8,192 bins (K4 and K5 in
     windows), a leaf-wise fit at 8,192 (31 leaves, 10 rounds; K3 in
     windows) and a depthwise fit at 16,384 (depth 7, 5 rounds: every level
-    through K1's wide path in windows, up to 32 nodes built); each forest
-    bit for bit the one its kernel's plain twin builds. Then the 16,384-,
-    8,192-bin fits on a world-size-1 NCCL mesh (the external-scale entries
-    in windows), bit for bit the single-device forests."""
+    through K1's per-node kernel, up to 32 nodes built); each forest bit for
+    bit the one its kernel's plain twin builds. Then the 16,384-, 8,192-bin
+    fits on a world-size-1 NCCL mesh (the external-scale entries in windows
+    and on the per-node kernel), bit for bit the single-device forests."""
     from mallorn_tpu_torch.parallel.mesh import launch
 
     checks = [check_bins(*shape, seed=12000 + i) for i, shape in enumerate(BINS_SHAPES)]
@@ -1811,7 +1844,7 @@ def run_bins(dev) -> dict:
     fit_s = time.perf_counter() - t0
     counts = {c: getattr(hist_cuda, c) for c in ("launches", "prep_launches", "seg_launches",
                                                    "bf16_launches", "i8_launches",
-                                                   "digit_prep_launches")}
+                                                   "digit_prep_launches", "node_launches")}
     windowed = {c: sum(w.values()) for c, w in hist_cuda.windows_by_call.items()}
     log(f"  the main path at 1,024-16,384 bins: {len(fits)} fits in {fit_s:.3f} s; launches "
         f"{counts}; calls in windows {dict(hist_cuda.windows_by_call)}")
@@ -1827,31 +1860,34 @@ def run_bins(dev) -> dict:
                                  f"disagree")
     # rounds x depth for the depthwise fits, 31 per leaf-wise round, the
     # modes' digits once a tree (round); every windowed kernel launched in
-    # windows on this path
+    # windows on this path, and every level of the 16,384-bin fit on K1's
+    # per-node kernel
     want = {"launches": 5 * 7 + 20 * 5, "bf16_launches": 5 * 3 + 20 * 5,
             "i8_launches": 5 * 3 + 20 * 5, "seg_launches": 31 * 10, "prep_launches": 5 * 7,
-            "digit_prep_launches": 2 * (5 + 20)}
-    want_windowed = {"launches": 5 * 7, "bf16_launches": 5 * 3, "i8_launches": 5 * 3,
-                     "seg_launches": 30 * 10}
+            "digit_prep_launches": 2 * (5 + 20), "node_launches": 5 * 7}
+    want_windowed = {"bf16_launches": 5 * 3, "i8_launches": 5 * 3, "seg_launches": 30 * 10}
     if counts != want or windowed != want_windowed:
         raise AssertionError(f"the bins fits launched {counts} ({windowed} in windows), "
                              f"expected {want} ({want_windowed})")
     # the external-scale entries in windows: the first four fits on one rank
     t0 = time.perf_counter()
-    mesh_forests, mesh_windows = launch(bins_mesh_fits, 1, (X, y, spw, fits[:4]), device=dev,
-                                        spawn=False)
+    mesh_forests, mesh_windows, mesh_nodes = launch(bins_mesh_fits, 1, (X, y, spw, fits[:4]),
+                                                    device=dev, spawn=False)
     mesh_s = time.perf_counter() - t0
     same = [forests_bits_equal(a, type(b)(*[t.to(dev) for t in b]))
             for a, b in zip(forests, mesh_forests)]
     mesh_windowed = {c: sum(w.values()) for c, w in mesh_windows.items()}
     log(f"  world-size-1 NCCL mesh, the first four fits: {mesh_s:.3f} s; bit for bit the "
-        f"single-device forests {same}; external-scale calls in windows {mesh_windows}")
-    want_mesh = {"i64_launches": 5 * 7, "i8_sums_launches": 5 * 3, "bf16_i64_launches": 5 * 3,
+        f"single-device forests {same}; external-scale calls in windows {mesh_windows}, on "
+        f"K1's per-node kernel {mesh_nodes}")
+    want_mesh = {"i8_sums_launches": 5 * 3, "bf16_i64_launches": 5 * 3,
                  "seg_i64_launches": 30 * 10}
-    if not all(same) or mesh_windowed != want_mesh:
+    if not all(same) or mesh_windowed != want_mesh or mesh_nodes != 5 * 7:
         raise AssertionError(f"the mesh's bins fits: bit for bit {same}, calls in windows "
-                             f"{mesh_windowed}, expected {want_mesh}")
+                             f"{mesh_windowed} (expected {want_mesh}), on K1's per-node "
+                             f"kernel {mesh_nodes} (expected {5 * 7})")
     return {"checks": checks, "windowed": windowed, "mesh_windowed": mesh_windowed,
+            "nodes": counts["node_launches"], "mesh_nodes": mesh_nodes,
             "fit_s": fit_s, "mesh_s": mesh_s}
 
 
@@ -2235,6 +2271,7 @@ def run_runners(trained: dict, ensemble: dict, dev) -> dict:
     res_tr, res_te = ensemble["research"]
     d5, d6 = V34A_PARAMS.max_depth, SOFT_LABEL_PARAMS.max_depth
     L = BASELINE_LGBM_PARAMS.max_leaves
+    soft = SOFT_LABEL_PARAMS._replace(n_rounds=RUNNER_ROUNDS)
 
     def cv_run(cv, depth, lanes=5):
         """(OOF probabilities or margins, test ones, OOF F1, threshold, the
@@ -2245,7 +2282,9 @@ def run_runners(trained: dict, ensemble: dict, dev) -> dict:
             depth * sum(rounds), 0
 
     def baseline():
-        r = run_baseline(tr_packed, tr_meta, te_packed, te_meta, device=dev)
+        r = run_baseline(tr_packed, tr_meta, te_packed, te_meta,
+                         lgbm_params=BASELINE_LGBM_PARAMS._replace(n_rounds=RUNNER_LG_ROUNDS),
+                         device=dev)
         rd, rl = r.cv.rounds_run, r.lgbm_cv.rounds_run
         log(f"  baseline: {len(r.feature_names)} columns; depthwise OOF F1 {r.oof_f1:.4f}, "
             f"leaf-wise OOF F1 {r.lgbm_cv.best_f1:.4f}; the TEST F1 below is the 50/50 "
@@ -2263,11 +2302,12 @@ def run_runners(trained: dict, ensemble: dict, dev) -> dict:
 
     def v115():
         r = run_v115(X224, y, names224, res_tr, X224_te, res_te, adv=out.adversarial,
-                     device=dev)
+                     params=V34A_PARAMS._replace(n_rounds=RUNNER_ROUNDS), device=dev)
         return cv_run(r.winner, d5)
 
     def v42():
-        cv = run_pseudo_label(X, y, X_te, win.test_preds, sample_weight=w, device=dev)
+        cv = run_pseudo_label(X, y, X_te, win.test_preds, sample_weight=w, device=dev,
+                              params=V34A_PARAMS._replace(n_rounds=RUNNER_ROUNDS))
         log(f"  v42: {len(cv.oof_preds) - len(y)} pseudo-labelled test rows joined training")
         return (cv.oof_preds[:len(y)],) + cv_run(cv, d5)[1:]
 
@@ -2277,16 +2317,18 @@ def run_runners(trained: dict, ensemble: dict, dev) -> dict:
                                         bundles=out.bundles, selected=out.selection.selected,
                                         device=dev).cv, d5),
         "v102": lambda: cv_run(run_label_smoothing(X, y, X_te, epsilon=0.05, sample_weight=w,
-                                                   device=dev), d6),
+                                                   params=soft, device=dev), d6),
         "v108": lambda: cv_run(run_distillation(X, y, win.oof_preds, X_te, sample_weight=w,
-                                                device=dev), d6),
+                                                params=soft, device=dev), d6),
         "v97": lambda: cv_run(run_soft_pseudo(X, y, X_te, win.test_preds, sample_weight=w,
-                                              device=dev), d6),
+                                              params=soft, device=dev), d6),
         "v42": v42,
-        "v106": lambda: cv_run(run_mixup(X, y, X_te, sample_weight=w, device=dev), d6),
+        "v106": lambda: cv_run(run_mixup(X, y, X_te, sample_weight=w, params=soft, device=dev),
+                               d6),
         "v104": v104,
-        "v93": lambda: cv_run(run_easy_ensemble(X, y, X_te, sample_weight=w, device=dev), d5,
-                              lanes=10),
+        "v93": lambda: cv_run(run_easy_ensemble(X, y, X_te, sample_weight=w, device=dev,
+                                                params=V34A_PARAMS._replace(
+                                                    n_rounds=RUNNER_ROUNDS)), d5, lanes=10),
         "v115": v115,
     }
     rows, k1_all, k3_all = {}, 0, 0
@@ -2469,10 +2511,10 @@ FIT_COST_COLUMNS = {"tde_models": [f"{b}_tde_fit_chi2" for b in LSST_BANDS],
                                          for e in advanced_physics.TEMP_EPOCHS]}
 # HPO: TPE over DEFAULT_SPACE on the v92d matrix, then depth 8
 # HPO's trials and the depth-8 CVs at 100 rounds, the backbone-plus-family
-# experiments at 250 of V34A_PARAMS' 500 (cut to pay for the mesh phase's
-# histogram modes)
+# experiments at 150 of V34A_PARAMS' 500 (cut to keep the script within
+# its watchdog)
 HPO_TRIALS, HPO_STARTUP, HPO_ROUNDS, HPO_SEED = 8, 4, 100, 19
-FAMILY_ROUNDS = 250
+FAMILY_ROUNDS = 150
 DEPTH8_ROUNDS = 10  # the depth-8 single fits held against K1's fixed-point twin
 
 
@@ -3332,10 +3374,10 @@ def run_cli(trained: dict, dev, work: Path) -> dict:
 # the mesh phase: the two-rank v92d CV's rounds (training's 500 cut to
 # this), the leaf-wise v114d CV's, and the sharded extraction's chunks
 # (the single-device bundle's, so that each chunk's GP width is the same)
-MESH_ROUNDS, MESH_LG_ROUNDS, MESH_CHUNK = 50, 10, 2048
+MESH_ROUNDS, MESH_LG_ROUNDS, MESH_CHUNK = 25, 10, 2048
 # the histogram modes' v92d CVs on the two gloo ranks: each round
 # all-reduces 2x (K5) and 3x (K4) K1's int64 bytes through pinned host memory
-MESH_MODE_ROUNDS = 15
+MESH_MODE_ROUNDS = 10
 # (g): a depth-8 CV without subtraction (every level built: 64 and 128
 # nodes through K1's wide path) on the world-size-1 NCCL mesh, this many
 # rounds; min_child_weight 1e-3 lets its trees reach the last level
@@ -4117,6 +4159,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": [r["K"], r["F"], r["N"], r["nodes"]],
         })
+        if mode == "i8bf16":
+            kernels[-1]["design"] = K4_DESIGN
     # the histogram modes' external-scale entries (the mesh's K5 / K4): the
     # v92d CV's deepest level, launches from the mesh phase ((e)'s world size
     # 1 plus (f)'s every rank), the multiclass shape beside it; max_abs_err
@@ -4141,6 +4185,8 @@ def main() -> int:
                                           "plain_ms", "bound_ms", "bound_by", "library_ms")}
                        for q in (r, rm)],
         })
+        if mode == "i8bf16":
+            kernels[-1]["design"] = K4_DESIGN
     # K4 / K5's prep kernel, one instantiation each: its launches once a
     # tree in the histogram modes' training run, the v92d CV's 5 lanes;
     # every prep shape's numbers beside it
@@ -4167,20 +4213,24 @@ def main() -> int:
     # first BINS_SHAPES shape, the float32 entry with the bins fits' calls in
     # windows, the external-scale entry with the mesh fits'; every shape's
     # numbers beside it
-    bins_keys = ("K", "F", "N", "nodes", "bins", "windows", "ms", "plain_ms", "bound_ms",
-                 "bound_by", "i64_ms", "i64_plain_ms", "i64_bound_ms", "i64_bound_by",
-                 "library_ms", "i64_library_ms", "level_ms", "launch_ms", "i64_level_ms",
-                 "i64_launch_ms")
+    bins_keys = ("K", "F", "N", "nodes", "bins", "crowded", "windows", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "i64_ms", "i64_plain_ms", "i64_bound_ms",
+                 "i64_bound_by", "library_ms", "i64_library_ms", "level_ms", "launch_ms",
+                 "i64_level_ms", "i64_launch_ms")
+    # (K1: its calls on the per-node kernel, which takes no windows on the
+    # grid)
     for kernel, names in (("K4", ("hist_bf16_bins", "hist_bf16_i64_bins")),
                           ("K5", ("hist_i8_bins", "hist_i8_sums_bins")),
-                          ("K1", ("hist_wide_bins", "hist_wide_i64_bins")),
+                          ("K1", ("hist_wide_node_bins", "hist_wide_node_i64_bins")),
                           ("K3", ("seg_hist_bins", "seg_hist_i64_bins"))):
         rs = [r for r in bins["checks"] if r["kernel"] == kernel]
         r = rs[0]
+        calls = ((bins["nodes"], bins["mesh_nodes"]) if kernel == "K1" else
+                 (bins["windowed"].get(r["counters"][0], 0),
+                  bins["mesh_windowed"].get(r["counters"][1], 0)))
         for name, key, counter, n_launches in (
-                (names[0], "", r["counters"][0], bins["windowed"].get(r["counters"][0], 0)),
-                (names[1], "i64_", r["counters"][1],
-                 bins["mesh_windowed"].get(r["counters"][1], 0))):
+                (names[0], "", r["counters"][0], calls[0]),
+                (names[1], "i64_", r["counters"][1], calls[1])):
             # ms: the call a fit makes (K4 / K5: the level on the tree's
             # prepared digits; their (g, h) entry's time is gh_entry_ms)
             row = {
@@ -4193,8 +4243,16 @@ def main() -> int:
                 "shape": [r["K"], r["F"], r["N"], r["nodes"], r["bins"]],
                 "windows": r["windows"], "counter": counter,
                 "shapes": [{k: q[k] for k in bins_keys if k in q} for q in rs]}
+            if kernel == "K1":
+                row["design"] = ("node_hist_kernel: a CTA a (fold, feature, node), a table of "
+                                 "the node's occupied bins (bitmap, ranks, one slot a bin), "
+                                 "the node's run of out streamed; a node of more rows than "
+                                 f"{hist_cuda.WIDE_NODE_SLOTS} slots in windows of bins in "
+                                 "its CTA")
             if f"{key}launch_ms" in r:
                 row.update(launch_ms=r[f"{key}launch_ms"], gh_entry_ms=r[f"{key}ms"])
+            if kernel == "K4":
+                row["design"] = K4_DESIGN
             kernels.append(row)
     # the factor-only Cholesky's rows: the blocked kernel at the GP's batch
     # and T = 160, the cluster kernel at B = 64, T = 400, the tiled kernel at

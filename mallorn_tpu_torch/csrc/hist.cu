@@ -169,49 +169,6 @@ __device__ __forceinline__ void for_each_row(const int16_t* __restrict__ bins,
   }
 }
 
-// The fixed-point histogram of K4: zeroes the [n_seg, C] int64 histogram
-// in shared memory, gives channel c the scale S_c = 2^(62 - log2n - e)
-// with maxabs[c] < 2^e, and adds round(x_c * S_c) of each active row's C
-// values (load(r, x)) with integer atomics. Returns whether every maxabs
-// is finite (if not, nothing is added and every cell is NaN) and sets
-// inv[c] = 1 / S_c (exact: S_c is a power of 2); the sums are in smem
-// after its closing __syncthreads.
-template <int C, int kBlock, typename Load>
-__device__ __forceinline__ bool accumulate_fixed(uint4* smem, const float* __restrict__ maxabs,
-                                                 int log2n, const int16_t* __restrict__ bins,
-                                                 const int32_t* __restrict__ ids, int N, int id0,
-                                                 int id_scale, int bin0, int n_bins, int n_seg,
-                                                 Load load, double (&inv)[C]) {
-  static_assert(C % 2 == 0, "the histogram is zeroed as whole uint4s");
-  unsigned long long* acc = reinterpret_cast<unsigned long long*>(smem);
-  for (int i = threadIdx.x; i < n_seg * C / 2; i += kBlock) smem[i] = make_uint4(0u, 0u, 0u, 0u);
-
-  bool finite = true;
-  double sc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float m = maxabs[c];
-    finite = finite && isfinite(m);
-    sc[c] = fixed_scale(m, log2n);
-    inv[c] = 1.0 / sc[c];
-  }
-  __syncthreads();
-
-  if (finite) {
-    for_each_row<kBlock>(bins, ids, N, id0, id_scale, bin0, n_bins, n_seg, [&](int s, int r) {
-      float x[C];
-      load(r, x);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const long long q = __double2ll_rn(__dmul_rn(static_cast<double>(x[c]), sc[c]));
-        if (q) atomicAdd(acc + s * C + c, static_cast<unsigned long long>(q));
-      }
-    });
-  }
-  __syncthreads();
-  return finite;
-}
-
 // one int64 fixed-point sum, converted once: sum / S to float32
 __device__ __forceinline__ float from_fixed(unsigned long long a, double inv) {
   return __double2float_rn(__dmul_rn(__ll2double_rn(static_cast<long long>(a)), inv));
@@ -283,25 +240,44 @@ __device__ __forceinline__ void stage_rows(char* dst, const T* src, int n, int r
   }
 }
 
-// Adds (q_g, q_h) to cell c's two int64 sums, each kept as a low and a
-// high 32-bit word in the planes of words, with native shared-memory
-// atomics (an int64 atomicAdd on shared memory is a compare-and-swap
-// loop): a low word's old value gives its carry, which the high word takes
-// with q's high word. Both low words are added before either old value is
-// read, so that the two round trips overlap. Every wrap of a low word is
-// counted once, so each sum ends at the exact int64 sum, mod 2^64, in any
-// order.
+// Adds q[0..C) to cell c's C int64 sums, each kept as a low and a high
+// 32-bit word in planes of words (channel j's low words in plane 2 j, its
+// high words in plane 2 j + 1, each plane `plane` words), with native
+// shared-memory atomics (an int64 atomicAdd on shared memory is a
+// compare-and-swap loop): a low word's old value gives its carry, which the
+// high word takes with q's high word. Every low word is added before any
+// old value is read, so that the C round trips overlap. Every wrap of a low
+// word is counted once, so each sum ends at the exact int64 sum, mod 2^64,
+// in any order. K1 and K3 take C = 2 (g, h), K4 C = 6 (three digits each).
+template <int C>
+__device__ __forceinline__ void add_fixed(unsigned* words, int plane, int c,
+                                          const long long (&q)[C]) {
+  unsigned old[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const unsigned lo = static_cast<unsigned>(q[j]);
+    old[j] = lo ? atomicAdd(words + 2 * j * plane + c, lo) : 0u;
+  }
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const unsigned lo = static_cast<unsigned>(q[j]);
+    // old + lo wrapped: carry 1 into the high word
+    const unsigned hi = static_cast<unsigned>(static_cast<unsigned long long>(q[j]) >> 32) +
+                        (old[j] > ~lo ? 1u : 0u);
+    if (hi) atomicAdd(words + (2 * j + 1) * plane + c, hi);
+  }
+}
+
 __device__ __forceinline__ void add_fixed(unsigned* words, int plane, int c, longlong2 q) {
-  const unsigned long long ug = static_cast<unsigned long long>(q.x);
-  const unsigned long long uh = static_cast<unsigned long long>(q.y);
-  const unsigned lg = static_cast<unsigned>(ug), lh = static_cast<unsigned>(uh);
-  const unsigned og = lg ? atomicAdd(words + c, lg) : 0u;
-  const unsigned oh = lh ? atomicAdd(words + 2 * plane + c, lh) : 0u;
-  // old + lo wrapped: carry 1 into the high word
-  const unsigned hg = static_cast<unsigned>(ug >> 32) + (og > ~lg ? 1u : 0u);
-  const unsigned hh = static_cast<unsigned>(uh >> 32) + (oh > ~lh ? 1u : 0u);
-  if (hg) atomicAdd(words + plane + c, hg);
-  if (hh) atomicAdd(words + 3 * plane + c, hh);
+  const long long v[2] = {q.x, q.y};
+  add_fixed<2>(words, plane, c, v);
+}
+
+// channel j's int64 sum of cell c in add_fixed's planes
+__device__ __forceinline__ long long fixed_sum(const unsigned* words, int plane, int c, int j) {
+  return static_cast<long long>(
+      static_cast<unsigned long long>(words[(2 * j + 1) * plane + c]) << 32 |
+      words[2 * j * plane + c]);
 }
 
 // One CTA per (fold k, features f0 .. f0 + group - 1, window of segments)
@@ -639,17 +615,45 @@ int launch_group(const int16_t* binned, const int32_t* ids, const float* gh, voi
 //   and writes 16-byte streaming stores (st.global.cs): the output is
 //   larger than L2 and is read next by another kernel.
 // G and the nodes per chunk come from hist_cuda.wide_plan (WIDE_LAYOUTS,
-// from tools/time_hist.py --layouts). A node of more bins than a CTA holds
-// for one feature (14,528) is a chunk of its own, its bins split into
-// equal windows (hist_cuda.wide_windows), each a CTA on the grid's z axis
-// (chunk n_windows + window) that walks its chunk's list and adds the
-// entries whose bin lies in its window.
+// from tools/time_hist.py --layouts).
+//
+// A node of more bins than two fit a CTA (kWideNodeFromBins, 7,264) is a
+// chunk of its own and takes node_hist_kernel<kExternal> instead, one CTA
+// per (fold, feature, node). Such a node's histogram is almost all empty
+// (2,444 rows of a fold over 32 nodes of 16,385 bins fill <0.5% of its
+// cells), and the chunk kernel's shared memory grew with its bins: 131 KB
+// a CTA at 16,385 bins (two windows of 8,193 on the grid's z axis), one
+// CTA per SM, which zeroed its histogram, walked ~76 entries and converted
+// 8,193 cells one after the other, slower than zeros + one scatter_add_.
+// The per-node kernel's shared memory grows with the node's entries:
+// - where the node holds at most `slots` entries (hist_cuda.WIDE_NODE_SLOTS,
+//   timed by tools/time_hist.py), it marks each entry's bin in a bitmap of
+//   the node's bins (4 B a 32 bins), ranks the bitmap's words (an
+//   exclusive scan of their popcounts), so that occupied bin b has slot
+//   prefix[b / 32] + popc(the word's bits below b) (slots in bin order),
+//   adds each entry's q into its slot's words with add_fixed, and then
+//   streams the node's whole run of out with 16-byte streaming stores:
+//   zeros (or NaN / raw zeros as below) where a bin is not marked, the
+//   converted sums (or the raw int64 sums) where it is;
+// - a node of more entries (a shallow level's) takes its bins in windows of
+//   at most `slots` bins inside the CTA (hist_cuda.wide_windows): a window's
+//   slots are its bins, zeroed, every entry in the window added, the window
+//   written, then the next (each window walks every entry again: a crowded
+//   node costs a few times its table's time).
+// With 5,952 slots a CTA takes at most 115,328 B (32,768 bins), so two
+// share an SM at any bin count and one CTA's stores overlap the other's
+// walk (with five an SM, at 2,048 slots, the external entry's stores ran
+// 7% slower; with one, at 8,192, the float32 entry's 23-26%); a node of up
+// to MAX_NODE_BINS (32,768) bins needs no windows on the grid.
 
 constexpr int kPrepThreads = 1024;
 constexpr int kPrepWarps = kPrepThreads / 32;
 constexpr int kWideMaxChunks = 1024;  // chunks of nodes per level at most
 constexpr int kWideThreads = 256;
 constexpr int kWideMaxGroup = 4;
+// a node of more bins takes node_hist_kernel: two such nodes' histograms
+// (16 B a bin) exceed one CTA (hist_cuda.WIDE_NODE_FROM_BINS)
+constexpr int kWideNodeFromBins = 7264;
 
 // the prep kernel's shared memory: each chunk's cursor and each warp's
 // position in it
@@ -789,12 +793,40 @@ size_t wide_smem_bytes(int chunk_nodes, int n_bins, int group) {
   return 16 * static_cast<size_t>(group) * chunk_nodes * n_bins;
 }
 
-// One CTA per (fold k, features f0 .. f0 + group - 1, chunk of nodes and
-// window of bins) = (blockIdx.y, blockIdx.x, blockIdx.z = chunk n_windows
-// + window): the chunk's nodes [node0, node0 + chunk_nodes) of k_nodes,
-// its rows the prep's list, of which it adds only those whose bin lies in
-// its window [bin0, bin0 + window_bins) (n_windows > 1 only with one node
-// per chunk, so that the CTA's cells are one run of out). maxabs [K, 2] and
+// The row's sums of chunk cell c, converted once (float32; NaN where the
+// lane is not finite), for the epilogues below
+struct FixedCells {
+  const unsigned* words;
+  int plane;
+  bool finite;
+  double inv_g, inv_h;  // 1 / S, exact
+  __device__ float2 operator()(int c) const {
+    if (!finite) return make_float2(__int_as_float(0x7fc00000), __int_as_float(0x7fc00000));
+    return make_float2(
+        from_fixed(static_cast<unsigned long long>(fixed_sum(words, plane, c, 0)), inv_g),
+        from_fixed(static_cast<unsigned long long>(fixed_sum(words, plane, c, 1)), inv_h));
+  }
+};
+
+// Writes n cells of float32 (g, h), cell(i) for cell i, to the run at o
+// (8-byte aligned) with 16-byte streaming stores, two cells a store
+template <typename Cell>
+__device__ __forceinline__ void store_run(float* o, int n, const Cell& cell) {
+  const int head = (reinterpret_cast<uintptr_t>(o) & 15) ? 1 : 0;
+  const int n_pairs = (n - head) >> 1;
+  for (int p = threadIdx.x; p < n_pairs; p += kWideThreads) {
+    const int s = head + 2 * p;
+    const float2 x = cell(s), y = cell(s + 1);
+    __stcs(reinterpret_cast<float4*>(o + 2 * s), make_float4(x.x, x.y, y.x, y.y));
+  }
+  if (threadIdx.x == 0 && head) __stcs(reinterpret_cast<float2*>(o), cell(0));
+  if (threadIdx.x == kWideThreads - 1 && n > head && ((n - head) & 1))
+    __stcs(reinterpret_cast<float2*>(o + 2 * (n - 1)), cell(n - 1));
+}
+
+// One CTA per (fold k, features f0 .. f0 + group - 1, chunk of nodes) =
+// (blockIdx.y, blockIdx.x, blockIdx.z): the chunk's nodes [node0, node0 +
+// chunk_nodes) of k_nodes, its rows the prep's list. maxabs [K, 2] and
 // log2n: the scale of the prep's q (the fold's own, or kExternal the
 // caller's; a lane whose maxima are not finite adds nothing). out [K, F,
 // k_nodes, n_bins, 2]: float32 (NaN in a lane that is not finite), or
@@ -804,17 +836,14 @@ __global__ void __launch_bounds__(kWideThreads)
 wide_hist_kernel(const int16_t* __restrict__ binned, const int2* __restrict__ entries,
                  const longlong2* __restrict__ q, const int32_t* __restrict__ offsets,
                  const float2* __restrict__ maxabs, void* __restrict__ out, int F, int N,
-                 int k_nodes, int n_bins, int chunk_nodes, int n_chunks, int n_windows,
-                 int window_bins, int group, int log2n) {
+                 int k_nodes, int n_bins, int chunk_nodes, int n_chunks, int group, int log2n) {
   extern __shared__ uint4 smem[];
   const int k = blockIdx.y;
   const int f0 = blockIdx.x * group;
   const int n_f = min(group, F - f0);
-  const int chunk = blockIdx.z / n_windows;
-  const int bin0 = (blockIdx.z - chunk * n_windows) * window_bins;
-  const int nb = min(window_bins, n_bins - bin0);  // the window's bins
+  const int chunk = blockIdx.z;
   const int node0 = chunk * chunk_nodes;
-  const int n_seg = min(chunk_nodes, k_nodes - node0) * nb;
+  const int n_seg = min(chunk_nodes, k_nodes - node0) * n_bins;
   const int plane = group * n_seg;  // words per plane; feature g's at g * n_seg
   const int tid = threadIdx.x;
   unsigned* words = reinterpret_cast<unsigned*>(smem);
@@ -836,12 +865,12 @@ wide_hist_kernel(const int16_t* __restrict__ binned, const int2* __restrict__ en
       int b[kWideMaxGroup];
 #pragma unroll
       for (int g = 0; g < kWideMaxGroup; ++g)
-        b[g] = g < n_f ? bins[static_cast<size_t>(g) * N + en.x] - bin0 : -1;
+        b[g] = g < n_f ? bins[static_cast<size_t>(g) * N + en.x] : -1;
       const longlong2 qe = fold_q[e];
-      const int base = en.y * nb;
+      const int base = en.y * n_bins;
 #pragma unroll
       for (int g = 0; g < kWideMaxGroup; ++g)
-        if (static_cast<unsigned>(b[g]) < static_cast<unsigned>(nb))
+        if (static_cast<unsigned>(b[g]) < static_cast<unsigned>(n_bins))
           add_fixed(words, plane, g * n_seg + base + b[g], qe);
     }
   }
@@ -849,45 +878,207 @@ wide_hist_kernel(const int16_t* __restrict__ binned, const int2* __restrict__ en
 
   // the CTA's cells of feature f0 + g: one contiguous run of n_seg in out
   const size_t n_seg_out = static_cast<size_t>(k_nodes) * n_bins;
-  const size_t seg0 = static_cast<size_t>(node0) * n_bins + bin0;
-  auto sums = [&](int c) {
-    return make_longlong2(
-        static_cast<long long>(static_cast<unsigned long long>(words[plane + c]) << 32 | words[c]),
-        static_cast<long long>(static_cast<unsigned long long>(words[3 * plane + c]) << 32 |
-                               words[2 * plane + c]));
-  };
+  const size_t seg0 = static_cast<size_t>(node0) * n_bins;
   if (kExternal) {  // the raw int64 sums, one cell per 16-byte store (zeros if not finite)
     for (int g = 0; g < n_f; ++g) {
       longlong2* o = reinterpret_cast<longlong2*>(out) +
                      (static_cast<size_t>(k) * F + f0 + g) * n_seg_out + seg0;
-      for (int s = tid; s < n_seg; s += kWideThreads)
-        __stcs(o + s, finite ? sums(g * n_seg + s) : make_longlong2(0, 0));
+      for (int s = tid; s < n_seg; s += kWideThreads) {
+        const int c = g * n_seg + s;
+        __stcs(o + s, finite ? make_longlong2(fixed_sum(words, plane, c, 0),
+                                              fixed_sum(words, plane, c, 1))
+                             : make_longlong2(0, 0));
+      }
     }
     return;
   }
   // one conversion per sum, two cells per float4 store
-  const double inv_g = exp2_exact(-fixed_exponent(m.x, log2n));  // 1 / S, exact
-  const double inv_h = exp2_exact(-fixed_exponent(m.y, log2n));
-  auto cell = [&](int c) {
-    if (!finite) return make_float2(__int_as_float(0x7fc00000), __int_as_float(0x7fc00000));
-    const longlong2 a = sums(c);
-    return make_float2(from_fixed(static_cast<unsigned long long>(a.x), inv_g),
-                       from_fixed(static_cast<unsigned long long>(a.y), inv_h));
-  };
+  const FixedCells cells{words, plane, finite, exp2_exact(-fixed_exponent(m.x, log2n)),
+                         exp2_exact(-fixed_exponent(m.y, log2n))};
   for (int g = 0; g < n_f; ++g) {
     const int c0 = g * n_seg;
     float* o = reinterpret_cast<float*>(out) +
                ((static_cast<size_t>(k) * F + f0 + g) * n_seg_out + seg0) * 2;
-    const int head = (reinterpret_cast<uintptr_t>(o) & 15) ? 1 : 0;  // o is 8-byte aligned
-    const int n_pairs = (n_seg - head) >> 1;
-    for (int p = tid; p < n_pairs; p += kWideThreads) {
-      const int s = head + 2 * p;
-      const float2 x = cell(c0 + s), y = cell(c0 + s + 1);
-      __stcs(reinterpret_cast<float4*>(o + 2 * s), make_float4(x.x, x.y, y.x, y.y));
+    store_run(o, n_seg, [&](int s) { return cells(c0 + s); });
+  }
+}
+
+// the per-node kernel's shared memory (hist_cuda._node_smem_bytes repeats
+// it; the CPU tests hold the two equal): `slots` cells of four word planes
+// (16 B) and an entry's bin (2 B) each, then the bitmap of the node's bins
+// and its words' ranks (4 B each a word of 32 bins)
+size_t node_smem_bytes(int n_bins, int slots) {
+  return 18 * static_cast<size_t>(slots) + 8 * static_cast<size_t>((n_bins + 31) / 32);
+}
+
+// rank[w] = the set bits of bitmap[0 .. w), for w < n_words: each thread
+// counts a run of consecutive words, the runs scanned across the CTA (a
+// warp's by shuffles, the warps' totals in order). Every thread of the CTA
+// calls it; the ranks are in shared memory after the caller's next barrier.
+__device__ __forceinline__ void rank_bitmap(const unsigned* bitmap, int* rank, int n_words) {
+  __shared__ int warp_total[kWideThreads / 32];
+  const int per = (n_words + kWideThreads - 1) / kWideThreads;
+  const int w0 = min(n_words, threadIdx.x * per), w1 = min(n_words, w0 + per);
+  int own = 0;
+  for (int w = w0; w < w1; ++w) own += __popc(bitmap[w]);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  int run = incl - own;
+  for (int w = 0; w < warp; ++w) run += warp_total[w];
+  for (int w = w0; w < w1; ++w) {
+    rank[w] = run;
+    run += __popc(bitmap[w]);
+  }
+}
+
+// Calls visit(e, bin) for each of a node's n entries e (bin: the entry's
+// row's bin of this feature), kWalk entries a thread at a time: every row
+// id, then every bin, is loaded before any visit, so that a thread's loads
+// are in flight together (a crowded node's walk is bound by their latency)
+constexpr int kWalk = 4;
+template <typename Visit>
+__device__ __forceinline__ void walk_entries(const int2* __restrict__ entries,
+                                             const int16_t* __restrict__ bins, int n,
+                                             Visit visit) {
+  for (int e0 = threadIdx.x; e0 < n; e0 += kWalk * kWideThreads) {
+    int row[kWalk], b[kWalk];
+#pragma unroll
+    for (int u = 0; u < kWalk; ++u) {
+      const int e = e0 + u * kWideThreads;
+      row[u] = e < n ? entries[e].x : -1;
     }
-    if (tid == 0 && head) __stcs(reinterpret_cast<float2*>(o), cell(c0));
-    if (tid == kWideThreads - 1 && ((n_seg - head) & 1))
-      __stcs(reinterpret_cast<float2*>(o + 2 * (n_seg - 1)), cell(c0 + n_seg - 1));
+#pragma unroll
+    for (int u = 0; u < kWalk; ++u) b[u] = row[u] >= 0 ? bins[row[u]] : -1;
+#pragma unroll
+    for (int u = 0; u < kWalk; ++u)
+      if (row[u] >= 0) visit(e0 + u * kWideThreads, b[u]);
+  }
+}
+
+// One CTA per (fold k, feature f, node) = (blockIdx.y, blockIdx.x,
+// blockIdx.z) of a level whose nodes are chunks of one (n_bins >
+// kWideNodeFromBins); the node's rows the prep's list. A node of at most
+// `slots` entries takes the table of its occupied bins, a node of more its
+// bins in windows of window_bins (<= slots) inside the CTA (the design note
+// above). maxabs, log2n and out as wide_hist_kernel's.
+template <bool kExternal>
+__global__ void __launch_bounds__(kWideThreads)
+node_hist_kernel(const int16_t* __restrict__ binned, const int2* __restrict__ entries,
+                 const longlong2* __restrict__ q, const int32_t* __restrict__ offsets,
+                 const float2* __restrict__ maxabs, void* __restrict__ out, int F, int N,
+                 int k_nodes, int n_bins, int slots, int window_bins, int log2n) {
+  extern __shared__ uint4 smem[];
+  const int f = blockIdx.x, k = blockIdx.y, node = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int n_words = (n_bins + 31) / 32;
+  // the carve-up of node_smem_bytes
+  unsigned* words = reinterpret_cast<unsigned*>(smem);  // four planes of `slots` words
+  unsigned short* entry_bin = reinterpret_cast<unsigned short*>(words + 4 * slots);
+  unsigned* bitmap = reinterpret_cast<unsigned*>(entry_bin + slots);
+  int* rank = reinterpret_cast<int*>(bitmap + n_words);
+
+  const float2 m = maxabs[k];
+  const bool finite = isfinite(m.x) && isfinite(m.y);
+  const int32_t* off = offsets + static_cast<size_t>(k) * (k_nodes + 1) + node;
+  const int e0 = off[0], n = off[1] - e0;
+  const int2* node_entries = entries + static_cast<size_t>(k) * N + e0;
+  const longlong2* node_q = q + static_cast<size_t>(k) * N + e0;
+  const int16_t* bins = binned + (static_cast<size_t>(k) * F + f) * N;
+  // the node's run of out: n_bins cells of feature f
+  const size_t cell0 = (static_cast<size_t>(k) * F + f) * k_nodes * n_bins +
+                       static_cast<size_t>(node) * n_bins;
+  const double inv_g = exp2_exact(-fixed_exponent(m.x, log2n));  // 1 / S, exact
+  const double inv_h = exp2_exact(-fixed_exponent(m.y, log2n));
+  // writes cells [b0, b0 + nb) of the run, cell b from slot slot_of(b) of
+  // planes of `plane` words (-1: an empty cell)
+  auto write = [&](int b0, int nb, int plane, auto slot_of) {
+    if (kExternal) {
+      longlong2* o = reinterpret_cast<longlong2*>(out) + cell0 + b0;
+      for (int b = tid; b < nb; b += kWideThreads) {
+        const int c = finite ? slot_of(b) : -1;
+        __stcs(o + b, c < 0 ? make_longlong2(0, 0)
+                            : make_longlong2(fixed_sum(words, plane, c, 0),
+                                             fixed_sum(words, plane, c, 1)));
+      }
+    } else {
+      const FixedCells sums{words, plane, finite, inv_g, inv_h};
+      float* o = reinterpret_cast<float*>(out) + (cell0 + b0) * 2;
+      store_run(o, nb, [&](int b) {
+        if (!finite) return sums(0);  // NaN
+        const int c = slot_of(b);
+        return c < 0 ? make_float2(0.0f, 0.0f) : sums(c);
+      });
+    }
+  };
+
+  if (n <= slots) {
+    // the table of occupied bins: the bitmap, its ranks, one slot a bin
+    for (int w = tid; w < n_words; w += kWideThreads) bitmap[w] = 0u;
+    for (int i = tid; i < n; i += kWideThreads) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) words[p * slots + i] = 0u;
+    }
+    __syncthreads();
+    if (finite) {
+      walk_entries(node_entries, bins, n, [&](int e, int b) {
+        const bool in = static_cast<unsigned>(b) < static_cast<unsigned>(n_bins);
+        entry_bin[e] = in ? static_cast<unsigned short>(b) : 0xFFFFu;
+        if (in) atomicOr(bitmap + (b >> 5), 1u << (b & 31));
+      });
+    }
+    __syncthreads();
+    rank_bitmap(bitmap, rank, n_words);
+    __syncthreads();
+    if (finite) {
+      // kWalk entries a thread at a time, their q loaded before any add
+      for (int e0 = tid; e0 < n; e0 += kWalk * kWideThreads) {
+        int slot[kWalk];
+        longlong2 qe[kWalk];
+#pragma unroll
+        for (int u = 0; u < kWalk; ++u) {
+          const int e = e0 + u * kWideThreads;
+          const unsigned b = e < n ? entry_bin[e] : 0xFFFFu;
+          slot[u] = -1;
+          if (b != 0xFFFFu) {
+            slot[u] = rank[b >> 5] + __popc(bitmap[b >> 5] & ((1u << (b & 31)) - 1u));
+            qe[u] = node_q[e];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kWalk; ++u)
+          if (slot[u] >= 0) add_fixed(words, slots, slot[u], qe[u]);
+      }
+    }
+    __syncthreads();  // every add is in
+    write(0, n_bins, slots, [&](int b) {
+      const unsigned bits = bitmap[b >> 5], bit = 1u << (b & 31);
+      return (bits & bit) ? rank[b >> 5] + __popc(bits & (bit - 1u)) : -1;
+    });
+    return;
+  }
+  // a node of more entries than slots: its bins in windows, each window's
+  // slots its bins
+  for (int b0 = 0; b0 < n_bins; b0 += window_bins) {
+    const int nb = min(window_bins, n_bins - b0);
+    for (int i = tid; i < slots; i += kWideThreads) smem[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+    if (finite) {
+      walk_entries(node_entries, bins, n, [&](int e, int b) {
+        b -= b0;
+        if (static_cast<unsigned>(b) < static_cast<unsigned>(nb))
+          add_fixed(words, slots, b, node_q[e]);
+      });
+    }
+    __syncthreads();  // every add of the window is in
+    write(b0, nb, slots, [](int b) { return b; });
+    __syncthreads();  // the window is read before the next one zeroes it
   }
 }
 
@@ -923,40 +1114,53 @@ int launch_wide_prep(const int32_t* ids, const float* gh, int2* entries, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wide kernel's launch; refuses a layout that does not fit: window_bins
-// bins a CTA (all n_bins, or with one node per chunk a window of them:
-// grid z takes n_chunks ceil(n_bins / window_bins) CTAs). log2n as
-// launch_wide_prep's (the caller's when kExternal, else ceil(log2 N)).
+// The wide path's histogram launch; refuses a layout that does not fit.
+// A level of nodes of at most kWideNodeFromBins bins takes the chunk
+// kernel (window_bins and slots unused); of wider nodes, the per-node
+// kernel (chunk_nodes and group 1; slots a multiple of 32, window_bins
+// <= slots the bins of its windows). log2n as launch_wide_prep's (the
+// caller's when kExternal, else ceil(log2 N)).
 template <bool kExternal>
 int launch_wide(const int16_t* binned, const int2* entries, const long long* q,
                 const int32_t* offsets, const float* maxabs, void* out, int K, int F, int N,
-                int k_nodes, int n_bins, int chunk_nodes, int window_bins, int group, int log2n,
-                void* stream) {
-  static std::mutex lock;
-  static size_t granted[kMaxDevices] = {};
+                int k_nodes, int n_bins, int chunk_nodes, int group, int slots, int window_bins,
+                int log2n, void* stream) {
+  static std::mutex lock, node_lock;
+  static size_t granted[kMaxDevices] = {}, node_granted[kMaxDevices] = {};
   if (K <= 0 || F <= 0) return 0;
   const int n_chunks = chunk_nodes < 1 ? 0 : wide_chunks(k_nodes, chunk_nodes);
-  const int n_windows = window_bins < 1 ? 0 : (n_bins + window_bins - 1) / window_bins;
+  const bool per_node = n_bins > kWideNodeFromBins;
   if (N < 0 || K > 65535 || k_nodes < 1 || n_bins < 1 || chunk_nodes < 1 ||
-      n_chunks > kWideMaxChunks || window_bins < 1 || window_bins > n_bins ||
-      (n_windows > 1 && chunk_nodes != 1) || n_chunks * n_windows > 65535 || group < 1 ||
-      group > kWideMaxGroup || maxabs == nullptr)
+      n_chunks > kWideMaxChunks || n_chunks > 65535 || group < 1 || group > kWideMaxGroup ||
+      maxabs == nullptr ||
+      (per_node && (chunk_nodes != 1 || group != 1 || slots < 32 || slots % 32 ||
+                    window_bins < 1 || window_bins > slots)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!kExternal) {
     log2n = ceil_log2(N);
   } else if (log2n < ceil_log2(N) || log2n > 62) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = wide_smem_bytes(chunk_nodes, window_bins, group);
+  const size_t smem =
+      per_node ? node_smem_bytes(n_bins, slots) : wide_smem_bytes(chunk_nodes, n_bins, group);
   if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float2* m = reinterpret_cast<const float2*>(maxabs);
+  const longlong2* q2 = reinterpret_cast<const longlong2*>(q);
+  if (per_node) {
+    const int err = grant_smem(reinterpret_cast<const void*>(node_hist_kernel<kExternal>), smem,
+                               node_lock, node_granted);
+    if (err) return err;
+    node_hist_kernel<kExternal><<<dim3(F, K, k_nodes), kWideThreads, smem, s>>>(
+        binned, entries, q2, offsets, m, out, F, N, k_nodes, n_bins, slots, window_bins, log2n);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int err = grant_smem(reinterpret_cast<const void*>(wide_hist_kernel<kExternal>), smem,
                              lock, granted);
   if (err) return err;
-  wide_hist_kernel<kExternal><<<dim3((F + group - 1) / group, K, n_chunks * n_windows),
-                                kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      binned, entries, reinterpret_cast<const longlong2*>(q), offsets,
-      reinterpret_cast<const float2*>(maxabs), out, F, N, k_nodes, n_bins, chunk_nodes, n_chunks,
-      n_windows, window_bins, group, log2n);
+  wide_hist_kernel<kExternal><<<dim3((F + group - 1) / group, K, n_chunks), kWideThreads, smem,
+                                s>>>(binned, entries, q2, offsets, m, out, F, N, k_nodes, n_bins,
+                                     chunk_nodes, n_chunks, group, log2n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1003,10 +1207,15 @@ int launch_wide(const int16_t* binned, const int2* entries, const long long* q,
 // for bit hist_cuda._recombine_i8 of the same integer sums, hence bit for
 // bit the plain version and the JAX package.
 //
-// K4: C = 6 int64 fixed-point cells (g's d0, d1, d2, then h's); 8 nodes x
-// 257 bins take 98,688 B. It runs the first K1's fixed-point body,
-// accumulate_fixed, with six channels. Each digit channel gets K1's
-// per-fold scale,
+// K4: C = 6 int64 fixed-point cells (g's d0, d1, d2, then h's), each a
+// low and a high 32-bit word in 12 planes of words (channel c's in planes
+// 2 c and 2 c + 1), added by add_fixed<6>: six native 32-bit atomics on the
+// low words, then the high words with the carries, as K1 and K3 add their
+// two channels (an int64 atomicAdd on shared memory compiles to a
+// compare-and-swap loop, which held K4 at 0.1108 ms at the v92d CV's
+// deepest level on an H100 80GB HBM3, 700 W; tools/time_hist.py); 8 nodes x
+// 257 bins take 98,688 B, as before. Each digit channel gets K1's per-fold
+// scale,
 // S = 2^(62 - ceil(log2 N) - e) with max |digit| < 2^e over the fold's rows
 // (fixed_scale), a digit is rounded to the nearest integer of digit * S
 // (exact for every digit above max |digit| 2^(ceil(log2 N) - 62)) and the
@@ -1028,9 +1237,15 @@ int launch_wide(const int16_t* binned, const int2* entries, const long long* q,
 // CTAs), the histograms written once: at the v92d CV's deepest level
 // (K = 5, F = 222, N = 2,444, k_nodes = 8) ~24 MB, ~7 us at 3.35 TB/s. The
 // kernel spends its time as the first K1 did, on shared-memory atomics
-// (8 int32 or 6 int64 per active row and feature, serialised where rows
-// share a bin, as in a crowded missing bin) and on zeroing and writing the
-// whole histogram.
+// (8 int32, or 6-12 32-bit words of the six int64 sums, per active row
+// and feature, serialised where rows share a bin, as in a crowded missing
+// bin) and on zeroing and writing the whole histogram. Each of a fold's F
+// CTAs computes its active rows' six products q = round(digit S_c) again
+// (FP64). Taking q [K, N, 6] int64 from the prep kernel instead would make
+// every CTA read 48 B a row rather than the digits' 12: 130 MB from L2 a
+// launch at that level, against an estimated ~4 us of FP64 work (six
+// multiplies and conversions per active row and feature at 16 conversions
+// a clock an SM); that variant was not built or timed.
 //
 // The external scale (kExternal; mallorn_hist_bf16 / mallorn_hist_i8 given
 // external = 1) serves a fit whose rows are split over ranks, as K1's does:
@@ -1137,35 +1352,61 @@ mode_hist_kernel(const int16_t* __restrict__ binned, const int32_t* __restrict__
       o[i] = __fmul_rn(v, (i & 1) ? sh : sg);
     }
   } else {
-    // three 4-byte words per row: bf16 digit 2 j in word j's low half
-    const uint32_t* w = static_cast<const uint32_t*>(digits) + static_cast<size_t>(k) * N * 3;
-    double inv[C];
-    const bool finite = accumulate_fixed<C, kModeThreads>(
-        smem, scale + C * k, log2n, b, nd, N, node0, nb, bin0, nb, n_seg,
-        [&](int r, float(&x)[C]) {
+    // channel c's int64 fixed-point sum of cell s as two 32-bit words,
+    // in planes 2 c and 2 c + 1 of n_seg words each (add_fixed<6>)
+    unsigned* words = reinterpret_cast<unsigned*>(smem);
+    for (int i = threadIdx.x; i < n_seg * C / 2; i += kModeThreads)
+      smem[i] = make_uint4(0u, 0u, 0u, 0u);
+    // channel c's scale S_c = 2^(62 - log2n - e) with maxabs[c] < 2^e; a
+    // lane with a maximum that is not finite adds nothing
+    const float* maxabs = scale + C * k;
+    bool finite = true;
+    double sc[C], inv[C];
 #pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            const uint32_t v = w[3 * static_cast<size_t>(r) + j];
-            x[2 * j] = __uint_as_float(v << 16);
-            x[2 * j + 1] = __uint_as_float(v & 0xFFFF0000u);
-          }
-        },
-        inv);
+    for (int c = 0; c < C; ++c) {
+      const float m = maxabs[c];
+      finite = finite && isfinite(m);
+      const int p = fixed_exponent(m, log2n);
+      sc[c] = exp2_exact(p);
+      inv[c] = exp2_exact(-p);  // 1 / S_c, exact
+    }
+    __syncthreads();
 
-    const unsigned long long* acc = reinterpret_cast<const unsigned long long*>(smem);
+    if (finite) {
+      // three 4-byte words per row: bf16 digit 2 j in word j's low half
+      const uint32_t* w = static_cast<const uint32_t*>(digits) + static_cast<size_t>(k) * N * 3;
+      for_each_row<kModeThreads>(b, nd, N, node0, nb, bin0, nb, n_seg, [&](int s, int r) {
+        long long q[C];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const uint32_t v = w[3 * static_cast<size_t>(r) + j];
+          q[2 * j] = __double2ll_rn(__dmul_rn(static_cast<double>(__uint_as_float(v << 16)),
+                                              sc[2 * j]));
+          q[2 * j + 1] = __double2ll_rn(
+              __dmul_rn(static_cast<double>(__uint_as_float(v & 0xFFFF0000u)), sc[2 * j + 1]));
+        }
+        add_fixed<C>(words, n_seg, s, q);
+      });
+    }
+    __syncthreads();
+
     if constexpr (kExternal) {
-      // the raw int64 sums, [n_seg, 6], three 16-byte stores per cell
-      // (zeros where a channel's maximum is not finite: nothing was added)
-      ulonglong2* oi = static_cast<ulonglong2*>(out) + cell0 * 3;
-      for (int i = threadIdx.x; i < n_seg * 3; i += kModeThreads)
-        oi[i] = finite ? reinterpret_cast<const ulonglong2*>(acc)[i] : make_ulonglong2(0ull, 0ull);
+      // the raw int64 sums, [n_seg, 6]: store i holds cell i / 3's channels
+      // 2 (i % 3) and 2 (i % 3) + 1 (zeros where a channel's maximum is not
+      // finite: nothing was added)
+      longlong2* oi = static_cast<longlong2*>(out) + cell0 * 3;
+      for (int i = threadIdx.x; i < n_seg * 3; i += kModeThreads) {
+        const int s = i / 3, j = 2 * (i - 3 * s);
+        oi[i] = make_longlong2(fixed_sum(words, n_seg, s, j), fixed_sum(words, n_seg, s, j + 1));
+      }
       return;
     }
     for (int i = threadIdx.x; i < n_out; i += kModeThreads) {
-      const unsigned long long* a = acc + 3 * i;
-      const int c0 = 3 * (i & 1);
-      o[i] = finite ? __fadd_rn(__fadd_rn(from_fixed(a[0], inv[c0]), from_fixed(a[1], inv[c0 + 1])),
-                                from_fixed(a[2], inv[c0 + 2]))
+      const int s = i >> 1, c0 = 3 * (i & 1);
+      auto digit = [&](int c) {
+        return from_fixed(static_cast<unsigned long long>(fixed_sum(words, n_seg, s, c)), inv[c]);
+      };
+      o[i] = finite ? __fadd_rn(__fadd_rn(digit(c0), digit(c0 + 1)), digit(c0 + 2))
                     : __int_as_float(0x7fc00000);
     }
   }
@@ -1447,19 +1688,21 @@ extern "C" int mallorn_hist_group_rows(const int32_t* node_q, const float* gh, i
                           external ? nullptr : maxabs, K, N, k_nodes, chunk_nodes, log2n, stream);
 }
 
-// K1's wide path, the histograms: group features, chunk_nodes nodes and
-// window_bins bins per CTA (hist_cuda.wide_plan, wide_windows) over the
-// entries, q and offsets of mallorn_hist_group_rows at the same chunk_nodes
-// and maxabs. external 0: out float32 [K, F, k_nodes, n_bins_tot, 2];
-// external 1: log2n as mallorn_seg_hist's, out the raw int64 sums
+// K1's wide path, the histograms: group features and chunk_nodes nodes per
+// CTA (hist_cuda.wide_plan) over the entries, q and offsets of
+// mallorn_hist_group_rows at the same chunk_nodes and maxabs; a level of
+// nodes of more than 7,264 bins one CTA per (fold, feature, node) with
+// `slots` slots and windows of window_bins bins (hist_cuda.wide_node_plan).
+// external 0: out float32 [K, F, k_nodes, n_bins_tot, 2]; external 1: log2n
+// as mallorn_seg_hist's, out the raw int64 sums
 extern "C" int mallorn_hist_wide(const int16_t* binned, const int2* entries, const long long* q,
                                  const int32_t* offsets, const float* maxabs, void* out, int K,
                                  int F, int N, int k_nodes, int n_bins_tot, int chunk_nodes,
-                                 int window_bins, int group, int external, int log2n,
+                                 int group, int slots, int window_bins, int external, int log2n,
                                  void* stream) {
   const auto launch = external ? launch_wide<true> : launch_wide<false>;
   return launch(binned, entries, q, offsets, maxabs, out, K, F, N, k_nodes, n_bins_tot,
-                chunk_nodes, window_bins, group, log2n, stream);
+                chunk_nodes, group, slots, window_bins, log2n, stream);
 }
 
 // K4: node_group nodes and window_bins bins per CTA (hist_cuda.mode_plan);

@@ -86,15 +86,19 @@ same integer sums: the output is ``build_histograms_fixed``'s
 ``prep_launches`` the prep kernel's launches.
 
 Every kernel takes up to MAX_NODE_BINS (32,768) bins a node, the most
-int16 bin ids hold. Where a CTA cannot hold a node's bins (K1's wide path
-beyond 14,528, K4 beyond 4,842, K5 beyond 7,264) or a call's segments (K3
-beyond SEG_MAX_SEGMENTS), each CTA holds a window of them, the windows on
-the grid's z axis beside the node groups or chunks, and adds only the rows
-whose bin (K3: segment base + bin) falls in it (``wide_windows``,
-``mode_plan``, ``seg_hist_plan``). Integer sums do not depend on the
-tiling, so a windowed launch is its twin's bit for bit; each window
+int16 bin ids hold. Where a CTA cannot hold a node's bins (K4 beyond 4,842,
+K5 beyond 7,264) or a call's segments (K3 beyond SEG_MAX_SEGMENTS), each
+CTA holds a window of them, the windows on the grid's z axis beside the
+node groups, and adds only the rows whose bin (K3: segment base + bin)
+falls in it (``mode_plan``, ``seg_hist_plan``). Integer sums do not depend
+on the tiling, so a windowed launch is its twin's bit for bit; each window
 re-reads its rows. The counters count calls; ``windows_by_call`` records
-the windows of each call that took more than one.
+the windows of each call that took more than one. K1's wide path takes a
+node of more than WIDE_NODE_FROM_BINS (7,264) bins in a CTA of its own
+whose shared memory grows with the node's rows, not its bins
+(``wide_node_plan``; its calls counted in ``node_launches``): a table of
+the bins its rows occupy, or, for a node of more rows than the table's
+slots, windows of bins inside the CTA.
 """
 
 from __future__ import annotations
@@ -128,6 +132,7 @@ seg_i64_launches = 0  # K3's
 bf16_i64_launches = 0  # K4's
 i8_sums_launches = 0  # K5's
 prep_launches = 0  # K1's row grouping (the wide path's prep kernel, both scales)
+node_launches = 0  # K1's calls through the wide path's per-node kernel (both scales)
 digit_prep_launches = 0  # K4 / K5's digits (the prep kernel, once a tree)
 # {counter name: {windows: calls}} of the calls whose launch took more than
 # one window of bins or segments (the counters above count calls)
@@ -136,10 +141,10 @@ windows_by_call: dict = {}
 
 def reset_launches() -> None:
     global launches, seg_launches, bf16_launches, i8_launches, i64_launches, seg_i64_launches
-    global bf16_i64_launches, i8_sums_launches, prep_launches, digit_prep_launches
+    global bf16_i64_launches, i8_sums_launches, prep_launches, digit_prep_launches, node_launches
     launches = seg_launches = bf16_launches = i8_launches = 0
     i64_launches = seg_i64_launches = bf16_i64_launches = i8_sums_launches = prep_launches = 0
-    digit_prep_launches = 0
+    digit_prep_launches = node_launches = 0
     launches_by_nodes.clear()
     windows_by_call.clear()
 
@@ -454,7 +459,7 @@ def build_histograms_i64(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.T
     finite; ``lane_maxabs``) and ``n_rows`` (the global row count). Zeros
     in a lane that is not finite. A CPU tensor runs the plain twin
     ``build_histograms_i64_fixed``."""
-    global i64_launches, prep_launches
+    global i64_launches, prep_launches, node_launches
     if binned.device.type == "cpu":
         return build_histograms_i64_fixed(binned, node_q, gh, k_nodes, n_bins_tot,
                                           maxabs, n_rows)
@@ -468,7 +473,7 @@ def build_histograms_i64(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.T
     launch_hist_kernel(binned, node_q, gh, out, k_nodes, n_bins_tot, maxabs, log2n)
     i64_launches += 1
     prep_launches += wide
-    _note_windows("i64_launches", wide_windows(n_bins_tot)[0] if wide else 1)
+    node_launches += wide and n_bins_tot > WIDE_NODE_FROM_BINS
     return out
 
 
@@ -476,7 +481,7 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
                      k_nodes: int, n_bins_tot: int) -> torch.Tensor:
     """[K, F, k_nodes, n_bins_tot, 2] float32 (grad, hess) histograms from
     int16 bins [K, F, N], int32 node ids [K, N] and float32 (g, h) [K, N, 2]."""
-    global launches, prep_launches
+    global launches, prep_launches, node_launches
     if binned.device.type == "cpu":
         return build_histograms_plain(binned, node_q, gh, k_nodes, n_bins_tot)
     _check_cuda_inputs("build_histograms", binned, node_q, gh)
@@ -489,7 +494,7 @@ def build_histograms(binned: torch.Tensor, node_q: torch.Tensor, gh: torch.Tenso
     launches += 1
     launches_by_nodes[k_nodes] = launches_by_nodes.get(k_nodes, 0) + 1
     prep_launches += wide
-    _note_windows("launches", wide_windows(n_bins_tot)[0] if wide else 1)
+    node_launches += wide and n_bins_tot > WIDE_NODE_FROM_BINS
     return out
 
 
@@ -529,11 +534,54 @@ def _wide_smem_bytes(chunk_nodes: int, n_bins_tot: int, group: int) -> int:
     return 16 * group * chunk_nodes * n_bins_tot
 
 
-def wide_windows(n_bins_tot: int):
-    """(windows, bins per window) of the wide kernel at ``n_bins_tot`` bins
-    a node: one window while one feature's node fits a CTA (14,528 bins),
-    else the fewest equal windows that do, one node per chunk."""
-    return _windows(n_bins_tot, SMEM_BYTES // _wide_smem_bytes(1, 1, 1))
+# a node of more bins than this takes the per-node kernel (csrc/hist.cu
+# node_hist_kernel; kWideNodeFromBins): two such nodes' histograms exceed a
+# CTA, so the chunk kernel would hold one alone, its shared memory growing
+# with the bins
+WIDE_NODE_FROM_BINS = SMEM_BYTES // _wide_smem_bytes(2, 1, 1)
+def _node_smem_bytes(n_bins_tot: int, slots: int) -> int:
+    """The per-node kernel's shared memory per CTA (csrc/hist.cu
+    ``node_smem_bytes``): ``slots`` cells of four word planes and an
+    entry's bin (18 B a slot), the bitmap of the node's bins and its words'
+    ranks (8 B a word of 32 bins)."""
+    return 18 * slots + 8 * (-(-n_bins_tot // 32))
+
+
+# an H100 SM's shared memory, of which each resident CTA takes 1 KB more
+# than it asks for
+SM_SMEM_BYTES, CTA_RESERVED_SMEM = 233472, 1024
+# the per-node kernel's slots: a node of at most this many rows takes the
+# table of its occupied bins, one of more its bins in windows of at most
+# this many. The most (a multiple of 32) for which two CTAs share an SM at
+# MAX_NODE_BINS bins: with tools/time_hist.py --slots at 32 x 16,385 bins,
+# F = 16 (NVIDIA H100 80GB HBM3, 700 W), 4,096-6,144 slots (two CTAs an SM)
+# were within 1% of each other in both entries, the external one 7% faster
+# than at 1,024-2,048 (more CTAs an SM streaming their runs of out at once)
+# and the float32 one 23-26% faster than at 8,192 (one CTA an SM); a
+# crowded node (7,743 rows) in windows took 0.046 ms at 6,144 slots against
+# 0.070 at 4,096
+WIDE_NODE_SLOTS = (SM_SMEM_BYTES // 2 - CTA_RESERVED_SMEM
+                   - _node_smem_bytes(MAX_NODE_BINS, 0)) // 18 // 32 * 32
+
+
+def wide_windows(n_bins_tot: int, slots: int = WIDE_NODE_SLOTS):
+    """(windows, bins per window) in which the per-node kernel takes the
+    bins of a node of more rows than ``slots``, one window after another
+    inside its CTA: the fewest equal windows (the last may be shorter) of at
+    most ``slots`` bins."""
+    return _windows(n_bins_tot, slots)
+
+
+def wide_node_plan(n_bins_tot: int, slots: int = WIDE_NODE_SLOTS):
+    """(slots, windows, bins per window, shared-memory bytes) of the
+    per-node kernel at ``n_bins_tot`` bins a node: the table of ``slots``
+    occupied bins (a multiple of 32), or ``wide_windows`` for a node of more
+    rows. Raises where a CTA would exceed SMEM_BYTES."""
+    smem = _node_smem_bytes(n_bins_tot, slots)
+    if slots < 32 or slots % 32 or smem > SMEM_BYTES:
+        raise ValueError(f"build_histograms ({n_bins_tot} bins a node): {slots} slots are not "
+                         f"a multiple of 32 whose CTA fits {SMEM_BYTES} bytes")
+    return (slots,) + wide_windows(n_bins_tot, slots) + (smem,)
 
 
 def wide_plan(k_nodes: int, n_bins_tot: int, layout=None):
@@ -541,15 +589,14 @@ def wide_plan(k_nodes: int, n_bins_tot: int, layout=None):
     ``layout`` (G, nodes per chunk), by default WIDE_LAYOUTS' entry for the
     level, with G halved and then the nodes cut while a CTA would exceed
     SMEM_BYTES, the nodes at most ``k_nodes``; the level in the fewest
-    chunks of at most that many nodes, equal but for the last. A node wider
-    than a CTA (``wide_windows``) is a chunk of its own, G = 1, each CTA a
-    window of its bins (the bytes are a window's). Raises beyond
+    chunks of at most that many nodes, equal but for the last. A node of
+    more than WIDE_NODE_FROM_BINS bins is a chunk of its own, G = 1, on the
+    per-node kernel (``wide_node_plan``'s bytes). Raises beyond
     MAX_NODE_BINS bins a node or WIDE_MAX_CHUNKS chunks."""
     name = f"build_histograms ({k_nodes} nodes x {n_bins_tot} bins)"
     if k_nodes < 1 or not 1 <= n_bins_tot <= MAX_NODE_BINS:
         raise ValueError(f"{name}: the kernels take 1 to {MAX_NODE_BINS} bins a node and at "
                          f"least one node")
-    windows, window = wide_windows(n_bins_tot)
     if layout is None:
         levels = sorted(WIDE_LAYOUTS)
         layout = WIDE_LAYOUTS[next((c for c in levels if c >= k_nodes), levels[-1])]
@@ -557,17 +604,21 @@ def wide_plan(k_nodes: int, n_bins_tot: int, layout=None):
     if not (1 <= group <= WIDE_MAX_GROUP and nodes >= 1):
         raise ValueError(f"{name}: layout {layout} is not (1 to {WIDE_MAX_GROUP} features, "
                          f"at least one node)")
-    while group > 1 and _wide_smem_bytes(nodes, window, group) > SMEM_BYTES:
-        group //= 2
-    nodes = min(nodes, k_nodes, SMEM_BYTES // _wide_smem_bytes(1, window, group))
-    if windows > 1:
-        nodes = 1
+    per_node = n_bins_tot > WIDE_NODE_FROM_BINS
+    if per_node:
+        group = nodes = 1
+    else:
+        while group > 1 and _wide_smem_bytes(nodes, n_bins_tot, group) > SMEM_BYTES:
+            group //= 2
+        nodes = min(nodes, k_nodes, SMEM_BYTES // _wide_smem_bytes(1, n_bins_tot, group))
     n_chunks = -(-k_nodes // nodes)
     if n_chunks > WIDE_MAX_CHUNKS:
         raise ValueError(f"{name}: {n_chunks} chunks of {nodes} nodes exceed the "
                          f"{WIDE_MAX_CHUNKS} the row grouping takes")
     chunk = -(-k_nodes // n_chunks)
-    return chunk, n_chunks, group, _wide_smem_bytes(chunk, window, group)
+    smem = (wide_node_plan(n_bins_tot)[3] if per_node
+            else _wide_smem_bytes(chunk, n_bins_tot, group))
+    return chunk, n_chunks, group, smem
 
 
 class GroupedRows(NamedTuple):
@@ -671,21 +722,24 @@ def launch_group_rows(node_q: torch.Tensor, gh: torch.Tensor, k_nodes: int, chun
 
 def launch_wide_kernel(binned: torch.Tensor, grouped: GroupedRows, out: torch.Tensor,
                        k_nodes: int, n_bins_tot: int, chunk_nodes: int, group: int,
-                       log2n: Optional[int] = None) -> None:
-    """One launch of the wide kernel on checked inputs and the prep's
-    ``grouped`` rows at ``chunk_nodes``, in ``wide_windows``' windows of
-    bins: float32 ``out`` at the folds' own scale, or, given ``log2n`` (the
-    prep's), the int64 sums at the external scale of ``grouped.maxabs``.
-    Counts nothing."""
+                       log2n: Optional[int] = None, slots: int = WIDE_NODE_SLOTS) -> None:
+    """One launch of the wide path's histogram kernel on checked inputs and
+    the prep's ``grouped`` rows at ``chunk_nodes``: the chunk kernel, or
+    beyond WIDE_NODE_FROM_BINS bins a node the per-node kernel with
+    ``slots`` slots (``wide_node_plan``); float32 ``out`` at the folds' own
+    scale, or, given ``log2n`` (the prep's), the int64 sums at the external
+    scale of ``grouped.maxabs``. Counts nothing."""
     K, F, N = binned.shape
-    window = wide_windows(n_bins_tot)[1]
+    window = 0
+    if n_bins_tot > WIDE_NODE_FROM_BINS:
+        window = wide_node_plan(n_bins_tot, slots)[2]
     lib = cuda_build.load()
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         rc = lib.mallorn_hist_wide(binned.data_ptr(), grouped.entries.data_ptr(),
                                    grouped.q.data_ptr(), grouped.offsets.data_ptr(),
                                    grouped.maxabs.data_ptr(), out.data_ptr(), K, F, N, k_nodes,
-                                   n_bins_tot, chunk_nodes, window, group,
+                                   n_bins_tot, chunk_nodes, group, slots, window,
                                    int(log2n is not None), log2n or 0, stream)
     cuda_build.check(rc, "mallorn_hist_wide")
 
@@ -858,8 +912,9 @@ def build_seg_histograms_i64(binned: torch.Tensor, seg_base: torch.Tensor, gh: t
 # design: one CTA per (fold, feature, group of <= 8 nodes) adds each active
 # row's digits into a shared-memory integer histogram (K5: the 8 digits as
 # int32, 65,792 B at 8 nodes x 257 bins; K4: the 6 digits in K1's int64
-# fixed point with a per-fold scale per digit, 98,688 B, through the first
-# K1's device body, ``accumulate_fixed``) and its epilogue writes
+# fixed point with a per-fold scale per digit, 98,688 B, each int64 sum two
+# 32-bit words added with native atomics and a carry, as K1 adds its two)
+# and its epilogue writes
 # the float32 (g, h) histograms: K5's recombination in the order above,
 # K4's one conversion per digit sum, then (S0 + S1) + S2. Integer sums are
 # exact, so two launches agree bit for bit.

@@ -142,7 +142,7 @@ def load() -> ctypes.CDLL:
             lib.mallorn_hist.restype = ctypes.c_int
             lib.mallorn_hist_group_rows.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
             lib.mallorn_hist_group_rows.restype = ctypes.c_int
-            lib.mallorn_hist_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+            lib.mallorn_hist_wide.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
             lib.mallorn_hist_wide.restype = ctypes.c_int
             lib.mallorn_seg_hist.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, i, p]
             lib.mallorn_seg_hist.restype = ctypes.c_int

@@ -173,8 +173,9 @@ def test_hist_plan_takes_the_wide_path_where_one_cta_cannot_hold_a_level():
 
 
 def test_hist_plan_refuses_beyond_the_row_grouping():
-    # the prep kernel's cursors take WIDE_MAX_CHUNKS chunks; a node's bins
-    # beyond one CTA's (14,528) take windows, up to MAX_NODE_BINS
+    # the prep kernel's cursors take WIDE_MAX_CHUNKS chunks; a node of more
+    # bins than two fit a CTA (7,264) is a chunk of its own on the per-node
+    # kernel, up to MAX_NODE_BINS
     nodes = hist_cuda.wide_plan(10 ** 4, NBT)[0]
     top = hist_cuda.WIDE_MAX_CHUNKS * nodes
     assert hist_cuda.hist_plan(top, NBT)[1] == hist_cuda.WIDE_MAX_CHUNKS
@@ -182,8 +183,10 @@ def test_hist_plan_refuses_beyond_the_row_grouping():
         hist_cuda.hist_plan(top + 1, NBT)
     max_bins = SMEM_BYTES // 16
     assert hist_cuda.hist_plan(1, max_bins)[3] == 0
-    assert hist_cuda.wide_windows(max_bins) == (1, max_bins)
-    assert hist_cuda.wide_windows(max_bins + 1)[0] == 2
+    two_fit = hist_cuda.WIDE_NODE_FROM_BINS
+    assert hist_cuda.wide_plan(2, two_fit)[:3] == (2, 1, 1)
+    assert hist_cuda.wide_plan(2, two_fit + 1) == (
+        1, 2, 1, hist_cuda._node_smem_bytes(two_fit + 1, hist_cuda.WIDE_NODE_SLOTS))
     top_bins = hist_cuda.MAX_NODE_BINS
     assert hist_cuda.hist_plan(hist_cuda.WIDE_MAX_CHUNKS, top_bins)[:4] == (
         1, hist_cuda.WIDE_MAX_CHUNKS, 1, 0)

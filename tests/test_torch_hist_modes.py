@@ -377,3 +377,110 @@ def test_mode_external_entries_match_twins_on_the_card():
         assert torch.isnan(f4[1]).all() and torch.isnan(f5[1, ..., 0]).all()
     with pytest.raises(ValueError, match="2\\^25"):
         hist_cuda.build_histograms_i8_sums(binned, node_q, gh, 1, NBT, a, 2 ** 25 + 1)
+
+
+# ---------------------------------------------------------------------------
+# K4's accumulation: six int64 fixed-point channels as pairs of 32-bit words
+# ---------------------------------------------------------------------------
+
+def _split_word_sums(cells, q, n_cells, order_lo, order_hi):
+    """csrc/hist.cu ``add_fixed<C>`` in numpy: channel c's sum of a cell as a
+    low word (plane 2 c) and a high word (plane 2 c + 1) of uint32, an
+    item's low words added first (each add returning the old word, wrapping
+    mod 2^32), its high words later, each with q's high word plus the carry
+    of its low add (old + lo wrapped). The items' low adds run in
+    ``order_lo`` and their high adds in ``order_hi``: any interleaving the
+    card's atomics may take. Returns the [n_cells, C] int64 sums the
+    epilogue reads (high << 32 | low)."""
+    C = q.shape[1]
+    words = np.zeros((2 * C, n_cells), np.uint64)  # each holds a uint32
+    u = q.astype(np.uint64)  # two's complement bits
+    lo, hi = u & np.uint64(0xFFFFFFFF), u >> np.uint64(32)
+    carry = np.zeros(q.shape, np.uint64)
+    for i in order_lo:
+        for c in range(C):
+            old = words[2 * c, cells[i]]
+            words[2 * c, cells[i]] = (old + lo[i, c]) & np.uint64(0xFFFFFFFF)
+            carry[i, c] = old > (~lo[i, c] & np.uint64(0xFFFFFFFF))
+    for i in order_hi:
+        for c in range(C):
+            h = (hi[i, c] + carry[i, c]) & np.uint64(0xFFFFFFFF)
+            words[2 * c + 1, cells[i]] = (words[2 * c + 1, cells[i]] + h) & np.uint64(0xFFFFFFFF)
+    return ((words[1::2] << np.uint64(32)) | words[0::2]).T.astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_six_channel_split_word_add_is_the_int64_sum(seed):
+    # negative q, q at the low word's edges (wraps on every add) and q up to
+    # K4's largest fixed point (2^62 over the rows), into a few crowded cells
+    rng = np.random.default_rng(seed)
+    n, C, n_cells = 600, 6, 7
+    edges = np.array([-1, 1, 2 ** 32 - 1, 2 ** 32, -2 ** 32, 2 ** 32 + 1, -(2 ** 32) + 1,
+                      -(2 ** 52), 2 ** 52], dtype=np.int64)
+    q = rng.integers(-2 ** 52, 2 ** 52, (n, C))
+    pick = rng.random((n, C)) < 0.4
+    q[pick] = rng.choice(edges, size=int(pick.sum()))
+    cells = rng.integers(0, n_cells, n)
+    want = np.zeros((n_cells, C), np.int64)
+    np.add.at(want, cells, q)  # int64 sums (these stay within int64)
+    in_order = np.arange(n)
+    for order_lo, order_hi in ((in_order, in_order), (rng.permutation(n), rng.permutation(n)),
+                               (in_order[::-1], rng.permutation(n))):
+        got = _split_word_sums(cells, q, n_cells, order_lo, order_hi)
+        assert np.array_equal(got, want)
+
+
+def test_split_word_sums_are_the_k4_twins_sums():
+    # the int64 sums K4's external entry writes, for the twin's own q: the
+    # split-word add of every (row, feature) item gives them bit for bit
+    binned, node_q, gh = _t(*_fixture(3))
+    tg = gh.clone()
+    tg[0, :7] *= -1e3  # large negative g: high words of all ones
+    m = hist_cuda.digit_maxabs(tg)
+    want = hist_cuda.build_histograms_bf16_i64_fixed(binned, node_q, tg, 3, NBT, m, N)
+    q, _, _ = hist_cuda._fixed_point(hist_cuda.split_gh_digits(tg).float(), m, N)
+    for k in range(K):
+        for f in (0, F - 1):
+            b, nq = binned[k, f].long().numpy(), node_q[k].long().numpy()
+            act = (nq >= 0) & (nq < 3) & (b >= 0) & (b < NBT)
+            cells = (nq * NBT + b)[act]
+            got = _split_word_sums(cells, q[k].numpy()[act], 3 * NBT, np.arange(act.sum()),
+                                   np.arange(act.sum())[::-1])
+            assert np.array_equal(got.reshape(3, NBT, 6), want[k, f].numpy())
+
+
+@pytest.mark.cuda
+def test_k4_at_the_v92d_level_equals_its_twins_on_the_card():
+    """K4 at the v92d CV's deepest level (K = 5, F = 222, N = 2,444, 8
+    nodes), both entries on the fit's prepared digits, with a lane that is
+    not finite beside finite ones: bit for bit the fixed-point twins, and
+    two launches equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    rng = np.random.default_rng(92)
+    Kv, Fv, Nv, nodes = 5, 222, 2444, 8
+    binned = torch.from_numpy(rng.integers(0, NBT, (Kv, Fv, Nv)).astype(np.int16)).cuda()
+    node_q = torch.from_numpy(rng.integers(-1, nodes + 1, (Kv, Nv)).astype(np.int32)).cuda()
+    gh = torch.from_numpy(np.stack([rng.normal(size=(Kv, Nv)) * 3,
+                                    rng.uniform(0.01, 0.25, (Kv, Nv))], -1)
+                          .astype(np.float32)).cuda()
+    gh[2, 17, 1] = float("inf")
+    lv = (binned, node_q, gh, nodes, NBT)
+    hist_cuda.reset_launches()
+    own = hist_cuda.prepare_digits(False, gh)
+    a, b = (hist_cuda.mode_hist(binned, node_q, own, nodes, NBT) for _ in range(2))
+    m = hist_cuda.digit_maxabs(gh)
+    ext = hist_cuda.prepare_digits(False, gh, m)
+    e1, e2 = (hist_cuda.mode_hist(binned, node_q, ext, nodes, NBT, Nv) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (hist_cuda.bf16_launches, hist_cuda.bf16_i64_launches) == (2, 2)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32)) and torch.equal(e1, e2)
+    # the finite lanes bit for bit; the twin's NaN lane went through the
+    # card's float adds, which make every NaN 0x7FFFFFFF (the kernel writes
+    # 0x7FC00000), so that lane is held by NaN alone
+    want = hist_cuda.build_histograms_bf16_fixed(*lv)
+    fin = [k for k in range(Kv) if k != 2]
+    assert torch.equal(a[fin].view(torch.int32), want[fin].view(torch.int32))
+    assert torch.isnan(a[2]).all() and torch.isnan(want[2]).all()
+    assert torch.equal(e1, hist_cuda.build_histograms_bf16_i64_fixed(*lv, m, Nv))
+    assert not (e1[2] != 0).any()

@@ -1,18 +1,23 @@
 """The histogram kernels at every bin count up to MAX_NODE_BINS (32,768)
 bins a node: their plans on the CPU, their windowed launches on the card.
 
-Where one CTA cannot hold a node's bins (K4 beyond 4,842, K5 beyond 7,264,
-K1's wide path beyond 14,528) or a call's segments (K3 beyond 14,004),
-each CTA holds a window of them and adds only the rows that fall in it
-(``ops/hist_cuda.py`` ``mode_plan``, ``wide_windows`` / ``wide_plan``,
-``seg_hist_plan``; grid z takes the windows). On the CPU, for a sampled
-grid of bin counts and levels: every (node, bin) cell, or segment, belongs
-to exactly one CTA; every CTA fits SMEM_BYTES; grid z stays within 65,535;
-a level that one CTA held before keeps its plan. On the card (``cuda``
-cases, ``python -m pytest -q --noconftest -m cuda
-tests/test_torch_hist_windows.py``): each windowed launch, in the float32
-and the external-scale entry, bit for bit its plain twin and its own
-second launch, with its windows counted in ``hist_cuda.windows_by_call``.
+Where one CTA cannot hold a node's bins (K4 beyond 4,842, K5 beyond 7,264)
+or a call's segments (K3 beyond 14,004), each CTA holds a window of them
+and adds only the rows that fall in it (``ops/hist_cuda.py`` ``mode_plan``,
+``seg_hist_plan``; grid z takes the windows). K1's wide path takes a node
+of more than 7,264 bins in a CTA of its own (``wide_node_plan``): a table
+of the bins its rows occupy, or, for a node of more rows than the table's
+slots, windows of bins (``wide_windows``) one after another inside the
+CTA. On the CPU, for a sampled grid of bin counts and levels: every (node,
+bin) cell, or segment, belongs to exactly one CTA (and one window); every
+CTA fits SMEM_BYTES; grid z stays within 65,535; a level that one CTA held
+before keeps its plan; the per-node kernel's table, emulated, gives the
+dense sums. On the card (``cuda`` cases, ``python -m pytest -q
+--noconftest -m cuda tests/test_torch_hist_windows.py``): each windowed
+launch, in the float32 and the external-scale entry, bit for bit its plain
+twin and its own second launch, with its windows counted in
+``hist_cuda.windows_by_call``; the per-node kernel likewise, with a node of
+more rows than its slots.
 """
 
 import re
@@ -59,18 +64,22 @@ def test_mode_plan_covers_every_cell_once(n_bins_tot, int8):
 
 @pytest.mark.parametrize("n_bins_tot", BIN_COUNTS)
 def test_wide_plan_covers_every_cell_once(n_bins_tot):
+    per_node = n_bins_tot > hist_cuda.WIDE_NODE_FROM_BINS
+    slots, windows, window, node_smem = hist_cuda.wide_node_plan(n_bins_tot)
     for k_nodes in NODE_COUNTS + [1024]:
         chunk, n_chunks, group, smem = hist_cuda.wide_plan(k_nodes, n_bins_tot)
-        windows, window = hist_cuda.wide_windows(n_bins_tot)
-        assert windows == 1 or chunk == 1
-        assert smem == hist_cuda._wide_smem_bytes(chunk, window, group) <= SMEM_BYTES
-        assert n_chunks <= hist_cuda.WIDE_MAX_CHUNKS and n_chunks * windows <= MAX_GRID_Z
+        if per_node:  # a CTA a node, its bins in its table or its windows
+            assert (chunk, group, smem) == (1, 1, node_smem) and window <= slots
+        else:  # the chunk kernel holds its chunk's bins whole
+            assert smem == hist_cuda._wide_smem_bytes(chunk, n_bins_tot, group)
+        assert smem <= SMEM_BYTES
+        assert n_chunks <= hist_cuda.WIDE_MAX_CHUNKS and n_chunks <= MAX_GRID_Z
         cells = np.zeros((k_nodes, n_bins_tot), np.int8)
-        for bz in range(n_chunks * windows):
-            c, w = divmod(bz, windows)
-            node0, bin0 = c * chunk, w * window
-            cells[node0:node0 + min(chunk, k_nodes - node0),
-                  bin0:bin0 + min(window, n_bins_tot - bin0)] += 1
+        for bz in range(n_chunks):  # the kernels' own index arithmetic
+            node0 = bz * chunk
+            for bin0 in (range(0, n_bins_tot, window) if per_node else [0]):
+                nb = min(window, n_bins_tot - bin0) if per_node else n_bins_tot
+                cells[node0:node0 + min(chunk, k_nodes - node0), bin0:bin0 + nb] += 1
         assert _covered_once(cells), (k_nodes, n_bins_tot)
 
 
@@ -96,7 +105,7 @@ def test_plans_refuse_what_no_launch_takes():
         hist_cuda.mode_plan(8 * (MAX_GRID_Z + 1), 257, True)
     with pytest.raises(ValueError, match=str(MAX_NODE_BINS)):
         hist_cuda.wide_plan(2, MAX_NODE_BINS + 1)
-    with pytest.raises(ValueError, match="chunks"):  # one node a chunk beyond 14,528 bins
+    with pytest.raises(ValueError, match="chunks"):  # one node a chunk beyond 7,264 bins
         hist_cuda.wide_plan(hist_cuda.WIDE_MAX_CHUNKS + 1, 14529)
     for n_seg in (0, hist_cuda.SEG_MAX_TOTAL + 1):
         with pytest.raises(ValueError, match=str(hist_cuda.SEG_MAX_TOTAL)):
@@ -133,6 +142,83 @@ def test_windows_are_counted_per_call():
     assert hist_cuda.windows_by_call == {"bf16_launches": {3: 2}}
     hist_cuda.reset_launches()
     assert hist_cuda.windows_by_call == {}
+
+
+def _c_sum(src: str, signature: str):
+    """The byte sum a C function of the kernel source returns, as a Python
+    function of its int arguments."""
+    body = re.search(re.escape(signature) + r" \{\s*return ([^;]+);", src)[1]
+    body = re.sub(r"static_cast<size_t>\(([^()]*(?:\([^()]*\)[^()]*)*)\)", r"(\1)",
+                  " ".join(body.split()))
+    args = signature[signature.index("(") + 1:-1].replace("int ", "")
+    return eval(f"lambda {args}: {body.replace('/', '//')}")
+
+
+def test_per_node_constants_and_byte_sum_repeat_the_kernel_source():
+    src = (Path(hist_cuda.__file__).resolve().parents[1] / "csrc" / "hist.cu").read_text()
+    from_bins = int(re.search(r"constexpr int kWideNodeFromBins = (\d+);", src)[1])
+    assert from_bins == hist_cuda.WIDE_NODE_FROM_BINS == SMEM_BYTES // 32
+    c_sum = _c_sum(src, "size_t node_smem_bytes(int n_bins, int slots)")
+    for n_bins in (7265, 8193, 16385, 29057, MAX_NODE_BINS):
+        for slots in (32, 512, 1024, 2048, 4096):
+            assert c_sum(n_bins, slots) == hist_cuda._node_smem_bytes(n_bins, slots)
+
+
+@pytest.mark.parametrize("n_bins_tot", [b for b in BIN_COUNTS if b > 7264])
+def test_per_node_plan_is_small_and_its_windows_cover_the_node(n_bins_tot):
+    # the per-node kernel's bytes grow with its slots, not with the bins:
+    # at the default slots at least two CTAs share an SM at any bin count
+    slots, windows, window, smem = hist_cuda.wide_node_plan(n_bins_tot)
+    assert slots == hist_cuda.WIDE_NODE_SLOTS and smem == hist_cuda._node_smem_bytes(
+        n_bins_tot, slots)
+    assert 2 * smem <= SMEM_BYTES
+    assert window <= slots and (windows - 1) * window < n_bins_tot <= windows * window
+    for other in (1024, 2048, 4096, 8192):  # the slots tools/time_hist.py sweeps
+        assert hist_cuda.wide_node_plan(n_bins_tot, other)[3] <= SMEM_BYTES
+    for bad in (0, 48, 20000):  # not a multiple of 32, or beyond a CTA
+        with pytest.raises(ValueError, match="slots"):
+            hist_cuda.wide_node_plan(n_bins_tot, bad)
+
+
+def _node_table(bins: np.ndarray, q: np.ndarray, n_bins: int):
+    """The per-node kernel's table of occupied bins in numpy: the bitmap of
+    the entries' bins, its words' ranks (exclusive popcount sums), each
+    entry's slot = rank[b / 32] + popc(the word's bits below b), the int64
+    sums per slot; returns the node's dense sums [n_bins, C] rebuilt from the
+    table as the epilogue reads it."""
+    n_words = -(-n_bins // 32)
+    bitmap = np.zeros(n_words, np.uint64)
+    ok = (bins >= 0) & (bins < n_bins)
+    for b in bins[ok]:
+        bitmap[b >> 5] |= np.uint64(1) << np.uint64(b & 31)
+    popc = np.array([bin(int(w)).count("1") for w in bitmap], np.int64)
+    rank = np.concatenate([[0], np.cumsum(popc)[:-1]])
+
+    def slot_of(b):
+        below = int(bitmap[b >> 5]) & ((1 << (b & 31)) - 1)
+        return int(rank[b >> 5]) + bin(below).count("1")
+
+    table = np.zeros((int(popc.sum()), q.shape[1]), np.int64)
+    for b, qe in zip(bins[ok], q[ok]):
+        table[slot_of(int(b))] += qe
+    dense = np.zeros((n_bins, q.shape[1]), np.int64)
+    for b in range(n_bins):
+        if (int(bitmap[b >> 5]) >> (b & 31)) & 1:
+            dense[b] = table[slot_of(b)]
+    return dense, table.shape[0]
+
+
+@pytest.mark.parametrize("n_bins,n_entries", [(7265, 1), (16385, 76), (MAX_NODE_BINS, 2048)])
+def test_per_node_table_gives_the_dense_sums(n_bins, n_entries):
+    rng = np.random.default_rng(n_bins + n_entries)
+    bins = rng.integers(-1, n_bins + 2, n_entries)  # a few outside the node's bins
+    bins[: n_entries // 4] = n_bins - 1  # a crowded missing bin
+    q = rng.integers(-2 ** 40, 2 ** 40, (n_entries, 2))
+    dense, used = _node_table(bins, q, n_bins)
+    want = np.zeros((n_bins + 1, 2), np.int64)
+    np.add.at(want, np.where((bins >= 0) & (bins < n_bins), bins, n_bins), q)
+    assert np.array_equal(dense, want[:n_bins])
+    assert used == len(set(int(b) for b in bins if 0 <= b < n_bins)) <= n_entries
 
 
 # ---------------------------------------------------------------------------
@@ -193,21 +279,31 @@ def test_mode_kernels_in_windows_equal_their_twins(k_nodes, n_bins_tot):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k_nodes,n_bins_tot", [(2, 16385), (3, MAX_NODE_BINS)])
-def test_wide_path_in_windows_equals_its_twins(k_nodes, n_bins_tot):
+@pytest.mark.parametrize("k_nodes,n_bins_tot,skew", [(2, 16385, False), (3, MAX_NODE_BINS, False),
+                                                     (32, 16385, False), (3, 8193, False),
+                                                     (2, 16385, True), (1, 16385, True),
+                                                     (17, 7265, True)])
+def test_wide_path_in_windows_equals_its_twins(k_nodes, n_bins_tot, skew):
+    # the per-node kernel: every node in its table, or (skew: node 0 takes
+    # most rows, more than the slots) node 0 in windows inside its CTA; no
+    # call in windows on the grid
     _cuda_or_skip()
-    K, F, N = 2, 3, 3000
+    K, F, N = 2, 3, 7000 if skew else 3000
     binned, node_q, gh = _level(K, F, N, k_nodes, n_bins_tot, seed=k_nodes)
+    if skew:
+        node_q[:, :N - 400] = 0
+    gh[1, 11, 0] = float("nan")  # a lane that is not finite beside a finite one
     assert hist_cuda.hist_plan(k_nodes, n_bins_tot)[3] == 0  # the wide path
-    windows = hist_cuda.wide_windows(n_bins_tot)[0]
-    assert windows > 1
+    assert n_bins_tot > hist_cuda.WIDE_NODE_FROM_BINS
+    most = max(int(torch.bincount(q[q >= 0].long()).max()) for q in node_q)  # a fold's node
+    assert (most > hist_cuda.WIDE_NODE_SLOTS) == skew
     lv = (binned, node_q, gh, k_nodes, n_bins_tot)
     _twice_equal(lambda: hist_cuda.build_histograms(*lv), hist_cuda.build_histograms_fixed(*lv),
-                 "launches", windows)
+                 "launches", 1)
     m = hist_cuda.lane_maxabs(gh)
     _twice_equal(lambda: hist_cuda.build_histograms_i64(*lv, m, N),
-                 hist_cuda.build_histograms_i64_fixed(*lv, m, N), "i64_launches", windows)
-    assert hist_cuda.prep_launches == 2
+                 hist_cuda.build_histograms_i64_fixed(*lv, m, N), "i64_launches", 1)
+    assert hist_cuda.prep_launches == 2 and hist_cuda.node_launches == 2
 
 
 @pytest.mark.cuda

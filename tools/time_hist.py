@@ -3,7 +3,7 @@
 checkouts on one CUDA card, in turns, and holds their outputs bit for bit
 equal.
 
-    python3 tools/time_hist.py [--layouts] [--fits] DIR [DIR ...]
+    python3 tools/time_hist.py [--layouts] [--fits] [--slots] DIR [DIR ...]
 
 Each DIR is the root of a checkout of this repository: ``.`` for this one,
 or an unpacked ``git archive`` of another commit in a gitignored folder
@@ -40,7 +40,7 @@ run K1 at 64 and 128 nodes) on one seeded synthetic matrix of the v92d CV's
 width (3,054 x 222, NaNs included) and reports each CV's forests' sha256,
 rounds, OOF F1 and K1 launches by level width, which must agree across the
 checkouts; with it, the v92d CV (V34A_PARAMS, early-stopped) on the same
-matrix in ``hist_dtype`` "int8" and "i8bf16", each one's forests' sha256,
+matrix in each ``hist_dtype`` mode, each one's forests' sha256,
 rounds, OOF F1, seconds and launches of the mode kernel (and of the
 digits' prep kernel where the checkout has it), which must agree across
 the checkouts but for the seconds and the prep launches. In a checkout
@@ -51,9 +51,19 @@ and at ``chip_smoke.py``'s windowed shapes (1 x 8,193, 8 x 1,025 and 2 x
 fit makes per level (``fit_call_ms``: with ``prepare_digits``, the level
 on the tree's prepared digits; before it, the wrapper, which the fit
 called at every level), the launch alone on prepared digits and the prep
-alone, each output held bit for bit equal across the checkouts too; at
-the v92d shape also the device time alone of the mode kernel and of the
-prep kernel (``torch.profiler``), apart from the host's share of a call.
+alone, each output held bit for bit equal across the checkouts too, and
+the external-scale entry (a mesh's level on digits prepared at every
+rank's scale, here the rows' own) and its launch alone, beside zeros + one
+``scatter_add_``; at the v92d shape also the device time alone of the mode
+kernel (both entries) and of the prep kernel (``torch.profiler``), apart
+from the host's share of a call. At K1's shapes beyond 7,264 bins a node
+(``NODE_SHAPES``: chip_smoke.py's 32 x 16,385 at F = 16 and its crowded
+2 x 16,385 level) it times both entries, the wrapper and the launch alone,
+beside their bounds and zeros + one ``scatter_add_`` (float32, and int64
+of the fixed-point values); with ``--slots``, in a checkout with the
+per-node kernel (``wide_node_plan``), that kernel alone in both entries at
+1,024-8,192 slots. With ``--fits`` the mode CVs run in "int8", "i8bf16"
+and "bf16".
 
 Prints one line per run and shape, the card's name and power limit, and
 last one JSON object of every run. Exits non-zero with no CUDA device or
@@ -112,6 +122,20 @@ MODE_BINS_SHAPES = (("K4", 5, 16, 2444, 1, 8193, 12000), ("K4", 5, 222, 2444, 8,
                     ("K5", 5, 222, 2444, 8, 1025, 12004), ("K5", 5, 16, 2444, 2, 32768, 12005))
 
 
+# K1's wide path beyond 7,264 bins a node: chip_smoke.py's BINS_SHAPES K1
+# shapes (its seeds 12,006-7): 32 nodes, and a crowded level whose node 0
+# holds all but 400 of a fold's 8,143 rows (more rows than the per-node
+# kernel's slots: its bins in windows); with ``--slots`` the per-node
+# kernel alone at each of NODE_SWEEP_SLOTS slots
+NODE_SHAPES = (("K1 F=16 nodes=32 bins=16385", 5, 16, 2444, 32, 16385, 12006, False),
+               ("K1 F=16 nodes=2 bins=16385 crowded", 5, 16, 8143, 2, 16385, 12007, True))
+NODE_SWEEP_SLOTS = (1024, 2048, 4096, 5952, 8192)
+
+
+def node_names():
+    return [s[0] for s in NODE_SHAPES]
+
+
 def mode_shapes():
     """(name, int8, K, F, N, nodes, bins, seed, windowed) of every K4 / K5
     shape."""
@@ -156,7 +180,7 @@ def hist_inputs(torch, K: int, F: int, N: int, k_nodes: int, seed: int, inactive
     return binned.contiguous(), node_q.to(torch.int32).contiguous(), gh
 
 
-def time_checkout(layouts: bool, fits: bool = False) -> dict:
+def time_checkout(layouts: bool, fits: bool = False, slots: bool = False) -> dict:
     """Times the K1 of the checkout first on ``sys.path``."""
     import torch
     from mallorn_tpu_torch.ops import hist_cuda
@@ -208,12 +232,101 @@ def time_checkout(layouts: bool, fits: bool = False) -> dict:
             res[name].update(time_wide(torch, hist_cuda, ms, binned, node_q, gh, k_nodes))
     if hasattr(hist_cuda, "launch_mode_kernel"):
         res.update(time_modes(torch, hist_cuda, ms))
+    if hasattr(hist_cuda, "MAX_NODE_BINS"):
+        res.update(time_nodes(torch, hist_cuda, ms, slots))
     if layouts and hasattr(hist_cuda, "hist_layout"):
         res["sweep"] = sweep(torch, hist_cuda, cuda_build, stream, ms)
     if layouts and hasattr(hist_cuda, "wide_plan"):
         res["wide_sweep"] = wide_sweep(torch, hist_cuda, ms)
     if fits:
         res["fits"] = {**depth8_fits(torch, hist_cuda), **mode_fits(torch, hist_cuda)}
+    return res
+
+
+def scatter_yardsticks(torch, ms, binned, node_q, gh, k_nodes, nbt, ints=None) -> dict:
+    """Zeros + one ``scatter_add_`` into every (fold, feature, node, bin)
+    cell of the output (the kernels write every cell): of (g, h) in
+    float32 and, given ``ints`` [K, N, C], of those integers in int64 (a
+    yardstick the port never calls; the ids and values are set-up, untimed)."""
+    K, F, N = binned.shape
+    nq = node_q.long()
+    active = (nq >= 0) & (nq < k_nodes)
+    n_cells = K * F * k_nodes * nbt
+    kf = torch.arange(K * F, device="cuda").view(K, F, 1) * (k_nodes * nbt)
+    cell = torch.where(active[:, None, :], kf + nq[:, None, :] * nbt + binned.long(),
+                       n_cells).reshape(-1, 1)
+    vals = gh[:, None, :, :].expand(K, F, N, 2).reshape(-1, 2)
+    res = {"library_ms": ms(lambda: torch.zeros(n_cells + 1, 2, device="cuda").scatter_add_(
+        0, cell.expand(-1, 2), vals), reps=10)}
+    if ints is not None:
+        C = ints.shape[2]
+        ivals = ints[:, None].expand(K, F, N, C).reshape(-1, C)
+        res["i64_library_ms"] = ms(lambda: torch.zeros(
+            n_cells + 1, C, dtype=torch.int64, device="cuda").scatter_add_(
+            0, cell.expand(-1, C), ivals), reps=10)
+    return res
+
+
+def time_nodes(torch, hist_cuda, ms, slots: bool) -> dict:
+    """K1's wide path at NODE_SHAPES, both entries: the wrapper and the
+    launch alone (``launch_hist_kernel``; the external entry at the folds'
+    own maxima), their bounds (bytes: bins, ids and (g, h) in, 8 / 16 B a
+    cell out, over 3.35 TB/s), zeros + ``scatter_add_`` of each, the
+    outputs' sha256; with ``slots`` and a checkout with the per-node kernel
+    (``wide_node_plan``), that kernel alone at each of NODE_SWEEP_SLOTS."""
+    res = {}
+    for name, K, F, N, k_nodes, nbt, seed, skew in NODE_SHAPES:
+        binned, node_q, gh = bins_inputs(torch, K, F, N, k_nodes, nbt, seed)
+        if skew:
+            node_q[:, :N - 400] = 0
+        m = hist_cuda.lane_maxabs(gh)
+        log2n = hist_cuda._log2_ceil(N)
+        want = hist_cuda.build_histograms(binned, node_q, gh, k_nodes, nbt)
+        want_i = hist_cuda.build_histograms_i64(binned, node_q, gh, k_nodes, nbt, m, N)
+        out, out_i = torch.empty_like(want), torch.empty_like(want_i)
+
+        def launch():
+            hist_cuda.launch_hist_kernel(binned, node_q, gh, out, k_nodes, nbt)
+
+        def launch_i():
+            hist_cuda.launch_hist_kernel(binned, node_q, gh, out_i, k_nodes, nbt, m, log2n)
+        launch()
+        launch_i()
+        torch.cuda.synchronize()
+        if not (torch.equal(out.view(torch.int32), want.view(torch.int32))
+                and torch.equal(out_i, want_i)):
+            raise AssertionError(f"{name}: the launch alone disagrees with the wrapper")
+        n_in = K * F * N * 2 + K * N * 4 + K * N * 8
+        n_cells = K * F * k_nodes * nbt
+        r = {"wrapper_ms": ms(lambda: hist_cuda.build_histograms(binned, node_q, gh, k_nodes,
+                                                                 nbt)),
+             "launch_ms": ms(launch),
+             "i64_wrapper_ms": ms(lambda: hist_cuda.build_histograms_i64(
+                 binned, node_q, gh, k_nodes, nbt, m, N)),
+             "i64_launch_ms": ms(launch_i),
+             "bound_ms": (n_in + n_cells * 8) / HBM_BYTES_PER_S * 1e3,
+             "i64_bound_ms": (n_in + n_cells * 16) / HBM_BYTES_PER_S * 1e3,
+             "sha256": hashlib.sha256(want.cpu().numpy().tobytes()).hexdigest(),
+             "i64_sha256": hashlib.sha256(want_i.cpu().numpy().tobytes()).hexdigest()}
+        r.update(scatter_yardsticks(torch, ms, binned, node_q, gh, k_nodes, nbt,
+                                    hist_cuda._fixed_point(gh, m, N)[0]))
+        if slots and hasattr(hist_cuda, "wide_node_plan"):
+            grouped = hist_cuda.launch_group_rows(node_q, gh, k_nodes, 1)
+            grouped_i = hist_cuda.launch_group_rows(node_q, gh, k_nodes, 1, m, log2n)
+            for n_slots in NODE_SWEEP_SLOTS:
+                for key, g, o, w, lg in (("", grouped, out, want, None),
+                                         ("i64_", grouped_i, out_i, want_i, log2n)):
+                    def node(g=g, o=o, lg=lg, n_slots=n_slots):
+                        hist_cuda.launch_wide_kernel(binned, g, o, k_nodes, nbt, 1, 1, lg,
+                                                     slots=n_slots)
+                    o.fill_(-1)
+                    node()
+                    torch.cuda.synchronize()
+                    if not torch.equal(o, w) and not torch.equal(o.view(torch.int32),
+                                                                 w.view(torch.int32)):
+                        raise AssertionError(f"{name}: {n_slots} slots disagree with the wrapper")
+                    r[f"{key}slots{n_slots}_ms"] = ms(node)
+        res[name] = r
     return res
 
 
@@ -251,6 +364,31 @@ def time_modes(torch, hist_cuda, ms) -> dict:
             dg = prep(int8, gh)
             r["fit_call_ms"] = ms(lambda: hist_cuda.mode_hist(binned, node_q, dg, k_nodes, nbt))
             r["prep_ms"] = ms(lambda: prep(int8, gh))
+            # the external-scale entry (a mesh's level) on digits prepared at
+            # every rank's scale (here the rows' own), and its launch alone
+            ext = (hist_cuda.amax_of(hist_cuda.amax_parts(gh)) if int8
+                   else hist_cuda.digit_maxabs(gh))
+            dge = prep(int8, gh, ext)
+            want_e = hist_cuda.mode_hist(binned, node_q, dge, k_nodes, nbt, N)
+            out_e = torch.empty_like(want_e)
+            log2n = hist_cuda._log2_ceil(N)
+
+            def launch_e():
+                hist_cuda.launch_mode_kernel(int8, binned, node_q, dge.digits, dge.scale, out_e,
+                                             k_nodes, nbt, log2n)
+            launch_e()
+            torch.cuda.synchronize()
+            if not torch.equal(out_e, want_e):
+                raise AssertionError(f"{name}: the external launch alone disagrees")
+            r["i64_fit_call_ms"] = ms(lambda: hist_cuda.mode_hist(binned, node_q, dge, k_nodes,
+                                                                  nbt, N))
+            r["i64_launch_ms"] = ms(launch_e)
+            r["i64_sha256"] = hashlib.sha256(want_e.cpu().numpy().tobytes()).hexdigest()
+            r.update(scatter_yardsticks(torch, ms, binned, node_q, gh, k_nodes, nbt))
+            if not windowed:
+                t = device_ms(torch, launch_e, "mode_hist_kernel")
+                if t is not None:
+                    r["i64_launch_device_ms"] = t
         else:
             r["fit_call_ms"] = r["wrapper_ms"]
         if not windowed:  # the kernels' own device time, apart from the host's
@@ -295,7 +433,7 @@ def mode_fits(torch, hist_cuda) -> dict:
 
     X, y = synthetic_matrix()
     res = {}
-    for mode in ("int8", "i8bf16"):
+    for mode in ("int8", "i8bf16", "bf16"):
         hist_cuda.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -491,8 +629,8 @@ def sweep(torch, hist_cuda, cuda_build, stream, ms) -> dict:
 
 
 def main(argv) -> int:
-    layouts, fits = "--layouts" in argv, "--fits" in argv
-    dirs = [a for a in argv if a not in ("--layouts", "--fits")]
+    layouts, fits, slots = "--layouts" in argv, "--fits" in argv, "--slots" in argv
+    dirs = [a for a in argv if a not in ("--layouts", "--fits", "--slots")]
     if not dirs:
         print(__doc__, file=sys.stderr)
         return 2
@@ -504,7 +642,8 @@ def main(argv) -> int:
     for d in dirs:
         root = Path(d).resolve()
         got = subprocess.run([sys.executable, __file__, "--child", str(root)]
-                             + (["--layouts"] if layouts else []) + (["--fits"] if fits else []),
+                             + (["--layouts"] if layouts else []) + (["--fits"] if fits else [])
+                             + (["--slots"] if slots else []),
                              capture_output=True, text=True, timeout=900, cwd=root)
         if got.returncode != 0:
             print(f"time_hist: {d} failed:\n{got.stderr[-4000:]}", file=sys.stderr)
@@ -538,7 +677,7 @@ def main(argv) -> int:
                      for run in runs}) != 1:
         print("time_hist: the checkouts' CVs differ", file=sys.stderr)
         return 1
-    for name in [s[0] for s in shapes()] + mode_names():
+    for name in [s[0] for s in shapes()] + mode_names() + node_names():
         for sha in ("sha256", "i64_sha256"):
             if len({r["shapes"].get(name, {}).get(sha) for r in runs}) != 1:
                 print(f"time_hist: the checkouts' outputs differ at {name}", file=sys.stderr)
@@ -555,6 +694,7 @@ def main(argv) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         sys.path.insert(0, sys.argv[2])
-        print(json.dumps(time_checkout("--layouts" in sys.argv[3:], "--fits" in sys.argv[3:])))
+        print(json.dumps(time_checkout("--layouts" in sys.argv[3:], "--fits" in sys.argv[3:],
+                                       "--slots" in sys.argv[3:])))
         sys.exit(0)
     sys.exit(main(sys.argv[1:]))
